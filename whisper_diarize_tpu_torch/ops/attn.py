@@ -1,0 +1,148 @@
+"""Cross-attention kernels of the decoder: K2 (cross K/V build) and K1
+(flash cross-attention of one layer), each beside its plain PyTorch version.
+
+Counterpart of `whisper_diarize_tpu/ops/pallas_attn.py`. The cross cache is
+`[L, B, H, Ta, Dh]` contiguous (the JAX package's plain `cross_kv` layout),
+not the TPU kernel's lane-tiled `[L, B, NT, H, Dh, 512]`.
+
+Dispatch: a wrapper runs the plain version only when its tensors lie on the
+CPU. On a CUDA tensor it launches the hand-written kernel
+(`csrc/cross_attn.cu`, `csrc/cross_kv.cu`) or raises; it never falls back.
+Each wrapper counts its kernel launches in `<wrapper>.launches`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import kernels
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: kernel takes bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel takes contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
+
+
+# --------------------------------------------------------------------------
+# K1: cross-attention of one decoder layer
+# --------------------------------------------------------------------------
+
+def cross_attn_layer_plain(
+    layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    ta_total: Optional[int] = None,
+) -> torch.Tensor:
+    """q [B, Q, H, Dh] against layer `layer` of k, v [L, B, H, Ta, Dh] ->
+    [B, Q, H, Dh]; columns >= ta_total are masked. The numerics of the TPU
+    kernel: q scaled by Dh^-0.5 in f32 then cast to the K/V dtype, f32
+    scores and normalizer, probabilities cast to the V dtype before P.V."""
+    Dh = q.shape[-1]
+    ta = k.shape[3] if ta_total is None else int(ta_total)
+    kl = k[layer, :, :, :ta].float()
+    vl = v[layer, :, :, :ta]
+    qs = (q.float() * Dh ** -0.5).to(k.dtype).float()
+    s = torch.einsum("bqhd,bhtd->bhqt", qs, kl)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)  # [B, H, Q, 1]
+    o = torch.einsum("bhqt,bhtd->bhqd", p.to(v.dtype).float(), vl.float())
+    return (o / denom).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def cross_attn_layer(
+    layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    ta_total: Optional[int] = None,
+) -> torch.Tensor:
+    """K1. Same contract as `cross_attn_layer_plain`."""
+    if q.device.type == "cpu":
+        return cross_attn_layer_plain(layer, q, k, v, ta_total)
+    _require_cuda("cross_attn_layer", q, k, v)
+    B, Q, H, Dh = q.shape
+    L, Bk, Hk, Ta, Dhk = k.shape
+    if Dh != 64 or (Bk, Hk, Dhk) != (B, H, Dh) or v.shape != k.shape:
+        raise ValueError(
+            f"cross_attn_layer: q {tuple(q.shape)} vs k {tuple(k.shape)} / "
+            f"v {tuple(v.shape)} (kernel takes Dh = 64)")
+    ta = Ta if ta_total is None else int(ta_total)
+    if not (0 <= layer < L and 0 < ta <= Ta):
+        raise ValueError(f"cross_attn_layer: layer {layer} / ta_total {ta}")
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        kernels.check(lib.wdt_cross_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Q, H, Ta, int(layer), ta, kernels.stream_ptr(q.device),
+        ), "cross_attn_layer")
+    cross_attn_layer.launches += 1
+    return out
+
+
+cross_attn_layer.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K2: cross K/V of every decoder layer, built at prefill
+# --------------------------------------------------------------------------
+
+def cross_kv_build_plain(
+    xa: torch.Tensor, ck_w: torch.Tensor, cv_w: torch.Tensor,
+    cv_b: torch.Tensor, n_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xa [B, Ta, D], ck_w/cv_w [L, D, H*Dh], cv_b [L, H*Dh] ->
+    (k, v) [L, B, H, Ta, Dh]: f32 products, the V bias added in f32 before
+    the cast to the activation dtype."""
+    L, _, HD = ck_w.shape
+    B, Ta, _ = xa.shape
+    Dh = HD // n_heads
+    x = xa.float().unsqueeze(0)  # [1, B, Ta, D]
+
+    def heads(y: torch.Tensor) -> torch.Tensor:  # [L, B, Ta, HD]
+        y = y.view(L, B, Ta, n_heads, Dh).permute(0, 1, 3, 2, 4)
+        return y.contiguous().to(xa.dtype)
+
+    k = torch.matmul(x, ck_w.float().unsqueeze(1))
+    v = torch.matmul(x, cv_w.float().unsqueeze(1)) + cv_b.float()[:, None, None, :]
+    return heads(k), heads(v)
+
+
+def cross_kv_build(
+    xa: torch.Tensor, ck_w: torch.Tensor, cv_w: torch.Tensor,
+    cv_b: torch.Tensor, n_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2. Same contract as `cross_kv_build_plain`."""
+    if xa.device.type == "cpu":
+        return cross_kv_build_plain(xa, ck_w, cv_w, cv_b, n_heads)
+    _require_cuda("cross_kv_build", xa, ck_w, cv_w, cv_b)
+    B, Ta, D = xa.shape
+    L, Dw, HD = ck_w.shape
+    if (Dw != D or cv_w.shape != ck_w.shape or tuple(cv_b.shape) != (L, HD)
+            or D % 32 or HD % 64 or HD % n_heads):
+        raise ValueError(
+            f"cross_kv_build: xa {tuple(xa.shape)}, weights "
+            f"{tuple(ck_w.shape)} / {tuple(cv_w.shape)} / {tuple(cv_b.shape)} "
+            "(kernel takes D % 32 == 0 and H*Dh % 64 == 0)")
+    Dh = HD // n_heads
+    k = torch.empty((L, B, n_heads, Ta, Dh), dtype=xa.dtype, device=xa.device)
+    v = torch.empty_like(k)
+    lib = kernels.library()
+    with torch.cuda.device(xa.device):
+        kernels.check(lib.wdt_cross_kv(
+            xa.data_ptr(), ck_w.data_ptr(), cv_w.data_ptr(), cv_b.data_ptr(),
+            k.data_ptr(), v.data_ptr(), L, B, Ta, D, n_heads, Dh,
+            kernels.stream_ptr(xa.device),
+        ), "cross_kv_build")
+    cross_kv_build.launches += 1
+    return k, v
+
+
+cross_kv_build.launches = 0
