@@ -4,7 +4,8 @@ torch sees no CUDA device). Run on a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Each kernel against its plain version in bf16 on the same device, at small
-shapes with Dh = 64 and a ragged audio length, with the tolerance of
+shapes with Dh = 64, a ragged audio length (K1-K3) and ragged prompt and
+decode lengths with row pads and a random ancestry (K4), with the tolerance of
 `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
 element and 1e-2 relative L2 of the update; K3 is judged on the update it
 adds to x), and the planted faults that check must refuse.
@@ -15,6 +16,7 @@ import torch
 
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.ops import attn, tail
+from whisper_diarize_tpu_torch.ops import decode as dec
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +69,48 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         attn.cross_attn_layer(0, q, k, k)
     with pytest.raises(TypeError):
         attn.cross_attn_layer(0, q.float(), k.float(), k.float())
+    q64 = torch.zeros(1, 2, 2, 64, dtype=torch.bfloat16, device=dev)
+    p64 = torch.zeros(1, 1, 2, 4, 64, dtype=torch.bfloat16, device=dev)
+    d64 = torch.zeros(1, 2, 2, 8, 64, dtype=torch.bfloat16, device=dev)
+    anc = torch.zeros(1, 2, 8, dtype=torch.int32, device=dev)
+    rp = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        attn.split_self_attn_layer(0, q64, p64, p64, d64, d64, anc.float(), 0, rp, 4)
+    with pytest.raises(ValueError):
+        attn.split_self_attn_layer(0, q64, p64, p64, d64, d64, anc, 8, rp, 4)
+    with pytest.raises(ValueError):
+        attn.split_self_attn_layer(0, q64, p64, p64, d64, d64, anc[:, :, :4], 0, rp, 4)
+
+
+@pytest.mark.parametrize("B,K,Tp,Td", [(2, 3, 11, 32), (1, 5, 3, 64), (3, 5, 19, 224)])
+def test_k4_matches_plain_on_card(dev, B, K, Tp, Td):
+    g = torch.Generator(device=dev).manual_seed(B * 100 + Td)
+    L, H = 2, 3
+    q = ag.randn(g, dev, B, K, H, 64, scale=2.0)
+    pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64) for _ in range(2))
+    dk, dv = (ag.randn(g, dev, L, B * K, H, Td, 64) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, device=dev)  # int64: converted
+    row_pad = torch.randint(0, Tp - 2, (B,), generator=g, device=dev)
+    for step in (0, Td // 2, Td - 1):
+        for layer in range(L):
+            a = (layer, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp - 1)
+            before = attn.split_self_attn_layer.launches
+            got = attn.split_self_attn_layer(*a)
+            assert attn.split_self_attn_layer.launches == before + 1
+            ag.compare(f"K4 B={B} K={K} step={step}", got, attn.split_self_attn_layer_plain(*a))
+            if step and Tp > 3:
+                for name, bad in ag.k4_faults(*a):
+                    ag.reject(name, got, bad)
+    torch.cuda.synchronize()
+
+
+def test_top_k_tie_order_on_card(dev):
+    x = torch.randn(4, 51866, device=dev).clamp(max=2.0)
+    x[0, 7:] = float("-inf")
+    x[1, 100:200] = 3.0
+    x[2] = float("-inf")
+    x[3, ::3] = 0.5
+    v, i = dec._top_k(x, 10)
+    ref_v, ref_i = dec._top_k(x.cpu(), 10)
+    assert torch.equal(v.cpu(), ref_v) and torch.equal(i.cpu(), ref_i)
+    assert i[1].tolist() == list(range(100, 110)) and i[2].tolist() == list(range(10))

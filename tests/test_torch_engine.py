@@ -165,8 +165,8 @@ def test_batch_of_streams_matches_single(snapshot, wav, tmp_path):
         eng.transcribe_audio("/nope/missing.wav", opts)
 
 
-@pytest.mark.parametrize("case", ["beam_default", "diarize", "mesh", "draft",
-                                  "spec_gamma", "int8", "ggml_file"])
+@pytest.mark.parametrize("case", ["diarize", "mesh", "draft", "spec_gamma", "int8",
+                                  "ggml_file"])
 def test_unported_options_raise(snapshot, wav, tmp_path, case):
     opts = TranscribeOptions(enable_vad=False, lang="en", advanced=GREEDY)
     if case in ("mesh", "draft", "spec_gamma", "int8"):
@@ -177,9 +177,7 @@ def test_unported_options_raise(snapshot, wav, tmp_path, case):
             _engine(snapshot, tmp_path, **over)
         return
     eng = _engine(snapshot, tmp_path)
-    if case == "beam_default":
-        opts = TranscribeOptions(enable_vad=False, lang="en")
-    elif case == "diarize":
+    if case == "diarize":
         opts = TranscribeOptions(enable_diarize=True, lang="en", advanced=GREEDY)
     else:
         ggml = tmp_path / "ggml-tiny.bin"

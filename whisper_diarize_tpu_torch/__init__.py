@@ -1,18 +1,20 @@
 """whisper_diarize_tpu_torch — the PyTorch/CUDA port of whisper_diarize_tpu.
 
 Runs on one NVIDIA Hopper card (hand-written CUDA kernels for the decoder's
-cross attention, cross K/V build and layer tail, `csrc/`) or, with
+cross attention, cross K/V build, layer tail and beam-step self-attention,
+`csrc/`) or, with
 `EngineConfig(use_gpu=False)`, on the CPU through the kernels' plain PyTorch
 versions. The JAX package `whisper_diarize_tpu` stays the reference; its
 modules that import no JAX (types, tokenizer, formatting, audio, native,
 utils, subtitles, translate, model_manager) are reused from it, so the
 public surface below is the same objects.
 
-Ported so far: greedy transcription (`AdvancedTranscribe(sampling_strategy=
-"greedy")`) with the temperature-fallback ladder, DTW word timestamps, the
-VAD and whole-file branches and cue formatting. Beam search, diarization,
-device meshes, speculative decoding, the int8 cache and GGML / OpenAI `.pt`
-checkpoints raise NotImplementedError (see ROADMAP.md).
+Ported so far: transcription by beam search (the default, beam 5) and
+greedy decoding (`AdvancedTranscribe(sampling_strategy="greedy")`), with the
+temperature-fallback ladder, DTW word timestamps, the VAD and whole-file
+branches and cue formatting. Diarization, device meshes, speculative
+decoding, the int8 cache and GGML / OpenAI `.pt` checkpoints raise
+NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations

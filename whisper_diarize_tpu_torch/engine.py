@@ -2,9 +2,9 @@
 (counterpart of `whisper_diarize_tpu/engine.py`).
 
   audio.wav -> read_wav -> [VAD | whole-file] speech segments
-  -> batched greedy whisper decode (+ temperature fallback, + DTW word
-     timestamps) -> optional translate post-pass -> language preset +
-     overrides -> process_segments subtitle cues.
+  -> batched whisper decode (beam search by default, or greedy; +
+     temperature fallback, + DTW word timestamps) -> optional translate
+     post-pass -> language preset + overrides -> process_segments cues.
 
 The same `EngineConfig` / `TranscribeOptions` / `Callbacks` surface, model
 and step cache, resume journal, callbacks, chunk scheduler, one-deep DTW
@@ -13,9 +13,8 @@ pipeline and formatting as the JAX Engine. `EngineConfig(use_gpu=True)`
 `use_gpu=False` runs on the CPU in f32 through the kernels' plain versions.
 
 Not ported yet, and refused with NotImplementedError (never run some other
-way): beam search (the default strategy when `advanced` is None),
-diarization, device meshes, speculative decoding, the int8 cross-K/V cache
-and GGML / OpenAI `.pt` checkpoint files — see ROADMAP.md.
+way): diarization, device meshes, speculative decoding, the int8 cross-K/V
+cache and GGML / OpenAI `.pt` checkpoint files — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -264,27 +263,29 @@ class Engine:
         from .transcribe import TranscribeStep
 
         adv = options.advanced
-        if not (adv and adv.sampling_strategy == "greedy"):
-            raise NotImplementedError(
-                "beam search (the default strategy) is not ported yet "
-                "(ROADMAP Queue 1 item 2, kernel K4); pass "
-                "AdvancedTranscribe(sampling_strategy='greedy')")
         step_key = self._whisper_key(options) + (
-            adv.best_of_or_beam_size, adv.sampling_strategy, adv.temperature,
-            adv.max_text_ctx)
+            adv.best_of_or_beam_size if adv else None,
+            adv.sampling_strategy if adv else None,
+            adv.temperature if adv else None,
+            adv.max_text_ctx if adv else None,
+        )
         hit = self._step_cache.get(step_key)
         if hit is not None:
             return hit
+        # `advanced=None` and any strategy but "greedy" run beam search
+        # (beam 5 by default, temperature 0), as in the JAX Engine
+        greedy = bool(adv and adv.sampling_strategy == "greedy")
         dc = dec.DecodeConfig(
-            beam_size=max(adv.best_of_or_beam_size or 5, 1),
-            temperature=float(adv.temperature) if adv.temperature else 0.0,
+            beam_size=max((adv.best_of_or_beam_size if adv else None) or 5, 1),
+            temperature=float(adv.temperature) if greedy and adv.temperature else 0.0,
             max_tokens=self.cfg.max_decode_tokens,
             blank_id=32 if isinstance(tokenizer, DebugTokenizer) else 220,
         )
         step = TranscribeStep(
             params, cfg, tokenizer, model_name=options.model,
             enable_dtw=bool(self.cfg.enable_dtw), decode_config=dc,
-            strategy="greedy", max_text_ctx=adv.max_text_ctx,
+            strategy="greedy" if greedy else "beam_search",
+            max_text_ctx=adv.max_text_ctx if adv else None,
         )
         self._step_cache[step_key] = step
         return step
@@ -535,15 +536,18 @@ class Engine:
                 xa = step.encode(mel)
                 stage_s["encode"] += time.perf_counter() - t0
 
+                # built once, shared by language detection and the decode (the
+                # decode stage's time includes both)
+                t0 = time.perf_counter()
+                cross = step.cross_cache(xa)
                 if any(detected_langs[w.stream_idx] is None for w in decode_group):
-                    langs = step.detect_language(xa)
+                    langs = step.detect_language(xa, cross)
                     for j, w in enumerate(decode_group):
                         if detected_langs[w.stream_idx] is None:
                             detected_langs[w.stream_idx] = langs[j] if langs else "en"
                 row_langs = [detected_langs[w.stream_idx] or "en" for w in decode_group
                              ] + ["en"] * (batch_size - len(decode_group))
 
-                t0 = time.perf_counter()
                 if self.cfg.sequential_prompt:
                     row_prev = [
                         step.tk.encode(" " + previous_texts[w.stream_idx].strip())
@@ -557,11 +561,13 @@ class Engine:
                 if self.cfg.temperature_fallback:
                     res, row_temps = step.decode_with_fallback(
                         xa, row_langs, task, prev_tokens=row_prev,
-                        n_valid_rows=len(decode_group), is_cancelled=cb.is_cancelled)
+                        n_valid_rows=len(decode_group), is_cancelled=cb.is_cancelled,
+                        cross=cross)
                 else:
                     res = step.decode(xa, row_langs, task, prev_tokens=row_prev,
-                                      is_cancelled=cb.is_cancelled)
+                                      is_cancelled=cb.is_cancelled, cross=cross)
                     row_temps = np.zeros((batch_size,), np.float32)
+                del cross  # not held across the alignment pass and the next encode
                 if cb.is_cancelled and cb.is_cancelled():
                     break
                 align_thunk = step.start_alignment(res, xa, n_valid, translated)

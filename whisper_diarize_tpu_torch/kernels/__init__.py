@@ -34,6 +34,7 @@ _SIGNATURES = {
     "wdt_cross_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wdt_cross_kv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wdt_fused_tail": [_P] * 24 + [_I] * 8 + [_P],
+    "wdt_split_self_attn": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

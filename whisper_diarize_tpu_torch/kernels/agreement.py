@@ -152,6 +152,28 @@ def k1_faults(layer: int, q, k, v, ta_total) -> Iterator[Tuple[str, torch.Tensor
         layer, (q.float() * Dh ** 0.5).to(q.dtype), k, v, ta_total)
 
 
+def k4_faults(layer: int, q, pk, pv, dk, dv, anc_j, step: int, row_pad,
+              prompt_len: int) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Planted on inputs with a random ancestry, step > 0 and non-zero row
+    pads (each fault is the truth where those are trivial)."""
+    from ..ops.attn import split_self_attn_layer_plain as plain
+
+    B, K, _, Dh = q.shape
+    own = torch.arange(K, dtype=anc_j.dtype, device=anc_j.device)
+    yield "K4 ancestry ignored", plain(
+        layer, q, pk, pv, dk, dv, own[None, :, None].expand_as(anc_j), step,
+        row_pad, prompt_len)
+    yield "K4 decode mask off by one (< step)", plain(
+        layer, q, pk, pv, dk, dv, anc_j, step - 1, row_pad, prompt_len)
+    yield "K4 row_pad ignored", plain(
+        layer, q, pk, pv, dk, dv, anc_j, step, torch.zeros_like(row_pad), prompt_len)
+    yield "K4 wrong layer", plain(
+        (layer + 1) % pk.shape[0], q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len)
+    yield "K4 q not scaled by Dh^-0.5", plain(
+        layer, (q.float() * Dh ** 0.5).to(q.dtype), pk, pv, dk, dv, anc_j, step,
+        row_pad, prompt_len)
+
+
 def k3_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total
               ) -> Iterator[Tuple[str, torch.Tensor]]:
     from ..ops.tail import fused_tail_layer_plain

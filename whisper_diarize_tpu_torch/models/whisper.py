@@ -10,10 +10,11 @@ tensors; the caller picks the device and dtype (bf16 on CUDA, f32 on CPU).
 Numerics follow the JAX package path by path: layer norms in f32, the
 encoder's bf16 "compact" softmax buffers when compute is low precision,
 f32 decode logits, tanh GELU. The encoder and decoder self-attention are
-plain matmul + softmax (they were plain XLA in JAX); the decoder's cross
-attention runs on the hand-written kernels of `ops/attn.py` (K1 at prefill,
-K2 for the cross K/V) and `ops/tail.py` (K3, the whole layer tail of every
-single-token step).
+plain matmul + softmax (they were plain XLA in JAX), except the beam step's
+self-attention over the split cache, which runs on K4 (`ops/attn.py`); the
+decoder's cross attention runs on the hand-written kernels of `ops/attn.py`
+(K1 at prefill, K2 for the cross K/V) and `ops/tail.py` (K3, the whole
+layer tail of every single-token step).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attn import cross_attn_layer, cross_kv_build
+from ..ops.attn import cross_attn_layer, cross_kv_build, split_self_attn_layer
 from ..ops.tail import fused_tail_layer
 
 Params = Dict[str, object]
@@ -430,6 +431,58 @@ def decode_step(
     return _vocab_logits(x, dec["tok_emb"])
 
 
+def decode_step_split(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,  # [N, 1] int64, N = B * beams
+    step: int,  # decode slot being written (0-based)
+    prompt_cache: Dict[str, torch.Tensor],  # {"k","v": [L, B, H, Tp, Dh]}
+    decode_cache: Dict[str, torch.Tensor],  # {"k","v": [L, N, H, Td, Dh]}
+    cross_cache: Dict[str, torch.Tensor],  # {"k","v": [L, B, H, Ta, Dh]}
+    prompt_len: int,  # prompt buffer slots (= the prompt's length P)
+    beams: int,
+    row_pad: Optional[torch.Tensor],  # [N] left pad per row (constant per stream)
+    anc: torch.Tensor,  # [N, Td] ancestry: row holding beam n's slot-t K/V
+) -> torch.Tensor:
+    """One beam step against the SPLIT self-cache -> f32 logits [N, 1, V].
+
+    The prompt half was prefilled once per stream and is shared by its
+    beams; the decode half is never permuted: `anc[n, t]` names the row that
+    holds beam n's slot t (callers keep `anc = anc[new_src]; anc[:, step] =
+    arange(N)`). Each layer writes this step's K/V into slot `step` of the
+    decode cache IN PLACE, attends both halves on K4 and runs its tail on K3
+    with the beams folded against the B-row cross K/V."""
+    dec = params["decoder"]
+    dtype = dec["tok_emb"].dtype
+    N = tokens.shape[0]
+    B = N // beams
+    H, Dh = cfg.n_text_head, cfg.head_dim
+    Td = decode_cache["k"].shape[-2]
+    if row_pad is None:
+        row_pad = torch.zeros((N,), dtype=torch.long, device=tokens.device)
+    emb_pos = torch.clamp(prompt_len + step - row_pad, min=0)  # [N]
+    x = dec["tok_emb"][tokens] + dec["pos_emb"][emb_pos][:, None, :].to(dtype)
+    row_pad_b = row_pad.view(B, beams)[:, 0].to(torch.int32)
+    anc_j = (anc % beams).view(B, beams, Td).to(torch.int32)
+
+    pk, pv = prompt_cache["k"], prompt_cache["v"]
+    dk, dv = decode_cache["k"], decode_cache["v"]
+    blocks = dec["blocks"]
+    for l in range(cfg.n_text_layer):
+        q, k_new, v_new = _decoder_qkv(x, _layer(blocks, l), H)  # [N, H, 1, Dh]
+        # in-place decode-cache update (JAX: dynamic_update_slice on a copy)
+        dk[l, :, :, step] = k_new[:, :, 0]
+        dv[l, :, :, step] = v_new[:, :, 0]
+        self_out = split_self_attn_layer(
+            l, q.reshape(B, beams, H, Dh).contiguous(), pk, pv, dk, dv, anc_j,
+            step, row_pad_b, prompt_len)
+        x = fused_tail_layer(l, x, self_out.reshape(N, H, 1, Dh), blocks,
+                             cross_cache["k"], cross_cache["v"], beams,
+                             cfg.n_audio_ctx)
+    x = _ln(x, dec["ln_s"], dec["ln_b"])
+    return _vocab_logits(x, dec["tok_emb"])
+
+
 def alignment_cross_attn(
     params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     xa: torch.Tensor, heads: List[Tuple[int, int]],
@@ -477,10 +530,14 @@ def alignment_cross_attn(
 
 
 def detect_language_logits(params: Params, cfg: WhisperConfig,
-                           xa: torch.Tensor, sot_id: int) -> torch.Tensor:
-    """One decoder step from <|startoftranscript|> -> [B, V] f32 logits."""
+                           xa: torch.Tensor, sot_id: int,
+                           cross: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One decoder step from <|startoftranscript|> -> [B, V] f32 logits;
+    `cross` is the cross K/V of `xa` when the caller already built it."""
     B = xa.shape[0]
     tokens = torch.full((B, 1), sot_id, dtype=torch.long, device=xa.device)
     cache = init_self_cache(cfg, B, xa.dtype, xa.device, max_len=16)
-    logits = decode_step(params, cfg, tokens, 0, cache, cross_kv(params, xa, cfg))
+    if cross is None:
+        cross = cross_kv(params, xa, cfg)
+    logits = decode_step(params, cfg, tokens, 0, cache, cross)
     return logits[:, 0]

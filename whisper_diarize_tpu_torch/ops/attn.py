@@ -1,5 +1,6 @@
-"""Cross-attention kernels of the decoder: K2 (cross K/V build) and K1
-(flash cross-attention of one layer), each beside its plain PyTorch version.
+"""Attention kernels of the decoder, each beside its plain PyTorch version:
+K2 (cross K/V build), K1 (flash cross-attention of one layer) and K4
+(split-cache self-attention of one layer for a beam step).
 
 Counterpart of `whisper_diarize_tpu/ops/pallas_attn.py`. The cross cache is
 `[L, B, H, Ta, Dh]` contiguous (the JAX package's plain `cross_kv` layout),
@@ -7,8 +8,9 @@ not the TPU kernel's lane-tiled `[L, B, NT, H, Dh, 512]`.
 
 Dispatch: a wrapper runs the plain version only when its tensors lie on the
 CPU. On a CUDA tensor it launches the hand-written kernel
-(`csrc/cross_attn.cu`, `csrc/cross_kv.cu`) or raises; it never falls back.
-Each wrapper counts its kernel launches in `<wrapper>.launches`.
+(`csrc/cross_attn.cu`, `csrc/cross_kv.cu`, `csrc/split_self.cu`) or raises;
+it never falls back. Each wrapper counts its kernel launches in
+`<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -146,3 +148,96 @@ def cross_kv_build(
 
 
 cross_kv_build.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: split-cache self-attention of one decoder layer (beam step)
+# --------------------------------------------------------------------------
+
+def split_self_attn_layer_plain(
+    layer: int, q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+    dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: int,
+    row_pad: torch.Tensor, prompt_len: int,
+) -> torch.Tensor:
+    """q [B, K, H, Dh] (the step's queries, beams folded) against layer
+    `layer` of the beam-shared prompt K/V pk, pv [L, B, H, Tp, Dh] and the
+    per-beam decode K/V dk, dv [L, B*K, H, Td, Dh], under one softmax ->
+    [B, K, H, Dh]. Beam k of stream b reads decode slot t from row
+    b*K + anc_j[b, k, t]; slots > step are masked, and so are prompt slots
+    < row_pad[b] or >= prompt_len. The numerics of the TPU kernel: q scaled
+    by Dh^-0.5 in f32 then cast to the cache dtype, f32 scores, max and
+    normalizer, probabilities cast to the V dtype before P.V, f32
+    accumulation divided by the normalizer at the end."""
+    B, K, H, Dh = q.shape
+    Tp, Td = pk.shape[3], dk.shape[3]
+    qs = (q.float() * Dh ** -0.5).to(pk.dtype).float()
+    tp = torch.arange(Tp, device=q.device)
+    pmask = (tp[None, :] >= row_pad.long()[:, None]) & (tp[None, :] < prompt_len)
+    sp = torch.einsum("bkhd,bhtd->bkht", qs, pk[layer].float())
+    sp = sp.masked_fill(~pmask[:, None, None, :], float("-inf"))
+    # decode rows through the ancestry map: [B, K, H, Td, Dh]
+    idx = anc_j.long()[:, :, None, :, None].expand(B, K, H, Td, Dh)
+    gk = torch.gather(dk[layer].view(B, K, H, Td, Dh), 1, idx)
+    gv = torch.gather(dv[layer].view(B, K, H, Td, Dh), 1, idx)
+    sd = torch.einsum("bkhd,bkhtd->bkht", qs, gk.float())
+    sd = sd.masked_fill(torch.arange(Td, device=q.device) > step, float("-inf"))
+    s = torch.cat([sp, sd], dim=-1)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)  # [B, K, H, 1]
+    wp = p[..., :Tp].to(pv.dtype).float()
+    wd = p[..., Tp:].to(dv.dtype).float()
+    o = (torch.einsum("bkht,bhtd->bkhd", wp, pv[layer].float())
+         + torch.einsum("bkht,bkhtd->bkhd", wd, gv.float()))
+    return (o / denom).to(q.dtype).contiguous()
+
+
+def _int32_on(name: str, device: torch.device, t: torch.Tensor) -> torch.Tensor:
+    """An index tensor as the kernel's C interface takes it: int32,
+    contiguous, on `device` (the port keeps indices int64: converted)."""
+    if t.device != device:
+        raise ValueError(f"{name}: index tensor on {t.device}, queries on {device}")
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: index tensors are int32 or int64, got {t.dtype}")
+    return t.to(torch.int32).contiguous()
+
+
+def split_self_attn_layer(
+    layer: int, q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+    dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: int,
+    row_pad: torch.Tensor, prompt_len: int,
+) -> torch.Tensor:
+    """K4. Same contract as `split_self_attn_layer_plain`."""
+    if q.device.type == "cpu":
+        return split_self_attn_layer_plain(
+            layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len)
+    name = "split_self_attn_layer"
+    _require_cuda(name, q, pk, pv, dk, dv)
+    anc_j = _int32_on(name, q.device, anc_j)
+    row_pad = _int32_on(name, q.device, row_pad)
+    B, K, H, Dh = q.shape
+    L, Tp, Td = pk.shape[0], pk.shape[3], dk.shape[3]
+    if (Dh != 64 or tuple(pk.shape) != (L, B, H, Tp, Dh) or pv.shape != pk.shape
+            or tuple(dk.shape) != (L, B * K, H, Td, Dh) or dv.shape != dk.shape
+            or tuple(anc_j.shape) != (B, K, Td) or tuple(row_pad.shape) != (B,)):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)}, pk {tuple(pk.shape)}, dk "
+            f"{tuple(dk.shape)}, anc_j {tuple(anc_j.shape)}, row_pad "
+            f"{tuple(row_pad.shape)} (kernel takes Dh = 64)")
+    if not (0 <= layer < L and 0 <= step < Td and 0 < prompt_len <= Tp
+            and K * H * Td * Dh < 2 ** 31):
+        raise ValueError(f"{name}: layer {layer}, step {step}, prompt_len "
+                         f"{prompt_len}, K * H * Td * Dh {K * H * Td * Dh}")
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        kernels.check(lib.wdt_split_self_attn(
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), anc_j.data_ptr(), row_pad.data_ptr(), out.data_ptr(),
+            B, K, H, Tp, Td, int(layer), int(step), int(prompt_len),
+            kernels.stream_ptr(q.device),
+        ), name)
+    split_self_attn_layer.launches += 1
+    return out
+
+
+split_self_attn_layer.launches = 0

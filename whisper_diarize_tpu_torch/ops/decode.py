@@ -1,5 +1,5 @@
-"""KV-cached greedy / temperature decoding (counterpart of the greedy half
-of `whisper_diarize_tpu/ops/decode.py`).
+"""KV-cached greedy / temperature decoding and beam search (counterpart of
+`whisper_diarize_tpu/ops/decode.py`).
 
 The JAX `lax.while_loop` becomes a Python step loop on device tensors: each
 step masks the logits with whisper's timestamp grammar, picks a token
@@ -12,7 +12,14 @@ the JAX loop that stops on the spot.
 `sample_best_of` folds the best_of candidates into the batch as beams that
 share their stream's cross K/V (K1 and K3 take the beam-folded rows), where
 the JAX package repeated the encoded audio per candidate; the candidates
-are identical in distribution. Beam search is not ported yet.
+are identical in distribution.
+
+Beam search (`beam_decode`) keeps the JAX package's algorithm: the prompt
+prefilled once per stream, the split self-cache read through an ancestry
+map on K4 (`models/whisper.py::decode_step_split`), the exact two-stage
+top-2K in `jax.lax.top_k`'s tie order, vectorised EOT retirement into K
+finished slots, the patience target, and ranking by average
+log-probability or the length penalty.
 """
 
 from __future__ import annotations
@@ -341,6 +348,260 @@ def sample_best_of(
 
     return DecodeResult(**{
         f.name: getattr(res, f.name)[rows] for f in dataclasses.fields(DecodeResult)})
+
+
+# --------------------------------------------------------------------------
+# Beam search
+# --------------------------------------------------------------------------
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, descending,
+    ties to the lower index: `jax.lax.top_k`'s order, which `torch.topk`
+    does not promise. Ties do occur, at -inf (beams 1..K-1 start at -inf,
+    EOT candidates are set to -inf before the keep-top-K)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _n_fin_target(dc: DecodeConfig) -> int:
+    K = dc.beam_size
+    return min(int(np.ceil(K * dc.patience)) if dc.patience > 0 else K, K)
+
+
+def _retire_eot_candidates(
+    sp: SpecialTokens,
+    K: int,
+    topv: torch.Tensor,  # [B, 2K] candidate scores, sorted descending
+    tok_idx: torch.Tensor,  # [B, 2K] candidate token ids
+    src_flat: torch.Tensor,  # [B, 2K] flat source-beam row per candidate
+    tokens: torch.Tensor,  # [N, T] active-beam token buffers
+    probs: torch.Tensor,  # [N, T]
+    length: torch.Tensor,  # [N]
+    fin_tokens, fin_probs, fin_scores, fin_lengths, fin_count,
+):
+    """Retire this step's EOT candidates into the finished slots, vectorised:
+    the j-th finite EOT candidate (score order) goes to slot fin_count + j;
+    overflow beyond the K slots is dropped."""
+    retirable = (tok_idx == sp.eot) & torch.isfinite(topv)  # [B, 2K]
+    rank = torch.cumsum(retirable.long(), dim=1) - 1
+    write_pos = fin_count[:, None] + rank  # [B, 2K] target slot
+    valid = retirable & (write_pos < K)
+    # slot k's candidate: W[b, c, k] has at most one True along c
+    W = valid[:, :, None] & (
+        write_pos[:, :, None] == torch.arange(K, device=topv.device)[None, None, :])
+    taken = W.any(dim=1)  # [B, K]
+    cidx = torch.argmax(W.to(torch.uint8), dim=1)  # [B, K] (first True; 0 if none)
+    bsrc = torch.gather(src_flat, 1, cidx)  # [B, K] source row
+    fin_tokens = torch.where(taken[:, :, None], tokens[bsrc], fin_tokens)
+    fin_probs = torch.where(taken[:, :, None], probs[bsrc], fin_probs)
+    fin_scores = torch.where(taken, torch.gather(topv, 1, cidx), fin_scores)
+    fin_lengths = torch.where(taken, length[bsrc], fin_lengths)
+    fin_count = fin_count + valid.sum(dim=1)
+    return fin_tokens, fin_probs, fin_scores, fin_lengths, fin_count
+
+
+def beam_init(
+    params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
+    xa: torch.Tensor,  # [B, Ta, D]
+    prompt: torch.Tensor,  # [B, P] int64
+    prompt_len: int,
+    sot_pos: int = 0,
+    row_pad: Optional[torch.Tensor] = None,  # [B]
+    cross: Optional[Dict[str, torch.Tensor]] = None,  # from build_cross_cache
+) -> Dict[str, Any]:
+    """Prefill the prompt once per stream and build the beam-search state.
+    The cross K/V (built here unless given) and the prompt half of the split
+    self-cache have B rows, shared by each stream's K beams; only the decode
+    half [L, B*K, H, Td, Dh] is per beam."""
+    B = xa.shape[0]
+    K = dc.beam_size
+    N = B * K
+    dev = xa.device
+    max_steps = _max_steps(dc, cfg, prompt_len)
+    if cross is None:
+        cross = build_cross_cache(params, cfg, xa)
+    prompt_cache = wm.init_self_cache(cfg, B, xa.dtype, dev, prompt_len)
+    P = prompt.shape[1]
+    pos_at = (sot_pos,) if sot_pos == P - 1 else (sot_pos, P - 1)
+    logits_all = wm.decode_step(params, cfg, prompt, 0, prompt_cache, cross,
+                                row_pad=row_pad, logits_at=pos_at)
+    td = min(cfg.n_text_ctx, -(-max_steps // 16) * 16)
+    # the per-beam decode half [L, N, H, Td, Dh] (JAX: init_split_decode_cache)
+    decode_cache = wm.init_self_cache(cfg, N, xa.dtype, dev, td)
+    if row_pad is None:
+        row_pad = torch.zeros((B,), dtype=torch.long, device=dev)
+    # beam 0 starts at 0, the rest at -inf so the first expansion does not
+    # produce K duplicates
+    scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+
+    def zeros(*shape, dtype=torch.long):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return dict(
+        step=0,
+        logits=logits_all[:, -1].repeat_interleave(K, dim=0),  # [N, V]
+        cache={"pk": prompt_cache["k"], "pv": prompt_cache["v"],
+               "dk": decode_cache["k"], "dv": decode_cache["v"]},
+        anc=torch.arange(N, device=dev)[:, None].repeat(1, td),
+        cross=cross,
+        no_speech_prob=torch.softmax(logits_all[:, 0], dim=-1)[:, sp.no_speech],
+        tokens=torch.full((N, max_steps), sp.eot, dtype=torch.long, device=dev),
+        probs=zeros(N, max_steps, dtype=torch.float32),
+        scores=scores.view(N),
+        length=zeros(N),
+        last_was_ts=zeros(N, dtype=torch.bool),
+        penult_was_ts=zeros(N, dtype=torch.bool),
+        max_ts_tok=torch.full((N,), sp.timestamp_begin, dtype=torch.long, device=dev),
+        ts_seen=zeros(N, dtype=torch.bool),
+        fin_tokens=torch.full((B, K, max_steps), sp.eot, dtype=torch.long, device=dev),
+        fin_probs=zeros(B, K, max_steps, dtype=torch.float32),
+        fin_scores=torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev),
+        fin_lengths=zeros(B, K),
+        fin_count=zeros(B),
+        row_pad=row_pad.repeat_interleave(K, dim=0),  # [N], constant per stream
+    )
+
+
+def beam_run(
+    params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
+    state: Dict[str, Any], suppress_mask: torch.Tensor, prompt_len: int,
+    budget: int,
+) -> Dict[str, Any]:
+    """Advance the beam search (state updated in place) until `budget`
+    total steps or the token budget; no host synchronisation inside.
+
+    The JAX loop stops on the step where every stream holds the patience
+    target of finished hypotheses; here the host looks only between calls.
+    So from that step on the finished slots freeze (each step's retirement
+    is masked on the device), and `beam_finalize`, which then reads only
+    those slots, gives what the JAX loop gives."""
+    s = state
+    B, K, _ = s["fin_tokens"].shape
+    N = B * K
+    V = cfg.n_vocab
+    dev = s["scores"].device
+    target = _n_fin_target(dc)
+    rows = torch.arange(N, device=dev)
+    stop = min(_max_steps(dc, cfg, prompt_len), budget)
+    while s["step"] < stop:
+        step = s["step"]
+        live = ~(s["fin_count"] >= target).all()  # JAX's loop condition
+        logits = _prepare_logits(
+            s["logits"], suppress_mask, sp, dc, step,
+            s["last_was_ts"], s["penult_was_ts"], s["max_ts_tok"], s["ts_seen"])
+        # exact two-stage top-2K: per beam over V, then pooled over K * 2K
+        # (a global top-2K candidate is inside its own beam's top-2K); the
+        # per-row order equals the logits' order, so only the 2K selected
+        # values get the score and normaliser
+        lse = torch.logsumexp(logits, dim=-1)
+        v1, i1 = _top_k(logits, 2 * K)
+        v1 = (v1 - lse[:, None] + s["scores"][:, None]).view(B, 2 * K * K)
+        i1 = (i1 + (rows % K)[:, None] * V).view(B, 2 * K * K)
+        topv, sel = _top_k(v1, 2 * K)  # [B, 2K]
+        topi = torch.gather(i1, 1, sel)
+        tok_idx = topi % V
+        src_flat = torch.arange(B, device=dev)[:, None] * K + topi // V
+
+        fin = _retire_eot_candidates(
+            sp, K, topv, tok_idx, src_flat, s["tokens"], s["probs"], s["length"],
+            s["fin_tokens"], s["fin_probs"], s["fin_scores"], s["fin_lengths"],
+            s["fin_count"])
+        for key, new in zip(("fin_tokens", "fin_probs", "fin_scores",
+                             "fin_lengths", "fin_count"), fin):
+            s[key] = torch.where(live, new, s[key])
+
+        # keep the top-K non-EOT candidates as the new active beams
+        active = topv.masked_fill(tok_idx == sp.eot, NEG_INF)
+        keepv, keepi = _top_k(active, K)
+        new_tok = torch.gather(tok_idx, 1, keepi).view(N)
+        new_src = torch.gather(src_flat, 1, keepi).view(N)
+        new_scores = keepv.reshape(N)
+        tok_logprob = new_scores - s["scores"][new_src]
+        s["tokens"] = s["tokens"][new_src]
+        s["tokens"][:, step] = new_tok
+        s["probs"] = s["probs"][new_src]
+        s["probs"][:, step] = torch.exp(tok_logprob)
+        s["length"] = s["length"][new_src] + 1
+        is_ts = new_tok >= sp.timestamp_begin
+        s["penult_was_ts"] = s["last_was_ts"][new_src]
+        s["last_was_ts"] = is_ts
+        max_ts = s["max_ts_tok"][new_src]
+        s["max_ts_tok"] = torch.where(is_ts, torch.maximum(max_ts, new_tok), max_ts)
+        s["ts_seen"] = s["ts_seen"][new_src] | is_ts
+        s["scores"] = new_scores
+        # the decode cache is never permuted: the ancestry map follows the
+        # surviving beams and K4 reads each beam's rows through it
+        s["anc"] = s["anc"][new_src]
+        s["anc"][:, step] = rows
+        c = s["cache"]
+        logits_next = wm.decode_step_split(
+            params, cfg, new_tok[:, None], step, {"k": c["pk"], "v": c["pv"]},
+            {"k": c["dk"], "v": c["dv"]}, s["cross"], prompt_len, K,
+            s["row_pad"], s["anc"])
+        s["logits"] = logits_next[:, 0]
+        s["step"] = step + 1
+    return s
+
+
+def beam_finalize(dc: DecodeConfig, final: Dict[str, Any]) -> DecodeResult:
+    """Each stream's hypothesis: the best finished slot by the ranking
+    (average log-probability sum / (len + 1), or the length penalty
+    ((5 + len) / 6) ** alpha), or its best active beam when none finished."""
+    B, K, _ = final["fin_tokens"].shape
+    act_scores = final["scores"].view(B, K)
+    act_best = torch.argmax(act_scores, dim=-1)
+    fin_lengths = final["fin_lengths"]
+    if dc.length_penalty is None:
+        fin_rank = final["fin_scores"] / torch.clamp(fin_lengths + 1, min=1).float()
+    else:
+        penalty = ((5.0 + fin_lengths.float()) / 6.0) ** dc.length_penalty
+        fin_rank = final["fin_scores"] / torch.clamp(penalty, min=1e-6)
+    fin_best = torch.argmax(fin_rank, dim=-1)
+    has_fin = final["fin_count"] > 0
+    b = torch.arange(B, device=act_best.device)
+
+    def pick(fin_arr, act_arr):
+        a, c = fin_arr[b, fin_best], act_arr.view((B, K) + act_arr.shape[1:])[b, act_best]
+        return torch.where(has_fin.view((B,) + (1,) * (a.ndim - 1)), a, c)
+
+    tokens = pick(final["fin_tokens"], final["tokens"])
+    probs = pick(final["fin_probs"], final["probs"])
+    lengths = pick(fin_lengths, final["length"])
+    sum_lp = pick(final["fin_scores"], final["scores"])
+    return DecodeResult(
+        tokens=tokens, lengths=lengths, sum_logprob=sum_lp,
+        avg_logprob=sum_lp / torch.clamp(lengths + 1, min=1).float(),
+        token_probs=probs, no_speech_prob=final["no_speech_prob"],
+    )
+
+
+def beam_decode(
+    params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
+    xa: torch.Tensor, prompt: torch.Tensor, prompt_len: int,
+    suppress_mask: Optional[torch.Tensor] = None,
+    sot_pos: int = 0,
+    is_cancelled=None,  # host callback polled every poll_tokens steps
+    poll_tokens: int = 32,
+    row_pad: Optional[torch.Tensor] = None,  # [B] per-row prompt left pad
+    cross: Optional[Dict[str, torch.Tensor]] = None,
+) -> DecodeResult:
+    """Beam search (beam_size K) folded into the batch axis. Finished
+    hypotheses go to K fixed slots per stream; the host checks the patience
+    target (and `is_cancelled`) between windows of `poll_tokens` steps."""
+    if suppress_mask is None:
+        suppress_mask = torch.from_numpy(
+            build_suppress_mask(sp, cfg.n_vocab)).to(xa.device)
+    state = beam_init(params, cfg, dc, sp, xa, prompt, prompt_len,
+                      sot_pos=sot_pos, row_pad=row_pad, cross=cross)
+    max_steps = _max_steps(dc, cfg, prompt_len)
+    target = _n_fin_target(dc)
+    while state["step"] < max_steps:
+        budget = min(state["step"] + max(poll_tokens, 1), max_steps)
+        state = beam_run(params, cfg, dc, sp, state, suppress_mask, prompt_len, budget)
+        if bool((state["fin_count"] >= target).all()) or (is_cancelled and is_cancelled()):
+            break
+    return beam_finalize(dc, state)
 
 
 def detect_language(params, cfg: wm.WhisperConfig, sp: SpecialTokens,

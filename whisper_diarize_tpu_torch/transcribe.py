@@ -4,9 +4,8 @@ token streams -> word timestamps -> chunk results.
 * `interpolate_word_timestamps`, `is_whole_control_token`, `token_spans`,
   `ChunkResult` — host helpers, copied because the JAX module imports JAX;
 * `TranscribeStep` — one batched model invocation over a window of audio
-  chunks (mel -> encode -> greedy decode with the temperature-fallback
-  ladder -> DTW) for the Engine's scheduler. Greedy only: beam search is
-  not ported yet.
+  chunks (mel -> encode -> beam search or greedy decode with the
+  temperature-fallback ladder -> DTW) for the Engine's scheduler.
 """
 
 from __future__ import annotations
@@ -102,13 +101,11 @@ class TranscribeStep:
         model_name: str = "",
         enable_dtw: bool = True,
         decode_config: Optional[dec.DecodeConfig] = None,
-        strategy: str = "greedy",
+        strategy: str = "beam_search",
         max_text_ctx: Optional[int] = None,
     ):
-        if strategy != "greedy":
-            raise NotImplementedError(
-                f"sampling strategy {strategy!r} is not ported yet; the port "
-                "runs 'greedy' (beam search: ROADMAP Queue 1 item 2)")
+        if strategy not in ("greedy", "beam_search"):
+            raise ValueError(f"unknown sampling strategy {strategy!r}")
         self.params = params
         self.cfg = cfg
         self.tk = tokenizer
@@ -192,6 +189,11 @@ class TranscribeStep:
         B = xa.shape[0]
         prompt, prompt_len, sot_pos, row_pad = self._build_prompt(
             B, language, task, prev_tokens)
+        if self.strategy == "beam_search":
+            return dec.beam_decode(
+                self.params, self.cfg, self.dc, self.sp, xa, prompt, prompt_len,
+                suppress_mask=self._suppress, sot_pos=sot_pos,
+                is_cancelled=is_cancelled, row_pad=row_pad, cross=cross)
         generator = generator or self._generator(0)
         if self.dc.temperature > 0 and self.dc.beam_size > 1:
             # best_of_or_beam_size doubles as best_of for sampling
@@ -214,14 +216,17 @@ class TranscribeStep:
         n_valid_rows: Optional[int] = None,
         best_of: Optional[int] = None,
         is_cancelled=None,
+        cross: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[dec.DecodeResult, np.ndarray]:
-        """Temperature fallback: decode at t=0, then re-decode the rows whose
-        text is degenerate (gzip ratio above threshold) or improbable (avg
-        logprob below threshold) at rising temperatures with `best_of`
-        candidates, with the same prompt; only rows < n_valid_rows are
-        judged. The cross K/V of `xa` is built once and shared by every
-        rung. Returns (result, final temperature per row)."""
-        cross = dec.build_cross_cache(self.params, self.cfg, xa)
+        """Temperature fallback: decode at t=0 (beam search or greedy), then
+        re-decode the rows whose text is degenerate (gzip ratio above
+        threshold) or improbable (avg logprob below threshold) at rising
+        temperatures with `best_of` candidates, with the same prompt; only
+        rows < n_valid_rows are judged. The cross K/V of `xa` (`cross`, or
+        built here) is shared by the t=0 decode and every rung. Returns
+        (result, final temperature per row)."""
+        if cross is None:
+            cross = self.cross_cache(xa)
         result = self.decode(xa, language, task, prev_tokens=prev_tokens,
                              is_cancelled=is_cancelled, cross=cross)
         B = xa.shape[0]
@@ -264,10 +269,16 @@ class TranscribeStep:
             bad = failures(result) & bad
         return result, temps
 
-    def detect_language(self, xa: torch.Tensor) -> List[str]:
+    def cross_cache(self, xa: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The cross K/V of every decoder layer for `xa` (K2), for the
+        callers that share it across language detection and decoding."""
+        return dec.build_cross_cache(self.params, self.cfg, xa)
+
+    def detect_language(self, xa: torch.Tensor,
+                        cross: Optional[Dict[str, torch.Tensor]] = None) -> List[str]:
         from whisper_diarize_tpu.tokenizer import LANGUAGES
 
-        logits = wm.detect_language_logits(self.params, self.cfg, xa, self.sp.sot)
+        logits = wm.detect_language_logits(self.params, self.cfg, xa, self.sp.sot, cross)
         idx = logits[:, self.sp.sot + 1: self.sp.sot + 1 + self.sp.num_languages].argmax(-1)
         return [LANGUAGES[int(i)] for i in idx.cpu().numpy()]
 
