@@ -8,40 +8,60 @@ traceback) and no result line is printed:
 1. device: name, torch / CUDA versions, `nvidia-smi` name and power limit;
 2. build: compiles the hand-written kernels from `whisper_diarize_tpu_torch/
    csrc/` with nvcc (sm_90a) and prints the build time;
-3. kernels: K1 (cross-attention), K2 (cross K/V build), K3 (decoder tail)
-   and K4 (split-cache self-attention of a beam step) against their plain
-   PyTorch versions in bf16 at large-v3 widths (D 1280, 20 heads) and the
-   shapes the main paths give them, K1-K3 on the 4-layer stack of
-   large-v3-turbo and the 32-layer stack of large-v3 (see `phase_kernels`,
-   `phase_k4`), with
-   the tolerance of `whisper_diarize_tpu_torch/kernels/agreement.py` (a few
-   bf16 ulps per element and 1e-2 relative L2 of the update), planted
-   faults that the check must refuse, and times of kernel and plain
-   version after warm-up: CUDA events over back-to-back calls, and the
-   profiled device time of their kernels (`timed`);
+3. kernels: K1 (cross-attention), K2 (cross K/V build), K3 (decoder tail),
+   K4 (split-cache self-attention of a beam step), K5 (cross-attention
+   over the int8 cache) and K6 (the decoder tail with int8 weights and / or
+   the int8 cache) against their plain PyTorch versions in bf16 at
+   large-v3 widths (D 1280, 20 heads) and the shapes the main paths give
+   them, K1-K3 on the 4-layer stack of large-v3-turbo and the 32-layer
+   stack of large-v3, K4-K6 on the latter (see `phase_kernels`, `phase_k4`,
+   `phase_int8_kernels`), with the tolerance of
+   `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
+   element and 1e-2 relative L2 of the update), planted faults that the
+   check must refuse, and times of kernel, plain version and, for K1, the
+   library call `F.scaled_dot_product_attention` after warm-up: CUDA
+   events over back-to-back calls, and the profiled device time of their
+   kernels, the median of three profiled windows that lost no kernel
+   events (`timed`, `device_ms`); each beside its bound (`bound`); K1 and
+   K3 are timed on the 32-layer stack only (their per-layer shapes are the
+   same on both);
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
-   preset); a beam run with the ancestry map ignored must fail the check;
+   preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
+   weights, beam 5 with the int8 cache); a beam run with the ancestry map
+   ignored, and an int8 beam run with the key scales ignored, must fail the
+   check;
 5. engine, greedy path: one `Engine` serves five requests (random
    `large-v3-turbo` weights, greedy, DTW word timestamps, the
-   temperature-fallback ladder, batch 8): a ~45 s whole-file request, a VAD
-   request with random VAD weights, a second whole-file request, a 10 s
-   one, and `transcribe_audio_batch` over eight 10 s files;
+   temperature-fallback ladder, batch 8, 32 tokens a window): a ~45 s
+   whole-file request, a VAD request with random VAD weights, a second
+   whole-file request, a 10 s one, and `transcribe_audio_batch` over eight
+   10 s files;
 6. engine, beam path (the Engine's default, `advanced=None`, beam 5): one
    `Engine` at random `large-v3` weights (32 decoder layers, ladder and DTW
    on, batch 8, 64 tokens a window) serves a ~30 s whole-file request with
    language detection, a VAD request, and `transcribe_audio_batch` over
-   eight 10 s files (B = 8, 40 beam rows).
-   In 5 and 6 each request prints wall time, windows decoded and the
-   launches it added; a request that decoded a window must have raised the
-   count of every kernel of its path (K1-K3 greedy, K1-K4 beam). The
-   counts are set to 0 just before each path and read just after;
-7. with `--profile` only: the 45 s greedy request and the 30 s beam request
-   under torch.profiler (device busy time and kernel time by kind, also
-   written to build/chip_smoke/profile.txt).
+   eight 10 s files (B = 8, 40 beam rows);
+7. engine, int8 beam path: a third `Engine` at random `large-v3` weights
+   with `quantize_kv_cache=True` and the default beam 5 (64 tokens, the
+   fallback ladder off: its sampling rungs over the int8 cache are phase
+   8's loop) serves the ~30 s whole-file request with language detection
+   and the batch of eight 10 s files;
+8. int8 greedy path: a greedy `TranscribeStep` at `large-v3` width with
+   `quantize_cross_kv` and `quantize_tail_weights` (the Engine has no knob
+   for the int8 tail weights) takes one batch of 8 windows through
+   `decode_with_fallback` (32 tokens a window).
+   In 5-8 each request prints wall time, windows decoded and the launches
+   it added; a request that decoded a window must have raised the count of
+   every kernel of its path (`PATHS`). The counts are set to 0 just before
+   each path and read just after;
+9. with `--profile` only: the 45 s greedy request, the 30 s beam request
+   and the 30 s int8 beam request under torch.profiler (device busy time
+   and kernel time by kind, also written to build/chip_smoke/profile.txt).
+Each phase prints its wall seconds (`[time]`).
 
 Then it prints one JSON line of per-kernel results (`launches` summed over
-the two paths' runs), the `nvidia-smi` name and power limit line, and last
+the paths' runs), the `nvidia-smi` name and power limit line, and last
 `{"ok": true, "device": {...}}`. It writes only under `build/` of the
 checkout.
 """
@@ -58,6 +78,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import whisper_diarize_tpu_torch as wdt
 from whisper_diarize_tpu_torch import kernels
@@ -80,8 +101,19 @@ KERNELS = {
     "K4": dict(name="split_self_attn_layer", fn=attn.split_self_attn_layer,
                source="whisper_diarize_tpu_torch/csrc/split_self.cu",
                replaces="whisper_diarize_tpu/ops/pallas_attn.py:489"),
+    "K5": dict(name="cross_attn_layer_q8", fn=attn.cross_attn_layer_q8,
+               source="whisper_diarize_tpu_torch/csrc/cross_attn.cu",
+               replaces="whisper_diarize_tpu/ops/pallas_attn.py:308"),
+    # the int8 forms of the tail wrapper count apart from its bf16 form
+    "K6": dict(name="fused_tail_layer (int8 wq / kvq)", fn=tail.fused_tail_layer,
+               count="launches_int8", source="whisper_diarize_tpu_torch/csrc/tail.cu",
+               replaces="whisper_diarize_tpu/ops/pallas_tail.py:508"),
 }
-PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4")}
+PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
+         "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6")}
+# H100 SXM data sheet: memory rate and dense bf16 tensor rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def nvidia_smi_line() -> str:
@@ -129,39 +161,104 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
     """Mean device time of one call: the summed durations of the kernels it
     launches (torch.profiler), without the gaps in which the device waits
     for the host. Where the host issues calls slower than the device runs
-    them, `time_ms` measures the host and this the kernels."""
+    them, `time_ms` measures the host and this the kernels.
+
+    The profiler at times loses kernel events (a reading far below the
+    CUDA-event time), so one session profiles `windows` windows of `iters`
+    calls, each ended by a marker kernel (`torch.cuda._sleep`). Every window
+    launches the same kernels: one that holds fewer kernel events than the
+    fullest lost some and is dropped, and the reading is the median of the
+    rest. A session whose markers do not all show is profiled again."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kern) / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(windows):
+                for _ in range(iters):
+                    fn()
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        wins, cur = [], []
+        for e in kern:
+            if "spin_kernel" in e.name:
+                wins.append(cur)
+                cur = []
+            else:
+                cur.append(e.time_range.elapsed_us())
+        if len(wins) != windows or cur:
+            continue
+        full = max(len(w) for w in wins)
+        kept = sorted(sum(w) for w in wins if len(w) == full)
+        if len(kept) < windows:
+            print(f"[kernels] device_ms: dropped {windows - len(kept)} of {windows} "
+                  f"profiled windows that lost kernel events", flush=True)
+        return kept[len(kept) // 2] / iters / 1e3
+    raise AssertionError("device_ms: the profiler lost window markers in three sessions")
 
 
-def timed(tag: str, fn, plain, **extra) -> dict:
-    """Kernel and plain version: CUDA-event time of back-to-back calls and
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a call: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the memory rate and its operations over the bf16 tensor rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
+
+
+def attn_bound(B: int, Q: int, H: int, Ta: int, kv_row_bytes: int) -> dict:
+    """K1 / K5: q in and out [B, Q, H, 64] bf16, one layer's K and V rows
+    (`kv_row_bytes` a row: 128 bf16, 64 + 4 int8 with its scale)."""
+    return bound(2 * B * Q * H * 64 * 2 + 2 * B * H * Ta * kv_row_bytes,
+                 4 * B * H * Q * Ta * 64)
+
+
+def tail_bound(N: int, beams: int, D: int, Ta: int, wq: bool, kvq: bool) -> dict:
+    """K3 / K6 for one layer: the five weights (11 D^2, bf16 or int8 with
+    f32 scales), biases and layer norms (12 D bf16), x, self_out and the
+    output (N x D bf16), the stream's cross K / V rows."""
+    H, Bc = D // 64, N // beams
+    weights = 11 * D * D * (1 if wq else 2) + (11 * D * 4 if wq else 0)
+    cache = 2 * Bc * H * Ta * (64 + 4 if kvq else 128)
+    return bound(weights + 12 * D * 2 + 3 * N * D * 2 + cache,
+                 2 * N * 11 * D * D + 4 * N * H * Ta * 64)
+
+
+def timed(tag: str, fn, plain, library=None, **extra) -> dict:
+    """Kernel, plain version and (where one PyTorch call computes the same
+    function) the library call: CUDA-event time of back-to-back calls and
     profiled device time, printed and returned."""
     t = dict(ms=time_ms(fn), plain_ms=time_ms(plain),
-             device_ms=device_ms(fn), plain_device_ms=device_ms(plain), **extra)
+             device_ms=device_ms(fn), plain_device_ms=device_ms(plain),
+             library_ms=None, library_device_ms=None, **extra)
+    lib = ""
+    if library is not None:
+        t.update(library_ms=time_ms(library), library_device_ms=device_ms(library))
+        lib = f", library {t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f})"
+    b = f", bound {t['bound_ms']:.4f} ms ({t['bound_by']})" if "bound_ms" in t else ""
     print(f"[kernels] {tag} time {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
-          f"plain {t['plain_ms']:.4f} ms (device {t['plain_device_ms']:.4f})", flush=True)
+          f"plain {t['plain_ms']:.4f} ms (device {t['plain_device_ms']:.4f}){lib}{b}",
+          flush=True)
     return t
 
 
-def phase_kernels(preset: str) -> dict:
+def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
     """K1/K2/K3 against their plain versions at the shapes the main paths
     give them, on the last layer of `preset`'s decoder stack (run for
     large-v3-turbo, 4 layers, the greedy path's model, and large-v3, 32
-    layers, the beam path's). Every decode batch is padded to `batch_size`
+    layers, the beam path's). K2 is timed on both; K1 and K3, whose
+    per-layer shapes the two share, where `time_k1_k3`. Every decode batch is padded to `batch_size`
     rows (`parallel.batching.pack_batch`), so the served paths run B = 8
     streams: K2 at B = 8; K1 at prefill with Q = beams x prompt = 3 (sot,
     language, task) at t = 0 and 15 (best_of 5 candidates) on the fallback
@@ -197,7 +294,9 @@ def phase_kernels(preset: str) -> dict:
                 ag.reject(name, (k, v)[i], bad)
             res["K2"] = timed(f"K2 B={B} L={L}", lambda: attn.cross_kv_build(*args),
                               lambda: attn.cross_kv_build_plain(*args),
-                              shape=f"B={B} Ta={Ta} D={D} L={L}")
+                              shape=f"B={B} Ta={Ta} D={D} L={L}",
+                              **bound(B * Ta * D * 2 + 2 * L * D * D * 2 + L * D * 2
+                                      + 2 * L * B * Ta * D * 2, 4 * L * B * Ta * D * D))
 
         for Q in ((3, 4, 15, 64) if main else (3, 15)):
             q = ag.randn(g, dev, B, Q, H, Dh, scale=2.0)
@@ -209,8 +308,14 @@ def phase_kernels(preset: str) -> dict:
             if Q == 15:
                 for name, bad in ag.k1_faults(*a):
                     ag.reject(name, attn.cross_attn_layer(*a), bad)
+            if not time_k1_k3:
+                continue
+            qt, kl, vl = q.transpose(1, 2), k[lay], v[lay]
             t = timed(f"K1 B={B} Q={Q} {at}", lambda: attn.cross_attn_layer(*a),
-                      lambda: attn.cross_attn_layer_plain(*a), shape=f"B={B} Q={Q} H={H} Ta={Ta} {at}")
+                      lambda: attn.cross_attn_layer_plain(*a),
+                      library=lambda: F.scaled_dot_product_attention(qt, kl, vl),
+                      shape=f"B={B} Q={Q} H={H} Ta={Ta} {at}",
+                      **attn_bound(B, Q, H, Ta, 128))
             if Q == 3:
                 res["K1"] = t
 
@@ -227,23 +332,28 @@ def phase_kernels(preset: str) -> dict:
             if beams == 5:
                 for name, bad in ag.k3_faults(*a):
                     ag.reject(name, got, bad, base=x)
+            if not time_k1_k3:
+                continue
             t = timed(f"K3 N={N} {at}", lambda: tail.fused_tail_layer(*a),
-                      lambda: tail.fused_tail_layer_plain(*a), shape=f"N={N} beams={beams} D={D} {at}")
+                      lambda: tail.fused_tail_layer_plain(*a),
+                      shape=f"N={N} beams={beams} D={D} {at}",
+                      **tail_bound(N, beams, D, Ta, False, False))
             if beams == 5:
                 res["K3"] = t
     for key in res:
         res[key]["max_abs_err"] = errs[key]
-    return res
+    return res, errs
 
 
 def phase_kernels_all() -> dict:
-    """`phase_kernels` for both presets: the large-v3-turbo readings at the
-    top (as before the beam path existed), the large-v3 ones under
-    "large-v3"; `max_abs_err` is the worst of both."""
-    res = phase_kernels("large-v3-turbo")
-    for key, t in phase_kernels("large-v3").items():
-        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], t["max_abs_err"])
-        res[key]["large-v3"] = t
+    """`phase_kernels` for both presets: the large-v3 readings at the top,
+    K2's large-v3-turbo one under "large-v3-turbo"; `max_abs_err` is the
+    worst of both."""
+    turbo, turbo_errs = phase_kernels("large-v3-turbo", time_k1_k3=False)
+    res, _ = phase_kernels("large-v3", time_k1_k3=True)
+    for key, t in res.items():
+        t["max_abs_err"] = max(t["max_abs_err"], turbo_errs[key])
+    res["K2"]["large-v3-turbo"] = turbo["K2"]
     torch.cuda.empty_cache()
     return res
 
@@ -286,10 +396,16 @@ def phase_k4() -> dict:
                             ag.reject(name, got, bad)
                     if B == 8 and Tp == 3 and Td == 64:
                         it, rest = itertools.count(), a[1:]
+                        # what this step reads: q and out, the prompt rows,
+                        # the step + 1 decode rows of each beam, the ancestry
+                        rows = B * H * Tp + B * K * H * (step + 1)
                         t = timed(f"K4 B={B} Tp={Tp} Td={Td} step={step}",
                                   lambda: attn.split_self_attn_layer(next(it) % L, *rest),
                                   lambda: attn.split_self_attn_layer_plain(next(it) % L, *rest),
-                                  shape=f"B={B} K={K} H={H} Tp={Tp} Td={Td} step={step}")
+                                  shape=f"B={B} K={K} H={H} Tp={Tp} Td={Td} step={step}",
+                                  **bound(2 * B * K * H * 64 * 2 + rows * 64 * 2 * 2
+                                          + B * K * Td * 4 + B * 4,
+                                          4 * B * K * H * (Tp + step + 1) * 64))
                         if step == Td // 2 - 1:
                             res["K4"] = t
                 del q, pk, pv, dk, dv
@@ -297,21 +413,126 @@ def phase_k4() -> dict:
     return res
 
 
-def _teacher_forced(cpu, cfg, xa_b, prompt, toks, dc):
+def phase_int8_kernels() -> dict:
+    """K5 and K6 against their plain versions on large-v3's 32-layer stack
+    (last layer), B 8 streams, H 20, Ta 1500, the cross cache built by K2
+    and quantized by `attn.quantize_cross_kv` (timed: plain PyTorch, as in
+    the JAX package). K5 at Q = 3 (the beam prompt pass), 5 (a beam step),
+    15 (the ladder's prompt pass, best_of 5) and 64 (a prompt with previous
+    text), and at B 1, Q 3; its faults (`agreement.k5_faults`) at Q 15. K6
+    in its three forms (`wq`, `kvq`, `wq+kvq`, weights from
+    `quantize_tail_weights`) at N = 8 (greedy t = 0) and 40 (5 beams, or
+    the ladder), its faults (`agreement.k6_faults`) at N = 40. Times
+    (`timed`) at the main paths' shapes, each call on the next layer, as a
+    decode step reads them: a layer's int8 cache (32.6 MB) and weights
+    (18 MB) would otherwise stay in the 50 MB L2 cache between calls."""
+    cfg = wm.PRESETS["large-v3"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    D, H, L, Ta = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_audio_ctx
+    lay = L - 1
+    blocks = ag.random_blocks(L, D, g, dev)
+    q8w = tail.quantize_tail_weights(blocks)
+    errs, res = {"K5": 0.0, "K6": 0.0}, {}
+    for B in (8, 1):
+        xa = ag.randn(g, dev, B, Ta, D)
+        k, v = attn.cross_kv_build(xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
+        k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+        for Q in ((3, 5, 15, 64) if B == 8 else (3,)):
+            q = ag.randn(g, dev, B, Q, H, 64, scale=2.0)
+            a = (lay, q, k8, ks, v8, vs, Ta)
+            got = attn.cross_attn_layer_q8(*a)
+            errs["K5"] = max(errs["K5"], ag.compare(
+                f"K5 cross_attn_layer_q8 B={B} Q={Q} L={L} layer={lay}", got,
+                attn.cross_attn_layer_q8_plain(*a)).max_abs_err)
+            if B == 8 and Q == 15:
+                for name, bad in ag.k5_faults(*a):
+                    ag.reject(name, got, bad)
+            if B == 8 and Q in (3, 15):
+                it, rest = itertools.count(), a[1:]
+                t = timed(f"K5 B={B} Q={Q}",
+                          lambda: attn.cross_attn_layer_q8(next(it) % L, *rest),
+                          lambda: attn.cross_attn_layer_q8_plain(next(it) % L, *rest),
+                          shape=f"B={B} Q={Q} H={H} Ta={Ta} L={L}",
+                          **attn_bound(B, Q, H, Ta, 64 + 4))
+                res.setdefault("K5", t).setdefault("by_shape", {})[f"Q={Q}"] = {
+                    key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                            "bound_ms")}
+        if B == 8:
+            qfn = lambda: attn.quantize_cross_kv(k, v)  # noqa: E731
+            res["K5"]["quantize_cross_kv_ms"] = time_ms(qfn, iters=5, warmup=1)
+            res["K5"]["quantize_cross_kv_device_ms"] = device_ms(qfn, iters=5, warmup=1)
+            print(f"[kernels] quantize_cross_kv (plain PyTorch) B={B} L={L}: time "
+                  f"{res['K5']['quantize_cross_kv_ms']:.4f} ms (device "
+                  f"{res['K5']['quantize_cross_kv_device_ms']:.4f})", flush=True)
+        for beams in (1, 5) if B == 8 else ():
+            N = B * beams
+            x = ag.randn(g, dev, N, 1, D)
+            so = ag.randn(g, dev, N, H, 1, 64, scale=0.3)
+            for form, wts, cache in (("wq+kvq", q8w, (k8, v8, ks, vs)),
+                                     ("kvq", blocks, (k8, v8, ks, vs)),
+                                     ("wq", q8w, (k, v, None, None))):
+                a = (lay, x, so, wts, cache[0], cache[1], beams, Ta, cache[2], cache[3])
+                got = tail.fused_tail_layer(*a)
+                errs["K6"] = max(errs["K6"], ag.compare(
+                    f"K6 fused_tail_layer {form} update N={N} beams={beams} L={L}", got,
+                    tail.fused_tail_layer_plain(*a), base=x).max_abs_err)
+                if N != 40:
+                    continue
+                for name, bad in ag.k6_faults(*a):
+                    ag.reject(f"{name} ({form})", got, bad, base=x)
+                it, rest = itertools.count(), a[1:]
+                t = timed(f"K6 {form} N={N}",
+                          lambda: tail.fused_tail_layer(next(it) % L, *rest),
+                          lambda: tail.fused_tail_layer_plain(next(it) % L, *rest),
+                          shape=f"{form} N={N} beams={beams} D={D} L={L}",
+                          **tail_bound(N, beams, D, Ta, "wq" in form, "kvq" in form))
+                res.setdefault("K6", t).setdefault("by_form", {})[form] = {
+                    key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                            "bound_ms")}
+        del xa, k, v, k8, ks, v8, vs
+    for key in res:
+        res[key]["max_abs_err"] = errs[key]
+    torch.cuda.empty_cache()
+    return res
+
+
+def _teacher_forced(cpu, xa_b, prompt, toks):
     """The f32 CPU path's prepared logits [n, V] for the n tokens `toks`
-    (sampling grammar without timestamps), each given the tokens before it."""
+    (sampling grammar without timestamps), each given the tokens before it:
+    the prompt pass, then one single-token step a token, on the CPU step's
+    weights and cross cache (int8 where its config says, as in its decode)."""
     from whisper_diarize_tpu_torch.ops import decode as dec
 
-    seq = torch.cat([prompt, toks])[None]
-    cache = wm.init_self_cache(cfg, 1, torch.float32, "cpu", len(seq[0]) + 16)
-    logits = wm.decode_step(cpu.params, cfg, seq, 0, cache, wm.cross_kv(cpu.params, xa_b, cfg))[0]
-    return torch.stack([
-        dec._prepare_logits(logits[len(prompt) - 1 + t][None], cpu._suppress,
-                            cpu.sp, dc, t, *[None] * 4)[0]
-        for t in range(len(toks))])
+    cfg, P = cpu.cfg, len(prompt)
+    cache = wm.init_self_cache(cfg, 1, torch.float32, "cpu", P + len(toks) + 16)
+    cross = cpu.cross_cache(xa_b)
+    logits = wm.decode_step(cpu.params, cfg, prompt[None], 0, cache, cross,
+                            logits_at=(P - 1,))[:, 0]
+    rows = []
+    for t in range(len(toks)):
+        rows.append(dec._prepare_logits(logits, cpu._suppress, cpu.sp, cpu.dc, t,
+                                        *[None] * 4)[0])
+        logits = wm.decode_step(cpu.params, cfg, toks[None, t:t + 1], P + t, cache,
+                                cross, tail_q8=cpu.tail_q8)[:, 0]
+    return torch.stack(rows)
 
 
-def _beam_error(cpu, cfg, ref, prompt, dc, res) -> float:
+def _greedy_gap(cpu, ref, prompt, res) -> float:
+    """The worst, over the tokens the card picked (eot included), of the
+    gap between the f32 CPU reference's best token and the card's token,
+    teacher-forced on the same prefix, over max|logit|."""
+    toks, lens = res.tokens.cpu(), res.lengths.cpu()
+    worst = 0.0
+    for b in range(toks.shape[0]):
+        n = min(int(lens[b]) + 1, toks.shape[1])
+        rows = _teacher_forced(cpu, ref[b:b + 1], prompt, toks[b, :n])
+        gap = (rows.max(dim=-1).values - rows.gather(1, toks[b, :n, None])[:, 0]).max()
+        worst = max(worst, float(gap) / float(rows[torch.isfinite(rows)].abs().max()))
+    return worst
+
+
+def _beam_error(cpu, ref, prompt, res) -> float:
     """The worst, over the streams of the beam result `res`, of |the sum
     log-probability it reports - the f32 CPU score of its tokens,
     teacher-forced| per token (eot included)."""
@@ -319,7 +540,7 @@ def _beam_error(cpu, cfg, ref, prompt, dc, res) -> float:
     err = 0.0
     for b in range(toks.shape[0]):
         n = min(int(lens[b]) + 1, toks.shape[1])
-        rows = _teacher_forced(cpu, cfg, ref[b:b + 1], prompt, toks[b, :n], dc)
+        rows = _teacher_forced(cpu, ref[b:b + 1], prompt, toks[b, :n])
         score = float(torch.log_softmax(rows, dim=-1).gather(1, toks[b, :n, None]).sum())
         err = max(err, abs(float(reported[b]) - score) / n)
     return err
@@ -329,50 +550,66 @@ def phase_reference() -> None:
     """The main paths on the card (bf16, through the kernels) against the
     f32 plain path on the CPU, on a small input: the `tiny` preset (Dh 64)
     with the JAX package's random init, two 10 s windows, 24 tokens without
-    timestamps. The encoder output must agree within 5e-2 relative. Greedy:
-    every token the card picks must be within 2e-2 * max|logit| of the best
-    token of the CPU reference teacher-forced on the same prefix (bf16 may
-    flip near-ties, nothing more). Beam 5 (`_beam_error`): the sum
-    log-probability the card reports for the hypothesis it chose must be
-    within 2e-2 a token of the CPU's f32 score of the same tokens, and a
-    beam run with a planted fault (the ancestry map ignored: every beam
-    reads its own row's decode K/V) must fail that limit. Which hypothesis
-    the card chooses is not compared: at random weights the logits are
-    nearly flat and bf16 sends the search down other paths."""
-    from whisper_diarize_tpu.tokenizer import DebugTokenizer
+    timestamps. The encoder output must agree within 5e-2 relative. Greedy
+    (`_greedy_gap`): every token the card picks must be within 2e-2 *
+    max|logit| of the best token of the CPU reference teacher-forced on the
+    same prefix (bf16 may flip near-ties, nothing more). Beam 5
+    (`_beam_error`): the sum log-probability the card reports for the
+    hypothesis it chose must be within 2e-2 a token of the CPU's f32 score
+    of the same tokens, and a beam run with a planted fault (the ancestry
+    map ignored: every beam reads its own row's decode K/V) must fail that
+    limit. Which hypothesis the card chooses is not compared: at random
+    weights the logits are nearly flat and bf16 sends the search down other
+    paths. The same checks for the int8 forms, against the f32 CPU path
+    over the same int8 forms: greedy with `quantize_cross_kv` and
+    `quantize_tail_weights`, beam 5 with `quantize_cross_kv`; the planted
+    fault there is an int8 cache whose key scales are ignored (all 1)."""
     from whisper_diarize_tpu_torch.models import weights
     from whisper_diarize_tpu_torch.ops import decode as dec
+    from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
     from whisper_diarize_tpu_torch.transcribe import TranscribeStep
 
     cfg = wm.PRESETS["tiny"]
     tree = wm.init_params_np(cfg, seed=0)
     tk = DebugTokenizer()
-    dc = dec.DecodeConfig(max_tokens=24, with_timestamps=False, blank_id=32)
+    base = dec.DecodeConfig(max_tokens=24, with_timestamps=False, blank_id=32)
+    configs = {  # (strategy, config) by name
+        "greedy": ("greedy", base), "beam": ("beam_search", base),
+        "int8-greedy": ("greedy", dec.DecodeConfig(
+            max_tokens=24, with_timestamps=False, blank_id=32, quantize_cross_kv=True,
+            quantize_tail_weights=True)),
+        "int8-beam": ("beam_search", dec.DecodeConfig(
+            max_tokens=24, with_timestamps=False, blank_id=32, quantize_cross_kv=True)),
+    }
     params = {"card": weights.params_from_jax(tree, "cuda", torch.bfloat16),
               "ref": weights.params_from_jax(tree, "cpu", torch.float32)}
-    steps = {(side, strat): TranscribeStep(params[side], cfg, tk, decode_config=dc,
-                                           strategy=strat)
-             for side in params for strat in ("greedy", "beam_search")}
+    steps = {(side, name): TranscribeStep(params[side], cfg, tk, decode_config=dc,
+                                          strategy=strat)
+             for side in params for name, (strat, dc) in configs.items()}
     rng = np.random.default_rng(5)
     audio = np.zeros((2, 480000), np.float32)
     audio[:, :160000] = rng.standard_normal((2, 160000)).astype(np.float32) * 0.1
-    cpu = steps["ref", "greedy"]
     prompt = torch.tensor(tk.sot_sequence(language="en"))
+    tol, out, ok = 2e-2, {}, True
     with torch.inference_mode():
         xa = {side: steps[side, "greedy"].encode(steps[side, "greedy"].mel(audio))
               for side in params}
         ref = xa["ref"]
         rel = float((xa["card"].float().cpu() - ref).abs().max() / ref.abs().max())
-        res = steps["card", "greedy"].decode(xa["card"], "en", "transcribe")
-        toks, lens = res.tokens.cpu(), res.lengths.cpu()
-        worst = 0.0
-        for b in range(2):
-            n = min(int(lens[b]) + 1, toks.shape[1])  # text tokens + eot
-            rows = _teacher_forced(cpu, cfg, ref[b:b + 1], prompt, toks[b, :n], dc)
-            gap = (rows.max(dim=-1).values - rows.gather(1, toks[b, :n, None])[:, 0]).max()
-            worst = max(worst, float(gap) / float(rows[torch.isfinite(rows)].abs().max()))
-        beam = steps["card", "beam_search"].decode(xa["card"], "en", "transcribe")
-        beam_err = _beam_error(cpu, cfg, ref, prompt, dc, beam)
+        ok &= rel <= 5e-2
+        for name in configs:
+            card, cpu = steps["card", name], steps["ref", name]
+            res = card.decode(xa["card"], "en", "transcribe")
+            if name.endswith("greedy"):
+                out[name] = err = _greedy_gap(cpu, ref, prompt, res)
+            else:
+                out[name] = err = _beam_error(cpu, ref, prompt, res)
+            ok &= err <= tol
+            print(f"[reference] {name}: lengths {res.lengths.tolist()}, sum logprob "
+                  f"{[round(x, 4) for x in res.sum_logprob.float().tolist()]}, worst "
+                  f"{'card-token logit gap vs f32 CPU best, of max|logit|' if name.endswith('greedy') else '|card - f32 CPU score| a token'}"
+                  f" {err:.4g} (tol {tol:g})", flush=True)
+        # planted faults: each must fail the beam check
         real_step = wm.decode_step_split
 
         def ancestry_ignored(*a):
@@ -382,21 +619,26 @@ def phase_reference() -> None:
 
         wm.decode_step_split = ancestry_ignored
         try:
-            bad = steps["card", "beam_search"].decode(xa["card"], "en", "transcribe")
+            bad = steps["card", "beam"].decode(xa["card"], "en", "transcribe")
         finally:
             wm.decode_step_split = real_step
-        bad_err = _beam_error(cpu, cfg, ref, prompt, dc, bad)
-    ok = rel <= 5e-2 and worst <= 2e-2 and beam_err <= 2e-2 < bad_err
+        faults = {"ancestry ignored": _beam_error(steps["ref", "beam"], ref, prompt, bad)}
+        card8 = steps["card", "int8-beam"]
+        cross = card8.cross_cache(xa["card"])
+        bad = card8.decode(xa["card"], "en", "transcribe",
+                           cross=dict(cross, ks=torch.ones_like(cross["ks"])))
+        faults["int8 key scales ignored"] = _beam_error(
+            steps["ref", "int8-beam"], ref, prompt, bad)
+    for name, err in faults.items():
+        ok &= err > tol
+        print(f"[reference] planted fault, {name}: {err:.4g} "
+              f"({'refused' if err > tol else 'NOT refused'})", flush=True)
     print(f"[reference] tiny preset, 2 x 10 s: encoder rel err {rel:.4g} (tol 5e-2); "
-          f"greedy tokens {lens.tolist()}, worst card-token logit gap vs f32 CPU best "
-          f"{worst:.4g} of max|logit| (tol 2e-2); beam-5 lengths {beam.lengths.tolist()}, "
-          f"sum logprob {beam.sum_logprob.float().tolist()}, worst |card - f32 CPU score| "
-          f"per token {beam_err:.4g} (tol 2e-2); planted fault, ancestry ignored: "
-          f"{bad_err:.4g} ({'refused' if bad_err > 2e-2 else 'NOT refused'}) -> "
+          f"{ {k: round(v, 5) for k, v in out.items()} } (tol {tol:g}) -> "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("the card's main paths disagree with the f32 CPU reference, "
-                             "or the beam check passed a planted fault")
+                             "or the check passed a planted fault")
 
 
 def _write_wav(path: Path, seconds: float, seed: int) -> str:
@@ -412,17 +654,23 @@ def _write_wav(path: Path, seconds: float, seed: int) -> str:
 
 
 def counts() -> dict:
-    return {k: spec["fn"].launches for k, spec in KERNELS.items()}
+    return {k: getattr(spec["fn"], spec.get("count", "launches"))
+            for k, spec in KERNELS.items()}
 
 
-def make_engine(model: str):
+def reset_counts() -> None:
+    for spec in KERNELS.values():
+        setattr(spec["fn"], spec.get("count", "launches"), 0)
+
+
+def make_engine(model: str, **over):
     from whisper_diarize_tpu_torch.engine import Engine, EngineConfig
 
     WORK.mkdir(parents=True, exist_ok=True)
-    return Engine(EngineConfig(
-        cache_dir=str(WORK / "cache"), whisper_model_path=f"__random__:{model}",
-        vad_model_path="__random__", batch_size=8, enable_dtw=True,
-        temperature_fallback=True, max_decode_tokens=64))
+    kw = dict(cache_dir=str(WORK / "cache"), whisper_model_path=f"__random__:{model}",
+              vad_model_path="__random__", batch_size=8, enable_dtw=True,
+              temperature_fallback=True, max_decode_tokens=64)
+    return Engine(EngineConfig(**{**kw, **over}))
 
 
 def greedy_requests():
@@ -455,12 +703,28 @@ def beam_requests():
     ]
 
 
+def int8_requests():
+    """`quantize_kv_cache=True`, `advanced=None` (beam 5)."""
+    batch = [_write_wav(WORK / f"i{i}.wav", 10.0, 30 + i) for i in range(8)]
+    return [
+        ("int8 beam whole-file 30 s, lang auto", [_write_wav(WORK / "j.wav", 30.0, 7)],
+         wdt.TranscribeOptions(enable_vad=False, lang="auto")),
+        ("int8 beam batch of 8 whole files, 10 s each", batch,
+         wdt.TranscribeOptions(enable_vad=False, lang="en")),
+    ]
+
+
+def _check_missing(label: str, path: str, added: dict) -> None:
+    missing = [k for k in PATHS[path] if added[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} were not launched: {added}")
+
+
 def phase_engine(eng, path: str, requests) -> dict:
     """Serve `requests` on `eng`; the launch counts are set to 0 just before
     and read just after. Every request that decoded a window must have
     launched every kernel of the path. Returns the path's counts."""
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    reset_counts()
     decoded_any = False
     for label, paths, opts in requests:
         before = counts()
@@ -484,22 +748,59 @@ def phase_engine(eng, path: str, requests) -> dict:
               flush=True)
         if windows:
             decoded_any = True
-            missing = [k for k in PATHS[path] if added[k] <= 0]
-            if missing:
-                raise AssertionError(f"{label}: decoded {windows} windows but "
-                                     f"{missing} were not launched: {added}")
+            _check_missing(f"{label} ({windows} windows)", path, added)
     if not decoded_any:
         raise AssertionError(f"{path} path: no request decoded a window")
     return counts()
+
+
+def phase_int8_step(eng) -> dict:
+    """The int8 greedy path: a greedy `TranscribeStep` on `eng`'s loaded
+    `large-v3` weights with `quantize_cross_kv` and `quantize_tail_weights`
+    decodes one batch of 8 windows (speech-like noise, 30 s each) through
+    `decode_with_fallback` (32 tokens, the whole ladder at random weights).
+    The counts are set to 0 just before and read just after; K2, K5 and K6
+    must have launched. Returns the path's counts."""
+    from whisper_diarize_tpu_torch.ops import decode as dec
+    from whisper_diarize_tpu_torch.transcribe import TranscribeStep
+
+    (params, cfg, tk), = eng._whisper_cache.values()
+    step = TranscribeStep(params, cfg, tk, model_name="large-v3", decode_config=dec.DecodeConfig(
+        max_tokens=32, blank_id=32, quantize_cross_kv=True, quantize_tail_weights=True),
+        strategy="greedy")
+    rng = np.random.default_rng(40)
+    t = np.arange(480000) / 16000.0
+    env = (np.mod(t, 2.0) < 1.5).astype(np.float32)
+    audio = np.stack([(rng.standard_normal(480000) * 0.02 + env * np.sin(
+        2 * np.pi * (150.0 + 10 * i) * t) * 0.3).astype(np.float32) for i in range(8)])
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        xa = step.encode(step.mel(audio))
+        res, temps = step.decode_with_fallback(xa, "en", "transcribe")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    added = counts()
+    lens = res.lengths.cpu()
+    if not (torch.isfinite(res.avg_logprob).all() and (lens > 0).all()):
+        raise AssertionError(f"int8 greedy step: lengths {lens.tolist()}, avg logprob "
+                             f"{res.avg_logprob.tolist()}")
+    print(f"[step int8-greedy] large-v3, 8 windows: wall {wall:.3f} s, lengths "
+          f"{lens.tolist()}, final temperatures {temps.tolist()}, launches added {added}",
+          flush=True)
+    _check_missing("int8 greedy step", "int8-greedy", added)
+    return added
 
 
 def _kernel_kind(name: str) -> str:
     if "split_self_kernel" in name:
         return "K4 split-cache self-attention"
     if "skinny_gemm" in name:
-        return "K3 skinny GEMMs"
-    if "cross_attn_kernel" in name:
-        return "K1 attention (prefill, and inside K3)"
+        return "K3 / K6 skinny GEMMs"
+    if "cross_attn_kernel" in name:  # one template: bf16 K/V (K1) or int8 (K5)
+        if "cross_attn_kernel<__nv_bfloat16>" in name or "cross_attn_kernelI13__nv" in name:
+            return "K1 attention (prefill, and inside K3)"
+        return "K5 int8 attention (prefill, and inside K6)"
     if "cross_kv_kernel" in name:
         return "K2 cross K/V"
     if "sort" in name.lower():
@@ -562,27 +863,53 @@ def phase_profile(eng, label: str, path: str, opts) -> list:
     return lines
 
 
+def timed_phase(name: str, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     smi = phase_device()
-    phase_build()
-    res = phase_kernels_all()
-    res.update(phase_k4())
-    phase_reference()
-    greedy_eng, greedy = make_engine("large-v3-turbo"), greedy_requests()
-    by_path = {"greedy": phase_engine(greedy_eng, "greedy", greedy)}
+    timed_phase("build", phase_build)
+    res = timed_phase("kernels K1-K3", phase_kernels_all)
+    res.update(timed_phase("kernels K4", phase_k4))
+    res.update(timed_phase("kernels K5 K6", phase_int8_kernels))
+    timed_phase("reference", phase_reference)
+    # depth: 32 tokens a window on the greedy paths; the int8 beam Engine
+    # runs without the fallback ladder, whose sampling rungs the int8
+    # greedy step drives through K5 and K6
+    greedy_eng = make_engine("large-v3-turbo", max_decode_tokens=32)
+    greedy = greedy_requests()
+    by_path = {"greedy": timed_phase("engine greedy", phase_engine, greedy_eng, "greedy",
+                                     greedy)}
     beam_eng, beam = make_engine("large-v3"), beam_requests()
-    by_path["beam"] = phase_engine(beam_eng, "beam", beam)
+    by_path["beam"] = timed_phase("engine beam", phase_engine, beam_eng, "beam", beam)
+    int8_eng = make_engine("large-v3", quantize_kv_cache=True, temperature_fallback=False)
+    int8 = int8_requests()
+    by_path["int8-beam"] = timed_phase("engine int8-beam", phase_engine, int8_eng,
+                                       "int8-beam", int8)
+    by_path["int8-greedy"] = timed_phase("step int8-greedy", phase_int8_step, int8_eng)
+    print(f"[time] all phases: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         lines = phase_profile(greedy_eng, "greedy, large-v3-turbo, whole-file 45 s",
                               greedy[0][1][0], greedy[0][2])
         lines += phase_profile(beam_eng, "beam 5, large-v3, whole-file 30 s, lang auto",
                                beam[0][1][0], beam[0][2])
+        lines += phase_profile(int8_eng, "int8 beam 5, large-v3, whole-file 30 s, lang auto",
+                               int8[0][1][0], int8[0][2])
         (WORK / "profile.txt").write_text("\n".join(lines) + "\n")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     print(json.dumps({"kernels": [
         {"name": spec["name"], "route": "cuda", "source": spec["source"],
          "replaces": spec["replaces"],
          "launches": sum(c[key] for c in by_path.values()),
-         "launches_by_path": {p: c[key] for p, c in by_path.items()}, **res[key]}
+         **{k: res[key][k] for k in keys},
+         "launches_by_path": {p: c[key] for p, c in by_path.items()},
+         **{k: v for k, v in res[key].items() if k not in keys}}
         for key, spec in KERNELS.items()]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

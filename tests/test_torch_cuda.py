@@ -4,8 +4,9 @@ torch sees no CUDA device). Run on a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Each kernel against its plain version in bf16 on the same device, at small
-shapes with Dh = 64, a ragged audio length (K1-K3) and ragged prompt and
-decode lengths with row pads and a random ancestry (K4), with the tolerance of
+shapes with Dh = 64, a ragged audio length (K1-K3, K5, K6 in its three int8
+forms) and ragged prompt and decode lengths with row pads and a random
+ancestry (K4), with the tolerance of
 `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
 element and 1e-2 relative L2 of the update; K3 is judged on the update it
 adds to x), and the planted faults that check must refuse.
@@ -62,6 +63,42 @@ def test_kernels_match_plain_on_card(dev, B, Ta, Q):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("B,Ta,Q", [(2, 100, 3), (3, 1500, 17)])
+def test_int8_kernels_match_plain_on_card(dev, B, Ta, Q):
+    """K5 over the int8 cache, and K6 with int8 weights, the int8 cache, or
+    both, against their plain versions; their planted faults refused."""
+    g = torch.Generator(device=dev).manual_seed(10 + B)
+    L, H, Dh = 2, 2, 64
+    D = H * Dh
+    blocks = ag.random_blocks(L, D, g, dev)
+    q8w = tail.quantize_tail_weights(blocks)
+    k, v = (ag.randn(g, dev, L, B, H, Ta, Dh) for _ in range(2))
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    q = ag.randn(g, dev, B, Q, H, Dh, scale=2.0)
+    for layer in range(L):
+        a = (layer, q, k8, ks, v8, vs, Ta - 7)
+        before = attn.cross_attn_layer_q8.launches
+        got = attn.cross_attn_layer_q8(*a)
+        assert attn.cross_attn_layer_q8.launches == before + 1
+        ag.compare("K5", got, attn.cross_attn_layer_q8_plain(*a))
+        for name, bad in ag.k5_faults(*a):
+            ag.reject(name, got, bad)
+        for beams in (1, 3):
+            x = ag.randn(g, dev, B * beams, 1, D)
+            so = ag.randn(g, dev, B * beams, H, 1, Dh, scale=0.3)
+            for wts, cache in ((q8w, (k, v, None, None)), (blocks, (k8, v8, ks, vs)),
+                               (q8w, (k8, v8, ks, vs))):
+                args = (layer, x, so, wts, cache[0], cache[1], beams, Ta, cache[2], cache[3])
+                before = (tail.fused_tail_layer.launches, tail.fused_tail_layer.launches_int8)
+                got = tail.fused_tail_layer(*args)
+                assert (tail.fused_tail_layer.launches,
+                        tail.fused_tail_layer.launches_int8) == (before[0], before[1] + 1)
+                ag.compare("K6 update", got, tail.fused_tail_layer_plain(*args), base=x)
+                for name, bad in ag.k6_faults(*args):
+                    ag.reject(name, got, bad, base=x)
+    torch.cuda.synchronize()
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     q = torch.zeros(1, 1, 2, 32, dtype=torch.bfloat16, device=dev)  # Dh 32
     k = torch.zeros(1, 1, 2, 10, 32, dtype=torch.bfloat16, device=dev)
@@ -80,6 +117,15 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         attn.split_self_attn_layer(0, q64, p64, p64, d64, d64, anc, 8, rp, 4)
     with pytest.raises(ValueError):
         attn.split_self_attn_layer(0, q64, p64, p64, d64, d64, anc[:, :, :4], 0, rp, 4)
+    k8 = torch.zeros(1, 1, 2, 4, 64, dtype=torch.int8, device=dev)
+    s8 = torch.zeros(1, 1, 2, 4, dtype=torch.float32, device=dev)
+    q1 = q64[:, :1]
+    with pytest.raises(TypeError):  # scales must be f32
+        attn.cross_attn_layer_q8(0, q1, k8, s8.bfloat16(), k8, s8.bfloat16())
+    with pytest.raises(TypeError):  # payloads must be int8
+        attn.cross_attn_layer_q8(0, q1, p64, s8, p64, s8)
+    with pytest.raises(ValueError):
+        attn.cross_attn_layer_q8(0, q1, k8, s8[..., :3], k8, s8[..., :3])
 
 
 @pytest.mark.parametrize("B,K,Tp,Td", [(2, 3, 11, 32), (1, 5, 3, 64), (3, 5, 19, 224)])

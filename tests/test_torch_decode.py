@@ -183,7 +183,7 @@ def test_host_dtw_matches_reference(native_dp, monkeypatch):
     """The port's host DTW — the native C++ DP when its library is built,
     else the numpy DP — gives the JAX package's anchors within one frame;
     the numpy DP's accumulated cost equals JAX's DP."""
-    from whisper_diarize_tpu import native
+    from whisper_diarize_tpu_torch import native
 
     if not native_dp:
         monkeypatch.setattr(native, "is_available", lambda: False)

@@ -26,10 +26,9 @@ from whisper_diarize_tpu.engine import EngineConfig as JEngineConfig
 from whisper_diarize_tpu.models import weights as jweights
 from whisper_diarize_tpu.models import whisper as jwm
 from whisper_diarize_tpu.tokenizer import DebugTokenizer
-from whisper_diarize_tpu.types import (
-    AdvancedTranscribe, Callbacks, ProgressType, TranscribeOptions)
-
 from whisper_diarize_tpu_torch.engine import Engine, EngineConfig
+from whisper_diarize_tpu_torch.types import (
+    AdvancedTranscribe, Callbacks, ProgressType, TranscribeOptions)
 
 torch.set_num_threads(2)
 
@@ -165,14 +164,12 @@ def test_batch_of_streams_matches_single(snapshot, wav, tmp_path):
         eng.transcribe_audio("/nope/missing.wav", opts)
 
 
-@pytest.mark.parametrize("case", ["diarize", "mesh", "draft", "spec_gamma", "int8",
-                                  "ggml_file"])
+@pytest.mark.parametrize("case", ["diarize", "mesh", "draft", "spec_gamma", "ggml_file"])
 def test_unported_options_raise(snapshot, wav, tmp_path, case):
     opts = TranscribeOptions(enable_vad=False, lang="en", advanced=GREEDY)
-    if case in ("mesh", "draft", "spec_gamma", "int8"):
+    if case in ("mesh", "draft", "spec_gamma"):
         over = {"mesh": dict(mesh_shape=(1, 1)), "draft": dict(draft_model_path=snapshot),
-                "spec_gamma": dict(speculative_gamma=2),
-                "int8": dict(quantize_kv_cache=True)}[case]
+                "spec_gamma": dict(speculative_gamma=2)}[case]
         with pytest.raises(NotImplementedError):
             _engine(snapshot, tmp_path, **over)
         return
@@ -185,6 +182,19 @@ def test_unported_options_raise(snapshot, wav, tmp_path, case):
         eng = _engine(str(ggml), tmp_path)
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.transcribe_audio(wav, opts)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_quantize_kv_cache_is_accepted(snapshot, wav, tmp_path, quantize):
+    """`quantize_kv_cache` selects the int8 decode path on the CPU as on the
+    card; the int8 knobs of DecodeConfig are accepted."""
+    from whisper_diarize_tpu_torch.ops.decode import DecodeConfig
+
+    eng = _engine(snapshot, tmp_path, quantize_kv_cache=quantize, max_decode_tokens=4)
+    eng.transcribe_audio(wav, TranscribeOptions(enable_vad=False, lang="en", advanced=GREEDY))
+    (step,) = eng._step_cache.values()
+    assert step.dc.quantize_cross_kv is quantize and not step.dc.quantize_tail_weights
+    DecodeConfig(quantize_cross_kv=quantize, quantize_tail_weights=not quantize)
 
 
 @pytest.mark.parametrize("knob", ["pallas_cross", "pallas_split", "pallas_tail",

@@ -1,15 +1,26 @@
-"""The port imports no JAX: a fresh interpreter imports the package and
-`chip_smoke`, runs a tiny CPU `Engine.transcribe_audio`, and finds no `jax`
-module loaded. A subprocess, because the test process imports JAX
-(tests/conftest.py)."""
+"""The port imports no JAX and nothing of the JAX package: a fresh
+interpreter imports the package and `chip_smoke`, runs a tiny CPU
+`Engine.transcribe_audio` that decodes one window (whole file), then a VAD
+request (the port's own Silero reader and audio code), and finds no `jax`
+and no `whisper_diarize_tpu`
+module loaded (a subprocess, because the test process imports JAX, see
+tests/conftest.py); and a static scan of every module of the port and of
+`chip_smoke.py` finds no import of either. Also: the port's VAD entry
+point asks for the card unless the caller asks for the CPU."""
 
+import ast
 import os
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
+import pytest
+import torch
+
 ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "whisper_diarize_tpu")
 
 SCRIPT = textwrap.dedent("""
     import sys
@@ -27,12 +38,19 @@ SCRIPT = textwrap.dedent("""
         cache_dir=tmp + "/cache", use_gpu=False,
         whisper_model_path="__random__:tiny", vad_model_path="__random__",
         batch_size=1, max_decode_tokens=4, temperature_fallback=False))
+    greedy = wdt.AdvancedTranscribe(sampling_strategy="greedy")
     cues = eng.transcribe_audio(tmp + "/in.wav", wdt.TranscribeOptions(
-        enable_vad=False, lang="en",
-        advanced=wdt.AdvancedTranscribe(sampling_strategy="greedy")))
+        enable_vad=False, lang="en", advanced=greedy))
     assert eng.last_run["windows"] == 1, eng.last_run
+    eng.transcribe_audio(tmp + "/in.wav", wdt.TranscribeOptions(
+        enable_vad=True, lang="en", advanced=greedy))
+    for name in ("ModelManager", "to_srt", "wer", "translate_text", "get_segments"):
+        getattr(wdt, name)
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not leaked, leaked
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "whisper_diarize_tpu" or m.startswith("whisper_diarize_tpu."))
+    assert not jax_pkg, jax_pkg
     print("NO_JAX_OK", len(cues))
 """)
 
@@ -44,3 +62,43 @@ def test_port_imports_no_jax(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
+
+
+def _imported(path: Path):
+    """Every module name an import statement of `path` names (absolute),
+    with the lines, including imports inside functions and strings handed
+    to `importlib` in a `_LAZY` table of (module, attribute) pairs."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module, node.lineno
+        elif isinstance(node, ast.Tuple) and len(node.elts) == 2 and all(
+                isinstance(e, ast.Constant) and isinstance(e.value, str) for e in node.elts):
+            yield node.elts[0].value, node.lineno
+
+
+def test_static_scan_finds_no_jax_package_import():
+    files = sorted((ROOT / "whisper_diarize_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
+           for mod, line in _imported(f) if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_get_segments_defaults_to_the_card():
+    """Without `device` the VAD asks for CUDA device 0: here, with no card,
+    it raises; `device="cpu"` runs."""
+    from whisper_diarize_tpu_torch import vad
+
+    x = (np.random.default_rng(0).standard_normal(16000) * 3000).astype(np.int16)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for call in (lambda: vad.get_segments("__random__", x),
+                 lambda: vad.get_segments_batch("__random__", [x])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    mask, segs = vad.get_segments("__random__", x, device="cpu")
+    assert isinstance(mask, list) and isinstance(segs, list)

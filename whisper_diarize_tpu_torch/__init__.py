@@ -1,25 +1,28 @@
 """whisper_diarize_tpu_torch — the PyTorch/CUDA port of whisper_diarize_tpu.
 
 Runs on one NVIDIA Hopper card (hand-written CUDA kernels for the decoder's
-cross attention, cross K/V build, layer tail and beam-step self-attention,
-`csrc/`) or, with
+cross attention over a bf16 or an int8 cache, cross K/V build, layer tail
+with bf16 or int8 weights and beam-step self-attention, `csrc/`) or, with
 `EngineConfig(use_gpu=False)`, on the CPU through the kernels' plain PyTorch
-versions. The JAX package `whisper_diarize_tpu` stays the reference; its
-modules that import no JAX (types, tokenizer, formatting, audio, native,
-utils, subtitles, translate, model_manager) are reused from it, so the
-public surface below is the same objects.
+versions. The JAX package `whisper_diarize_tpu` stays the reference; the
+port imports nothing of it and keeps its own copies of the host modules
+(types, tokenizer, formatting, audio, native, utils, subtitles, translate,
+model_manager, evals), so the public surface below has the same names and
+behaviour.
 
 Ported so far: transcription by beam search (the default, beam 5) and
 greedy decoding (`AdvancedTranscribe(sampling_strategy="greedy")`), with the
 temperature-fallback ladder, DTW word timestamps, the VAD and whole-file
-branches and cue formatting. Diarization, device meshes, speculative
-decoding, the int8 cache and GGML / OpenAI `.pt` checkpoints raise
-NotImplementedError (see ROADMAP.md).
+branches, cue formatting, and the int8 decode path
+(`EngineConfig(quantize_kv_cache=True)`, `DecodeConfig(quantize_cross_kv=...,
+quantize_tail_weights=...)`). Diarization, device meshes, speculative
+decoding and GGML / OpenAI `.pt` checkpoints raise NotImplementedError (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from whisper_diarize_tpu.types import (
+from .types import (
     AdvancedTranscribe,
     Callbacks,
     DiarizeOptions,
@@ -30,7 +33,7 @@ from whisper_diarize_tpu.types import (
     WordTimestamp,
     segments_to_json,
 )
-from whisper_diarize_tpu.formatting import (
+from .formatting import (
     FormattingOverrides,
     PostProcessConfig,
     ScriptProfile,
@@ -40,29 +43,29 @@ from whisper_diarize_tpu.formatting import (
     apply_overrides,
     process_segments,
 )
-from whisper_diarize_tpu.utils import (
+from .utils import (
     calculate_dtw_mem_size,
     cs_to_s,
     get_translate_languages,
     get_whisper_languages,
     round_to_places,
 )
-from whisper_diarize_tpu.audio import read_wav, write_wav
+from .audio import read_wav, write_wav
 
 __version__ = "0.1.0"
 
 _LAZY = {
     "Engine": ("whisper_diarize_tpu_torch.engine", "Engine"),
     "EngineConfig": ("whisper_diarize_tpu_torch.engine", "EngineConfig"),
-    "ModelManager": ("whisper_diarize_tpu.model_manager", "ModelManager"),
+    "ModelManager": ("whisper_diarize_tpu_torch.model_manager", "ModelManager"),
     "get_segments": ("whisper_diarize_tpu_torch.vad", "get_segments"),
-    "translate_text": ("whisper_diarize_tpu.translate", "translate_text"),
-    "translate_segments": ("whisper_diarize_tpu.translate", "translate_segments"),
-    "to_srt": ("whisper_diarize_tpu.subtitles", "to_srt"),
-    "to_vtt": ("whisper_diarize_tpu.subtitles", "to_vtt"),
-    "to_txt": ("whisper_diarize_tpu.subtitles", "to_txt"),
-    "wer": ("whisper_diarize_tpu.evals", "wer"),
-    "der": ("whisper_diarize_tpu.evals", "der"),
+    "translate_text": ("whisper_diarize_tpu_torch.translate", "translate_text"),
+    "translate_segments": ("whisper_diarize_tpu_torch.translate", "translate_segments"),
+    "to_srt": ("whisper_diarize_tpu_torch.subtitles", "to_srt"),
+    "to_vtt": ("whisper_diarize_tpu_torch.subtitles", "to_vtt"),
+    "to_txt": ("whisper_diarize_tpu_torch.subtitles", "to_txt"),
+    "wer": ("whisper_diarize_tpu_torch.evals", "wer"),
+    "der": ("whisper_diarize_tpu_torch.evals", "der"),
 }
 
 

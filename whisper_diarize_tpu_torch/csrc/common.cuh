@@ -45,3 +45,11 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 void launch_cross_attn(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                        int B, int Q, int H, int Ta, int layer, int ta_total,
                        cudaStream_t stream);
+
+// K5 launcher (cross_attn.cu), shared by the fused decoder tail (tail.cu)
+// over the int8 cross cache. k8/v8 [L, B, H, Ta, 64] int8 and ks/vs
+// [L, B, H, Ta] f32 (layer picked by pointer offset); q, out as for K1.
+void launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* ks,
+                          const int8_t* v8, const float* vs, bf16* out, int B,
+                          int Q, int H, int Ta, int layer, int ta_total,
+                          cudaStream_t stream);

@@ -1,6 +1,6 @@
-// K3: one decoder layer's tail for a single-token sampling step.
+// K3 and K6: one decoder layer's tail for a single-token sampling step.
 //
-// Replaces whisper_diarize_tpu/ops/pallas_tail.py::fused_tail_layer
+// K3 replaces whisper_diarize_tpu/ops/pallas_tail.py::fused_tail_layer
 // (_tail_kernel, bf16 variant):
 //   x1 = x  + bf16(self_out @ o_w + o_b)
 //   cq = bf16(ln2(x1) @ cq_w + cq_b)
@@ -11,15 +11,25 @@
 // Layer norms use f32 statistics (biased variance, eps 1e-5); every product
 // accumulates in f32 and is rounded to bf16 once, as in the TPU kernel.
 //
+// K6 is the same tail in the TPU kernel's int8 forms (`wq` / `kvq`, each
+// independent of the other). `wq`: the five weights are int8, widened to
+// bf16 while staged (exact); o / cq / co / fc1 carry one f32 scale per
+// output column, which multiplies the f32 accumulator before the bias; fc2
+// carries one per input row, applied to the activations in the prologue as
+// bf16(f32(h) * ws[row]) (pallas_tail.py:285-294, :403-414). `kvq`: the
+// cross cache is int8 with per-position scales and the attention launches
+// K5's kernel (`_flash_kernel_q8` numerics, pallas_tail.py:341-356).
+//
 // What bounds it on the H100: bytes. At N = batch x best_of rows (8..80) each
-// projection streams its [Din, Dout] bf16 weight once for a few dozen rows
-// (~18 MB of tail weights per layer on turbo), plus the layer's cross K/V in
-// the attention. Design: one CTA cannot synchronise the grid, so the tail is
-// a fixed sequence of six launches on one stream, issued from one C call:
-// five launches of a weight-streaming skinny GEMM (16 rows x 64 columns per
-// CTA on bf16 tensor-core MMA, with a fused layernorm prologue and a fused
-// bias / GELU / residual epilogue, so no normalised or pre-activation tensor
-// is written to device memory) and K1's flash attention. The stacked
+// projection streams its [Din, Dout] weight once for a few dozen rows
+// (~18 MB of bf16 tail weights per layer on turbo, half that in int8), plus
+// the layer's cross K/V in the attention. Design: one CTA cannot
+// synchronise the grid, so the tail is a fixed sequence of six launches on
+// one stream, issued from one C call: five launches of a weight-streaming
+// skinny GEMM (16 rows x 64 columns per CTA on bf16 tensor-core MMA, with a
+// fused layernorm / row-scale prologue and a fused column-scale / bias /
+// GELU / residual epilogue, so no normalised or pre-activation tensor is
+// written to device memory) and K1's (or K5's) flash attention. The stacked
 // [L, Din, Dout] weights are read in place: a layer is a pointer offset.
 // A persistent single-kernel tail is later work.
 #include "common.cuh"
@@ -35,12 +45,34 @@ constexpr int ROW = BK + 8;   // staged bf16 row (144 B)
 constexpr int CROW = BN + 4;  // f32 staging row
 constexpr int THREADS = 128;  // 4 warps, one 16 x 16 output tile each
 
-// out[N, Dout] = epi(pro(A)[N, Din] @ W[Din, Dout])
-//   pro: ln_g != nullptr -> bf16((a - mean) * rstd * g + b), f32 statistics
-//   epi: y = acc + bias; gelu -> gelu_tanh(y); o = bf16(y);
+// 8 weights from global memory -> 8 bf16 in shared memory (16 bytes)
+__device__ __forceinline__ void stage8(const bf16* src, bf16* dst) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+
+// 8 int8 weights -> 8 bf16 (exact); src 8-byte, dst 16-byte aligned
+__device__ __forceinline__ void stage8(const int8_t* src, bf16* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const int8_t* b8 = reinterpret_cast<const int8_t*>(&raw);
+  uint4 res;
+  bf162* o2 = reinterpret_cast<bf162*>(&res);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    o2[e] = __floats2bfloat162_rn(static_cast<float>(b8[2 * e]),
+                                  static_cast<float>(b8[2 * e + 1]));
+  *reinterpret_cast<uint4*>(dst) = res;
+}
+
+// out[N, Dout] = epi(pro(A)[N, Din] @ W[Din, Dout]); W is bf16 or int8
+//   pro: ln_g != nullptr -> bf16((a - mean) * rstd * g + b), f32 statistics;
+//        row_scale != nullptr -> bf16(f32(a) * row_scale[k]) (per input row)
+//   epi: y = acc (* col_scale[col]) + bias; gelu -> gelu_tanh(y); o = bf16(y);
 //        residual != nullptr -> o = bf16(residual + o)
+template <typename WT>
 __global__ void __launch_bounds__(THREADS)
-skinny_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
+                   const float* __restrict__ col_scale,
+                   const float* __restrict__ row_scale,
                    const bf16* __restrict__ bias,
                    const bf16* __restrict__ residual,
                    const bf16* __restrict__ ln_g, const bf16* __restrict__ ln_b,
@@ -111,14 +143,22 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
           }
           val = res;
         }
+        if (row_scale != nullptr) {
+          const float* rs = row_scale + k0 + c8 * 8;
+          bf162* x2 = reinterpret_cast<bf162*>(&val);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 xf = __bfloat1622float2(x2[e]);
+            x2[e] = __floats2bfloat162_rn(xf.x * rs[2 * e], xf.y * rs[2 * e + 1]);
+          }
+        }
       }
       *reinterpret_cast<uint4*>(&As[r][c8 * 8]) = val;
     }
-    // weights: 64 x 64 = 512 vectors, four per thread
+    // weights: 64 x 64 = 512 vectors of 8, four per thread
     for (int i = tid; i < BK * BN / 8; i += THREADS) {
       const int r = i / (BN / 8), c8 = i % (BN / 8);
-      *reinterpret_cast<uint4*>(&Ws[r][c8 * 8]) = *reinterpret_cast<const uint4*>(
-          W + (size_t)(k0 + r) * Dout + n0 + c8 * 8);
+      stage8(W + (size_t)(k0 + r) * Dout + n0 + c8 * 8, &Ws[r][c8 * 8]);
     }
     __syncthreads();
 #pragma unroll
@@ -139,7 +179,9 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     const int row = m0 + r;
     if (row >= N) continue;
     const int col = n0 + c;
-    float y = Cs[r][c] + __bfloat162float(bias[col]);
+    float y = Cs[r][c];
+    if (col_scale != nullptr) y *= col_scale[col];
+    y += __bfloat162float(bias[col]);
     if (gelu) y = gelu_tanh(y);
     y = bf16_round(y);
     const size_t o = (size_t)row * Dout + col;
@@ -148,13 +190,59 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
-void skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
+template <typename WT>
+void skinny_gemm(const bf16* A, const WT* W, const float* col_scale,
+                 const float* row_scale, const bf16* bias,
                  const bf16* residual, const bf16* ln_g, const bf16* ln_b,
                  bf16* out, int N, int Din, int Dout, int gelu,
                  cudaStream_t stream) {
   dim3 grid(Dout / BN, (N + BM - 1) / BM);
-  skinny_gemm_kernel<<<grid, THREADS, 0, stream>>>(A, W, bias, residual, ln_g,
-                                                   ln_b, out, N, Din, Dout, gelu);
+  skinny_gemm_kernel<WT><<<grid, THREADS, 0, stream>>>(
+      A, W, col_scale, row_scale, bias, residual, ln_g, ln_b, out, N, Din,
+      Dout, gelu);
+}
+
+// The five projections of one layer's tail, over bf16 or int8 weights.
+// Scales (int8 only): o_ws, cq_ws, co_ws, fc1_ws [L, Dout] per output
+// column, fc2_ws [L, 4D] per input row; layer picked by pointer offset.
+template <typename WT>
+void tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
+                const WT* cq_w, const WT* co_w, const WT* fc1_w,
+                const WT* fc2_w, const float* o_ws, const float* cq_ws,
+                const float* co_ws, const float* fc1_ws, const float* fc2_ws,
+                const bf16* o_b, const bf16* ln2_g, const bf16* ln2_b,
+                const bf16* cq_b, const bf16* co_b, const bf16* ln3_g,
+                const bf16* ln3_b, const bf16* fc1_b, const bf16* fc2_b,
+                const void* k, const void* v, const float* ks, const float* vs,
+                bf16* x1, bf16* cq, bf16* att, bf16* x2, bf16* h4, bf16* out,
+                int layer, int N, int D, int H, int Bc, int beams, int Ta,
+                int ta_total, cudaStream_t stream) {
+  const size_t l = static_cast<size_t>(layer);
+  const size_t dd = static_cast<size_t>(D) * D;
+  const size_t d4 = static_cast<size_t>(D) * 4 * D;
+  const size_t d = static_cast<size_t>(D);
+  auto S = [l](const float* p, size_t n) { return p ? p + l * n : nullptr; };
+
+  skinny_gemm(self_out, o_w + l * dd, S(o_ws, d), nullptr, o_b + l * d, x,
+              nullptr, nullptr, x1, N, D, D, 0, stream);
+  skinny_gemm(x1, cq_w + l * dd, S(cq_ws, d), nullptr, cq_b + l * d, nullptr,
+              ln2_g + l * d, ln2_b + l * d, cq, N, D, D, 0, stream);
+  if (ks != nullptr) {
+    launch_cross_attn_q8(cq, static_cast<const int8_t*>(k), ks,
+                         static_cast<const int8_t*>(v), vs, att, Bc, beams, H,
+                         Ta, layer, ta_total, stream);
+  } else {
+    launch_cross_attn(cq, static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v), att, Bc, beams, H, Ta,
+                      layer, ta_total, stream);
+  }
+  skinny_gemm(att, co_w + l * dd, S(co_ws, d), nullptr, co_b + l * d, x1,
+              nullptr, nullptr, x2, N, D, D, 0, stream);
+  skinny_gemm(x2, fc1_w + l * d4, S(fc1_ws, 4 * d), nullptr, fc1_b + l * 4 * d,
+              nullptr, ln3_g + l * d, ln3_b + l * d, h4, N, D, 4 * D, 1,
+              stream);
+  skinny_gemm(h4, fc2_w + l * d4, nullptr, S(fc2_ws, 4 * d), fc2_b + l * d,
+              x2, nullptr, nullptr, out, N, 4 * D, D, 0, stream);
 }
 
 }  // namespace
@@ -163,36 +251,38 @@ void skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
 // decoder weights [L, ...] are passed at layer 0 and offset by `layer` here;
 // k, v [L, Bc, H, Ta, 64] with N = Bc * beams; x1, cq, att, x2 [N, D] and
 // h4 [N, 4D] are scratch; out [N, D]. Needs D % 64 == 0 (the wrapper checks).
+// K6's forms: o_ws != nullptr -> the five weights are int8 with the scales
+// o_ws, cq_ws, co_ws, fc1_ws (per output column) and fc2_ws (per input row);
+// ks != nullptr -> k, v are int8 with per-position scales ks, vs
+// [L, Bc, H, Ta]. Null scales: bf16 (K3).
 WDT_EXPORT int wdt_fused_tail(
     const void* x, const void* self_out, const void* o_w, const void* o_b,
     const void* ln2_g, const void* ln2_b, const void* cq_w, const void* cq_b,
     const void* co_w, const void* co_b, const void* ln3_g, const void* ln3_b,
     const void* fc1_w, const void* fc1_b, const void* fc2_w, const void* fc2_b,
     const void* k, const void* v, void* x1, void* cq, void* att, void* x2,
-    void* h4, void* out, int layer, int N, int D, int H, int Bc, int beams,
-    int Ta, int ta_total, void* stream_) {
+    void* h4, void* out, const void* o_ws, const void* cq_ws,
+    const void* co_ws, const void* fc1_ws, const void* fc2_ws, const void* ks,
+    const void* vs, int layer, int N, int D, int H, int Bc, int beams, int Ta,
+    int ta_total, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const size_t l = static_cast<size_t>(layer);
-  const size_t dd = static_cast<size_t>(D) * D;
-  const size_t d4 = static_cast<size_t>(D) * 4 * D;
   auto P = [](const void* p) { return static_cast<const bf16*>(p); };
-  bf16* x1p = static_cast<bf16*>(x1);
-  bf16* cqp = static_cast<bf16*>(cq);
-  bf16* attp = static_cast<bf16*>(att);
-  bf16* x2p = static_cast<bf16*>(x2);
-  bf16* h4p = static_cast<bf16*>(h4);
-
-  skinny_gemm(P(self_out), P(o_w) + l * dd, P(o_b) + l * D, P(x), nullptr,
-              nullptr, x1p, N, D, D, 0, stream);
-  skinny_gemm(x1p, P(cq_w) + l * dd, P(cq_b) + l * D, nullptr,
-              P(ln2_g) + l * D, P(ln2_b) + l * D, cqp, N, D, D, 0, stream);
-  launch_cross_attn(cqp, P(k), P(v), attp, Bc, beams, H, Ta, layer, ta_total,
-                    stream);
-  skinny_gemm(attp, P(co_w) + l * dd, P(co_b) + l * D, x1p, nullptr, nullptr,
-              x2p, N, D, D, 0, stream);
-  skinny_gemm(x2p, P(fc1_w) + l * d4, P(fc1_b) + l * 4 * D, nullptr,
-              P(ln3_g) + l * D, P(ln3_b) + l * D, h4p, N, D, 4 * D, 1, stream);
-  skinny_gemm(h4p, P(fc2_w) + l * d4, P(fc2_b) + l * D, x2p, nullptr, nullptr,
-              static_cast<bf16*>(out), N, 4 * D, D, 0, stream);
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto O = [](void* p) { return static_cast<bf16*>(p); };
+  if (o_ws != nullptr) {
+    auto Q = [](const void* p) { return static_cast<const int8_t*>(p); };
+    tail_layer(P(x), P(self_out), Q(o_w), Q(cq_w), Q(co_w), Q(fc1_w), Q(fc2_w),
+               F(o_ws), F(cq_ws), F(co_ws), F(fc1_ws), F(fc2_ws), P(o_b),
+               P(ln2_g), P(ln2_b), P(cq_b), P(co_b), P(ln3_g), P(ln3_b),
+               P(fc1_b), P(fc2_b), k, v, F(ks), F(vs), O(x1), O(cq), O(att),
+               O(x2), O(h4), O(out), layer, N, D, H, Bc, beams, Ta, ta_total,
+               stream);
+  } else {
+    tail_layer(P(x), P(self_out), P(o_w), P(cq_w), P(co_w), P(fc1_w), P(fc2_w),
+               nullptr, nullptr, nullptr, nullptr, nullptr, P(o_b), P(ln2_g),
+               P(ln2_b), P(cq_b), P(co_b), P(ln3_g), P(ln3_b), P(fc1_b),
+               P(fc2_b), k, v, F(ks), F(vs), O(x1), O(cq), O(att), O(x2),
+               O(h4), O(out), layer, N, D, H, Bc, beams, Ta, ta_total, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,13 +8,17 @@
 
 The same `EngineConfig` / `TranscribeOptions` / `Callbacks` surface, model
 and step cache, resume journal, callbacks, chunk scheduler, one-deep DTW
-pipeline and formatting as the JAX Engine. `EngineConfig(use_gpu=True)`
-(the default) runs on a CUDA card in bf16 and raises without one;
-`use_gpu=False` runs on the CPU in f32 through the kernels' plain versions.
+pipeline and formatting as the JAX Engine, on the port's own copies of the
+host modules (the port imports nothing of the JAX package).
+`EngineConfig(use_gpu=True)` (the default) runs on a CUDA card in bf16 and
+raises without one; `use_gpu=False` runs on the CPU in f32 through the
+kernels' plain versions. `quantize_kv_cache=True` decodes over an int8
+cross K/V cache (K5, K6) on both devices; language detection reads the
+exact bf16 cache.
 
 Not ported yet, and refused with NotImplementedError (never run some other
-way): diarization, device meshes, speculative decoding, the int8 cross-K/V
-cache and GGML / OpenAI `.pt` checkpoint files — see ROADMAP.md.
+way): diarization, device meshes, speculative decoding and GGML / OpenAI
+`.pt` checkpoint files — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -31,17 +35,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from whisper_diarize_tpu import audio as audio_io
-from whisper_diarize_tpu import translate as translate_mod
-from whisper_diarize_tpu.formatting import (
+from . import audio as audio_io
+from . import translate as translate_mod
+from .formatting import (
     FormattingOverrides,
     PostProcessConfig,
     VadMaskOracle,
     apply_overrides,
     process_segments,
 )
-from whisper_diarize_tpu.model_manager import ModelManager
-from whisper_diarize_tpu.types import (
+from .model_manager import ModelManager
+from .types import (
     Callbacks,
     ProgressType,
     Segment,
@@ -160,7 +164,9 @@ class EngineConfig:
     long_form_seek: bool = True
     draft_model_path: Optional[str] = None  # not ported
     speculative_gamma: int = 4  # not ported (only the default)
-    quantize_kv_cache: bool = False  # not ported
+    # int8 cross-K/V decode cache (K5, K6) on either device; language
+    # detection reads the exact bf16 cache
+    quantize_kv_cache: bool = False
     allow_random_weights: bool = False
 
 
@@ -181,10 +187,6 @@ class Engine:
             raise NotImplementedError(
                 "speculative_gamma: speculative decoding is not ported yet "
                 "(ROADMAP Queue 1 item 6)")
-        if self.cfg.quantize_kv_cache:
-            raise NotImplementedError(
-                "quantize_kv_cache: the int8 cross-K/V kernels are not ported "
-                "yet (ROADMAP Queue 1 item 5, kernels K5/K6)")
         if self.cfg.use_gpu is False:
             self.device = torch.device("cpu")
         else:
@@ -230,10 +232,9 @@ class Engine:
 
     def _load_whisper_uncached(self, options: TranscribeOptions, progress,
                                is_cancelled):
-        from whisper_diarize_tpu.tokenizer import DebugTokenizer, load_tokenizer
-
         from .models import weights as weights_mod
         from .models import whisper as wm
+        from .tokenizer import DebugTokenizer, load_tokenizer
 
         dtype = self._resolve_dtype()
         path = self.cfg.whisper_model_path
@@ -258,8 +259,7 @@ class Engine:
 
     def _make_step(self, params, cfg, tokenizer, options: TranscribeOptions):
         """Build (or reuse) the TranscribeStep for these options."""
-        from whisper_diarize_tpu.tokenizer import DebugTokenizer
-
+        from .tokenizer import DebugTokenizer
         from .transcribe import TranscribeStep
 
         adv = options.advanced
@@ -280,6 +280,7 @@ class Engine:
             temperature=float(adv.temperature) if greedy and adv.temperature else 0.0,
             max_tokens=self.cfg.max_decode_tokens,
             blank_id=32 if isinstance(tokenizer, DebugTokenizer) else 220,
+            quantize_cross_kv=bool(self.cfg.quantize_kv_cache),
         )
         step = TranscribeStep(
             params, cfg, tokenizer, model_name=options.model,
@@ -536,15 +537,18 @@ class Engine:
                 xa = step.encode(mel)
                 stage_s["encode"] += time.perf_counter() - t0
 
-                # built once, shared by language detection and the decode (the
-                # decode stage's time includes both)
+                # built once, shared by language detection (on the bf16 cache)
+                # and the decode (on its int8 form with quantize_kv_cache; the
+                # bf16 copy is dropped before the loop); the decode stage's
+                # time includes both
                 t0 = time.perf_counter()
-                cross = step.cross_cache(xa)
+                cross = step.exact_cross_cache(xa)
                 if any(detected_langs[w.stream_idx] is None for w in decode_group):
                     langs = step.detect_language(xa, cross)
                     for j, w in enumerate(decode_group):
                         if detected_langs[w.stream_idx] is None:
                             detected_langs[w.stream_idx] = langs[j] if langs else "en"
+                cross = step.decode_cache(cross)
                 row_langs = [detected_langs[w.stream_idx] or "en" for w in decode_group
                              ] + ["en"] * (batch_size - len(decode_group))
 

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (`../csrc/*.cu`).
 
-The CUDA sources are compiled with `nvcc` for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens on
-first use, never at import: the library lands in
+The CUDA sources are compiled with `nvcc` for `sm_90a`, one `nvcc` process
+per source, all started together, and linked into one shared library with
+a plain C interface, loaded with `ctypes`. The build happens on first use,
+never at import: the library lands in
 `<checkout>/build/whisper_diarize_tpu_torch/`, named by a hash of the
 sources so an edited source never loads a stale binary. A failed build
 raises with `nvcc`'s output; nothing runs without the kernels.
@@ -32,8 +33,9 @@ _I = ctypes.c_int
 # C signatures: name -> argtypes (every entry returns int = cudaError_t)
 _SIGNATURES = {
     "wdt_cross_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wdt_cross_attn_q8": [_P] * 6 + [_I] * 6 + [_P],
     "wdt_cross_kv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "wdt_fused_tail": [_P] * 24 + [_I] * 8 + [_P],
+    "wdt_fused_tail": [_P] * 31 + [_I] * 8 + [_P],
     "wdt_split_self_attn": [_P] * 8 + [_I] * 8 + [_P],
 }
 
@@ -76,19 +78,24 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libwdt_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
-                "-o", str(tmp), *[str(p) for p in sorted(CSRC.glob("*.cu"))],
-            ]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelCompileError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+            tag = f"{so.stem}.{os.getpid()}"
+            nvcc = _nvcc()
+            t0, build_log = time.perf_counter(), ""
+            objs, cmds = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                objs.append(BUILD_DIR / f"{tag}.{src.stem}.o")
+                cmds.append([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                             "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
+                             "-o", str(objs[-1]), str(src)])
+            tmp = so.with_name(f"{tag}.tmp")
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            try:
+                _run_all(cmds)
+                _run_all([link])
+            finally:
+                build_seconds = time.perf_counter() - t0
+                for o in objs:
+                    o.unlink(missing_ok=True)
             os.replace(tmp, so)
             (BUILD_DIR / "build.log").write_text(build_log)
         lib = ctypes.CDLL(str(so))
@@ -98,6 +105,20 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; their output goes to `build_log`; the
+    first failure raises with its command and output."""
+    global build_log
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    build_log += "".join(outs)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelCompileError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
 
 
 def check(code: int, what: str) -> None:

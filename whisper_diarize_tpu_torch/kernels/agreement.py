@@ -22,6 +22,8 @@ update's rms. `random_blocks` draws every bias and layernorm parameter at
 scale BIAS_SCALE, so a dropped bias or a wrong layer moves the update by
 tens of percent; the `*_faults` generators build such results with the
 plain versions, and `reject` fails unless the check refuses each of them.
+K5 and K6 take int8 inputs: `quantize_cross_kv` and `quantize_tail_weights`
+of such random tensors.
 """
 
 from __future__ import annotations
@@ -184,3 +186,52 @@ def k3_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total
             layer, x, self_out, dropped, k, v, beams, ta_total)
     yield "K3 wrong layer", fused_tail_layer_plain(
         (layer + 1) % k.shape[0], x, self_out, blocks, k, v, beams, ta_total)
+
+
+def k5_faults(layer: int, q, k8, ks, v8, vs, ta_total
+              ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of the int8 attention, each built on the plain version."""
+    from ..ops.attn import cross_attn_layer_q8_plain as plain
+
+    yield "K5 ks ignored", plain(layer, q, k8, torch.ones_like(ks), v8, vs, ta_total)
+    yield "K5 another head's scales", plain(
+        layer, q, k8, ks.roll(1, dims=2), v8, vs.roll(1, dims=2), ta_total)
+    yield "K5 payload read as uint8", plain(
+        layer, q, k8.view(torch.uint8), ks, v8.view(torch.uint8), vs, ta_total)
+    # vs folded into the normalizer: sum(p * vs) instead of sum(p)
+    Dh = q.shape[-1]
+    qs = (q.float() * Dh ** -0.5).to(torch.bfloat16).float()
+    s = torch.einsum("bqhd,bhtd->bhqt", qs, k8[layer, :, :, :ta_total].float())
+    s = s * ks[layer, :, :, None, :ta_total]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = p * vs[layer, :, :, None, :ta_total]
+    o = torch.einsum("bhqt,bhtd->bhqd", pv.to(torch.bfloat16).float(),
+                     v8[layer, :, :, :ta_total].float())
+    yield "K5 vs folded into the normalizer", (
+        o / pv.sum(dim=-1, keepdim=True)).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def k6_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total,
+              ks=None, vs=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of the int8 tail in the form given: with int8 weights, the fc2
+    row scale applied to the output columns (the column-scale epilogue
+    reused) and cq's column scale dropped; with the int8 cache, ks ignored
+    and vs folded in twice (into the scores as well)."""
+    from ..ops.tail import fused_tail_layer_plain as plain
+
+    if blocks["o_w"].dtype == torch.int8:
+        D = x.shape[-1]
+        deq = {m: blocks[m].float() * blocks[f"{m}s"][:, None, :]
+               for m in ("o_w", "cq_w", "co_w", "fc1_w")}
+        deq["fc2_w"] = blocks["fc2_w"].float() * blocks["fc2_ws"][:, None, :D]
+        wrong = {key: t for key, t in blocks.items() if not key.endswith("_ws")}
+        yield "K6 fc2 row scale applied to the output", plain(
+            layer, x, self_out, dict(wrong, **deq), k, v, beams, ta_total, ks, vs)
+        yield "K6 cq column scale dropped", plain(
+            layer, x, self_out, dict(blocks, cq_ws=torch.ones_like(blocks["cq_ws"])),
+            k, v, beams, ta_total, ks, vs)
+    if ks is not None:
+        yield "K6 ks ignored", plain(
+            layer, x, self_out, blocks, k, v, beams, ta_total, torch.ones_like(ks), vs)
+        yield "K6 vs applied to the scores too", plain(
+            layer, x, self_out, blocks, k, v, beams, ta_total, ks * vs, vs)

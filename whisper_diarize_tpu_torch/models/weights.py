@@ -10,6 +10,10 @@
   transformers layout.
 * `init_params_fast` — the deterministic `arange % 1009` pattern of the JAX
   package's `init_params_fast`, filled on the device.
+* `tail_q8_from_jax` — the JAX package's int8 tail pack
+  (`pack_tail_weights(quantize=True)`) -> the port's int8 tail weights
+  (`ops/tail.py::quantize_tail_weights` layout), so both sides hold the
+  same bytes.
 """
 
 from __future__ import annotations
@@ -170,3 +174,41 @@ def init_params_fast(cfg: wm.WhisperConfig, device, dtype, scale: float = 0.02
                 for k, v in node.items()}
 
     return params_from_jax(walk(wm.param_shapes(cfg)), device, dtype)
+
+
+# rows of the pack's "b" bundle (`pack_tail_weights`): eight D-rows, then
+# fc1_b as four more
+_PACK_SMALL_ROWS = ("ln2_s", "ln2_b", "ln3_s", "ln3_b", "o_b", "cq_b", "co_b", "fc2_b")
+
+
+def tail_q8_from_jax(pack: Dict[str, Any], device="cpu", dtype=torch.float32
+                     ) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 tail pack {"w8" [L, NTOT, D, TW] int8, "ws"
+    [L, NTOT, TW] f32, "b" [L, 12, D]} (numpy arrays) -> the port's int8
+    tail weights: o_w, cq_w, co_w, fc1_w int8 [L, Din, Dout] with scales
+    "<name>s" [L, Dout]; fc2_w int8 [L, 4D, D] with "fc2_ws" [L, 4D] (the
+    pack's fc2 tiles are transposed contraction slices, so their column
+    scales are fc2's row scales); biases and layer norms from "b" in
+    `dtype`. Payloads and scales are carried over unchanged."""
+    w8, ws, b = (np.asarray(pack[key]) for key in ("w8", "ws", "b"))
+    L, _, D, TW = w8.shape
+    n_d, n4 = D // TW, 4 * D // TW
+
+    def cols(i0: int, n: int):  # n column tiles -> [L, D, n * TW], [L, n * TW]
+        w = w8[:, i0:i0 + n].transpose(0, 2, 1, 3).reshape(L, D, n * TW)
+        return w, ws[:, i0:i0 + n].reshape(L, n * TW)
+
+    out: Dict[str, Any] = {}
+    for i, name in enumerate(("o_w", "cq_w", "co_w")):
+        out[name], out[f"{name}s"] = cols(i * n_d, n_d)
+    out["fc1_w"], out["fc1_ws"] = cols(3 * n_d, n4)
+    f2 = w8[:, 3 * n_d + n4:]  # [L, n4, D, TW] -> [L, 4D, D]
+    out["fc2_w"] = f2.transpose(0, 1, 3, 2).reshape(L, 4 * D, D)
+    out["fc2_ws"] = ws[:, 3 * n_d + n4:].reshape(L, 4 * D)
+    tensors = {key: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for key, a in out.items()}
+    small = {name: b[:, i] for i, name in enumerate(_PACK_SMALL_ROWS)}
+    small["fc1_b"] = b[:, len(_PACK_SMALL_ROWS):].reshape(L, 4 * D)
+    for key, a in small.items():
+        tensors[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    return tensors

@@ -15,6 +15,13 @@ self-attention over the split cache, which runs on K4 (`ops/attn.py`); the
 decoder's cross attention runs on the hand-written kernels of `ops/attn.py`
 (K1 at prefill, K2 for the cross K/V) and `ops/tail.py` (K3, the whole
 layer tail of every single-token step).
+
+The int8 decode path: a cross cache {"k8", "ks", "v8", "vs"}
+(`cross_kv(..., quantize=True)`) runs the prompt pass on K5 and the
+single-token tails on K6; int8 tail weights (`tail_q8` of `decode_step`,
+from `ops/tail.py::quantize_tail_weights`, held by `TranscribeStep`) run the
+single-token tails on K6 as well. Either is independent of the other.
+Language detection always reads the bf16 cache and the bf16 weights.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attn import cross_attn_layer, cross_kv_build, split_self_attn_layer
+from ..ops.attn import (cross_attn_layer, cross_attn_layer_q8, cross_kv_build,
+                        quantize_cross_kv, split_self_attn_layer)
 from ..ops.tail import fused_tail_layer
 
 Params = Dict[str, object]
@@ -330,11 +338,46 @@ def init_self_cache(cfg: WhisperConfig, batch: int, dtype, device,
             "v": torch.zeros((L, batch, H, T, Dh), dtype=dtype, device=device)}
 
 
-def cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig) -> Dict[str, torch.Tensor]:
-    """Cross-attention K/V of every decoder layer, [L, B, H, Ta, Dh] (K2)."""
+def cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
+             quantize: bool = False) -> Dict[str, torch.Tensor]:
+    """Cross-attention K/V of every decoder layer, {"k", "v"}
+    [L, B, H, Ta, Dh] (K2); with `quantize`, the int8 cache of
+    `quantize_cross_cache`."""
     blk = params["decoder"]["blocks"]
     k, v = cross_kv_build(xa, blk["ck_w"], blk["cv_w"], blk["cv_b"], cfg.n_text_head)
-    return {"k": k, "v": v}
+    cc = {"k": k, "v": v}
+    return quantize_cross_cache(cc) if quantize else cc
+
+
+def quantize_cross_cache(cc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{"k", "v"} -> the int8 cache {"k8", "ks", "v8", "vs"}: payloads
+    [L, B, H, Ta, Dh] int8, per-position f32 scales [L, B, H, Ta]
+    (`ops/attn.py::quantize_cross_kv`)."""
+    k8, ks, v8, vs = quantize_cross_kv(cc["k"], cc["v"])
+    return {"k8": k8, "ks": ks, "v8": v8, "vs": vs}
+
+
+def _cross_attn(layer: int, q: torch.Tensor, cross: Dict[str, torch.Tensor],
+                ta_total: int) -> torch.Tensor:
+    """Cross attention of one layer over either cache: K5 over int8, K1
+    over bf16."""
+    if "k8" in cross:
+        return cross_attn_layer_q8(layer, q, cross["k8"], cross["ks"],
+                                   cross["v8"], cross["vs"], ta_total)
+    return cross_attn_layer(layer, q, cross["k"], cross["v"], ta_total)
+
+
+def _tail_step(layer: int, x: torch.Tensor, self_out: torch.Tensor,
+               blocks: Dict[str, torch.Tensor], cross: Dict[str, torch.Tensor],
+               beams: int, cfg: WhisperConfig) -> torch.Tensor:
+    """One single-token layer tail: K3 over bf16 weights and cache, K6 when
+    the weights (`blocks` from `quantize_tail_weights`) or the cache are
+    int8."""
+    if "k8" in cross:
+        return fused_tail_layer(layer, x, self_out, blocks, cross["k8"], cross["v8"],
+                                beams, cfg.n_audio_ctx, cross["ks"], cross["vs"])
+    return fused_tail_layer(layer, x, self_out, blocks, cross["k"], cross["v"],
+                            beams, cfg.n_audio_ctx)
 
 
 def _decoder_qkv(x, blk, H):
@@ -346,16 +389,16 @@ def _decoder_qkv(x, blk, H):
 
 
 def _decoder_layer_tail(x, blk, self_out, cross_cache, layer, beams, cfg):
-    """Prompt-pass tail (S > 1): projections in torch, the cross attention
-    on K1 with beams x positions folded into its query axis."""
+    """Prompt-pass tail (S > 1): projections in torch on the bf16 weights,
+    the cross attention on K1 (K5 over the int8 cache) with beams x
+    positions folded into its query axis."""
     H = cfg.n_text_head
     x = x + _unheads(self_out) @ blk["o_w"] + blk["o_b"]
     h = _ln(x, blk["ln2_s"], blk["ln2_b"])
     cq = h @ blk["cq_w"] + blk["cq_b"]  # [N, S, D]
     N, S, D = cq.shape
     q = cq.reshape(N // beams, beams * S, H, D // H)
-    a = cross_attn_layer(layer, q.contiguous(), cross_cache["k"], cross_cache["v"],
-                         cfg.n_audio_ctx)
+    a = _cross_attn(layer, q.contiguous(), cross_cache, cfg.n_audio_ctx)
     x = x + a.reshape(N, S, D) @ blk["co_w"] + blk["co_b"]
     h = _ln(x, blk["ln3_s"], blk["ln3_b"])
     h = _gelu(h @ blk["fc1_w"] + blk["fc1_b"])
@@ -377,6 +420,7 @@ def decode_step(
     beams: int = 1,
     row_pad: Optional[torch.Tensor] = None,  # [N] left pad per row
     logits_at: Optional[Tuple[int, ...]] = None,
+    tail_q8: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Run S tokens through the decoder against the fixed-size KV cache,
     which is UPDATED IN PLACE (slots pos_offset .. pos_offset + S - 1 of
@@ -386,8 +430,10 @@ def decode_step(
     cross K/V (`cross_cache` has B rows). `row_pad`: per-row left-padded
     prompts; padded slots are masked and positions shift down by the pad
     (a pad-filler query attends its own slot so its softmax stays finite).
-    S == 1 runs each layer tail on K3; the prompt pass (S > 1) runs the
-    cross attention on K1."""
+    S == 1 runs each layer tail on K3, or on K6 over the int8 cache or the
+    int8 tail weights `tail_q8` (`ops/tail.py::quantize_tail_weights`); the
+    prompt pass (S > 1) runs the cross attention on K1 (K5 over the int8
+    cache) and its projections on the bf16 weights."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     device = tokens.device
@@ -412,6 +458,7 @@ def decode_step(
 
     kc, vc = self_cache["k"], self_cache["v"]
     blocks = dec["blocks"]
+    tail_blocks = blocks if tail_q8 is None else tail_q8
     for l in range(cfg.n_text_layer):
         blk = _layer(blocks, l)
         q, k_new, v_new = _decoder_qkv(x, blk, H)
@@ -420,9 +467,8 @@ def decode_step(
         vc[l, :, :, pos_offset:pos_offset + S] = v_new
         self_out = _attn(q, kc[l], vc[l], mask)
         if S == 1:
-            x = fused_tail_layer(l, x, self_out.contiguous(), blocks,
-                                 cross_cache["k"], cross_cache["v"], beams,
-                                 cfg.n_audio_ctx)
+            x = _tail_step(l, x, self_out.contiguous(), tail_blocks, cross_cache,
+                           beams, cfg)
         else:
             x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, beams, cfg)
     if logits_at is not None:
@@ -451,7 +497,8 @@ def decode_step_split(
     holds beam n's slot t (callers keep `anc = anc[new_src]; anc[:, step] =
     arange(N)`). Each layer writes this step's K/V into slot `step` of the
     decode cache IN PLACE, attends both halves on K4 and runs its tail on K3
-    with the beams folded against the B-row cross K/V."""
+    (K6 over an int8 cache) with the beams folded against the B-row cross
+    K/V."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     N = tokens.shape[0]
@@ -476,9 +523,8 @@ def decode_step_split(
         self_out = split_self_attn_layer(
             l, q.reshape(B, beams, H, Dh).contiguous(), pk, pv, dk, dv, anc_j,
             step, row_pad_b, prompt_len)
-        x = fused_tail_layer(l, x, self_out.reshape(N, H, 1, Dh), blocks,
-                             cross_cache["k"], cross_cache["v"], beams,
-                             cfg.n_audio_ctx)
+        x = _tail_step(l, x, self_out.reshape(N, H, 1, Dh), blocks, cross_cache,
+                       beams, cfg)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
     return _vocab_logits(x, dec["tok_emb"])
 
@@ -533,7 +579,12 @@ def detect_language_logits(params: Params, cfg: WhisperConfig,
                            xa: torch.Tensor, sot_id: int,
                            cross: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """One decoder step from <|startoftranscript|> -> [B, V] f32 logits;
-    `cross` is the cross K/V of `xa` when the caller already built it."""
+    `cross` is the bf16 cross K/V of `xa` when the caller already built it.
+    Always on the exact (bf16) cache and weights, as the JAX package
+    detects language: int8 could flip a near-tie language."""
+    if cross is not None and "k8" in cross:
+        raise ValueError("detect_language_logits reads the bf16 cross cache, "
+                         "not the int8 one")
     B = xa.shape[0]
     tokens = torch.full((B, 1), sot_id, dtype=torch.long, device=xa.device)
     cache = init_self_cache(cfg, B, xa.dtype, xa.device, max_len=16)

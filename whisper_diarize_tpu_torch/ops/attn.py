@@ -1,16 +1,18 @@
 """Attention kernels of the decoder, each beside its plain PyTorch version:
-K2 (cross K/V build), K1 (flash cross-attention of one layer) and K4
-(split-cache self-attention of one layer for a beam step).
+K2 (cross K/V build), K1 (flash cross-attention of one layer), K5 (K1 over
+the int8 cross cache) and K4 (split-cache self-attention of one layer for a
+beam step); and `quantize_cross_kv`, the int8 cross cache K5 reads.
 
 Counterpart of `whisper_diarize_tpu/ops/pallas_attn.py`. The cross cache is
 `[L, B, H, Ta, Dh]` contiguous (the JAX package's plain `cross_kv` layout),
-not the TPU kernel's lane-tiled `[L, B, NT, H, Dh, 512]`.
+not the TPU kernel's lane-tiled `[L, B, NT, H, Dh, 512]`; the int8 cache is
+the same layout in int8 with f32 scales `[L, B, H, Ta]`.
 
 Dispatch: a wrapper runs the plain version only when its tensors lie on the
 CPU. On a CUDA tensor it launches the hand-written kernel
-(`csrc/cross_attn.cu`, `csrc/cross_kv.cu`, `csrc/split_self.cu`) or raises;
-it never falls back. Each wrapper counts its kernel launches in
-`<wrapper>.launches`.
+(`csrc/cross_attn.cu` for K1 and K5, `csrc/cross_kv.cu`,
+`csrc/split_self.cu`) or raises; it never falls back. Each wrapper counts
+its kernel launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -22,15 +24,19 @@ import torch
 from .. import kernels
 
 
-def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
+def _require_cuda(name: str, *tensors: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
+    tensor of `dtype` on one device (`device`, or the first tensor's)."""
+    dev = tensors[0].device if device is None else device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous tensors")
         if t.data_ptr() % 16:
@@ -90,6 +96,116 @@ def cross_attn_layer(
 
 
 cross_attn_layer.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The int8 cross cache and K5: cross-attention of one layer over it
+# --------------------------------------------------------------------------
+
+def _quantize_rows(x: torch.Tensor, out: torch.Tensor, scale: torch.Tensor) -> None:
+    """Symmetric per-row int8 over the last axis, into `out` / `scale`:
+    s = max(amax|x|, 1e-8) / 127 and round(x / s) (half to even) clipped to
+    +-127, in f32: the JAX package's `quantize_cross_kv` op for op."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    out.copy_(torch.round(xf / s[..., None]).clamp_(-127, 127))
+    scale.copy_(s)
+
+
+def quantize_cross_kv(
+    k: torch.Tensor, v: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cross K/V [L, B, H, Ta, Dh] -> (k8, ks, v8, vs): int8 payloads of the
+    same shape and f32 scales [L, B, H, Ta], one per key / value position
+    (symmetric over Dh). Semantics of the JAX package's
+    `models/whisper.py::quantize_cross_kv` and `ops/pallas_attn.py::
+    tile_quantize_cross_kv` (without the tiling): the payloads match it bit
+    for bit. Plain PyTorch on every device, as the JAX package quantizes in
+    XLA outside any kernel; one layer at a time to bound the f32 temporaries."""
+    out = []
+    for x in (k, v):
+        x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        xs = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+        for l in range(x.shape[0]):
+            _quantize_rows(x[l], x8[l], xs[l])
+        out += [x8, xs]
+    return out[0], out[1], out[2], out[3]
+
+
+# the TPU kernel's key tile: its flash running max moves once per tile, and
+# the bf16 rounding of p * vs falls where the max stands
+Q8_KEY_TILE = 512
+
+
+def cross_attn_layer_q8_plain(
+    layer: int, q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+    v8: torch.Tensor, vs: torch.Tensor, ta_total: Optional[int] = None,
+) -> torch.Tensor:
+    """q [B, Q, H, Dh] against layer `layer` of the int8 cache k8, v8
+    [L, B, H, Ta, Dh] with scales ks, vs [L, B, H, Ta] -> [B, Q, H, Dh];
+    columns >= ta_total are masked. The numerics of the TPU kernel
+    (`_flash_kernel_q8`), whatever the dtype of q: q scaled by Dh^-0.5 in
+    f32 and rounded to bf16; score = (q . k8) * ks[t] in f32; the flash
+    recurrence over Q8_KEY_TILE-key tiles, whose normalizer sums the
+    unscaled probabilities p and whose P.V takes bf16(p * vs[t]) against
+    the int8 values (exact in bf16); f32 accumulation divided by the
+    normalizer at the end."""
+    B, Q, H, Dh = q.shape
+    ta = k8.shape[3] if ta_total is None else int(ta_total)
+    qs = (q.float() * Dh ** -0.5).to(torch.bfloat16).float()
+    m = torch.full((B, H, Q), -1e30, device=q.device)
+    l = torch.zeros((B, H, Q), device=q.device)
+    acc = torch.zeros((B, H, Q, Dh), device=q.device)
+    for t0 in range(0, ta, Q8_KEY_TILE):
+        t = slice(t0, min(t0 + Q8_KEY_TILE, ta))
+        s = torch.einsum("bqhd,bhtd->bhqt", qs, k8[layer, :, :, t].float())
+        s = s * ks[layer, :, :, None, t].float()
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = (p * vs[layer, :, :, None, t].float()).to(torch.bfloat16).float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqt,bhtd->bhqd", pv, v8[layer, :, :, t].float())
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def cross_attn_layer_q8(
+    layer: int, q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+    v8: torch.Tensor, vs: torch.Tensor, ta_total: Optional[int] = None,
+) -> torch.Tensor:
+    """K5. Same contract as `cross_attn_layer_q8_plain`."""
+    if q.device.type == "cpu":
+        return cross_attn_layer_q8_plain(layer, q, k8, ks, v8, vs, ta_total)
+    name = "cross_attn_layer_q8"
+    _require_cuda(name, q)
+    _require_cuda(name, k8, v8, dtype=torch.int8, device=q.device)
+    _require_cuda(name, ks, vs, dtype=torch.float32, device=q.device)
+    B, Q, H, Dh = q.shape
+    L, Ta = k8.shape[0], k8.shape[3]
+    if (Dh != 64 or tuple(k8.shape) != (L, B, H, Ta, Dh) or v8.shape != k8.shape
+            or tuple(ks.shape) != (L, B, H, Ta) or vs.shape != ks.shape):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} vs k8 {tuple(k8.shape)} / v8 "
+            f"{tuple(v8.shape)}, ks {tuple(ks.shape)} / vs {tuple(vs.shape)} "
+            "(kernel takes Dh = 64)")
+    ta = Ta if ta_total is None else int(ta_total)
+    if not (0 <= layer < L and 0 < ta <= Ta):
+        raise ValueError(f"{name}: layer {layer} / ta_total {ta}")
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        kernels.check(lib.wdt_cross_attn_q8(
+            q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
+            vs.data_ptr(), out.data_ptr(), B, Q, H, Ta, int(layer), ta,
+            kernels.stream_ptr(q.device),
+        ), name)
+    cross_attn_layer_q8.launches += 1
+    return out
+
+
+cross_attn_layer_q8.launches = 0
 
 
 # --------------------------------------------------------------------------

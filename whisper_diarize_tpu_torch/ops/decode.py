@@ -20,6 +20,12 @@ map on K4 (`models/whisper.py::decode_step_split`), the exact two-stage
 top-2K in `jax.lax.top_k`'s tie order, vectorised EOT retirement into K
 finished slots, the patience target, and ranking by average
 log-probability or the length penalty.
+
+Every loop carries the cross cache it is given, bf16 or int8
+(`DecodeConfig.quantize_cross_kv`, `build_cross_cache`); `decode_step`
+picks the kernels from its kind. The greedy loops also carry the int8 tail
+weights they are given (`tail_q8`, which `TranscribeStep` builds with
+`quantize_tail_weights`); beam search never takes them.
 """
 
 from __future__ import annotations
@@ -30,9 +36,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from whisper_diarize_tpu.tokenizer import SpecialTokens
-
 from ..models import whisper as wm
+from ..tokenizer import SpecialTokens
 
 NEG_INF = float("-inf")
 
@@ -40,10 +45,14 @@ NEG_INF = float("-inf")
 @dataclasses.dataclass(frozen=True)
 class DecodeConfig:
     """Decode configuration; the fields of the JAX package's DecodeConfig.
-    The TPU-specific knobs (pallas_*, unroll_layers, mesh, int8) are kept
-    for a shared surface, and the port refuses any value but the default:
-    it always runs its CUDA kernels on CUDA tensors and their plain
-    versions on CPU tensors, with a per-layer Python loop."""
+    `quantize_cross_kv` decodes over the int8 cross cache (K5 at the prompt
+    pass, K6 at every step); `quantize_tail_weights` streams int8 tail
+    weights through K6 where `TranscribeStep` attaches them (strategies other
+    than beam search, as in the JAX package). The TPU-specific knobs
+    (pallas_*, unroll_layers, mesh) are kept for a shared surface, and the
+    port refuses any value but the default: it always runs its CUDA kernels
+    on CUDA tensors and their plain versions on CPU tensors, with a
+    per-layer Python loop."""
 
     beam_size: int = 5  # beams for beam search / best_of for sampling
     temperature: float = 0.0
@@ -63,10 +72,6 @@ class DecodeConfig:
     mesh: Optional[Any] = None
 
     def __post_init__(self):
-        if self.quantize_cross_kv or self.quantize_tail_weights:
-            raise NotImplementedError(
-                "int8 cross-K/V / tail weights are not ported yet "
-                "(ROADMAP Queue 1 item 5, kernels K5/K6)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "device meshes are not ported yet (ROADMAP Queue 1 item 7)")
@@ -166,9 +171,12 @@ def _prepare_logits(
     return logits.masked_fill(banned[None, :], NEG_INF)
 
 
-def build_cross_cache(params, cfg: wm.WhisperConfig, xa: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Cross K/V [L, B, H, Ta, Dh] of every layer (K2)."""
-    return wm.cross_kv(params, xa, cfg)
+def build_cross_cache(params, cfg: wm.WhisperConfig, dc: DecodeConfig,
+                      xa: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The decode's cross K/V of every layer (K2), in the form `dc` selects:
+    bf16 {"k", "v"}, or with `quantize_cross_kv` the int8 cache
+    {"k8", "ks", "v8", "vs"} (`models/whisper.py::quantize_cross_cache`)."""
+    return wm.cross_kv(params, xa, cfg, quantize=dc.quantize_cross_kv)
 
 
 def _max_steps(dc: DecodeConfig, cfg: wm.WhisperConfig, prompt_len: int) -> int:
@@ -186,11 +194,14 @@ def greedy_init(
     row_pad: Optional[torch.Tensor] = None,  # [B]
     beams: int = 1,
     cross: Optional[Dict[str, torch.Tensor]] = None,  # from build_cross_cache
+    tail_q8: Optional[Dict[str, torch.Tensor]] = None,  # int8 tail weights
 ) -> Dict[str, Any]:
-    """Build the cross cache (unless given one of `xa`), prefill the prompt
-    and return the loop state. With `beams > 1` every stream decodes
-    `beams` candidate rows (rows b * beams .. b * beams + beams - 1) over
-    its one cross K/V."""
+    """Build the cross cache (unless given one of `xa`, bf16 or int8, which
+    the loop then carries as it is), prefill the prompt and return the loop
+    state. With `beams > 1` every stream decodes `beams` candidate rows
+    (rows b * beams .. b * beams + beams - 1) over its one cross K/V.
+    `tail_q8` (from `ops/tail.py::quantize_tail_weights`) runs every
+    single-token step's layer tails on int8 weights."""
     B = xa.shape[0]
     N = B * beams
     dev = xa.device
@@ -203,7 +214,7 @@ def greedy_init(
         prompt = prompt.repeat_interleave(beams, dim=0)
         row_pad = row_pad.repeat_interleave(beams, dim=0) if row_pad is not None else None
     if cross is None:
-        cross = build_cross_cache(params, cfg, xa)
+        cross = build_cross_cache(params, cfg, dc, xa)
     # cache sized to the decode budget, 16-aligned
     cache_len = min(cfg.n_text_ctx, -(-(prompt_len + max_steps + 1) // 16) * 16)
     cache = wm.init_self_cache(cfg, N, xa.dtype, dev, cache_len)
@@ -218,6 +229,7 @@ def greedy_init(
         logits=logits_all[:, -1],
         cache=cache,
         cross=cross,
+        tail_q8=tail_q8,
         tokens=torch.full((N, max_steps), sp.eot, dtype=torch.long, device=dev),
         probs=torch.zeros((N, max_steps), dtype=torch.float32, device=dev),
         sum_logprob=torch.zeros((N,), dtype=torch.float32, device=dev),
@@ -274,7 +286,7 @@ def greedy_run(
         s["finished"] = now_finished
         logits_next = wm.decode_step(
             params, cfg, next_tok[:, None], prompt_len + step, s["cache"],
-            s["cross"], beams=s["beams"], row_pad=s["row_pad"])
+            s["cross"], beams=s["beams"], row_pad=s["row_pad"], tail_q8=s["tail_q8"])
         s["logits"] = logits_next[:, 0]
         s["step"] = step + 1
     return s
@@ -301,6 +313,7 @@ def greedy_decode(
     row_pad: Optional[torch.Tensor] = None,
     beams: int = 1,
     cross: Optional[Dict[str, torch.Tensor]] = None,
+    tail_q8: Optional[Dict[str, torch.Tensor]] = None,
 ) -> DecodeResult:
     """Greedy / temperature sampling. The host checks `finished.all()` (and
     `is_cancelled`) between windows of `poll_tokens` steps."""
@@ -310,7 +323,7 @@ def greedy_decode(
     state = greedy_init(params, cfg, dc, sp, xa, prompt, prompt_len,
                         generator=generator, suppress_mask=suppress_mask,
                         sot_pos=sot_pos, row_pad=row_pad, beams=beams,
-                        cross=cross)
+                        cross=cross, tail_q8=tail_q8)
     max_steps = _max_steps(dc, cfg, prompt_len)
     while state["step"] < max_steps:
         budget = min(state["step"] + max(poll_tokens, 1), max_steps)
@@ -330,6 +343,7 @@ def sample_best_of(
     sot_pos: int = 0,
     row_pad: Optional[torch.Tensor] = None,
     cross: Optional[Dict[str, torch.Tensor]] = None,
+    tail_q8: Optional[Dict[str, torch.Tensor]] = None,
 ) -> DecodeResult:
     """Temperature sampling with `best_of` candidates per stream, keeping
     the one with the highest average log-probability (openai-whisper's
@@ -337,12 +351,13 @@ def sample_best_of(
     if best_of <= 1 or dc.temperature <= 0:
         return greedy_decode(params, cfg, dc, sp, xa, prompt, prompt_len,
                              generator=generator, suppress_mask=suppress_mask,
-                             sot_pos=sot_pos, row_pad=row_pad, cross=cross)
+                             sot_pos=sot_pos, row_pad=row_pad, cross=cross,
+                             tail_q8=tail_q8)
     B = xa.shape[0]
     res = greedy_decode(params, cfg, dc, sp, xa, prompt, prompt_len,
                         generator=generator, suppress_mask=suppress_mask,
                         sot_pos=sot_pos, row_pad=row_pad, beams=best_of,
-                        cross=cross)
+                        cross=cross, tail_q8=tail_q8)
     best = torch.argmax(res.avg_logprob.view(B, best_of), dim=-1)  # [B]
     rows = torch.arange(B, device=xa.device) * best_of + best
 
@@ -410,16 +425,16 @@ def beam_init(
     cross: Optional[Dict[str, torch.Tensor]] = None,  # from build_cross_cache
 ) -> Dict[str, Any]:
     """Prefill the prompt once per stream and build the beam-search state.
-    The cross K/V (built here unless given) and the prompt half of the split
-    self-cache have B rows, shared by each stream's K beams; only the decode
-    half [L, B*K, H, Td, Dh] is per beam."""
+    The cross K/V (built here unless given; bf16 or int8, carried as it is)
+    and the prompt half of the split self-cache have B rows, shared by each
+    stream's K beams; only the decode half [L, B*K, H, Td, Dh] is per beam."""
     B = xa.shape[0]
     K = dc.beam_size
     N = B * K
     dev = xa.device
     max_steps = _max_steps(dc, cfg, prompt_len)
     if cross is None:
-        cross = build_cross_cache(params, cfg, xa)
+        cross = build_cross_cache(params, cfg, dc, xa)
     prompt_cache = wm.init_self_cache(cfg, B, xa.dtype, dev, prompt_len)
     P = prompt.shape[1]
     pos_at = (sot_pos,) if sot_pos == P - 1 else (sot_pos, P - 1)

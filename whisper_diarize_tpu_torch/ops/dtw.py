@@ -86,7 +86,7 @@ def dtw_backtrack(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def dtw_path(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Full DTW path over a cost matrix [N, M] on the host."""
-    from whisper_diarize_tpu import native
+    from .. import native
 
     if native.is_available():
         out = native.dtw_path(np.asarray(x, np.float32))

@@ -20,7 +20,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from whisper_diarize_tpu.types import SpeechSegment
+from ..types import SpeechSegment
 
 SAMPLE_RATE = 16_000
 N_SAMPLES = 30 * SAMPLE_RATE  # one 30 s whisper window

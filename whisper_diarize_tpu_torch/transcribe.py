@@ -5,7 +5,8 @@ token streams -> word timestamps -> chunk results.
   `ChunkResult` — host helpers, copied because the JAX module imports JAX;
 * `TranscribeStep` — one batched model invocation over a window of audio
   chunks (mel -> encode -> beam search or greedy decode with the
-  temperature-fallback ladder -> DTW) for the Engine's scheduler.
+  temperature-fallback ladder -> DTW) for the Engine's scheduler, over the
+  bf16 or the int8 cross cache and tail weights its DecodeConfig selects.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .models import whisper as wm
 from .ops import decode as dec
 from .ops import dtw as dtw_ops
 from .ops.mel import SAMPLE_RATE, log_mel_spectrogram
-from whisper_diarize_tpu.types import WordTimestamp
+from .types import WordTimestamp
 
 
 def interpolate_word_timestamps(line: str, start: float, end: float) -> List[WordTimestamp]:
@@ -91,7 +92,12 @@ class ChunkResult:
 
 class TranscribeStep:
     """One batched transcription step: window of audio -> ChunkResults,
-    on the device that holds `params`."""
+    on the device that holds `params`.
+
+    With `quantize_tail_weights`, strategies other than beam search build
+    the int8 tail weights once, here (`tail_q8`), and hand them to the
+    greedy loops; under beam search the knob changes nothing. That is the JAX package's attach
+    rule (its TranscribeStep attaches no tail pack under beam search)."""
 
     def __init__(
         self,
@@ -114,6 +120,11 @@ class TranscribeStep:
         self.dc = decode_config or dec.DecodeConfig()
         self.strategy = strategy
         self.max_text_ctx = max_text_ctx
+        self.tail_q8 = None
+        if self.dc.quantize_tail_weights and strategy != "beam_search":
+            from .ops.tail import quantize_tail_weights
+
+            self.tail_q8 = quantize_tail_weights(params["decoder"]["blocks"])
         self.heads = wm.alignment_heads_for(model_name, cfg)
         self.device = params["decoder"]["tok_emb"].device
         self._suppress = torch.from_numpy(dec.build_suppress_mask(
@@ -201,11 +212,12 @@ class TranscribeStep:
                 self.params, self.cfg, self.dc, self.sp, xa, prompt, prompt_len,
                 best_of=self.dc.beam_size, generator=generator,
                 suppress_mask=self._suppress, sot_pos=sot_pos, row_pad=row_pad,
-                cross=cross)
+                cross=cross, tail_q8=self.tail_q8)
         return dec.greedy_decode(
             self.params, self.cfg, self.dc, self.sp, xa, prompt, prompt_len,
             generator=generator, suppress_mask=self._suppress, sot_pos=sot_pos,
-            is_cancelled=is_cancelled, row_pad=row_pad, cross=cross)
+            is_cancelled=is_cancelled, row_pad=row_pad, cross=cross,
+            tail_q8=self.tail_q8)
 
     def decode_with_fallback(
         self, xa: torch.Tensor, language, task: str,
@@ -258,7 +270,7 @@ class TranscribeStep:
                 self.params, self.cfg, retry_dc, self.sp, xa, prompt, prompt_len,
                 best_of=best_of, generator=self._generator(ti),
                 suppress_mask=self._suppress, sot_pos=sot_pos, row_pad=row_pad,
-                cross=cross)
+                cross=cross, tail_q8=self.tail_q8)
             sel = torch.from_numpy(bad).to(self.device)
             merged = {}
             for f in dataclasses.fields(dec.DecodeResult):
@@ -270,13 +282,26 @@ class TranscribeStep:
         return result, temps
 
     def cross_cache(self, xa: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The cross K/V of every decoder layer for `xa` (K2), for the
-        callers that share it across language detection and decoding."""
-        return dec.build_cross_cache(self.params, self.cfg, xa)
+        """The decode's cross K/V of every decoder layer for `xa` (K2; int8
+        with `quantize_cross_kv`), shared by the t = 0 decode and every rung
+        of the ladder."""
+        return dec.build_cross_cache(self.params, self.cfg, self.dc, xa)
+
+    def exact_cross_cache(self, xa: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The bf16 cross K/V of `xa` (K2), for language detection; the
+        decode then takes `decode_cache` of it."""
+        return wm.cross_kv(self.params, xa, self.cfg)
+
+    def decode_cache(self, cross: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """`cross` in the form the decode runs on: quantized to int8 with
+        `quantize_cross_kv` (the caller drops the bf16 copy), else as is."""
+        return wm.quantize_cross_cache(cross) if self.dc.quantize_cross_kv else cross
 
     def detect_language(self, xa: torch.Tensor,
                         cross: Optional[Dict[str, torch.Tensor]] = None) -> List[str]:
-        from whisper_diarize_tpu.tokenizer import LANGUAGES
+        """Language per row, on the exact weights and the bf16 cross cache
+        (`cross`, from `exact_cross_cache`, or built here)."""
+        from .tokenizer import LANGUAGES
 
         logits = wm.detect_language_logits(self.params, self.cfg, xa, self.sp.sot, cross)
         idx = logits[:, self.sp.sot + 1: self.sp.sot + 1 + self.sp.num_languages].argmax(-1)

@@ -16,10 +16,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from whisper_diarize_tpu.audio import int16_to_float32
-from whisper_diarize_tpu.types import SpeechSegment
-
+from .audio import int16_to_float32
 from .models import silero_vad
+from .types import SpeechSegment
 
 SAMPLE_RATE = 16_000
 MERGE_GAP_S = 0.200  # `vad.rs:50`
@@ -145,7 +144,7 @@ def load_vad_params(vad_model: Any, device="cpu", allow_random: bool = False):
         return silero_vad.init_params(device=device)
     if not isinstance(vad_model, str):
         return vad_model
-    from whisper_diarize_tpu.models import convert as convert_mod
+    from .models import convert as convert_mod
 
     tree = convert_mod._load_with(
         vad_model, "silero-vad", silero_vad.init_params_np,
@@ -154,13 +153,26 @@ def load_vad_params(vad_model: Any, device="cpu", allow_random: bool = False):
     return silero_vad.params_from_jax(tree, device)
 
 
+def _vad_device(device) -> torch.device:
+    """The caller's device, or CUDA device 0 when none is given (an entry
+    point runs on the card unless asked for the CPU); raises without one."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "VAD runs on CUDA device 0 by default and none is available; "
+            "pass device=\"cpu\" for the CPU")
+    return torch.device("cuda", 0)
+
+
 def get_segments(
     vad_model: Any,
     int_samples: np.ndarray,
     params: Optional[VadParams] = None,
-    device="cpu",
+    device=None,
 ) -> Tuple[List[Tuple[float, float]], List[SpeechSegment]]:
-    """Full VAD pass: i16 mono 16 kHz samples -> (raw_mask, merged_segments)."""
+    """Full VAD pass: i16 mono 16 kHz samples -> (raw_mask, merged_segments).
+    `device` defaults to CUDA device 0; pass "cpu" for the CPU."""
     return get_segments_batch(vad_model, [int_samples], params, device)[0]
 
 
@@ -168,11 +180,13 @@ def get_segments_batch(
     vad_model: Any,
     streams: List[np.ndarray],
     params: Optional[VadParams] = None,
-    device="cpu",
+    device=None,
 ) -> List[Tuple[List[Tuple[float, float]], List[SpeechSegment]]]:
     """Multi-stream VAD: streams run through Silero as length-sorted
     [S, T] batches of at most MAX_BATCH_SAMPLES padded samples; rows are
-    independent, so each stream's result equals `get_segments`."""
+    independent, so each stream's result equals `get_segments`. `device`
+    defaults to CUDA device 0; pass "cpu" for the CPU."""
+    device = _vad_device(device)
     model_params = load_vad_params(vad_model, device)
     arrays = [np.asarray(x) for x in streams]
     lengths = [len(x) for x in arrays]
