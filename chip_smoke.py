@@ -24,13 +24,17 @@ traceback) and no result line is printed:
    kernels, the median of three profiled windows that lost no kernel
    events (`timed`, `device_ms`); each beside its bound (`bound`); K1 and
    K3 are timed on the 32-layer stack only (their per-layer shapes are the
-   same on both);
+   same on both); then K7 (fused log-mel, f32, held to an absolute bound),
+   K8 (greedy decoder front) and K10 (encoder self-attention, both forms;
+   library call `F.scaled_dot_product_attention`) at the fused greedy
+   path's shapes (`phase_fused_kernels`);
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
-   weights, beam 5 with the int8 cache); a beam run with the ancestry map
-   ignored, and an int8 beam run with the key scales ignored, must fail the
-   check;
+   weights, beam 5 with the int8 cache) and the all-fused greedy path (K7,
+   K10, K8); a beam run with the ancestry map ignored, an int8 beam run
+   with the key scales ignored and a fused greedy run whose K8 leaves out
+   the step's own slot must fail the check;
 5. engine, greedy path: one `Engine` serves five requests (random
    `large-v3-turbo` weights, greedy, DTW word timestamps, the
    temperature-fallback ladder, batch 8, 32 tokens a window): a ~45 s
@@ -39,7 +43,8 @@ traceback) and no result line is printed:
    10 s files;
 6. engine, beam path (the Engine's default, `advanced=None`, beam 5): one
    `Engine` at random `large-v3` weights (32 decoder layers, ladder and DTW
-   on, batch 8, 64 tokens a window) serves a ~30 s whole-file request with
+   on, batch 8, 32 tokens a window: its depth is cut to keep the whole
+   run near two minutes) serves a ~30 s whole-file request with
    language detection, a VAD request, and `transcribe_audio_batch` over
    eight 10 s files (B = 8, 40 beam rows);
 7. engine, int8 beam path: a third `Engine` at random `large-v3` weights
@@ -50,13 +55,19 @@ traceback) and no result line is printed:
 8. int8 greedy path: a greedy `TranscribeStep` at `large-v3` width with
    `quantize_cross_kv` and `quantize_tail_weights` (the Engine has no knob
    for the int8 tail weights) takes one batch of 8 windows through
-   `decode_with_fallback` (32 tokens a window).
-   In 5-8 each request prints wall time, windows decoded and the launches
+   `decode_with_fallback` (32 tokens a window);
+9. the all-fused greedy path (`phase_fused_greedy`) at `large-v3` width on
+   the third Engine's weights: one batch of 8 windows of 30 s through
+   `mel.frontend` (K7), `encode(flash=True)` (K10), `build_cross_cache` (K2)
+   and `greedy_decode` with the front attached (K8 and K3 a step, K1 at
+   the prompt pass), 32 tokens, then one `sample_best_of` rung (best_of 5,
+   temperature 0.2) on the same batch; wall seconds per stage.
+   In 5-9 each request prints wall time, windows decoded and the launches
    it added; a request that decoded a window must have raised the count of
    every kernel of its path (`PATHS`). The counts are set to 0 just before
    each path and read just after;
-9. with `--profile` only: the 45 s greedy request, the 30 s beam request
-   and the 30 s int8 beam request under torch.profiler (device busy time
+10. with `--profile` only: the 45 s greedy request, the 30 s beam request,
+   the 30 s int8 beam request and the fused greedy batch under torch.profiler (device busy time
    and kernel time by kind, also written to build/chip_smoke/profile.txt).
 Each phase prints its wall seconds (`[time]`).
 
@@ -84,7 +95,7 @@ import whisper_diarize_tpu_torch as wdt
 from whisper_diarize_tpu_torch import kernels
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
-from whisper_diarize_tpu_torch.ops import attn, tail
+from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, mel, tail
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -108,12 +119,25 @@ KERNELS = {
     "K6": dict(name="fused_tail_layer (int8 wq / kvq)", fn=tail.fused_tail_layer,
                count="launches_int8", source="whisper_diarize_tpu_torch/csrc/tail.cu",
                replaces="whisper_diarize_tpu/ops/pallas_tail.py:508"),
+    "K7": dict(name="log_mel_fused", fn=mel.log_mel_fused,
+               source="whisper_diarize_tpu_torch/csrc/mel.cu",
+               replaces="tools/pallas_mel.py:117"),
+    "K8": dict(name="fused_front_layer", fn=front.fused_front_layer,
+               source="whisper_diarize_tpu_torch/csrc/front.cu",
+               replaces="tools/pallas_front.py:193"),
+    # one counter for both forms: single pass (:261), two pass (:276)
+    "K10": dict(name="encoder_self_attention", fn=encoder_attn.encoder_self_attention,
+                source="whisper_diarize_tpu_torch/csrc/encoder_attn.cu",
+                replaces="tools/bench_encoder_attn.py:261"),
 }
 PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
-         "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6")}
-# H100 SXM data sheet: memory rate and dense bf16 tensor rate
+         "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6"),
+         "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10")}
+# H100 SXM data sheet: memory rate, dense bf16 tensor rate, f32 rate outside
+# the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def nvidia_smi_line() -> str:
@@ -206,12 +230,13 @@ def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
     raise AssertionError("device_ms: the profiler lost window markers in three sessions")
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS) -> dict:
     """The least time the card could take for a call: the larger of the
     bytes it must move (each input read once, each output written once)
-    over the memory rate and its operations over the bf16 tensor rate."""
+    over the memory rate and its operations over the rate for their type
+    (the bf16 tensor rate unless given another)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / BF16_FLOPS * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 bound_bytes=nbytes, bound_flops=flops)
@@ -497,6 +522,123 @@ def phase_int8_kernels() -> dict:
     return res
 
 
+def front_bound(N: int, D: int, pos: int, row_pad) -> dict:
+    """K8 for one layer: the packed [D, 3D] weights, biases and ln1, x and
+    self_out, the new K/V written, the valid cache rows (row_pad[n] .. pos)
+    read as K and V."""
+    rows = int((pos + 1 - row_pad.clamp(max=pos)).sum()) * (D // 64)
+    return bound(3 * D * D * 2 + 5 * D * 2 + 4 * N * D * 2 + rows * 64 * 2 * 2,
+                 2 * N * D * 3 * D + 4 * rows * 64)
+
+
+def mel_bound(B: int, T: int, n_mels: int) -> dict:
+    """K7: the audio read and the raw log-mel written (f32), and the
+    operations log-mel needs a frame, not the dense DFT that K7 runs: the
+    Hann window (400), a real 400-point FFT (2.5 N log2 N), the power (3 a
+    bin), the filterbank's nonzero weights (2 each) and a log a mel, at the
+    f32 rate."""
+    frames = B * (T // 160)
+    nnz = int(np.count_nonzero(mel.mel_filterbank(n_mels)))
+    per_frame = 400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz + n_mels
+    return bound(B * T * 4 + frames * n_mels * 4, frames * per_frame, F32_FLOPS)
+
+
+def phase_fused_kernels() -> dict:
+    """K7, K8 and K10 against their plain versions at the fused greedy
+    path's shapes (large-v3: 128 mels, D 1280, H 20, 32 layers), their
+    planted faults refused. K7 on B 8 x 30 s of audio (f32, held to
+    `agreement.F32_ATOL`). K8 at N 8 (greedy) and 40 (the best_of 5 rung)
+    with a 48-slot cache (32 tokens after a 3-token prompt) at pos 3, 19
+    and 34, without pads and with random pads (the faults at pos 19, with
+    pads); each call on the next layer (a layer's weights are 9.8 MB), the
+    caches cloned per call so kernel and plain version start alike. K10 in
+    both forms at [8, 20, 1500, 64] with q, k at 0.5 (the faults: 36 padded
+    keys must move the softmax) and 1.0; the library yardstick is
+    `F.scaled_dot_product_attention` on the same q, k, v (scale 1/8: q and
+    k each at 8^-0.5)."""
+    cfg = wm.PRESETS["large-v3"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    D, H, L, Ta = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_audio_ctx
+    errs, res = {"K7": 0.0, "K8": 0.0, "K10": 0.0}, {}
+
+    B, T = 8, 480000
+    audio = torch.randn(B, T, generator=g, device=dev) * 0.1
+    audio[:, 320000:] *= 0.01  # a quiet tail
+    got = mel.log_mel_fused(audio, cfg.n_mels)
+    plain = mel.log_mel_fused_plain(audio, cfg.n_mels)
+    errs["K7"] = ag.compare(f"K7 log_mel_fused B={B} T={T} mels={cfg.n_mels}", got, plain,
+                            atol=ag.F32_ATOL).max_abs_err
+    exact = mel.log_mel_fused_plain(audio.double(), cfg.n_mels)
+    print(f"[kernels] K7 max abs distance to the float64 log-mel: kernel "
+          f"{float((got - exact).abs().max()):.4g}, plain f32 "
+          f"{float((plain - exact).abs().max()):.4g} (F32_ATOL {ag.F32_ATOL:g})", flush=True)
+    del plain, exact
+    for name, bad in ag.k7_faults(audio, cfg.n_mels):
+        ag.reject(name, got, bad, atol=ag.F32_ATOL)
+    res["K7"] = timed(f"K7 B={B} T={T}", lambda: mel.log_mel_fused(audio, cfg.n_mels),
+                      lambda: mel.log_mel_fused_plain(audio, cfg.n_mels),
+                      shape=f"B={B} T={T} n_mels={cfg.n_mels}",
+                      **mel_bound(B, T, cfg.n_mels))
+    del audio, got
+
+    fw = ag.random_front(L, D, g, dev)
+    Tc, lay = 48, L - 1
+    for N in (8, 40):
+        x = ag.randn(g, dev, N, 1, D)
+        kc, vc = (ag.randn(g, dev, L, N, H, Tc, 64) for _ in range(2))
+        pads = torch.randint(0, 17, (N,), generator=g, device=dev)
+        for pos in (3, 19, 34):
+            for row_pad in (torch.zeros_like(pads), pads.clamp(max=pos)):
+                a = (lay, pos, row_pad, x, fw)
+                got = front.fused_front_layer(*a, kc.clone(), vc.clone())
+                ref = front.fused_front_layer_plain(*a, kc.clone(), vc.clone())
+                tag = f"K8 fused_front_layer N={N} Tc={Tc} pos={pos} pads={bool(row_pad.any())}"
+                for what, x1, x2 in zip(("self_out", "k_new", "v_new"), got, ref):
+                    errs["K8"] = max(errs["K8"], ag.compare(f"{tag} {what}", x1, x2).max_abs_err)
+                if pos == 19 and row_pad.any():
+                    for name, bad in ag.k8_faults(*a, kc, vc):
+                        ag.reject(name, got[0], bad)
+        it, zeros, pos = itertools.count(), torch.zeros_like(pads), 19
+        t = timed(f"K8 N={N} pos={pos}",
+                  lambda: front.fused_front_layer(next(it) % L, pos, zeros, x, fw, kc, vc),
+                  lambda: front.fused_front_layer_plain(next(it) % L, pos, zeros, x, fw, kc, vc),
+                  shape=f"N={N} D={D} Tc={Tc} pos={pos} L={L}",
+                  **front_bound(N, D, pos, zeros))
+        res.setdefault("K8", t).setdefault("by_shape", {})[f"N={N}"] = {
+            key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                    "bound_ms")}
+        del kc, vc
+    del fw
+
+    shape = (8, H, Ta, 64)
+    for scale in (0.5, 1.0):
+        q, k, v = (ag.randn(g, dev, *shape, scale=s) for s in (scale, scale, 1.0))
+        for single_pass in (True, False):
+            form = "single pass" if single_pass else "two pass"
+            a = (q, k, v, Ta, single_pass)
+            got = encoder_attn.encoder_self_attention(*a)
+            errs["K10"] = max(errs["K10"], ag.compare(
+                f"K10 encoder_self_attention {form} {list(shape)} q,k scale {scale}", got,
+                encoder_attn.encoder_self_attention_plain(*a)).max_abs_err)
+            if scale == 0.5:
+                for name, bad in ag.k10_faults(*a):
+                    ag.reject(f"{name} ({form})", got, bad)
+                continue
+            t = timed(f"K10 {form}", lambda: encoder_attn.encoder_self_attention(*a),
+                      lambda: encoder_attn.encoder_self_attention_plain(*a),
+                      library=lambda: F.scaled_dot_product_attention(q, k, v),
+                      shape=f"{form} {list(shape)}",
+                      **bound(4 * q.numel() * 2, 4 * shape[0] * H * Ta * Ta * 64))
+            res.setdefault("K10", t).setdefault("by_form", {})[form] = {
+                key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                        "library_ms", "bound_ms")}
+    for key in res:
+        res[key]["max_abs_err"] = errs[key]
+    torch.cuda.empty_cache()
+    return res
+
+
 def _teacher_forced(cpu, xa_b, prompt, toks):
     """The f32 CPU path's prepared logits [n, V] for the n tokens `toks`
     (sampling grammar without timestamps), each given the tokens before it:
@@ -546,6 +688,35 @@ def _beam_error(cpu, ref, prompt, res) -> float:
     return err
 
 
+def with_front(params, cfg) -> dict:
+    """`params` with K8's front pack attached to the decoder."""
+    return {**params, "decoder": {**params["decoder"],
+                                  "front": front.pack_front_weights(params, cfg)}}
+
+
+def fused_reference(params, cfg, tk, dc, audio: np.ndarray, cpu, ref: torch.Tensor,
+                    prompt: torch.Tensor):
+    """The all-fused greedy path on `params`' device (K7 -> encoder with
+    K10 -> greedy with K8 and K3) against the f32 CPU step `cpu` and its
+    encoder output `ref`: (encoder rel err, `_greedy_gap`, the gap of a run
+    with K8's self slot dropped)."""
+    from whisper_diarize_tpu_torch.transcribe import TranscribeStep
+
+    fused = with_front(params, cfg)
+    step = TranscribeStep(fused, cfg, tk, decode_config=dc, strategy="greedy")
+    frames = mel.frontend(torch.from_numpy(audio).to(step.device), cfg.n_mels)
+    xa = wm.encode(fused, frames, cfg, flash=True)
+    rel = float((xa.float().cpu() - ref).abs().max() / ref.abs().max())
+    gap = _greedy_gap(cpu, ref, prompt, step.decode(xa, "en", "transcribe"))
+    real = wm.fused_front_layer
+    wm.fused_front_layer = ag.front_self_slot_dropped
+    try:
+        bad = step.decode(xa, "en", "transcribe")
+    finally:
+        wm.fused_front_layer = real
+    return rel, gap, _greedy_gap(cpu, ref, prompt, bad)
+
+
 def phase_reference() -> None:
     """The main paths on the card (bf16, through the kernels) against the
     f32 plain path on the CPU, on a small input: the `tiny` preset (Dh 64)
@@ -563,7 +734,10 @@ def phase_reference() -> None:
     paths. The same checks for the int8 forms, against the f32 CPU path
     over the same int8 forms: greedy with `quantize_cross_kv` and
     `quantize_tail_weights`, beam 5 with `quantize_cross_kv`; the planted
-    fault there is an int8 cache whose key scales are ignored (all 1)."""
+    fault there is an int8 cache whose key scales are ignored (all 1). And
+    the all-fused greedy path (`fused_reference`: K7, K10, K8) against the
+    plain f32 greedy path, with the greedy check; a run whose K8 leaves the
+    step's own slot out of its attention must fail it."""
     from whisper_diarize_tpu_torch.models import weights
     from whisper_diarize_tpu_torch.ops import decode as dec
     from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
@@ -609,7 +783,13 @@ def phase_reference() -> None:
                   f"{[round(x, 4) for x in res.sum_logprob.float().tolist()]}, worst "
                   f"{'card-token logit gap vs f32 CPU best, of max|logit|' if name.endswith('greedy') else '|card - f32 CPU score| a token'}"
                   f" {err:.4g} (tol {tol:g})", flush=True)
-        # planted faults: each must fail the beam check
+        rel_f, out["fused-greedy"], fault_f = fused_reference(
+            params["card"], cfg, tk, base, audio, steps["ref", "greedy"], ref, prompt)
+        ok &= rel_f <= 5e-2 and out["fused-greedy"] <= tol
+        print(f"[reference] fused-greedy (K7, K10, K8): encoder rel err {rel_f:.4g} (tol "
+              f"5e-2), worst card-token logit gap vs f32 CPU best, of max|logit| "
+              f"{out['fused-greedy']:.4g} (tol {tol:g})", flush=True)
+        # planted faults: each must fail its check
         real_step = wm.decode_step_split
 
         def ancestry_ignored(*a):
@@ -629,6 +809,7 @@ def phase_reference() -> None:
                            cross=dict(cross, ks=torch.ones_like(cross["ks"])))
         faults["int8 key scales ignored"] = _beam_error(
             steps["ref", "int8-beam"], ref, prompt, bad)
+        faults["fused greedy, K8 self slot dropped"] = fault_f
     for name, err in faults.items():
         ok &= err > tol
         print(f"[reference] planted fault, {name}: {err:.4g} "
@@ -792,11 +973,114 @@ def phase_int8_step(eng) -> dict:
     return added
 
 
+def fused_setup(eng):
+    """The fused greedy path's inputs on `eng`'s loaded weights: (params
+    with the front attached, cfg, tokenizer, decode config, suppress mask,
+    prompt [8, P], audio [8, 480000] of speech-like noise on the card)."""
+    from whisper_diarize_tpu_torch.ops import decode as dec
+
+    (params, cfg, tk), = eng._whisper_cache.values()
+    dev = params["decoder"]["tok_emb"].device
+    suppress = torch.from_numpy(dec.build_suppress_mask(
+        tk.specials, cfg.n_vocab, tk.non_speech_tokens())).to(dev)
+    prompt = torch.tensor([tk.sot_sequence(language="en")] * 8, device=dev)
+    rng = np.random.default_rng(41)
+    t = np.arange(480000) / 16000.0
+    env = (np.mod(t, 2.0) < 1.5).astype(np.float32)
+    audio = torch.from_numpy(np.stack([(rng.standard_normal(480000) * 0.02 + env * np.sin(
+        2 * np.pi * (140.0 + 10 * i) * t) * 0.3).astype(np.float32)
+        for i in range(8)])).to(dev)
+    return (with_front(params, cfg), cfg, tk, dec.DecodeConfig(max_tokens=32, blank_id=32),
+            suppress, prompt, audio)
+
+
+def run_fused_greedy(setup, fused_stages: bool = True):
+    """One batch through the fused greedy path: `mel.frontend` (K7),
+    `encode(flash=True)` (K10), `build_cross_cache` (K2), `greedy_decode` with
+    the front (K8 and K3 at every step, K1 at the prompt pass), then one
+    `sample_best_of` rung (best_of 5, temperature 0.2, N 40) on the same
+    cross cache. `fused_stages=False` runs the same batch with the plain
+    stages in their place (`log_mel_spectrogram`, the encoder's compact
+    attention, no front: `--profile`'s comparison). Returns (frames, xa,
+    greedy result, rung result, wall seconds by stage)."""
+    import dataclasses
+
+    from whisper_diarize_tpu_torch.ops import decode as dec
+
+    fused, cfg, tk, dc, suppress, prompt, audio = setup
+    dev, P = audio.device, prompt.shape[1]
+    frontend = mel.frontend if fused_stages else mel.log_mel_spectrogram
+    if not fused_stages:
+        fused = {**fused, "decoder": {k: v for k, v in fused["decoder"].items()
+                                      if k != "front"}}
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    with torch.inference_mode():
+        frames = frontend(audio, cfg.n_mels)
+        mark()
+        xa = wm.encode(fused, frames, cfg, flash=fused_stages)
+        mark()
+        cross = dec.build_cross_cache(fused, cfg, dc, xa)
+        res = dec.greedy_decode(fused, cfg, dc, tk.specials, xa, prompt, P,
+                                suppress_mask=suppress, cross=cross)
+        mark()
+        rung = dec.sample_best_of(fused, cfg, dataclasses.replace(dc, temperature=0.2),
+                                  tk.specials, xa, prompt, P, best_of=5,
+                                  generator=torch.Generator(device=dev).manual_seed(0),
+                                  suppress_mask=suppress, cross=cross)
+        mark()
+    stages = dict(zip(("mel", "encode", "decode", "best_of 5 rung"),
+                      (round(b - a, 3) for a, b in zip(marks, marks[1:]))))
+    return frames, xa, res, rung, stages
+
+
+def phase_fused_greedy(eng) -> dict:
+    """The all-fused greedy path at large-v3 width on `eng`'s loaded
+    weights (32 + 32 layers): one batch of 8 windows of 30 s, 32 tokens a
+    window (`run_fused_greedy`). The counts are set to 0 just before and
+    read just after; K1, K2, K3, K7, K8 and K10 must have launched. The
+    frontend must equal the plain `log_mel_spectrogram` within
+    `agreement.F32_ATOL` / 4 (its scale after the (x + 4) / 4); every
+    output must be finite and of its shape. Prints wall seconds per stage.
+    Returns the path's counts."""
+    setup = fused_setup(eng)
+    cfg, audio = setup[1], setup[-1]
+    torch.cuda.synchronize()
+    reset_counts()
+    frames, xa, res, rung, stages = run_fused_greedy(setup)
+    added = counts()
+    mel_err = float((frames - mel.log_mel_spectrogram(audio, cfg.n_mels)).abs().max())
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        frames, xa, res.avg_logprob, res.token_probs, rung.avg_logprob, rung.token_probs))
+    shapes = (tuple(frames.shape), tuple(xa.shape), tuple(res.tokens.shape),
+              tuple(rung.tokens.shape))
+    print(f"[path fused-greedy] large-v3, 8 windows of 30 s: wall by stage {stages} s; "
+          f"shapes {shapes}; frontend vs plain max abs {mel_err:.3g}; greedy lengths "
+          f"{res.lengths.tolist()}, rung lengths {rung.lengths.tolist()}; launches added "
+          f"{added}", flush=True)
+    want = ((8, cfg.n_mels, 3000), (8, cfg.n_audio_ctx, cfg.n_audio_state), (8, 32), (8, 32))
+    if not finite or shapes != want or mel_err > ag.F32_ATOL / 4:
+        raise AssertionError(f"fused greedy path: finite {finite}, shapes {shapes} "
+                             f"(want {want}), frontend vs plain {mel_err}")
+    _check_missing("fused greedy path", "fused-greedy", added)
+    return added
+
+
 def _kernel_kind(name: str) -> str:
     if "split_self_kernel" in name:
         return "K4 split-cache self-attention"
     if "skinny_gemm" in name:
-        return "K3 / K6 skinny GEMMs"
+        return "K3 / K6 / K8 skinny GEMMs"
+    if "front_attn_kernel" in name:
+        return "K8 front self-attention"
+    if "enc_attn_kernel" in name:
+        return "K10 encoder self-attention"
+    if "log_mel_kernel" in name:
+        return "K7 log-mel"
     if "cross_attn_kernel" in name:  # one template: bf16 K/V (K1) or int8 (K5)
         if "cross_attn_kernel<__nv_bfloat16>" in name or "cross_attn_kernelI13__nv" in name:
             return "K1 attention (prefill, and inside K3)"
@@ -820,23 +1104,31 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def phase_profile(eng, label: str, path: str, opts) -> list:
-    """`--profile`: one request three times unprofiled, then once under
-    torch.profiler; the device's busy time (union of kernel intervals) and
-    kernel time by kind. Returns the printed lines."""
+def engine_request(eng, path: str, opts):
+    """One Engine request as `phase_profile` runs it: returns its summary."""
+    def run() -> str:
+        eng.transcribe_audio(path, opts)
+        return (f"windows {eng.last_run['windows']}, stages "
+                f"{ {k: round(v, 3) for k, v in eng.last_run['stage_s'].items()} }")
+    return run
+
+
+def phase_profile(label: str, run) -> list:
+    """`--profile`: one request (`run()`, which returns its summary) three
+    times unprofiled, then once under torch.profiler; the device's busy
+    time (union of kernel intervals) and kernel time by kind. Returns the
+    printed lines."""
     from torch.profiler import ProfilerActivity, profile
 
     lines = [f"{label}:"]
     for _ in range(3):
         t0 = time.perf_counter()
-        eng.transcribe_audio(path, opts)
+        summary = run()
         torch.cuda.synchronize()
-        lines.append(f"unprofiled wall {time.perf_counter() - t0:.3f} s, windows "
-                     f"{eng.last_run['windows']}, stages "
-                     f"{ {k: round(v, 3) for k, v in eng.last_run['stage_s'].items()} }")
+        lines.append(f"unprofiled wall {time.perf_counter() - t0:.3f} s, {summary}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.transcribe_audio(path, opts)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -878,29 +1170,37 @@ def main() -> None:
     res = timed_phase("kernels K1-K3", phase_kernels_all)
     res.update(timed_phase("kernels K4", phase_k4))
     res.update(timed_phase("kernels K5 K6", phase_int8_kernels))
+    res.update(timed_phase("kernels K7 K8 K10", phase_fused_kernels))
     timed_phase("reference", phase_reference)
-    # depth: 32 tokens a window on the greedy paths; the int8 beam Engine
-    # runs without the fallback ladder, whose sampling rungs the int8
-    # greedy step drives through K5 and K6
+    # depth: 32 tokens a window on the greedy paths and the bf16 beam
+    # Engine; the int8 beam Engine runs without the fallback ladder, whose
+    # sampling rungs the int8 greedy step drives through K5 and K6
     greedy_eng = make_engine("large-v3-turbo", max_decode_tokens=32)
     greedy = greedy_requests()
     by_path = {"greedy": timed_phase("engine greedy", phase_engine, greedy_eng, "greedy",
                                      greedy)}
-    beam_eng, beam = make_engine("large-v3"), beam_requests()
+    beam_eng, beam = make_engine("large-v3", max_decode_tokens=32), beam_requests()
     by_path["beam"] = timed_phase("engine beam", phase_engine, beam_eng, "beam", beam)
     int8_eng = make_engine("large-v3", quantize_kv_cache=True, temperature_fallback=False)
     int8 = int8_requests()
     by_path["int8-beam"] = timed_phase("engine int8-beam", phase_engine, int8_eng,
                                        "int8-beam", int8)
     by_path["int8-greedy"] = timed_phase("step int8-greedy", phase_int8_step, int8_eng)
+    by_path["fused-greedy"] = timed_phase("path fused-greedy", phase_fused_greedy, int8_eng)
     print(f"[time] all phases: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
-        lines = phase_profile(greedy_eng, "greedy, large-v3-turbo, whole-file 45 s",
-                              greedy[0][1][0], greedy[0][2])
-        lines += phase_profile(beam_eng, "beam 5, large-v3, whole-file 30 s, lang auto",
-                               beam[0][1][0], beam[0][2])
-        lines += phase_profile(int8_eng, "int8 beam 5, large-v3, whole-file 30 s, lang auto",
-                               int8[0][1][0], int8[0][2])
+        lines = phase_profile("greedy, large-v3-turbo, whole-file 45 s",
+                              engine_request(greedy_eng, greedy[0][1][0], greedy[0][2]))
+        lines += phase_profile("beam 5, large-v3, whole-file 30 s, lang auto",
+                               engine_request(beam_eng, beam[0][1][0], beam[0][2]))
+        lines += phase_profile("int8 beam 5, large-v3, whole-file 30 s, lang auto",
+                               engine_request(int8_eng, int8[0][1][0], int8[0][2]))
+        setup = fused_setup(int8_eng)
+        for fused_stages in (True, False):
+            lines += phase_profile(
+                f"{'fused' if fused_stages else 'plain-stage'} greedy, large-v3, 8 windows "
+                "of 30 s, 32 tokens + a best_of 5 rung",
+                lambda: f"stages {run_fused_greedy(setup, fused_stages)[-1]}")
         (WORK / "profile.txt").write_text("\n".join(lines) + "\n")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     print(json.dumps({"kernels": [

@@ -6,17 +6,19 @@ torch sees no CUDA device). Run on a machine with an H100:
 Each kernel against its plain version in bf16 on the same device, at small
 shapes with Dh = 64, a ragged audio length (K1-K3, K5, K6 in its three int8
 forms) and ragged prompt and decode lengths with row pads and a random
-ancestry (K4), with the tolerance of
+ancestry (K4), the fused greedy path's kernels (K7 log-mel, K8 decoder
+front, K10 encoder attention in both forms), with the tolerance of
 `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
 element and 1e-2 relative L2 of the update; K3 is judged on the update it
-adds to x), and the planted faults that check must refuse.
+adds to x; K7, an f32 kernel, on an absolute bound), and the planted faults
+that check must refuse.
 """
 
 import pytest
 import torch
 
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, tail
+from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, mel, tail
 from whisper_diarize_tpu_torch.ops import decode as dec
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +162,71 @@ def test_top_k_tie_order_on_card(dev):
     ref_v, ref_i = dec._top_k(x.cpu(), 10)
     assert torch.equal(v.cpu(), ref_v) and torch.equal(i.cpu(), ref_i)
     assert i[1].tolist() == list(range(100, 110)) and i[2].tolist() == list(range(10))
+
+
+@pytest.mark.parametrize("B,T,n_mels", [(2, 16000 * 3 + 4800, 80), (3, 480000, 128)])
+def test_k7_matches_plain_on_card(dev, B, T, n_mels):
+    """K7 (f32 on the CUDA cores) against its plain version, within
+    `agreement.F32_ATOL`; its planted faults refused."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    audio = torch.randn(B, T, generator=g, device=dev) * 0.3
+    audio[:, : T // 4] *= 0.01  # a quiet stretch: small powers
+    before = mel.log_mel_fused.launches
+    got = mel.log_mel_fused(audio, n_mels)
+    assert mel.log_mel_fused.launches == before + 1
+    ag.compare("K7", got, mel.log_mel_fused_plain(audio, n_mels), atol=ag.F32_ATOL)
+    for name, bad in ag.k7_faults(audio, n_mels):
+        ag.reject(name, got, bad, atol=ag.F32_ATOL)
+    torch.testing.assert_close(mel.frontend(audio, n_mels),
+                               mel.log_mel_spectrogram(audio, n_mels), rtol=0, atol=5e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N,Tc,pos", [(3, 16, 0), (6, 48, 9), (40, 448, 300)])
+def test_k8_matches_plain_on_card(dev, N, Tc, pos):
+    """K8 against its plain version (self_out, k_new, v_new and the caches
+    it leaves), with row pads; its planted faults refused where pos > 0."""
+    g = torch.Generator(device=dev).manual_seed(N * 1000 + pos)
+    L, H = 2, 4
+    D = 64 * H
+    fw = ag.random_front(L, D, g, dev)
+    x = ag.randn(g, dev, N, 1, D)
+    kc, vc = (ag.randn(g, dev, L, N, H, Tc, 64) for _ in range(2))
+    row_pad = torch.randint(0, pos + 1, (N,), generator=g, device=dev)
+    for layer in range(L):
+        ck, cv, pk, pv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        before = front.fused_front_layer.launches
+        got = front.fused_front_layer(layer, pos, row_pad, x, fw, ck, cv)
+        assert front.fused_front_layer.launches == before + 1
+        ref = front.fused_front_layer_plain(layer, pos, row_pad, x, fw, pk, pv)
+        for name, a, b in zip(("self_out", "k_new", "v_new"), got, ref):
+            ag.compare(f"K8 {name}", a, b)
+        ag.compare("K8 k cache", ck, pk)
+        ag.compare("K8 v cache", cv, pv)
+        if pos:
+            for name, bad in ag.k8_faults(layer, pos, row_pad, x, fw, kc, vc):
+                ag.reject(name, got[0], bad)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("single_pass", [True, False])
+@pytest.mark.parametrize("B,H,T,ta", [(1, 2, 200, 200), (2, 3, 600, 550), (1, 2, 1500, 1500)])
+def test_k10_matches_plain_on_card(dev, B, H, T, ta, single_pass):
+    """K10 in both forms against their plain versions, on contiguous
+    [B, H, T, 64] inputs and on the encoder's strided head views; its
+    planted faults refused where T is not a multiple of 512."""
+    g = torch.Generator(device=dev).manual_seed(T + int(single_pass))
+    for scale in (0.5, 1.0):
+        q, k, v = (ag.randn(g, dev, B, H, T, 64, scale=s) for s in (scale, scale, 1.0))
+        before = encoder_attn.encoder_self_attention.launches
+        got = encoder_attn.encoder_self_attention(q, k, v, ta, single_pass)
+        assert encoder_attn.encoder_self_attention.launches == before + 1
+        ref = encoder_attn.encoder_self_attention_plain(q, k, v, ta, single_pass)
+        ag.compare(f"K10 T={T} scale={scale}", got, ref)
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+        torch.testing.assert_close(encoder_attn.encoder_self_attention(*views, ta, single_pass),
+                                   got, rtol=0, atol=0)
+        if scale == 0.5 and T % 512 and ta == T:
+            for name, bad in ag.k10_faults(q, k, v, ta, single_pass):
+                ag.reject(name, got, bad)
+    torch.cuda.synchronize()

@@ -45,7 +45,7 @@ def models(tmp_path_factory):
     d = tmp_path_factory.mktemp("snap")
     jweights.init_random_snapshot(d, cfg=CFG, seed=0)
     jp, jcfg = jweights.load_model(d)
-    pp, pcfg = pweights.load_model(d)
+    pp, pcfg = pweights.load_model(d, device="cpu")
     return jp, jcfg, pp, pcfg
 
 

@@ -61,7 +61,7 @@ def snapshot(tmp_path_factory):
     d = tmp_path_factory.mktemp("snap")
     jweights.init_random_snapshot(d, cfg=CFG, seed=0)
     jp, jcfg = jweights.load_model(d)
-    pp, pcfg = pweights.load_model(d)
+    pp, pcfg = pweights.load_model(d, device="cpu")
     return jp, jcfg, pp, pcfg
 
 
@@ -130,7 +130,7 @@ def test_hf_layout_conversion(tmp_path):
         decoder_layers=L, encoder_attention_heads=2, decoder_attention_heads=2,
         max_source_positions=1500, max_target_positions=448)))
     jp, _ = jweights.load_model(tmp_path)
-    pp, _ = pweights.load_model(tmp_path)
+    pp, _ = pweights.load_model(tmp_path, device="cpu")
     _assert_same_weights(jp, pp)
     assert _flat(pp).keys() == _flat(ref_tree).keys()
 

@@ -6,7 +6,8 @@ and no `whisper_diarize_tpu`
 module loaded (a subprocess, because the test process imports JAX, see
 tests/conftest.py); and a static scan of every module of the port and of
 `chip_smoke.py` finds no import of either. Also: the port's VAD entry
-point asks for the card unless the caller asks for the CPU."""
+point and its loaders (`load_model`, `load_vad_params`) ask for the card
+unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -83,6 +84,9 @@ def _imported(path: Path):
 def test_static_scan_finds_no_jax_package_import():
     files = sorted((ROOT / "whisper_diarize_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"whisper_diarize_tpu_torch/ops/{m}.py" for m in (
+        "front", "encoder_attn", "mel", "attn", "tail")} <= scanned
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
            for mod, line in _imported(f) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -102,3 +106,22 @@ def test_get_segments_defaults_to_the_card():
             call()
     mask, segs = vad.get_segments("__random__", x, device="cpu")
     assert isinstance(mask, list) and isinstance(segs, list)
+
+
+def test_loaders_default_to_the_card(tmp_path):
+    """`load_model` and `load_vad_params` load onto CUDA device 0 unless
+    given a device: here, with no card, they raise before reading anything;
+    `device="cpu"` loads."""
+    from whisper_diarize_tpu_torch import vad
+    from whisper_diarize_tpu_torch.models import weights
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        weights.load_model(tmp_path)
+    for model in ("__random__", None):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            vad.load_vad_params(model)
+        params = vad.load_vad_params(model, device="cpu")
+        assert all(t.device.type == "cpu" for t in params.values()
+                   if isinstance(t, torch.Tensor))

@@ -46,6 +46,14 @@ void launch_cross_attn(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                        int B, int Q, int H, int Ta, int layer, int ta_total,
                        cudaStream_t stream);
 
+// K3's bf16 skinny GEMM (tail.cu), shared by the greedy decoder front
+// (front.cu): out[N, Dout] = bf16(ln(A)[N, Din] @ W[Din, Dout] + bias) with
+// a fused f32-statistics layer norm (ln_g, ln_b; nullptr: none). Needs
+// Din % 64 == 0 and Dout % 64 == 0; all bf16, contiguous.
+void launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
+                        const bf16* ln_g, const bf16* ln_b, bf16* out, int N,
+                        int Din, int Dout, cudaStream_t stream);
+
 // K5 launcher (cross_attn.cu), shared by the fused decoder tail (tail.cu)
 // over the int8 cross cache. k8/v8 [L, B, H, Ta, 64] int8 and ks/vs
 // [L, B, H, Ta] f32 (layer picked by pointer offset); q, out as for K1.

@@ -247,6 +247,13 @@ void tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
 
 }  // namespace
 
+void launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
+                        const bf16* ln_g, const bf16* ln_b, bf16* out, int N,
+                        int Din, int Dout, cudaStream_t stream) {
+  skinny_gemm(A, W, nullptr, nullptr, bias, nullptr, ln_g, ln_b, out, N, Din,
+              Dout, 0, stream);
+}
+
 // x, self_out [N, D] (self_out is [N, H, 1, Dh] viewed flat); the stacked
 // decoder weights [L, ...] are passed at layer 0 and offset by `layer` here;
 // k, v [L, Bc, H, Ta, 64] with N = Bc * beams; x1, cq, att, x2 [N, D] and

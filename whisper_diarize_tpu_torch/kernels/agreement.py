@@ -24,6 +24,11 @@ tens of percent; the `*_faults` generators build such results with the
 plain versions, and `reject` fails unless the check refuses each of them.
 K5 and K6 take int8 inputs: `quantize_cross_kv` and `quantize_tail_weights`
 of such random tensors.
+
+K7 computes in f32 and writes f32: it is held to an absolute bound instead
+of the bf16 one (`F32_ATOL`, and the same relative L2), since a few bf16
+ulps would let a wrong DFT span pass, or a kernel whose products take
+TF32's 10-bit mantissas (`k7_faults` plants one).
 """
 
 from __future__ import annotations
@@ -37,6 +42,13 @@ ULPS = 4  # bf16 ulps at the element's magnitude (or its residual's)
 ATOL_RMS = 2.0 ** -6  # four bf16 unit roundoffs of the update's rms
 REL_L2 = 1e-2  # relative L2 error of the update
 BIAS_SCALE = 0.5  # std of biases and layernorm shifts; layernorm scales are 1 + this
+# K7's bound on the raw log10 mel (2.5e-4 after whisper's (x + 4) / 4). A
+# DFT bin of small magnitude is a sum of 400 terms that cancel, and a low
+# mel filter (one or two bins at 128 mels) carries its relative error into
+# the log, so even f32 lies up to a few 1e-4 from the float64 value there
+# (`chip_smoke.py` prints the distance for its input); TF32 products lie
+# over a hundred times further from it (`k7_faults`).
+F32_ATOL = 1e-3
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -58,20 +70,25 @@ class Agreement:
 
     def __str__(self) -> str:
         return (f"max_abs_err {self.max_abs_err:.4g}, worst {self.worst:.3g} of the "
-                f"elementwise bound ({ULPS} ulp + {ATOL_RMS:.3g} rms), rel_l2 "
-                f"{self.rel_l2:.3g} (tol {REL_L2:g}), finite {self.finite}")
+                f"elementwise bound, rel_l2 {self.rel_l2:.3g} (tol {REL_L2:g}), "
+                f"finite {self.finite}")
 
 
 def agreement(got: torch.Tensor, ref: torch.Tensor,
-              base: Optional[torch.Tensor] = None) -> Agreement:
+              base: Optional[torch.Tensor] = None,
+              atol: Optional[float] = None) -> Agreement:
+    """The elementwise bound is ULPS bf16 ulps + ATOL_RMS of the update's
+    rms, or `atol` where given (an f32 kernel)."""
     g, r = got.float(), ref.float()
     upd = r if base is None else r - base.float()
     err = (g - r).abs()
-    rms = upd.pow(2).mean().sqrt()
-    mag = torch.maximum(g.abs(), r.abs())
-    if base is not None:
-        mag = torch.maximum(mag, base.float().abs())
-    bound = ULPS * bf16_ulp(mag) + ATOL_RMS * rms
+    if atol is not None:
+        bound = torch.full_like(err, atol)
+    else:
+        mag = torch.maximum(g.abs(), r.abs())
+        if base is not None:
+            mag = torch.maximum(mag, base.float().abs())
+        bound = ULPS * bf16_ulp(mag) + ATOL_RMS * upd.pow(2).mean().sqrt()
     tiny = torch.finfo(torch.float32).tiny
     return Agreement(
         max_abs_err=float(err.max()),
@@ -82,9 +99,10 @@ def agreement(got: torch.Tensor, ref: torch.Tensor,
 
 
 def compare(tag: str, got: torch.Tensor, ref: torch.Tensor,
-            base: Optional[torch.Tensor] = None) -> Agreement:
+            base: Optional[torch.Tensor] = None,
+            atol: Optional[float] = None) -> Agreement:
     """Print the agreement of kernel and plain version; raise on a miss."""
-    a = agreement(got, ref, base)
+    a = agreement(got, ref, base, atol)
     print(f"[kernels] {tag}: {a} -> {'ok' if a.ok else 'FAIL'}", flush=True)
     if not a.ok:
         raise AssertionError(f"{tag}: kernel disagrees with its plain version ({a})")
@@ -92,9 +110,10 @@ def compare(tag: str, got: torch.Tensor, ref: torch.Tensor,
 
 
 def reject(tag: str, got: torch.Tensor, faulty: torch.Tensor,
-           base: Optional[torch.Tensor] = None) -> Agreement:
+           base: Optional[torch.Tensor] = None,
+           atol: Optional[float] = None) -> Agreement:
     """The check must refuse a planted fault; raise if it lets one pass."""
-    a = agreement(got, faulty, base)
+    a = agreement(got, faulty, base, atol)
     print(f"[kernels] planted fault {tag}: worst {a.worst:.3g}, rel_l2 "
           f"{a.rel_l2:.3g} -> {'caught' if not a.ok else 'MISSED'}", flush=True)
     if a.ok:
@@ -128,6 +147,22 @@ def random_blocks(L: int, D: int, g: torch.Generator, device,
         "cv_b": b(D), "co_w": w(D, D), "co_b": b(D), "ln3_s": b(D, 1.0),
         "ln3_b": b(D), "fc1_w": w(D, 4 * D), "fc1_b": b(4 * D),
         "fc2_w": w(4 * D, D), "fc2_b": b(D),
+    }
+
+
+def random_front(L: int, D: int, g: torch.Generator, device,
+                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """K8's packed front weights (`ops/front.py::pack_front_weights` layout)
+    drawn as `random_blocks` draws its own: w [L, D, 3D] at 1/sqrt(D), the
+    q and v biases and ln1's shift at BIAS_SCALE, ln1's scale at 1 +
+    BIAS_SCALE * N(0, 1); k's third of "b" is zero (k has no bias)."""
+    b = randn(g, device, L, 3 * D, scale=BIAS_SCALE, dtype=torch.float32)
+    b[:, D:2 * D] = 0.0
+    return {
+        "w": randn(g, device, L, D, 3 * D, scale=D ** -0.5, dtype=dtype),
+        "b": b.to(dtype),
+        "ln1_s": (1.0 + randn(g, device, L, D, scale=BIAS_SCALE, dtype=torch.float32)).to(dtype),
+        "ln1_b": randn(g, device, L, D, scale=BIAS_SCALE, dtype=dtype),
     }
 
 
@@ -235,3 +270,89 @@ def k6_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total,
             layer, x, self_out, blocks, k, v, beams, ta_total, torch.ones_like(ks), vs)
         yield "K6 vs applied to the scores too", plain(
             layer, x, self_out, blocks, k, v, beams, ta_total, ks * vs, vs)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 explicit mantissa bits, ties away from
+    zero as `cvt.rna.tf32.f32` rounds): what a tensor core's TF32 product
+    reads."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def k7_faults(audio: torch.Tensor, n_mels: int) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of the fused log-mel, on the plain version's pieces: the third
+    DFT basis span (window samples 320..399) dropped, |re| + |im| taken for
+    the power, and the DFT in TF32 (audio and bases rounded to TF32, f32
+    sums: the precision K7 must not take)."""
+    from ..ops import mel
+
+    a, b, c = mel._frame_rows(audio.float())
+    c0, c1, c2, s0, s1, s2 = mel._bases(a.device)
+    re, im = a @ c0 + b @ c1, a @ s0 + b @ s1
+    yield "K7 third DFT span dropped", mel._mel_log10(re * re + im * im, n_mels)
+    re, im = re + c @ c2, im + c @ s2
+    yield "K7 |re| + |im| as the power", mel._mel_log10(re.abs() + im.abs(), n_mels)
+    a, b, c = mel._frame_rows(tf32_round(audio))
+    c0, c1, c2, s0, s1, s2 = (tf32_round(m) for m in mel._bases(a.device))
+    re, im = a @ c0 + b @ c1 + c @ c2, a @ s0 + b @ s1 + c @ s2
+    yield "K7 DFT in TF32", mel._mel_log10(re * re + im * im, n_mels)
+
+
+def front_self_slot_dropped(layer: int, pos: int, row_pad, x, front, kc, vc):
+    """`fused_front_layer` with a planted fault, in its plain version on the
+    tensors' device: the step's own slot left out of its self-attention.
+    Same arguments and effect on kc / vc; `row_pad` None means no pads."""
+    from ..ops.front import fused_front_layer_plain
+
+    if row_pad is None:
+        row_pad = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+    return fused_front_layer_plain(layer, pos, row_pad, x, front, kc, vc,
+                                   keep=torch.arange(kc.shape[3], device=kc.device) != pos)
+
+
+def k8_faults(layer: int, pos: int, row_pad, x, front, kc, vc
+              ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of the greedy front, judged on self_out; each built on clones
+    of the caches. Planted at pos > 0 with some row_pad[n] > 0 (each fault
+    is the truth where those are trivial)."""
+    from ..ops import front as fr
+    from ..ops.attn import qk_scaled
+
+    def plain(rp=row_pad, weights=front, keep=None):
+        return fr.fused_front_layer_plain(layer, pos, rp, x, weights, kc.clone(),
+                                          vc.clone(), keep)[0]
+
+    yield "K8 self slot omitted", front_self_slot_dropped(
+        layer, pos, row_pad, x, front, kc.clone(), vc.clone())[0]
+    yield "K8 newest cached row omitted", plain(
+        keep=torch.arange(kc.shape[3], device=kc.device) != pos - 1)
+    yield "K8 row_pad ignored", plain(rp=torch.zeros_like(row_pad))
+    D = x.shape[-1]
+    bias = front["b"].clone()
+    bias[:, D:2 * D] = bias[:, :D]  # q's bias on k
+    yield "K8 bias added to k", plain(weights=dict(front, b=bias))
+    kl, vl = kc.clone(), vc.clone()
+    fr.fused_front_layer_plain(layer, pos, row_pad, x, front, kl, vl)
+    q = fr.front_qkv_plain(layer, x, front, kc.shape[2])[0]
+    yield "K8 k not scaled by Dh^-0.25", fr.attend(
+        qk_scaled(q), kl[layer].float(), vl[layer], fr.valid_slots(pos, row_pad, kc.shape[3]))
+
+
+def k10_faults(q, k, v, ta_total: int, single_pass: bool
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of the encoder attention: the key padding left unmasked (keys
+    zero-padded to the next multiple of 512, as the TPU kernel pads them,
+    and all attended), and the softmax taken over the query axis."""
+    from ..ops.attn import qk_scaled
+    from ..ops.encoder_attn import encoder_self_attention_plain
+
+    T = q.shape[-2]
+    TP = -(-T // 512) * 512
+    pad = [torch.nn.functional.pad(x, (0, 0, 0, TP - T)) for x in (q, k, v)]
+    yield "K10 key padding not masked", encoder_self_attention_plain(
+        *pad, TP, single_pass)[..., :T, :]
+    s = torch.matmul(qk_scaled(q), qk_scaled(k)[..., :ta_total, :].transpose(-1, -2))
+    p = torch.softmax(s, dim=-2).to(v.dtype)
+    yield "K10 softmax over the query axis", torch.matmul(
+        p.float(), v[..., :ta_total, :].float()).to(q.dtype)

@@ -7,13 +7,16 @@
   stay; the conv stem's `WIO` kernels become torch's `[out, in, k]`.
 * `load_model` — a snapshot directory (`config.json` + `model.safetensors`),
   in the native layout (`_flatten` keys, as `save_params` writes) or the HF
-  transformers layout.
+  transformers layout, onto CUDA device 0 unless given a device.
 * `init_params_fast` — the deterministic `arange % 1009` pattern of the JAX
   package's `init_params_fast`, filled on the device.
 * `tail_q8_from_jax` — the JAX package's int8 tail pack
   (`pack_tail_weights(quantize=True)`) -> the port's int8 tail weights
   (`ops/tail.py::quantize_tail_weights` layout), so both sides hold the
   same bytes.
+* `front_from_jax` — the JAX package's greedy front pack
+  (`tools/pallas_front.py::pack_front_weights`) -> the port's front
+  (`ops/front.py::pack_front_weights` layout), payloads unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils import default_device
 from . import whisper as wm
 
 # conv stem leaves stored "WIO" [k, in, out] in JAX, [out, in, k] in torch
@@ -139,11 +143,13 @@ def convert_hf_params(flat: Dict[str, np.ndarray], cfg: wm.WhisperConfig) -> Dic
     }
 
 
-def load_model(model_dir, device="cpu", dtype=torch.float32
+def load_model(model_dir, device=None, dtype=torch.float32
                ) -> Tuple[Dict[str, Any], wm.WhisperConfig]:
-    """(params, config) from a snapshot directory (native or HF layout)."""
+    """(params, config) from a snapshot directory (native or HF layout), on
+    `device`: CUDA device 0 unless given one (raises without a card)."""
     from safetensors.numpy import load_file
 
+    device = default_device(device, "load_model")
     d = Path(model_dir)
     cfg_dict = json.loads((d / "config.json").read_text())
     cfg = hf_config_to_whisper_config(cfg_dict)
@@ -212,3 +218,20 @@ def tail_q8_from_jax(pack: Dict[str, Any], device="cpu", dtype=torch.float32
     for key, a in small.items():
         tensors[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
     return tensors
+
+
+def front_from_jax(pack: Dict[str, Any], device="cpu", dtype=torch.float32
+                   ) -> Dict[str, torch.Tensor]:
+    """The JAX package's greedy front pack {"w" [L, 3D/TW, D, TW] column
+    tiles of [q_w | k_w | v_w], "b" [L, 4, D] rows ln1_s, ln1_b, q_b, v_b}
+    (numpy arrays) -> the port's front: "w" [L, D, 3D], "b" [L, 3D] =
+    [q_b | 0 | v_b], "ln1_s", "ln1_b" [L, D], in `dtype` on `device`. The
+    tiles are the concatenated matrix's columns in order, so the payloads
+    are carried over unchanged."""
+    w, b = np.asarray(pack["w"]), np.asarray(pack["b"])
+    L, _, D, TW = w.shape
+    out = {"w": w.transpose(0, 2, 1, 3).reshape(L, D, w.shape[1] * TW),
+           "b": np.concatenate([b[:, 2], np.zeros_like(b[:, 2]), b[:, 3]], axis=1),
+           "ln1_s": b[:, 0], "ln1_b": b[:, 1]}
+    return {key: torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+            for key, a in out.items()}

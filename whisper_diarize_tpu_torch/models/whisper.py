@@ -22,6 +22,13 @@ single-token tails on K6; int8 tail weights (`tail_q8` of `decode_step`,
 from `ops/tail.py::quantize_tail_weights`, held by `TranscribeStep`) run the
 single-token tails on K6 as well. Either is independent of the other.
 Language detection always reads the bf16 cache and the bf16 weights.
+
+The all-fused greedy path: `encode(..., flash=True)` runs the encoder's
+self-attention on K10 (`ops/encoder_attn.py::encoder_self_attention`, single
+pass, as the JAX `make_encode(cfg, "flash-custom")` does), and a "front"
+pack on the decoder params (`ops/front.py::pack_front_weights`) runs every
+single-token step of `decode_step` through K8 (ln1, q/k/v, self-attention
+and the cache write); beam steps (`decode_step_split`) never take it.
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import encoder_attn
 from ..ops.attn import (cross_attn_layer, cross_attn_layer_q8, cross_kv_build,
                         quantize_cross_kv, split_self_attn_layer)
+from ..ops.front import fused_front_layer
 from ..ops.tail import fused_tail_layer
 
 Params = Dict[str, object]
@@ -300,8 +309,11 @@ def _layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
 # Encoder
 # --------------------------------------------------------------------------
 
-def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
-    """mel [B, n_mels, 3000] -> audio states [B, 1500, d]."""
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+           flash: bool = False) -> torch.Tensor:
+    """mel [B, n_mels, 3000] -> audio states [B, 1500, d]. Every layer's
+    self-attention is the plain `_attn` (compact probabilities in low
+    precision), or with `flash` K10 in its single-pass form."""
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)
@@ -317,7 +329,9 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
         q = _heads(h @ blk["q_w"] + blk["q_b"], H)
         k = _heads(h @ blk["k_w"], H)
         v = _heads(h @ blk["v_w"] + blk["v_b"], H)
-        x = x + _unheads(_attn(q, k, v, compact_probs=compact)) @ blk["o_w"] + blk["o_b"]
+        a = (encoder_attn.encoder_self_attention(q, k, v) if flash
+             else _attn(q, k, v, compact_probs=compact))
+        x = x + _unheads(a) @ blk["o_w"] + blk["o_b"]
         h = _ln(x, blk["ln2_s"], blk["ln2_b"])
         h = _gelu(h @ blk["fc1_w"] + blk["fc1_b"])
         x = x + h @ blk["fc2_w"] + blk["fc2_b"]
@@ -431,9 +445,11 @@ def decode_step(
     prompts; padded slots are masked and positions shift down by the pad
     (a pad-filler query attends its own slot so its softmax stays finite).
     S == 1 runs each layer tail on K3, or on K6 over the int8 cache or the
-    int8 tail weights `tail_q8` (`ops/tail.py::quantize_tail_weights`); the
-    prompt pass (S > 1) runs the cross attention on K1 (K5 over the int8
-    cache) and its projections on the bf16 weights."""
+    int8 tail weights `tail_q8` (`ops/tail.py::quantize_tail_weights`), and,
+    when `params["decoder"]` carries a "front" pack, each layer's front on
+    K8 (whatever `beams`: the rows' self caches are their own); the prompt
+    pass (S > 1) runs the cross attention on K1 (K5 over the int8 cache) and
+    its projections on the bf16 weights."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     device = tokens.device
@@ -459,13 +475,20 @@ def decode_step(
     kc, vc = self_cache["k"], self_cache["v"]
     blocks = dec["blocks"]
     tail_blocks = blocks if tail_q8 is None else tail_q8
+    front = dec.get("front") if S == 1 else None
+    if front is not None:  # K8's row pads, converted once for every layer
+        front_rp = (torch.zeros((N,), dtype=torch.int32, device=device) if row_pad is None
+                    else row_pad.to(torch.int32))
     for l in range(cfg.n_text_layer):
         blk = _layer(blocks, l)
-        q, k_new, v_new = _decoder_qkv(x, blk, H)
-        # in-place K/V cache update (JAX: dynamic_update_slice on a copy)
-        kc[l, :, :, pos_offset:pos_offset + S] = k_new
-        vc[l, :, :, pos_offset:pos_offset + S] = v_new
-        self_out = _attn(q, kc[l], vc[l], mask)
+        if front is not None:  # K8 writes the cache slot itself
+            self_out = fused_front_layer(l, pos_offset, front_rp, x, front, kc, vc)[0]
+        else:
+            q, k_new, v_new = _decoder_qkv(x, blk, H)
+            # in-place K/V cache update (JAX: dynamic_update_slice on a copy)
+            kc[l, :, :, pos_offset:pos_offset + S] = k_new
+            vc[l, :, :, pos_offset:pos_offset + S] = v_new
+            self_out = _attn(q, kc[l], vc[l], mask)
         if S == 1:
             x = _tail_step(l, x, self_out.contiguous(), tail_blocks, cross_cache,
                            beams, cfg)

@@ -43,6 +43,13 @@ def _require_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
 
 
+def qk_scaled(x: torch.Tensor) -> torch.Tensor:
+    """x * Dh^-0.25 in f32, rounded to x's dtype, as f32: how the self
+    attentions of the encoder (K10) and of the greedy front (K8) scale q
+    and k each."""
+    return (x.float() * x.shape[-1] ** -0.25).to(x.dtype).float()
+
+
 # --------------------------------------------------------------------------
 # K1: cross-attention of one decoder layer
 # --------------------------------------------------------------------------

@@ -6,7 +6,8 @@ the port imports nothing of the JAX package.
 Mirrors the reference's `src/utils.rs`: `calculate_dtw_mem_size`
 (`utils.rs:3-49`), `round_to_places` (`utils.rs:51-54`), `cs_to_s`
 (`utils.rs:57-59`), `get_translate_languages` (`utils.rs:62-72`) and
-`get_whisper_languages` (`utils.rs:75-87`).
+`get_whisper_languages` (`utils.rs:75-87`). `default_device` is the port's
+rule for public entry points that take a device.
 """
 
 from __future__ import annotations
@@ -19,7 +20,21 @@ __all__ = [
     "cs_to_s",
     "get_translate_languages",
     "get_whisper_languages",
+    "default_device",
 ]
+
+
+def default_device(device, what: str):
+    """The caller's device, or CUDA device 0 when none is given (an entry
+    point runs on the card unless asked for the CPU); raises without one."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on CUDA device 0 by default and none is "
+                           "available; pass device=\"cpu\" for the CPU")
+    return torch.device("cuda", 0)
 
 
 def calculate_dtw_mem_size(num_samples: int) -> int:

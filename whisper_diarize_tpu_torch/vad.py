@@ -19,6 +19,7 @@ import torch
 from .audio import int16_to_float32
 from .models import silero_vad
 from .types import SpeechSegment
+from .utils import default_device
 
 SAMPLE_RATE = 16_000
 MERGE_GAP_S = 0.200  # `vad.rs:50`
@@ -136,14 +137,17 @@ def slice_segments(
     return out
 
 
-def load_vad_params(vad_model: Any, device="cpu", allow_random: bool = False):
+def load_vad_params(vad_model: Any, device=None, allow_random: bool = False):
     """Silero weights from a params dict, a path (.npz, or the reference's
     `ggml-silero-v5.1.2.bin`, converted and cached on first use), the
-    "__random__" sentinel or None (random weights)."""
+    "__random__" sentinel or None (random weights), on `device`: CUDA
+    device 0 unless given one (raises without a card); a params dict is
+    returned as it is."""
+    if not isinstance(vad_model, (str, type(None))):
+        return vad_model
+    device = default_device(device, "load_vad_params")
     if vad_model is None:
         return silero_vad.init_params(device=device)
-    if not isinstance(vad_model, str):
-        return vad_model
     from .models import convert as convert_mod
 
     tree = convert_mod._load_with(
@@ -151,18 +155,6 @@ def load_vad_params(vad_model: Any, device="cpu", allow_random: bool = False):
         silero_vad.load_params_np, {"ggml": convert_mod.silero_npz_from_ggml},
         allow_random)
     return silero_vad.params_from_jax(tree, device)
-
-
-def _vad_device(device) -> torch.device:
-    """The caller's device, or CUDA device 0 when none is given (an entry
-    point runs on the card unless asked for the CPU); raises without one."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "VAD runs on CUDA device 0 by default and none is available; "
-            "pass device=\"cpu\" for the CPU")
-    return torch.device("cuda", 0)
 
 
 def get_segments(
@@ -186,7 +178,7 @@ def get_segments_batch(
     [S, T] batches of at most MAX_BATCH_SAMPLES padded samples; rows are
     independent, so each stream's result equals `get_segments`. `device`
     defaults to CUDA device 0; pass "cpu" for the CPU."""
-    device = _vad_device(device)
+    device = default_device(device, "VAD")
     model_params = load_vad_params(vad_model, device)
     arrays = [np.asarray(x) for x in streams]
     lengths = [len(x) for x in arrays]
