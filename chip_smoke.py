@@ -27,7 +27,19 @@ traceback) and no result line is printed:
    same on both); then K7 (fused log-mel, f32, held to an absolute bound),
    K8 (greedy decoder front) and K10 (encoder self-attention, both forms;
    library call `F.scaled_dot_product_attention`) at the fused greedy
-   path's shapes (`phase_fused_kernels`);
+   path's shapes (`phase_fused_kernels`); then the diagnostic kernels, K11
+   (stream sums of a bf16 array: grid-stride, and through a ring of TMA
+   bulk copies) and K9 (K1's function presliced, with a constant layer and
+   with the audio axis split; K9b, K1's bytes walked K1's way and summed)
+   at every shape the diagnostic tools run them (K11 over 62.9 and 252 MB;
+   K1 and K9 at the bench_attn_kernel tool's default shape and at K1's
+   served one, on the tool's own inputs), the sums held to their float64
+   value (`agreement.compare_sum`), with planted faults
+   (`phase_probe_kernels`);
+   then each diagnostic tool's `main()` on the card, a path of its own
+   (`phase_tool`): `whisper_diarize_tpu_torch.tools.bench_dma` once (its
+   two array sizes) and `...tools.bench_attn_kernel` at its shapes and at
+   K1's served shape (B 8, Q 3, 32 layers);
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
@@ -64,8 +76,8 @@ traceback) and no result line is printed:
    temperature 0.2) on the same batch; wall seconds per stage.
    In 5-9 each request prints wall time, windows decoded and the launches
    it added; a request that decoded a window must have raised the count of
-   every kernel of its path (`PATHS`). The counts are set to 0 just before
-   each path and read just after;
+   every kernel of its path (`PATHS`; the tools of phase 3 are paths too).
+   The counts are set to 0 just before each path and read just after;
 10. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request and the fused greedy batch under torch.profiler (device busy time
    and kernel time by kind, also written to build/chip_smoke/profile.txt).
@@ -82,7 +94,6 @@ from __future__ import annotations
 import itertools
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -95,7 +106,10 @@ import whisper_diarize_tpu_torch as wdt
 from whisper_diarize_tpu_torch import kernels
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
-from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, mel, tail
+from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
+from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
+from whisper_diarize_tpu_torch.tools.timing import (F32_FLOPS, attn_bound, bound, device_ms,
+                                                    nvidia_smi_line, sum_bound, time_ms)
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -125,26 +139,28 @@ KERNELS = {
     "K8": dict(name="fused_front_layer", fn=front.fused_front_layer,
                source="whisper_diarize_tpu_torch/csrc/front.cu",
                replaces="tools/pallas_front.py:193"),
+    # one count for the family: the four wrappers' launches summed (K9a
+    # :167, K9b :205, K9c :228, K9d :312; K9b's kernel is in stream_sum.cu)
+    "K9": dict(name="cross_attn_presliced / kv_stream_sum / cross_attn_const_layer / "
+                    "cross_attn_flat",
+               fns=(attn_probe.cross_attn_presliced, stream.kv_stream_sum,
+                    attn_probe.cross_attn_const_layer, attn_probe.cross_attn_flat),
+               source="whisper_diarize_tpu_torch/csrc/cross_attn.cu",
+               replaces="tools/bench_attn_kernel.py:167"),
     # one counter for both forms: single pass (:261), two pass (:276)
     "K10": dict(name="encoder_self_attention", fn=encoder_attn.encoder_self_attention,
                 source="whisper_diarize_tpu_torch/csrc/encoder_attn.cu",
                 replaces="tools/bench_encoder_attn.py:261"),
+    # K11a auto_sum (:58) and K11b manual_sum (:107)
+    "K11": dict(name="stream_sum / stream_sum_pipelined",
+                fns=(stream.stream_sum, stream.stream_sum_pipelined),
+                source="whisper_diarize_tpu_torch/csrc/stream_sum.cu",
+                replaces="tools/bench_dma.py:58"),
 }
 PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6"),
-         "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10")}
-# H100 SXM data sheet: memory rate, dense bf16 tensor rate, f32 rate outside
-# the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+         "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10"),
+         "bench-dma": ("K11",), "bench-attn": ("K1", "K9")}
 
 
 def phase_device() -> str:
@@ -169,84 +185,6 @@ def phase_build() -> None:
           flush=True)
     for ln in ptxas:
         print(f"[build] {ln}", flush=True)
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 10, windows: int = 3, warmup: int = 3) -> float:
-    """Mean device time of one call: the summed durations of the kernels it
-    launches (torch.profiler), without the gaps in which the device waits
-    for the host. Where the host issues calls slower than the device runs
-    them, `time_ms` measures the host and this the kernels.
-
-    The profiler at times loses kernel events (a reading far below the
-    CUDA-event time), so one session profiles `windows` windows of `iters`
-    calls, each ended by a marker kernel (`torch.cuda._sleep`). Every window
-    launches the same kernels: one that holds fewer kernel events than the
-    fullest lost some and is dropped, and the reading is the median of the
-    rest. A session whose markers do not all show is profiled again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(windows):
-                for _ in range(iters):
-                    fn()
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        kern = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
-        wins, cur = [], []
-        for e in kern:
-            if "spin_kernel" in e.name:
-                wins.append(cur)
-                cur = []
-            else:
-                cur.append(e.time_range.elapsed_us())
-        if len(wins) != windows or cur:
-            continue
-        full = max(len(w) for w in wins)
-        kept = sorted(sum(w) for w in wins if len(w) == full)
-        if len(kept) < windows:
-            print(f"[kernels] device_ms: dropped {windows - len(kept)} of {windows} "
-                  f"profiled windows that lost kernel events", flush=True)
-        return kept[len(kept) // 2] / iters / 1e3
-    raise AssertionError("device_ms: the profiler lost window markers in three sessions")
-
-
-def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS) -> dict:
-    """The least time the card could take for a call: the larger of the
-    bytes it must move (each input read once, each output written once)
-    over the memory rate and its operations over the rate for their type
-    (the bf16 tensor rate unless given another)."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / flops_per_s * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bound_bytes=nbytes, bound_flops=flops)
-
-
-def attn_bound(B: int, Q: int, H: int, Ta: int, kv_row_bytes: int) -> dict:
-    """K1 / K5: q in and out [B, Q, H, 64] bf16, one layer's K and V rows
-    (`kv_row_bytes` a row: 128 bf16, 64 + 4 int8 with its scale)."""
-    return bound(2 * B * Q * H * 64 * 2 + 2 * B * H * Ta * kv_row_bytes,
-                 4 * B * H * Q * Ta * 64)
 
 
 def tail_bound(N: int, beams: int, D: int, Ta: int, wq: bool, kvq: bool) -> dict:
@@ -639,6 +577,177 @@ def phase_fused_kernels() -> dict:
     return res
 
 
+def check_attn_tool_shape(kw: dict, errs: dict) -> None:
+    """Every kernel row of the bench_attn_kernel tool against its plain
+    version on the tool's own inputs at one of its shapes
+    (`bench_attn_kernel.setup` / `forms`, keyword arguments `kw`): K1, K9a
+    over the layer and over its first 512 keys, K9c and K9d
+    (`agreement.compare`); K11a over the layer's K and over its V, and K9b
+    (`agreement.compare_sum`; the plain versions sum in float64). Raises on
+    a miss; the
+    worst errors go into `errs`."""
+    lay = bench_attn_kernel.LAYER
+    t = bench_attn_kernel.setup(torch.device("cuda"), **kw)
+    at = (f"L={t.layers} B={t.batch} Q={t.queries} H={bench_attn_kernel.H} Ta={t.keys} "
+          f"ta_total={t.ta} layer={lay}")
+    for name, call, plain, _ in bench_attn_kernel.forms(t):
+        if plain is None:  # the library row
+            continue
+        got, want = call(), plain()
+        if name == "stream":
+            for half, g1, w1, xs in zip("KV", got, want, (t.kl, t.vl)):
+                errs["K11"] = max(errs["K11"], ag.compare_sum(
+                    f"K11a stream_sum over the layer's {half} {at}", g1, w1,
+                    ag.stream_terms(xs, 0.0)[1]))
+        elif name == "stream+sum":
+            errs["K9"] = max(errs["K9"], ag.compare_sum(
+                f"K9b kv_stream_sum {at}", got, want, ag.kv_terms(lay, t.k, t.v, 0.0)[1]))
+        else:
+            key = "K1" if name == "cross_attn_layer" else "K9"
+            errs[key] = max(errs[key], ag.compare(f"{key} {name} {at}", got,
+                                                  want).max_abs_err)
+    del t
+    torch.cuda.empty_cache()
+
+
+def phase_probe_kernels(res: dict) -> dict:
+    """K9 and K11, the diagnostic tools' kernels, against their plain
+    versions at every shape the tools run; their planted faults refused.
+    K11 over each bench_dma array (48 and 192 tiles of [20, 64, 512] bf16,
+    62.9 and 252 MB, `agreement.stream_input`: values whose mean moves every
+    1 KB) at s = 0 and 0.3, K11b in every ring the tool runs, and at 62.9 MB
+    a length that is no multiple of 8 or of a stage, held to the float64
+    sum (`agreement.compare_sum`); the faults at 62.9 MB and s = 0. K9b over
+    `stream_input` K/V of the bench_attn_kernel tool's default shape (L 4,
+    B 16, H 20, 1536 keys, layer 1) with its faults; K9a, K9c and K9d at
+    that shape (Q 1, 1500 keys unmasked) with theirs (`agreement.compare`:
+    the key padding unmasked, the wrong layer, the spans combined without
+    their rescale). Then every kernel row of the tool at both its shapes,
+    the default and K1's served one (B 8, Q 3, L 32, 1500 keys), on the
+    tool's own inputs (`check_attn_tool_shape`; K1 among them, whose worst
+    error joins `res["K1"]`). Times (`timed`) at the tools' default shapes,
+    `F.scaled_dot_product_attention` over the layer as the library call of
+    the attention forms."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    errs, out = {"K1": 0.0, "K9": 0.0, "K11": 0.0}, {}
+    sms = stream.sm_count(dev)
+    rings = [(n, st) for n in bench_dma.NBUFS for st in bench_dma.STAGES]
+
+    for tiles in sorted(bench_dma.SIZES, reverse=True):  # the tool's array last
+        x = ag.stream_input(g, dev, tiles, bench_dma.H, bench_dma.DH, bench_dma.TT)
+        main = tiles == bench_dma.TILES
+        for xs in ((x, x.flatten()[:x.numel() - 16389]) if main else (x,)):
+            for s in (0.0, 0.3):
+                ref, mass = ag.stream_terms(xs, s)
+                at = f"n={xs.numel()} s={s}"
+                faults = main and xs is x and s == 0.0
+                got = stream.stream_sum(xs, s)
+                errs["K11"] = max(errs["K11"], ag.compare_sum(f"K11a stream_sum {at}", got,
+                                                              ref, mass))
+                if faults:
+                    for name, bad in ag.k11a_faults(xs, s, stream.SUM_CTAS_PER_SM * sms):
+                        ag.reject_sum(name, got, bad, mass)
+                for nbuf, st in rings:
+                    got = stream.stream_sum_pipelined(xs, s, nbuf, st)
+                    errs["K11"] = max(errs["K11"], ag.compare_sum(
+                        f"K11b stream_sum_pipelined nbuf={nbuf} stage={st} {at}", got, ref,
+                        mass))
+                    if faults and (nbuf, st) == rings[0]:
+                        for name, bad in ag.k11b_faults(xs, s, nbuf, st, sms):
+                            ag.reject_sum(f"{name} (nbuf {nbuf}, {st} B)", got, bad, mass)
+        if not main:
+            del x, xs
+            torch.cuda.empty_cache()
+    nbytes = x.numel() * 2
+    nbuf, st = 4, bench_dma.STAGES[0]
+    for form, fn, plain in (
+            ("stream_sum", lambda: stream.stream_sum(x, 0.0),
+             lambda: stream.stream_sum_plain(x, 0.0)),
+            (f"stream_sum_pipelined nbuf={nbuf} stage={st}",
+             lambda: stream.stream_sum_pipelined(x, 0.0, nbuf, st),
+             lambda: stream.stream_sum_pipelined_plain(x, 0.0, nbuf, st))):
+        t = timed(f"K11 {form} {nbytes / 1e6:.1f} MB", fn, plain,
+                  shape=f"{tuple(x.shape)} bf16", **sum_bound(nbytes))
+        out.setdefault("K11", t).setdefault("by_form", {})[form] = {
+            key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                    "bound_ms")}
+    del x, xs
+
+    L, B, Q, H = bench_attn_kernel.L, bench_attn_kernel.B, bench_attn_kernel.Q, bench_attn_kernel.H
+    Ta, ta, lay = bench_attn_kernel.KEYS, bench_attn_kernel.VALID, bench_attn_kernel.LAYER
+    k, v = (ag.stream_input(g, dev, L, B, H, Ta, 64) for _ in range(2))
+    ref, mass = ag.kv_terms(lay, k, v, 0.0)
+    got = stream.kv_stream_sum(lay, k, v, 0.0)
+    errs["K9"] = max(errs["K9"], ag.compare_sum(
+        f"K9b kv_stream_sum L={L} B={B} H={H} Ta={Ta} layer={lay}", got, ref, mass))
+    for name, bad in ag.k9b_faults(lay, k, v, 0.0):
+        ag.reject_sum(name, got, bad, mass)
+    layer_bytes = 2 * k[lay].numel() * 2
+    t = timed(f"K9b kv_stream_sum {layer_bytes / 1e6:.1f} MB",
+              lambda: stream.kv_stream_sum(lay, k, v, 0.0),
+              lambda: stream.kv_stream_sum_plain(lay, k, v, 0.0),
+              shape=f"L={L} B={B} H={H} Ta={Ta} layer={lay}", **sum_bound(layer_bytes))
+    by_form = {"kv_stream_sum": t}
+    del k, v
+
+    q = ag.randn(g, dev, B, Q, H, 64, scale=2.0)
+    k, v = (ag.randn(g, dev, L, B, H, Ta, 64) for _ in range(2))
+    kl, vl = k[lay], v[lay]
+    at = f"B={B} Q={Q} H={H} Ta={Ta} ta_total={ta} layer={lay}"
+    forms = (
+        ("cross_attn_presliced", attn_probe.cross_attn_presliced, (q, kl, vl, ta),
+         attn_probe.cross_attn_presliced_plain, False),
+        ("cross_attn_const_layer", attn_probe.cross_attn_const_layer, (q, k, v, ta),
+         attn_probe.cross_attn_const_layer_plain, False),
+        ("cross_attn_flat", attn_probe.cross_attn_flat, (lay, q, k, v, ta),
+         attn_probe.cross_attn_flat_plain, True))
+    for form, fn, a, plain, flat in forms:
+        got = fn(*a)
+        errs["K9"] = max(errs["K9"], ag.compare(f"K9 {form} {at}", got,
+                                                plain(*a)).max_abs_err)
+        for name, bad in ag.k9_faults(lay, q, k, v, ta, flat):
+            ag.reject(f"{name} ({form})", got, bad)
+        qt = q.transpose(1, 2)
+        by_form[form] = timed(
+            f"K9 {form} {at}", lambda: fn(*a), lambda: plain(*a),
+            library=lambda: F.scaled_dot_product_attention(qt, kl[:, :, :ta], vl[:, :, :ta]),
+            shape=at, **attn_bound(B, Q, H, ta, 128))
+    del q, k, v, kl, vl
+    torch.cuda.empty_cache()
+
+    for kw in ({}, bench_attn_kernel.SERVED):
+        check_attn_tool_shape(kw, errs)
+    out["K9"] = dict(by_form["cross_attn_presliced"], by_form={
+        form: {key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                       "library_ms", "bound_ms")}
+        for form, t in by_form.items()})
+    for key in out:
+        out[key]["max_abs_err"] = errs[key]
+    res["K1"]["max_abs_err"] = max(res["K1"]["max_abs_err"], errs["K1"])
+    return out
+
+
+def phase_tool(path: str, runs) -> dict:
+    """One diagnostic tool on the card (`runs`: (main, keyword arguments),
+    one a run); the launch counts are set to 0 just before and read just
+    after, and every kernel of the path (`PATHS`) must have launched. Every
+    row must carry a positive, finite time and device time. Returns the
+    path's counts."""
+    reset_counts()
+    rows = [row for main, kw in runs for row in main(**kw)]
+    torch.cuda.synchronize()
+    added = counts()
+    bad = [r["name"] for r in rows if not all(
+        math.isfinite(r[key]) and r[key] > 0 for key in ("ms", "device_ms", "bound_ms"))]
+    print(f"[tool {path}] {len(rows)} rows, launches {added}", flush=True)
+    if bad:
+        raise AssertionError(f"tool {path}: rows without a positive finite time: {bad}")
+    _check_missing(f"tool {path}", path, added)
+    torch.cuda.empty_cache()
+    return added
+
+
 def _teacher_forced(cpu, xa_b, prompt, toks):
     """The f32 CPU path's prepared logits [n, V] for the n tokens `toks`
     (sampling grammar without timestamps), each given the tokens before it:
@@ -834,14 +943,19 @@ def _write_wav(path: Path, seconds: float, seed: int) -> str:
     return str(path)
 
 
+def _counted(spec: dict):
+    return spec.get("fns", (spec.get("fn"),))
+
+
 def counts() -> dict:
-    return {k: getattr(spec["fn"], spec.get("count", "launches"))
+    return {k: sum(getattr(fn, spec.get("count", "launches")) for fn in _counted(spec))
             for k, spec in KERNELS.items()}
 
 
 def reset_counts() -> None:
     for spec in KERNELS.values():
-        setattr(spec["fn"], spec.get("count", "launches"), 0)
+        for fn in _counted(spec):
+            setattr(fn, spec.get("count", "launches"), 0)
 
 
 def make_engine(model: str, **over):
@@ -1081,8 +1195,8 @@ def _kernel_kind(name: str) -> str:
         return "K10 encoder self-attention"
     if "log_mel_kernel" in name:
         return "K7 log-mel"
-    if "cross_attn_kernel" in name:  # one template: bf16 K/V (K1) or int8 (K5)
-        if "cross_attn_kernel<__nv_bfloat16>" in name or "cross_attn_kernelI13__nv" in name:
+    if "cross_attn_kernel" in name:  # one template: bf16 K/V (K1, K9) or int8 (K5)
+        if "cross_attn_kernel<__nv_bfloat16" in name or "cross_attn_kernelI13__nv" in name:
             return "K1 attention (prefill, and inside K3)"
         return "K5 int8 attention (prefill, and inside K6)"
     if "cross_kv_kernel" in name:
@@ -1171,14 +1285,20 @@ def main() -> None:
     res.update(timed_phase("kernels K4", phase_k4))
     res.update(timed_phase("kernels K5 K6", phase_int8_kernels))
     res.update(timed_phase("kernels K7 K8 K10", phase_fused_kernels))
+    res.update(timed_phase("kernels K9 K11", phase_probe_kernels, res))
+    by_path = {"bench-dma": timed_phase("tool bench-dma", phase_tool, "bench-dma",
+                                        [(bench_dma.main, {})])}
+    by_path["bench-attn"] = timed_phase("tool bench-attn", phase_tool, "bench-attn",
+                                        [(bench_attn_kernel.main, {}),
+                                         (bench_attn_kernel.main, bench_attn_kernel.SERVED)])
     timed_phase("reference", phase_reference)
     # depth: 32 tokens a window on the greedy paths and the bf16 beam
     # Engine; the int8 beam Engine runs without the fallback ladder, whose
     # sampling rungs the int8 greedy step drives through K5 and K6
     greedy_eng = make_engine("large-v3-turbo", max_decode_tokens=32)
     greedy = greedy_requests()
-    by_path = {"greedy": timed_phase("engine greedy", phase_engine, greedy_eng, "greedy",
-                                     greedy)}
+    by_path["greedy"] = timed_phase("engine greedy", phase_engine, greedy_eng, "greedy",
+                                    greedy)
     beam_eng, beam = make_engine("large-v3", max_decode_tokens=32), beam_requests()
     by_path["beam"] = timed_phase("engine beam", phase_engine, beam_eng, "beam", beam)
     int8_eng = make_engine("large-v3", quantize_kv_cache=True, temperature_fallback=False)

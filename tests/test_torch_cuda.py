@@ -7,7 +7,9 @@ Each kernel against its plain version in bf16 on the same device, at small
 shapes with Dh = 64, a ragged audio length (K1-K3, K5, K6 in its three int8
 forms) and ragged prompt and decode lengths with row pads and a random
 ancestry (K4), the fused greedy path's kernels (K7 log-mel, K8 decoder
-front, K10 encoder attention in both forms), with the tolerance of
+front, K10 encoder attention in both forms), the diagnostic kernels (K9a /
+K9c / K9d, K1's forms; the stream sums K9b and K11a / K11b, held to their
+float64 value by `agreement.compare_sum`), with the tolerance of
 `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
 element and 1e-2 relative L2 of the update; K3 is judged on the update it
 adds to x; K7, an f32 kernel, on an absolute bound), and the planted faults
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, mel, tail
+from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
 from whisper_diarize_tpu_torch.ops import decode as dec
 
 pytestmark = pytest.mark.cuda
@@ -230,3 +232,92 @@ def test_k10_matches_plain_on_card(dev, B, H, T, ta, single_pass):
             for name, bad in ag.k10_faults(q, k, v, ta, single_pass):
                 ag.reject(name, got, bad)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B,Q,Ta,ta", [(2, 1, 1536, 1500), (3, 3, 1500, 1500), (2, 17, 700, 650)])
+def test_k9_attention_matches_plain_on_card(dev, B, Q, Ta, ta):
+    """K9a (also over one 512-key tile), K9c and K9d against their plain
+    versions; their planted faults refused (key padding where Ta > ta)."""
+    g = torch.Generator(device=dev).manual_seed(B * 10 + Q)
+    L, H, lay = 3, 2, attn_probe.CONST_LAYER
+    q = ag.randn(g, dev, B, Q, H, 64, scale=2.0)
+    k, v = (ag.randn(g, dev, L, B, H, Ta, 64) for _ in range(2))
+    k1, v1 = (t[lay, :, :, :512].contiguous() for t in (k, v))
+    forms = (
+        (attn_probe.cross_attn_presliced, (q, k[lay], v[lay], ta),
+         attn_probe.cross_attn_presliced_plain, lay),
+        (attn_probe.cross_attn_presliced, (q, k1, v1, ta),
+         attn_probe.cross_attn_presliced_plain, None),
+        (attn_probe.cross_attn_const_layer, (q, k, v, ta),
+         attn_probe.cross_attn_const_layer_plain, lay),
+        (attn_probe.cross_attn_flat, (0, q, k, v, ta), attn_probe.cross_attn_flat_plain, 0),
+        (attn_probe.cross_attn_flat, (2, q, k, v, ta), attn_probe.cross_attn_flat_plain, 2),
+    )
+    for fn, a, plain, layer in forms:
+        before = fn.launches
+        got = fn(*a)
+        assert fn.launches == before + 1
+        ag.compare(f"{fn.__name__} Ta={Ta}", got, plain(*a))
+        if layer is None:
+            continue
+        for name, bad in ag.k9_faults(layer, q, k, v, ta, fn is attn_probe.cross_attn_flat):
+            if Ta > ta or "padding" not in name:
+                ag.reject(name, got, bad)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("numel", [48 * 2 * 64 * 512, 1003, 800005])
+def test_k11_matches_plain_on_card(dev, numel):
+    """K11a and K11b (every ring of the tool) against the float64 sum, with
+    lengths that are no multiple of 8 or of a stage; the planted faults
+    refused at s = 0 on the large array."""
+    g = torch.Generator(device=dev).manual_seed(numel)
+    x = ag.stream_input(g, dev, numel)
+    for s in (0.0, 0.3):
+        ref, mass = ag.stream_terms(x, s)
+        before = stream.stream_sum.launches
+        got = stream.stream_sum(x, s)
+        assert stream.stream_sum.launches == before + 1
+        ag.compare_sum(f"K11a n={numel} s={s}", got, ref, mass)
+        if s == 0.0 and numel > 10 ** 6:
+            for name, bad in ag.k11a_faults(x, s, stream.SUM_CTAS_PER_SM * stream.sm_count(dev)):
+                ag.reject_sum(name, got, bad, mass)
+        for nbuf in (2, 3, 4, 6, 8):
+            for stage in (16384, 24576):
+                got = stream.stream_sum_pipelined(x, s, nbuf, stage)
+                ag.compare_sum(f"K11b n={numel} s={s} nbuf={nbuf} stage={stage}", got, ref, mass)
+                if s == 0.0 and numel > 10 ** 6 and (nbuf, stage) == (4, 16384):
+                    for name, bad in ag.k11b_faults(x, s, nbuf, stage, stream.sm_count(dev)):
+                        ag.reject_sum(name, got, bad, mass)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("Ta", [1536, 1500, 100])
+def test_k9b_matches_plain_on_card(dev, Ta):
+    g = torch.Generator(device=dev).manual_seed(Ta)
+    k, v = (ag.stream_input(g, dev, 2, 3, 2, Ta, 64) for _ in range(2))
+    for s in (0.0, -0.4):
+        ref, mass = ag.kv_terms(1, k, v, s)
+        before = stream.kv_stream_sum.launches
+        got = stream.kv_stream_sum(1, k, v, s)
+        assert stream.kv_stream_sum.launches == before + 1
+        ag.compare_sum(f"K9b Ta={Ta} s={s}", got, ref, mass)
+        if s == 0.0:
+            for name, bad in ag.k9b_faults(1, k, v, s):
+                ag.reject_sum(name, got, bad, mass)
+    torch.cuda.synchronize()
+
+
+def test_probe_wrappers_reject_what_they_do_not_take(dev):
+    x = torch.zeros(64, dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError):
+        stream.stream_sum(x, 0.0)
+    k32 = torch.zeros(2, 1, 2, 10, 32, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        stream.kv_stream_sum(0, k32, k32, 0.0)
+    q = torch.zeros(1, 1, 2, 64, dtype=torch.bfloat16, device=dev)
+    k1 = torch.zeros(1, 1, 2, 10, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # one layer: K9c reads layer 1
+        attn_probe.cross_attn_const_layer(q, k1, k1)
+    with pytest.raises(ValueError):
+        attn_probe.cross_attn_flat(1, q, k1, k1)

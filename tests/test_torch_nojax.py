@@ -1,13 +1,14 @@
 """The port imports no JAX and nothing of the JAX package: a fresh
 interpreter imports the package and `chip_smoke`, runs a tiny CPU
 `Engine.transcribe_audio` that decodes one window (whole file), then a VAD
-request (the port's own Silero reader and audio code), and finds no `jax`
-and no `whisper_diarize_tpu`
+request (the port's own Silero reader and audio code), then both
+diagnostic tools' `main` on the CPU at tiny shapes, and finds no `jax` and
+no `whisper_diarize_tpu`
 module loaded (a subprocess, because the test process imports JAX, see
 tests/conftest.py); and a static scan of every module of the port and of
 `chip_smoke.py` finds no import of either. Also: the port's VAD entry
-point and its loaders (`load_model`, `load_vad_params`) ask for the card
-unless the caller asks for the CPU."""
+point, its loaders (`load_model`, `load_vad_params`) and its tools ask for
+the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -47,6 +48,9 @@ SCRIPT = textwrap.dedent("""
         enable_vad=True, lang="en", advanced=greedy))
     for name in ("ModelManager", "to_srt", "wer", "translate_text", "get_segments"):
         getattr(wdt, name)
+    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
+    assert len(bench_dma.main(device="cpu", tiles=(1,))) == 12
+    assert len(bench_attn_kernel.main(device="cpu", layers=2, batch=1)) == 8
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not leaked, leaked
     jax_pkg = sorted(m for m in sys.modules
@@ -86,7 +90,9 @@ def test_static_scan_finds_no_jax_package_import():
     assert len(files) > 20
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"whisper_diarize_tpu_torch/ops/{m}.py" for m in (
-        "front", "encoder_attn", "mel", "attn", "tail")} <= scanned
+        "front", "encoder_attn", "mel", "attn", "tail", "stream", "attn_probe")} <= scanned
+    assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
+        "bench_dma", "bench_attn_kernel", "timing")} <= scanned
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
            for mod, line in _imported(f) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -125,3 +131,15 @@ def test_loaders_default_to_the_card(tmp_path):
         params = vad.load_vad_params(model, device="cpu")
         assert all(t.device.type == "cpu" for t in params.values()
                    if isinstance(t, torch.Tensor))
+
+
+def test_tools_default_to_the_card():
+    """Both diagnostic tools run on CUDA device 0 unless given a device:
+    here, with no card, `main()` raises before it allocates anything."""
+    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for main in (bench_dma.main, bench_attn_kernel.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main()

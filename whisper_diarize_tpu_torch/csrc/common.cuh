@@ -39,6 +39,47 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
 }
 
+// Sum over the block, in a fixed order (the same result on every run);
+// valid in thread 0. Once per kernel: its scratch is not reused.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float red[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = 0.0f;
+  if (warp == 0) v = warp_sum(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0f);
+  return v;
+}
+
+// K1's shared-memory tile (cross_attn.cu): 64 keys of one (b, h) slab's K
+// and V rows, each row padded to 33 words so column reads are
+// conflict-free, staged by K1_THREADS threads, a 4-byte bf16 pair each a
+// step; keys >= Ta read as 0. K9b (stream_sum.cu) stages K1's bytes with it
+// so that it walks them exactly as K1 does.
+constexpr int K1_DH = 64;
+constexpr int K1_TK = 64;
+constexpr int K1_KROW = K1_DH + 2;
+constexpr int K1_THREADS = 128;
+
+__device__ __forceinline__ void k1_stage_tile(const bf16* kb, const bf16* vb,
+                                              bf16 (*kt)[K1_KROW],
+                                              bf16 (*vt)[K1_KROW], int t0,
+                                              int Ta, int tid) {
+  const bf162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
+  for (int i = tid; i < K1_TK * (K1_DH / 2); i += K1_THREADS) {
+    const int row = i / (K1_DH / 2), cp = i % (K1_DH / 2);
+    const int key = t0 + row;
+    bf162 kk = zero2, vv = zero2;
+    if (key < Ta) {
+      kk = reinterpret_cast<const bf162*>(kb + (size_t)key * K1_DH)[cp];
+      vv = reinterpret_cast<const bf162*>(vb + (size_t)key * K1_DH)[cp];
+    }
+    reinterpret_cast<bf162*>(&kt[row][0])[cp] = kk;
+    reinterpret_cast<bf162*>(&vt[row][0])[cp] = vv;
+  }
+}
+
 // K1 launcher (cross_attn.cu), shared by the fused decoder tail (tail.cu).
 // q [B, Q, H, 64], k/v [L, B, H, Ta, 64] (layer picked by pointer offset),
 // out [B, Q, H, 64]; all bf16, contiguous.

@@ -30,36 +30,39 @@
 // registers, so K/V is read once per chunk of queries. Splitting the audio
 // axis across CTAs (flash-decoding, for the small-B sampling step) is left
 // for later work.
+//
+// K9a, K9c and K9d: the same kernel in the three forms that
+// tools/bench_attn_kernel.py measured beside K1 (_attn_4d, _attn_6d_const,
+// _attn_6d_flat), as probes of where K1's time goes. K9a is K1's own entry
+// point on one layer's K/V already sliced out (the layer offset applied on
+// the host, wdt_cross_attn at layer 0 of a one-layer cache); K9c takes the
+// whole cache with the layer a template constant (1), so it differs from K1
+// only in how the layer offset is formed.
+// K9d splits the audio axis: one CTA per (b, h, chunk of queries, span of
+// span_keys keys) runs K1's loop over its span and writes f32 (acc, m, l);
+// combine_spans_kernel rescales each span by exp(m - max m) and sums. Its
+// bf16 p is rounded against the span's running max, not the whole row's, so
+// it differs from K1 by bf16 rounding. No TMA, no tensor cores: it asks
+// only what more CTAs buy.
 #include "common.cuh"
 
 #include <type_traits>
 
 namespace {
 
-constexpr int DH = 64;        // head dimension (every Whisper checkpoint)
-constexpr int TK = 64;        // keys per shared-memory tile
+constexpr int DH = K1_DH;     // head dimension (every Whisper checkpoint)
+constexpr int TK = K1_TK;     // keys per shared-memory tile
 constexpr int QPW = 4;        // queries per warp
-constexpr int WARPS = 4;
+constexpr int WARPS = K1_THREADS / 32;
 constexpr int QC = QPW * WARPS;  // queries per CTA
-constexpr int KROW = DH + 2;  // padded bf16 row (33 words: conflict-free column reads)
+constexpr int KROW = K1_KROW;  // padded bf16 row (33 words: conflict-free column reads)
 
 // One 64-key tile of a (b, h) slab's K and V rows into shared memory as
-// bf16; keys >= Ta read as 0. bf16: a 4-byte pair a thread and step.
+// bf16; keys >= Ta read as 0 (common.cuh, shared with K9b).
 __device__ __forceinline__ void stage_tile(const bf16* kb, const bf16* vb,
                                            bf16 (*kt)[KROW], bf16 (*vt)[KROW],
                                            int t0, int Ta, int tid) {
-  const bf162 zero2 = __floats2bfloat162_rn(0.0f, 0.0f);
-  for (int i = tid; i < TK * (DH / 2); i += WARPS * 32) {
-    const int row = i / (DH / 2), cp = i % (DH / 2);
-    const int key = t0 + row;
-    bf162 kk = zero2, vv = zero2;
-    if (key < Ta) {
-      kk = reinterpret_cast<const bf162*>(kb + (size_t)key * DH)[cp];
-      vv = reinterpret_cast<const bf162*>(vb + (size_t)key * DH)[cp];
-    }
-    reinterpret_cast<bf162*>(&kt[row][0])[cp] = kk;
-    reinterpret_cast<bf162*>(&vt[row][0])[cp] = vv;
-  }
+  k1_stage_tile(kb, vb, kt, vt, t0, Ta, tid);
 }
 
 // int8 row chunk (16 values) -> 16 bf16 at dst (4-byte aligned), exact
@@ -90,15 +93,19 @@ __device__ __forceinline__ void stage_tile(const int8_t* kb, const int8_t* vb,
   }
 }
 
-// KV = bf16 (K1; k_scale / v_scale unused) or int8_t (K5; per-position
-// f32 scales [L, B, H, Ta])
-template <typename KV>
+// KV = bf16 (K1, K9; k_scale / v_scale unused) or int8_t (K5; per-position
+// f32 scales [L, B, H, Ta]). kLayer < 0: the layer is the argument `layer`;
+// kLayer >= 0: a compile-time layer (K9c). kSplit (K9d): blockIdx.z is
+// b * n_span + span, the CTA attends keys [span * span_keys, + span_keys)
+// and writes its unnormalized state to `part` [B, n_span, H, Q, DH + 2]
+// (acc, then m and l) in place of `out`.
+template <typename KV, int kLayer, bool kSplit>
 __global__ void __launch_bounds__(WARPS * 32)
 cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
                   const float* __restrict__ k_scale, const KV* __restrict__ v,
                   const float* __restrict__ v_scale, bf16* __restrict__ out,
-                  int B, int Q, int H, int Ta, int layer, int ta_total,
-                  float scale) {
+                  float* __restrict__ part, int B, int Q, int H, int Ta,
+                  int layer, int ta_total, int span_keys, float scale) {
   constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
   __shared__ __align__(16) float qs[QC][DH];
   __shared__ __align__(16) bf16 kt[TK][KROW];
@@ -107,12 +114,17 @@ cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
 
   const int q0 = blockIdx.x * QC;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_span = kSplit ? gridDim.z / B : 1;
+  const int b = blockIdx.z / n_span;
+  const int span = blockIdx.z % n_span;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int lay = kLayer >= 0 ? kLayer : layer;
+  const int t_begin = kSplit ? span * span_keys : 0;
+  const int t_end = kSplit ? min(Ta, t_begin + span_keys) : Ta;
 
-  const size_t row0 = ((size_t)layer * B * H + (size_t)b * H + h) * Ta;
+  const size_t row0 = ((size_t)lay * B * H + (size_t)b * H + h) * Ta;
   const KV* kb = k + row0 * DH;
   const KV* vb = v + row0 * DH;
 
@@ -136,9 +148,9 @@ cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     acc1[j] = 0.0f;
   }
 
-  for (int t0 = 0; t0 < Ta; t0 += TK) {
+  for (int t0 = t_begin; t0 < t_end; t0 += TK) {
     __syncthreads();  // previous tile fully consumed (and qs written)
-    stage_tile(kb, vb, kt, vt, t0, Ta, tid);
+    stage_tile(kb, vb, kt, vt, t0, t_end, tid);
     if constexpr (kQ8) {
       if (tid < TK) {
         const int key = t0 + tid;
@@ -149,8 +161,8 @@ cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     __syncthreads();
 
     const int key0 = t0 + lane, key1 = t0 + lane + 32;
-    const bool ok0 = key0 < Ta && key0 < ta_total;
-    const bool ok1 = key1 < Ta && key1 < ta_total;
+    const bool ok0 = key0 < t_end && key0 < ta_total;
+    const bool ok1 = key1 < t_end && key1 < ta_total;
     float ks0 = 1.0f, ks1 = 1.0f, vs0 = 1.0f, vs1 = 1.0f;
     if constexpr (kQ8) {
       ks0 = kscale[lane];
@@ -209,13 +221,51 @@ cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   for (int j = 0; j < QPW; ++j) {
     const int qi = q0 + warp * QPW + j;
     if (qi >= Q) break;
-    const float inv = 1.0f / l[j];
-    bf162* o = reinterpret_cast<bf162*>(out + (((size_t)b * Q + qi) * H + h) * DH);
-    o[lane] = __floats2bfloat162_rn(acc0[j] * inv, acc1[j] * inv);
+    if constexpr (kSplit) {
+      float* st = part + ((((size_t)b * n_span + span) * H + h) * Q + qi) * (DH + 2);
+      reinterpret_cast<float2*>(st)[lane] = make_float2(acc0[j], acc1[j]);
+      if (lane == 0) {
+        st[DH] = m[j];
+        st[DH + 1] = l[j];
+      }
+    } else {
+      const float inv = 1.0f / l[j];
+      bf162* o = reinterpret_cast<bf162*>(out + (((size_t)b * Q + qi) * H + h) * DH);
+      o[lane] = __floats2bfloat162_rn(acc0[j] * inv, acc1[j] * inv);
+    }
   }
 }
 
+// K9d's second pass: one warp per output row (b, q, h) rescales every
+// span's (acc, l) by exp(m - max m), sums them in span order and writes
+// bf16(acc / l); lane owns dims (2 * lane, 2 * lane + 1).
+__global__ void __launch_bounds__(128)
+combine_spans_kernel(const float* __restrict__ part, bf16* __restrict__ out,
+                     int B, int Q, int H, int n_span) {
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= B * Q * H) return;
+  const int h = row % H, qi = (row / H) % Q, b = row / (H * Q);
+  const size_t stride = (size_t)H * Q * (DH + 2);  // from one span to the next
+  const float* st = part + (((size_t)b * n_span * H + h) * Q + qi) * (DH + 2);
+  float m_max = -1e30f;
+  for (int s = 0; s < n_span; ++s) m_max = fmaxf(m_max, st[s * stride + DH]);
+  float l = 0.0f, a0 = 0.0f, a1 = 0.0f;
+  for (int s = 0; s < n_span; ++s) {
+    const float* sp = st + s * stride;
+    const float w = expf(sp[DH] - m_max);
+    const float2 acc = reinterpret_cast<const float2*>(sp)[lane];
+    l = fmaf(sp[DH + 1], w, l);
+    a0 = fmaf(acc.x, w, a0);
+    a1 = fmaf(acc.y, w, a1);
+  }
+  const float inv = 1.0f / l;
+  reinterpret_cast<bf162*>(out + (size_t)row * DH)[lane] =
+      __floats2bfloat162_rn(a0 * inv, a1 * inv);
+}
+
 constexpr float kScale = 0.125f;  // 64^-0.5
+constexpr int kConstLayer = 1;    // K9c's layer, as _attn_6d_const fixed it
 
 }  // namespace
 
@@ -223,8 +273,9 @@ void launch_cross_attn(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                        int B, int Q, int H, int Ta, int layer, int ta_total,
                        cudaStream_t stream) {
   dim3 grid((Q + QC - 1) / QC, H, B);
-  cross_attn_kernel<bf16><<<grid, WARPS * 32, 0, stream>>>(
-      q, k, nullptr, v, nullptr, out, B, Q, H, Ta, layer, ta_total, kScale);
+  cross_attn_kernel<bf16, -1, false><<<grid, WARPS * 32, 0, stream>>>(
+      q, k, nullptr, v, nullptr, out, nullptr, B, Q, H, Ta, layer, ta_total, 0,
+      kScale);
 }
 
 void launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* ks,
@@ -232,8 +283,8 @@ void launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* ks,
                           int Q, int H, int Ta, int layer, int ta_total,
                           cudaStream_t stream) {
   dim3 grid((Q + QC - 1) / QC, H, B);
-  cross_attn_kernel<int8_t><<<grid, WARPS * 32, 0, stream>>>(
-      q, k8, ks, v8, vs, out, B, Q, H, Ta, layer, ta_total, kScale);
+  cross_attn_kernel<int8_t, -1, false><<<grid, WARPS * 32, 0, stream>>>(
+      q, k8, ks, v8, vs, out, nullptr, B, Q, H, Ta, layer, ta_total, 0, kScale);
 }
 
 WDT_EXPORT int wdt_cross_attn(const void* q, const void* k, const void* v,
@@ -256,5 +307,38 @@ WDT_EXPORT int wdt_cross_attn_q8(const void* q, const void* k8, const void* ks,
       static_cast<const float*>(ks), static_cast<const int8_t*>(v8),
       static_cast<const float*>(vs), static_cast<bf16*>(out), B, Q, H, Ta,
       layer, ta_total, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9c: as K1 with the layer fixed at kConstLayer; k / v [L >= 2, B, H, Ta, 64].
+WDT_EXPORT int wdt_cross_attn_const_layer(const void* q, const void* k,
+                                          const void* v, void* out, int B,
+                                          int Q, int H, int Ta, int ta_total,
+                                          void* stream) {
+  dim3 grid((Q + QC - 1) / QC, H, B);
+  cross_attn_kernel<bf16, kConstLayer, false>
+      <<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
+          static_cast<const bf16*>(v), nullptr, static_cast<bf16*>(out),
+          nullptr, B, Q, H, Ta, 0, ta_total, 0, kScale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9d: as K1, the keys split into n_span spans of span_keys (a multiple of
+// 64) keys; part is f32 scratch [B, n_span, H, Q, 66].
+WDT_EXPORT int wdt_cross_attn_flat(const void* q, const void* k, const void* v,
+                                   void* part, void* out, int B, int Q, int H,
+                                   int Ta, int layer, int ta_total,
+                                   int span_keys, int n_span, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((Q + QC - 1) / QC, H, B * n_span);
+  cross_attn_kernel<bf16, -1, true><<<grid, WARPS * 32, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
+      static_cast<const bf16*>(v), nullptr, nullptr, static_cast<float*>(part),
+      B, Q, H, Ta, layer, ta_total, span_keys, kScale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  combine_spans_kernel<<<(B * Q * H + 3) / 4, 128, 0, st>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(out), B, Q, H, n_span);
   return static_cast<int>(cudaGetLastError());
 }

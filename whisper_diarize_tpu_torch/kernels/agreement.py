@@ -29,11 +29,21 @@ K7 computes in f32 and writes f32: it is held to an absolute bound instead
 of the bf16 one (`F32_ATOL`, and the same relative L2), since a few bf16
 ulps would let a wrong DFT span pass, or a kernel whose products take
 TF32's 10-bit mantissas (`k7_faults` plants one).
+
+The stream sums (K9b, K11) return one f32 scalar, held to its float64 value
+(exact: the inputs are bf16): |got - ref| <= SUM_RTOL * sum|terms|, where
+the terms are the max(x, s) (and K9b's v) it adds. A thread of K11a adds
+some 250 values one after another at the tool's size, each addition off by
+at most 2^-24 of the running sum, so 250 * 2^-24 < 2^-16 of sum|terms|
+covers the worst case. The faults are planted on `stream_input`, zero-mean
+values whose mean moves every 1 KB, at s = 0: each acts in every CTA and
+moves the sum by far more than the tolerance.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -49,6 +59,7 @@ BIAS_SCALE = 0.5  # std of biases and layernorm shifts; layernorm scales are 1 +
 # (`chip_smoke.py` prints the distance for its input); TF32 products lie
 # over a hundred times further from it (`k7_faults`).
 F32_ATOL = 1e-3
+SUM_RTOL = 2.0 ** -16  # of sum|terms|, for the stream sums (K9b, K11)
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -121,9 +132,64 @@ def reject(tag: str, got: torch.Tensor, faulty: torch.Tensor,
     return a
 
 
+def _sum_line(got, ref, mass: float) -> Tuple[float, float]:
+    err, tol = abs(float(got) - float(ref)), SUM_RTOL * mass
+    return (err if math.isfinite(float(got)) else math.inf), tol
+
+
+def compare_sum(tag: str, got: torch.Tensor, ref: torch.Tensor, mass: float) -> float:
+    """Hold a stream sum to its float64 value `ref`; raise on a miss.
+    Returns |got - ref|."""
+    err, tol = _sum_line(got, ref, mass)
+    ok = err <= tol
+    print(f"[kernels] {tag}: got {float(got):.9g}, float64 {float(ref):.9g}, |err| "
+          f"{err:.4g} (tol {tol:.4g} = 2^-16 of sum|terms|) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: the sum is {err:.4g} from its float64 value (tol {tol:.4g})")
+    return err
+
+
+def reject_sum(tag: str, got: torch.Tensor, faulty: torch.Tensor, mass: float) -> float:
+    """The sum check must refuse a planted fault; raise if it lets one pass.
+    Returns how many tolerances the fault moves the sum."""
+    err, tol = _sum_line(got, faulty, mass)
+    print(f"[kernels] planted fault {tag}: {err / tol:.3g} x the tolerance -> "
+          f"{'caught' if err > tol else 'MISSED'}", flush=True)
+    if err <= tol:
+        raise AssertionError(f"planted fault {tag} passes the sum check")
+    return err / tol
+
+
 # ---------------------------------------------------------------------------
 # inputs
 # ---------------------------------------------------------------------------
+
+STREAM_OFFSETS = (1.5, -1.0, 0.5, -2.0, 1.0, -0.5, 0.5)  # sum 0
+
+
+def stream_input(g: torch.Generator, device, *shape: int) -> torch.Tensor:
+    """bf16 noise (std 0.5) plus an offset that moves every 512 elements
+    (1 KB) through STREAM_OFFSETS: zero-mean overall, but which bytes a sum
+    reads, and in which round, shows in its value."""
+    n = math.prod(shape)
+    x = torch.randn((n,), generator=g, device=device) * 0.5
+    block = torch.arange(n, device=device) // 512 % len(STREAM_OFFSETS)
+    x += torch.tensor(STREAM_OFFSETS, device=device)[block]
+    return x.view(shape).to(torch.bfloat16)
+
+
+def stream_terms(x: torch.Tensor, s: float) -> Tuple[torch.Tensor, float]:
+    """K11's float64 value of sum(max(x, s)) and sum|terms|."""
+    t = x.double().clamp_min(s)
+    return t.sum(), float(t.abs().sum())
+
+
+def kv_terms(layer: int, k: torch.Tensor, v: torch.Tensor, s: float
+             ) -> Tuple[torch.Tensor, float]:
+    """K9b's float64 value and sum|terms|."""
+    kt, vt = k[layer].double().clamp_min(s), v[layer].double()
+    return kt.sum() + vt.sum(), float(kt.abs().sum() + vt.abs().sum())
 
 def randn(g: torch.Generator, device, *shape: int, scale: float = 1.0,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -356,3 +422,76 @@ def k10_faults(q, k, v, ta_total: int, single_pass: bool
     p = torch.softmax(s, dim=-2).to(v.dtype)
     yield "K10 softmax over the query axis", torch.matmul(
         p.float(), v[..., :ta_total, :].float()).to(q.dtype)
+
+
+def k11a_faults(x: torch.Tensor, s: float, ctas: int) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of `stream_sum` over `ctas` CTAs, as float64 sums: s ignored,
+    and the grid-stride loop's last pass dropped."""
+    from ..ops.stream import grid_stride_pass
+
+    yield "K11a s ignored", x.double().sum()
+    t = x.double().clamp_min(s).flatten()
+    whole, per = t.numel() // 8 * 8, grid_stride_pass(ctas)
+    last = (-(-whole // per) - 1) * per
+    yield "K11a last grid-stride pass dropped", t[:last].sum() + t[whole:].sum()
+
+
+def k11b_faults(x: torch.Tensor, s: float, nbuf: int, stage_bytes: int, ctas: int
+                ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of `stream_sum_pipelined` (`ops/stream.py::stage_shares`), as
+    float64 sums: s ignored; each CTA's last stage dropped; every slot read
+    without waiting for its barrier phase to flip, so that stage j sums the
+    previous round's stage j - nbuf in its slot (nothing in the first
+    round)."""
+    from ..ops.stream import stage_shares
+
+    yield "K11b s ignored", x.double().sum()
+    t = x.double().clamp_min(s).flatten()
+    whole, per = t.numel() // 8 * 8, stage_bytes // 2
+    shares = stage_shares(t.numel(), stage_bytes, ctas)
+    n_stage = shares[-1].stop
+    stages = torch.nn.functional.pad(t[:whole], (0, n_stage * per - whole)).view(n_stage, per)
+    sums, tail = stages.sum(dim=1), t[whole:].sum()
+    def picked(idx):
+        return sums[torch.tensor(idx, dtype=torch.long, device=sums.device)].sum()
+
+    yield "K11b each CTA's last stage dropped", (
+        sums.sum() - picked([r.stop - 1 for r in shares if len(r)]) + tail)
+    yield "K11b slots read before their barrier phase flips", picked(
+        [j - nbuf for r in shares for j in r if j - nbuf >= r.start]) + tail
+
+
+def k9b_faults(layer: int, k: torch.Tensor, v: torch.Tensor, s: float
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of `kv_stream_sum`, as float64 sums: s ignored, and each CTA's
+    (each (b, h) slab's) last 64-key tile dropped."""
+    yield "K9b s ignored", k[layer].double().sum() + v[layer].double().sum()
+    last = (k.shape[3] - 1) // 64 * 64
+    yield "K9b each CTA's last tile dropped", (
+        k[layer, :, :, :last].double().clamp_min(s).sum() + v[layer, :, :, :last].double().sum())
+
+
+def k9_faults(layer: int, q, k, v, ta_total: int, flat: bool
+              ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of K1's forms (K9a / K9c / K9d), built on the plain version:
+    the key padding unmasked (planted where Ta > ta_total), the wrong layer,
+    and for the flat form (`flat`) the combine without its rescale: every
+    span's acc and l summed as they stand, each span's p taken against its
+    own max."""
+    from ..ops.attn import KEY_TILE, cross_attn_layer_plain
+
+    L, Ta, Dh = k.shape[0], k.shape[3], q.shape[-1]
+    yield "K9 key padding unmasked", cross_attn_layer_plain(layer, q, k, v, Ta)
+    yield "K9 wrong layer", cross_attn_layer_plain((layer + 1) % L, q, k, v, ta_total)
+    if not flat:
+        return
+    qs = (q.float() * Dh ** -0.5).to(k.dtype).float()
+    acc, l = 0.0, 0.0
+    for t0 in range(0, min(Ta, ta_total), KEY_TILE):
+        t = slice(t0, min(t0 + KEY_TILE, ta_total))
+        sc = torch.einsum("bqhd,bhtd->bhqt", qs, k[layer, :, :, t].float())
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        l = l + p.sum(dim=-1, keepdim=True)
+        acc = acc + torch.einsum("bhqt,bhtd->bhqd", p.to(v.dtype).float(),
+                                 v[layer, :, :, t].float())
+    yield "K9d spans combined without their rescale", (acc / l).permute(0, 2, 1, 3).to(q.dtype)

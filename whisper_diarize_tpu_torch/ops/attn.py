@@ -139,9 +139,9 @@ def quantize_cross_kv(
     return out[0], out[1], out[2], out[3]
 
 
-# the TPU kernel's key tile: its flash running max moves once per tile, and
-# the bf16 rounding of p * vs falls where the max stands
-Q8_KEY_TILE = 512
+# the TPU kernels' key tile: their flash running max moves once per tile,
+# and the bf16 rounding of p (K9d) or p * vs (K5) falls where the max stands
+KEY_TILE = 512
 
 
 def cross_attn_layer_q8_plain(
@@ -153,7 +153,7 @@ def cross_attn_layer_q8_plain(
     columns >= ta_total are masked. The numerics of the TPU kernel
     (`_flash_kernel_q8`), whatever the dtype of q: q scaled by Dh^-0.5 in
     f32 and rounded to bf16; score = (q . k8) * ks[t] in f32; the flash
-    recurrence over Q8_KEY_TILE-key tiles, whose normalizer sums the
+    recurrence over KEY_TILE-key tiles, whose normalizer sums the
     unscaled probabilities p and whose P.V takes bf16(p * vs[t]) against
     the int8 values (exact in bf16); f32 accumulation divided by the
     normalizer at the end."""
@@ -163,8 +163,8 @@ def cross_attn_layer_q8_plain(
     m = torch.full((B, H, Q), -1e30, device=q.device)
     l = torch.zeros((B, H, Q), device=q.device)
     acc = torch.zeros((B, H, Q, Dh), device=q.device)
-    for t0 in range(0, ta, Q8_KEY_TILE):
-        t = slice(t0, min(t0 + Q8_KEY_TILE, ta))
+    for t0 in range(0, ta, KEY_TILE):
+        t = slice(t0, min(t0 + KEY_TILE, ta))
         s = torch.einsum("bqhd,bhtd->bhqt", qs, k8[layer, :, :, t].float())
         s = s * ks[layer, :, :, None, t].float()
         m_new = torch.maximum(m, s.amax(dim=-1))
