@@ -18,8 +18,11 @@ traceback) and no result line is printed:
    `phase_int8_kernels`), with the tolerance of
    `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
    element and 1e-2 relative L2 of the update), planted faults that the
-   check must refuse, and times of kernel, plain version and, for K1, the
-   library call `F.scaled_dot_product_attention` after warm-up: CUDA
+   check must refuse, and times of kernel, plain version and, for K1 and
+   K5, the library call `F.scaled_dot_product_attention` after warm-up
+   (K1 at B 8 with Q 1, 3, 4, 5, 15 and 64 and at B 1 with Q 3 and 5, K5
+   at B 8 with Q 3, 5 and 15; each checked also at ta = 1493, no multiple
+   of a span of its key split, `attn.cross_attn_plan`): CUDA
    events over back-to-back calls, and the profiled device time of their
    kernels, the median of three profiled windows that lost no kernel
    events (`timed`, `device_ms`); each beside its bound (`bound`); K1 and
@@ -84,7 +87,9 @@ traceback) and no result line is printed:
 Each phase prints its wall seconds (`[time]`).
 
 Then it prints one JSON line of per-kernel results (`launches` summed over
-the paths' runs), the `nvidia-smi` name and power limit line, and last
+the paths' runs; for K1 and K5 also `launches_in_tail`, the launches the
+fused tail K3 / K6 makes of them), the `nvidia-smi` name and power limit
+line, and last
 `{"ok": true, "device": {...}}`. It writes only under `build/` of the
 checkout.
 """
@@ -157,6 +162,9 @@ KERNELS = {
                 source="whisper_diarize_tpu_torch/csrc/stream_sum.cu",
                 replaces="tools/bench_dma.py:58"),
 }
+# the numbers a kernel's timed row keeps for each shape it is timed at
+SHAPE_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+              "library_device_ms", "bound_ms", "bound_by")
 PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6"),
          "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10"),
@@ -226,8 +234,10 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
     streams: K2 at B = 8; K1 at prefill with Q = beams x prompt = 3 (sot,
     language, task) at t = 0 and 15 (best_of 5 candidates) on the fallback
     ladder, Q = 4 (the prompt without timestamps) and 64 (a prompt with
-    previous text); K3 at N = 8 (greedy t = 0) and N = 40 (5 beams, or the
-    ladder). The same at B = 1 (`batch_size=1`). The tolerance is that of
+    previous text), and inside K3 at Q = 1 (a greedy step) and 5 (a beam
+    step), each also at ta_total = 1493 (no multiple of a span of the key
+    split); K3 at N = 8 (greedy t = 0) and N = 40 (5 beams, or the
+    ladder). The same at B = 1 (`batch_size=1`; K1 at Q 3, 5, 15). The tolerance is that of
     `kernels.agreement`; at B = 8 each kernel must also refuse its planted
     faults (a dropped bias, a wrong layer, an unscaled query)."""
     cfg = wm.PRESETS[preset]
@@ -239,7 +249,7 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
     lay = L - 1
     at = f"L={L} layer={lay}"
     errs = {key: 0.0 for key in KERNELS}
-    res = {}
+    res, k1_rows = {}, {}
 
     def note(key, a):
         errs[key] = max(errs[key], a.max_abs_err)
@@ -261,17 +271,19 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
                               **bound(B * Ta * D * 2 + 2 * L * D * D * 2 + L * D * 2
                                       + 2 * L * B * Ta * D * 2, 4 * L * B * Ta * D * D))
 
-        for Q in ((3, 4, 15, 64) if main else (3, 15)):
+        for Q in ((1, 3, 4, 5, 15, 64) if main else (3, 5, 15)):
             q = ag.randn(g, dev, B, Q, H, Dh, scale=2.0)
+            for ta in (Ta, Ta - 7):  # Ta - 7: no multiple of a span
+                a = (lay, q, k, v, ta)
+                plan = attn.cross_attn_plan(B, H, Q, ta)
+                note("K1", ag.compare(
+                    f"K1 cross_attn_layer B={B} Q={Q} ta={ta} {at} (plan {tuple(plan)})",
+                    attn.cross_attn_layer(*a), attn.cross_attn_layer_plain(*a)))
             a = (lay, q, k, v, Ta)
-            note("K1", ag.compare(f"K1 cross_attn_layer B={B} Q={Q} {at}",
-                                  attn.cross_attn_layer(*a), attn.cross_attn_layer_plain(*a)))
-            if not main:
-                continue
-            if Q == 15:
+            if main and Q == 15:
                 for name, bad in ag.k1_faults(*a):
                     ag.reject(name, attn.cross_attn_layer(*a), bad)
-            if not time_k1_k3:
+            if not time_k1_k3 or (not main and Q == 15):
                 continue
             qt, kl, vl = q.transpose(1, 2), k[lay], v[lay]
             t = timed(f"K1 B={B} Q={Q} {at}", lambda: attn.cross_attn_layer(*a),
@@ -279,7 +291,8 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
                       library=lambda: F.scaled_dot_product_attention(qt, kl, vl),
                       shape=f"B={B} Q={Q} H={H} Ta={Ta} {at}",
                       **attn_bound(B, Q, H, Ta, 128))
-            if Q == 3:
+            k1_rows[f"B={B} Q={Q}"] = {key: t[key] for key in SHAPE_KEYS}
+            if main and Q == 3:
                 res["K1"] = t
 
         for beams in (1, 5):
@@ -305,6 +318,8 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
                 res["K3"] = t
     for key in res:
         res[key]["max_abs_err"] = errs[key]
+    if k1_rows:
+        res["K1"]["by_shape"] = k1_rows
     return res, errs
 
 
@@ -382,7 +397,9 @@ def phase_int8_kernels() -> dict:
     and quantized by `attn.quantize_cross_kv` (timed: plain PyTorch, as in
     the JAX package). K5 at Q = 3 (the beam prompt pass), 5 (a beam step),
     15 (the ladder's prompt pass, best_of 5) and 64 (a prompt with previous
-    text), and at B 1, Q 3; its faults (`agreement.k5_faults`) at Q 15. K6
+    text), and at B 1, Q 3 and 5, each also at ta_total = 1493; its faults
+    (`agreement.k5_faults`, a span of the key split dropped among them) at
+    Q 15; timed at Q 3, 5 and 15 beside SDPA over the bf16 cache. K6
     in its three forms (`wq`, `kvq`, `wq+kvq`, weights from
     `quantize_tail_weights`) at N = 8 (greedy t = 0) and 40 (5 beams, or
     the ladder), its faults (`agreement.k6_faults`) at N = 40. Times
@@ -401,26 +418,30 @@ def phase_int8_kernels() -> dict:
         xa = ag.randn(g, dev, B, Ta, D)
         k, v = attn.cross_kv_build(xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
         k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
-        for Q in ((3, 5, 15, 64) if B == 8 else (3,)):
+        for Q in ((3, 5, 15, 64) if B == 8 else (3, 5)):
             q = ag.randn(g, dev, B, Q, H, 64, scale=2.0)
+            for ta in (Ta, Ta - 7):  # Ta - 7: no multiple of a span
+                a = (lay, q, k8, ks, v8, vs, ta)
+                got = attn.cross_attn_layer_q8(*a)
+                errs["K5"] = max(errs["K5"], ag.compare(
+                    f"K5 cross_attn_layer_q8 B={B} Q={Q} ta={ta} L={L} layer={lay}", got,
+                    attn.cross_attn_layer_q8_plain(*a)).max_abs_err)
             a = (lay, q, k8, ks, v8, vs, Ta)
             got = attn.cross_attn_layer_q8(*a)
-            errs["K5"] = max(errs["K5"], ag.compare(
-                f"K5 cross_attn_layer_q8 B={B} Q={Q} L={L} layer={lay}", got,
-                attn.cross_attn_layer_q8_plain(*a)).max_abs_err)
             if B == 8 and Q == 15:
                 for name, bad in ag.k5_faults(*a):
                     ag.reject(name, got, bad)
-            if B == 8 and Q in (3, 15):
+            if B == 8 and Q in (3, 5, 15):
                 it, rest = itertools.count(), a[1:]
+                qt = q.transpose(1, 2)
                 t = timed(f"K5 B={B} Q={Q}",
                           lambda: attn.cross_attn_layer_q8(next(it) % L, *rest),
                           lambda: attn.cross_attn_layer_q8_plain(next(it) % L, *rest),
+                          library=lambda: F.scaled_dot_product_attention(qt, k[lay], v[lay]),
                           shape=f"B={B} Q={Q} H={H} Ta={Ta} L={L}",
                           **attn_bound(B, Q, H, Ta, 64 + 4))
                 res.setdefault("K5", t).setdefault("by_shape", {})[f"Q={Q}"] = {
-                    key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
-                                            "bound_ms")}
+                    key: t[key] for key in SHAPE_KEYS}
         if B == 8:
             qfn = lambda: attn.quantize_cross_kv(k, v)  # noqa: E731
             res["K5"]["quantize_cross_kv_ms"] = time_ms(qfn, iters=5, warmup=1)
@@ -947,15 +968,33 @@ def _counted(spec: dict):
     return spec.get("fns", (spec.get("fn"),))
 
 
+# K1 and K5 launched by the fused tail (K3 / K6), one a tail call, beside the
+# launches of their own wrappers
+IN_TAIL = {"K1 in K3 / K6": "cross_attn_launches", "K5 in K6": "cross_attn_q8_launches"}
+
+
 def counts() -> dict:
-    return {k: sum(getattr(fn, spec.get("count", "launches")) for fn in _counted(spec))
-            for k, spec in KERNELS.items()}
+    out = {k: sum(getattr(fn, spec.get("count", "launches")) for fn in _counted(spec))
+           for k, spec in KERNELS.items()}
+    out.update({k: getattr(tail.fused_tail_layer, attr) for k, attr in IN_TAIL.items()})
+    return out
+
+
+def in_tail(key: str, by_path: dict) -> dict:
+    """K1's / K5's launches from inside the fused tail, summed and by path."""
+    tag = next((t for t in IN_TAIL if t.startswith(f"{key} in")), None)
+    if tag is None:
+        return {}
+    return {"launches_in_tail": sum(c[tag] for c in by_path.values()),
+            "launches_in_tail_by_path": {p: c[tag] for p, c in by_path.items()}}
 
 
 def reset_counts() -> None:
     for spec in KERNELS.values():
         for fn in _counted(spec):
             setattr(fn, spec.get("count", "launches"), 0)
+    for attr in IN_TAIL.values():
+        setattr(tail.fused_tail_layer, attr, 0)
 
 
 def make_engine(model: str, **over):
@@ -1329,6 +1368,7 @@ def main() -> None:
          "launches": sum(c[key] for c in by_path.values()),
          **{k: res[key][k] for k in keys},
          "launches_by_path": {p: c[key] for p, c in by_path.items()},
+         **in_tail(key, by_path),
          **{k: v for k, v in res[key].items() if k not in keys}}
         for key, spec in KERNELS.items()]}))
     print(f"nvidia-smi: {smi}")

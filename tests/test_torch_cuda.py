@@ -13,7 +13,9 @@ float64 value by `agreement.compare_sum`), with the tolerance of
 `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
 element and 1e-2 relative L2 of the update; K3 is judged on the update it
 adds to x; K7, an f32 kernel, on an absolute bound), and the planted faults
-that check must refuse.
+that check must refuse. K1 / K5 also at the key splits of the served
+shapes (Q 1, 5 and 64, B 1 and 8, ta not a multiple of a span) with the
+split's faults; K10 at T 1500 with a fault of its TMA ring.
 """
 
 import pytest
@@ -100,6 +102,39 @@ def test_int8_kernels_match_plain_on_card(dev, B, Ta, Q):
                 ag.compare("K6 update", got, tail.fused_tail_layer_plain(*args), base=x)
                 for name, bad in ag.k6_faults(*args):
                     ag.reject(name, got, bad, base=x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B,Q,Ta,ta", [(1, 1, 1500, 1500), (1, 5, 1500, 1493), (2, 64, 1500, 1500),
+                                        (8, 5, 1500, 1500), (2, 3, 700, 650)])
+def test_k1_k5_key_split_on_card(dev, B, Q, Ta, ta):
+    """K1 and K5 with their keys split across a cluster (`cross_attn_plan`:
+    several spans at each shape; ta not a multiple of a span where it is
+    1493 or 650) against their plain versions and the plain model of the
+    split; the split's planted faults (a span dropped, the spans combined
+    without their rescale) refused; two calls give the same bits (the
+    combine runs in span order)."""
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + Q)
+    L, H = 2, 3
+    assert attn.cross_attn_plan(B, H, Q, ta).n_span > 1
+    q = ag.randn(g, dev, B, Q, H, 64, scale=2.0)
+    k, v = (ag.randn(g, dev, L, B, H, Ta, 64) for _ in range(2))
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    for layer in range(L):
+        got = attn.cross_attn_layer(layer, q, k, v, ta)
+        assert torch.equal(got, attn.cross_attn_layer(layer, q, k, v, ta))
+        ag.compare(f"K1 B={B} Q={Q} ta={ta}", got, attn.cross_attn_layer_plain(layer, q, k, v, ta))
+        ag.compare("K1 vs the split model", got, attn.cross_attn_split_plain(layer, q, k, v, ta))
+        names = [name for name, bad in ag.k1_faults(layer, q, k, v, ta)
+                 if not ag.reject(name, got, bad).ok]
+        assert "K1 spans combined without their rescale" in names
+        got = attn.cross_attn_layer_q8(layer, q, k8, ks, v8, vs, ta)
+        assert torch.equal(got, attn.cross_attn_layer_q8(layer, q, k8, ks, v8, vs, ta))
+        ag.compare(f"K5 B={B} Q={Q} ta={ta}", got,
+                   attn.cross_attn_layer_q8_plain(layer, q, k8, ks, v8, vs, ta))
+        names = [name for name, bad in ag.k5_faults(layer, q, k8, ks, v8, vs, ta)
+                 if not ag.reject(name, got, bad).ok]
+        assert "K5 a span dropped" in names
     torch.cuda.synchronize()
 
 

@@ -224,3 +224,43 @@ def test_use_gpu_requires_cuda(snapshot, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(EngineConfig(**_kw(snapshot, tmp_path)))
+
+
+def test_float32_is_refused_on_the_card(snapshot, wav, tmp_path):
+    """The kernels take bf16 only: `dtype="float32"` with the card requested
+    (use_gpu left at its default) is refused before any model loads, and
+    before the CUDA check, so the CPU reaches it; on the CPU f32 runs."""
+    with pytest.raises(NotImplementedError, match="f32 forms of the kernels"):
+        Engine(EngineConfig(dtype="float32", **_kw(snapshot, tmp_path)))
+    eng = _engine(snapshot, tmp_path, dtype="float32", max_decode_tokens=4)
+    eng.transcribe_audio(wav, TranscribeOptions(enable_vad=False, lang="en", advanced=GREEDY))
+    (params, _, _), = eng._whisper_cache.values()
+    assert params["decoder"]["tok_emb"].dtype == torch.float32
+    assert eng.last_run["windows"] >= 1
+
+
+def test_refusals_name_roadmap_headings():
+    """Every NotImplementedError of the Engine and of DecodeConfig names the
+    ROADMAP item it waits for by a heading that exists ("ROADMAP Queue 1:
+    <title>"), not by a number a re-anchor can make stale."""
+    import ast
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    headings = set(re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", (root / "ROADMAP.md").read_text(),
+                              re.M))
+    named = []
+    for rel in ("whisper_diarize_tpu_torch/engine.py", "whisper_diarize_tpu_torch/ops/decode.py"):
+        tree = ast.parse((root / rel).read_text())
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", None) == "NotImplementedError"):
+                continue
+            text = "".join(c.value for c in ast.walk(node.exc)
+                           if isinstance(c, ast.Constant) and isinstance(c.value, str))
+            m = re.search(r"ROADMAP Queue 1: ([^)]+)\)", text)
+            assert m, f"{rel}:{node.lineno}: names no ROADMAP item: {text!r}"
+            assert m.group(1) in headings, f"{rel}:{node.lineno}: no heading {m.group(1)!r}"
+            named.append(m.group(1))
+    assert len(named) == 7 and "f32 forms of the kernels" in named

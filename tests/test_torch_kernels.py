@@ -152,7 +152,8 @@ def test_kernel_check_takes_rounding_and_refuses_planted_faults(L, H, B, Ta, bea
     version run with f32 intermediates and rounded once at the end, which
     departs further from the bf16 plain version than the kernels do (they
     round where the plain version rounds). It must refuse every planted
-    fault: a dropped bias, a wrong layer, an unscaled query."""
+    fault: a dropped bias, a wrong layer, an unscaled query, a span of the
+    key split dropped or combined without its rescale."""
     D = 64 * H
     g = torch.Generator().manual_seed(L * 10 + H)
     bl = ag.random_blocks(L, D, g, "cpu")
@@ -171,7 +172,7 @@ def test_kernel_check_takes_rounding_and_refuses_planted_faults(L, H, B, Ta, bea
     loose = attn.cross_attn_layer_plain(layer, q.float(), k.float(), v.float(), Ta)
     assert ag.agreement(loose.bfloat16(), ref).ok
     faults = list(ag.k1_faults(layer, q, k, v, Ta))
-    assert len(faults) == 2
+    assert len(faults) == 4  # and the key split's two (its plan has >= 2 spans)
     for name, bad in faults:
         assert not ag.agreement(ref, bad).ok, name
 

@@ -240,7 +240,7 @@ def test_stage_shares_cover_the_array_once():
 
 
 SASS = """
-        Function : _ZN12_GLOBAL__N_117cross_attn_kernelI13__nv_bfloat16Lin1ELb0EEEvPKS1_
+        Function : _ZN12_GLOBAL__N_118ldg_staging_kernelEPK13__nv_bfloat16
         /*0010*/  LDG.E.CONSTANT R1, desc[UR8][R2.64] ;
         /*0020*/  LDG.E.CONSTANT R3, desc[UR8][R4.64] ;
         /*0030*/  IADD3 R5, R5, 0x80, RZ ;
@@ -249,21 +249,37 @@ SASS = """
         /*0060*/  STS [R12], R1 ;
         /*0070*/  LDS R13, [R12] ;
         /*0080*/  STS [R14], R3 ;
+        Function : _ZN12_GLOBAL__N_117cross_attn_kernelI13__nv_bfloat16Lin1ELb0EEEvPKS1_
+        /*0010*/  LDGSTS.E.BYPASS.128 [R1], desc[UR8][R2.64] ;
+        /*0020*/  LDGSTS.E.BYPASS.128 [R1+0x2400], desc[UR8][R2.64] ;
+        /*0030*/  LDGDEPBAR ;
+        /*0040*/  LDGSTS.E.BYPASS.128 [R3], desc[UR8][R4.64] ;
+        /*0050*/  LDGSTS.E.BYPASS.128 [R3+0x2400], desc[UR8][R4.64] ;
+        /*0060*/  LDGDEPBAR ;
+        /*0070*/  DEPBAR.LE SB0, 0x1 ;
+        /*0080*/  BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/  LDGSTS.E.BYPASS.128 [R5], desc[UR8][R6.64] ;
+        /*00a0*/  LDGDEPBAR ;
+        /*00b0*/  DEPBAR.LE SB0, 0x1 ;
         Function : _ZN12_GLOBAL__N_120kv_stream_sum_kernelEPK13__nv_bfloat16
-        /*0010*/  LDG.E.CONSTANT R1, desc[UR8][R2.64] ;
-        /*0020*/  LDG.E.CONSTANT R3, desc[UR8][R4.64] ;
-        /*0030*/  STS [R12], R1 ;
-        /*0040*/  STS [R14], R3 ;
+        /*0010*/  LDGSTS.E.BYPASS.128 [R1], desc[UR8][R2.64] ;
+        /*0020*/  LDGSTS.E.BYPASS.128 [R1+0x2400], desc[UR8][R2.64] ;
+        /*0030*/  LDGDEPBAR ;
+        /*0040*/  DEPBAR.LE SB0, 0x1 ;
         /*0050*/  LDG.E.CONSTANT R1, desc[UR8][R2.64] ;
         /*0060*/  STS [R12], R1 ;
 """
 
 
-def test_sass_loads_before_a_store():
-    """The tool's SASS reading: the longest run of global loads before a shared
-    store, function by function."""
-    assert [bench_attn_kernel.loads_before_store(SASS, frag)
-            for _, frag in bench_attn_kernel.STAGING] == [4, 2]
+@pytest.mark.parametrize("frag,want", [
+    ("ldg_staging_kernel", 4),  # loads into registers: LDG runs up to an STS
+    (bench_attn_kernel.STAGING[0][1], 4),  # K1: cp.async runs across commits, up to a wait
+    (bench_attn_kernel.STAGING[1][1], 2),  # K9b
+])
+def test_sass_loads_before_a_store(frag, want):
+    """The tool's SASS reading: the longest run of global loads (LDG up to a
+    shared store, cp.async LDGSTS up to a wait) in one function's SASS."""
+    assert bench_attn_kernel.loads_before_store(SASS, frag) == want
     with pytest.raises(RuntimeError):
         bench_attn_kernel.loads_before_store(SASS, "no_such_kernel")
 
@@ -272,8 +288,8 @@ def test_timing_helpers():
     from whisper_diarize_tpu_torch.tools import timing
 
     assert timing.kernel_name(
-        "void (anonymous namespace)::cross_attn_kernel<__nv_bfloat16, -1, false>"
-        "(__nv_bfloat16 const*, int)") == "cross_attn_kernel<__nv_bfloat16, -1, false>"
+        "void (anonymous namespace)::cross_attn_kernel<__nv_bfloat16, -1>"
+        "(__nv_bfloat16 const*, int)") == "cross_attn_kernel<__nv_bfloat16, -1>"
     assert timing.kernel_name("sum_partials_kernel(float const*, int, float*)") == \
         "sum_partials_kernel"
     assert timing.host_bound(0.05, 0.023) and not timing.host_bound(0.024, 0.023)

@@ -1,12 +1,12 @@
-// K1 and K5: decoder cross-attention of one layer, flash style.
+// K1 and K5: decoder cross-attention of one layer, flash style, its keys
+// split across the CTAs of a thread-block cluster.
 //
 // K1 replaces whisper_diarize_tpu/ops/pallas_attn.py::cross_attn_layer
 // (_flash_kernel, _cross_attn_impl) over the bf16 cross cache; K5 replaces
 // cross_attn_layer_q8 (_flash_kernel_q8, _cross_attn_q8_impl) over the int8
 // cache, whose K/V payloads carry one f32 scale per key / value position.
 // Every query of a stream (beams x prompt positions; cross attention has no
-// causal mask) attends that layer's cache in one online-softmax pass;
-// columns >= ta_total are masked.
+// causal mask) attends that layer's cache; columns >= ta_total are masked.
 //
 // Numerics follow the TPU kernels whatever the caller's dtype: q is scaled
 // by Dh^-0.5 in f32 and rounded to bf16; scores, running max, normalizer
@@ -14,55 +14,101 @@
 // bf16 before the P.V product; the output is acc / l rounded to bf16. K5
 // adds the scales: score = (q . k8) * ks[t], the normalizer sums the
 // unscaled p, and the P.V product takes bf16(p * vs[t]) against the int8
-// values. int8 -> bf16 is exact, so K5 widens the payload while staging it
-// and the arithmetic is K1's; the activations are never quantized (no int8
-// tensor-core product).
+// values (int8 -> bf16 is exact; the activations are never quantized). The
+// running max moves once a 64-key tile of a span, so p is rounded against
+// the span's running max: it differs from the plain version
+// (`cross_attn_layer_plain`, the whole row's max) by bf16 rounding only;
+// `ops/attn.py::cross_attn_split_plain` is this order in plain PyTorch.
 //
 // What bounds it on the H100: bytes. A sampling step reads the layer's whole
 // cross K/V (B x H x 1500 x 64 x 2 x 2 bytes, 61 MB at B=8 on large-v3; int8
 // with its scales 2 x (B x H x 1500 x (64 + 4)), 32.6 MB) for a few queries
-// per stream, far below the card's ~295 FLOP/byte balance point.
-// Design: the cache is [L, B, H, Ta, Dh] contiguous, so one (b, h) slab is
-// one contiguous stream (a 64-element bf16 row is one 128-byte line, an int8
-// row four 16-byte loads); the layer is a pointer offset. One CTA per (b, h,
-// chunk of 16 queries) streams the slab once through shared memory in
-// 64-key tiles, widened to bf16 there, and keeps the flash state in
-// registers, so K/V is read once per chunk of queries. Splitting the audio
-// axis across CTAs (flash-decoding, for the small-B sampling step) is left
-// for later work.
+// per stream, far below the card's ~295 FLOP/byte balance point. So the
+// design is about keeping enough bytes in flight, on enough SMs:
+// - Key split in a cluster. One (b, h, chunk of 16 queries) is a cluster of
+//   n_span CTAs (<= 8, the portable size; `ops/attn.py::cross_attn_plan`
+//   picks n_span and span_keys from the shape, and the fused tail passes the
+//   same plan): CTA r attends keys [r * span_keys, (r + 1) * span_keys). At
+//   B 8, Q <= 16 that is 2 spans of 768 keys, 320 CTAs (K5, whose int8
+//   tiles hold half the bytes: 3 of 512, 480 CTAs); at B 1, 8 spans of 192
+//   keys, 160 CTAs. Past that a span costs more in the combine than it
+//   buys (`tools/bench_attn_kernel.py --plans` times every split). After a
+//   cluster barrier each CTA combines a share of the chunk's rows (row %
+//   n_span == its rank): it reads every CTA's (acc, m, l) of the row from
+//   distributed shared memory (all spans' loads in flight together),
+//   rescales by exp(m - max m) and sums in span order, so the result does
+//   not depend on timing; a second cluster barrier keeps every CTA's shared
+//   memory alive until all have read it. No second launch and no scratch in device
+//   memory: the fused tail (tail.cu) calls this launcher and allocates
+//   nothing.
+// - Asynchronous copies. Each CTA streams its span through a ring of
+//   K1_STAGES (3) tiles in dynamic shared memory, filled by cp.async 16-byte
+//   copies issued by every thread (8 of K and V a thread a tile for bf16):
+//   while a tile is computed the next two are in flight. cp.async rather
+//   than TMA because the rows land padded to 144 bytes, so the mma fragment
+//   reads (eight rows a quad at one column) hit distinct banks without a
+//   swizzle, and the int8 rows (80 bytes, padded) and their per-key scales
+//   come the same way; a span is a few tiles, so one thread's issue cost is
+//   small beside the copy's latency.
+// - All warps busy, on the tensor cores. S = Q K^T and O += P V are
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate) at every Q; rows past Q are
+//   zero and wasted, but at Q 3 one warp's two m16n8k16 per k-step cost less
+//   than the scalar FMAs and shuffles of the kernel before, which left three
+//   warps of four idle at Q <= 4. At Q <= 16 (sampling steps: Q = beams)
+//   each of the four warps takes 16 of a tile's 64 keys for all 16 queries
+//   of the chunk; the warps share the running max (each tile's row max is
+//   exchanged through shared memory), so their partial (acc, l) add without
+//   a rescale at the end of the span. At Q > 16 (prompt passes) a CTA takes
+//   64 queries and each warp 16 of their rows over all 64 keys of a tile, so
+//   the layer is read once per 64 queries, not per 16. Both give each row
+//   the same running max: the tile's max over its 64 keys.
+// - K5 stages its int8 rows and f32 scales with the tile; the K fragment is
+//   widened in registers, V widened once a tile into a bf16 tile (`widen16`)
+//   that ldmatrix reads.
 //
 // K9a, K9c and K9d: the same kernel in the three forms that
 // tools/bench_attn_kernel.py measured beside K1 (_attn_4d, _attn_6d_const,
-// _attn_6d_flat), as probes of where K1's time goes. K9a is K1's own entry
-// point on one layer's K/V already sliced out (the layer offset applied on
-// the host, wdt_cross_attn at layer 0 of a one-layer cache); K9c takes the
-// whole cache with the layer a template constant (1), so it differs from K1
-// only in how the layer offset is formed.
-// K9d splits the audio axis: one CTA per (b, h, chunk of queries, span of
-// span_keys keys) runs K1's loop over its span and writes f32 (acc, m, l);
-// combine_spans_kernel rescales each span by exp(m - max m) and sums. Its
-// bf16 p is rounded against the span's running max, not the whole row's, so
-// it differs from K1 by bf16 rounding. No TMA, no tensor cores: it asks
-// only what more CTAs buy.
+// _attn_6d_flat). K9a is K1's own entry point on one layer's K/V already
+// sliced out (the layer offset applied on the host); K9c takes the whole
+// cache with the layer a template constant (1); K9d keeps the TPU tool's
+// split, spans of 512 keys (one CTA of the cluster each), in place of K1's
+// plan.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int DH = K1_DH;     // head dimension (every Whisper checkpoint)
-constexpr int TK = K1_TK;     // keys per shared-memory tile
-constexpr int QPW = 4;        // queries per warp
+constexpr int DH = K1_DH;    // head dimension (every Whisper checkpoint)
+constexpr int TK = K1_TK;    // keys per shared-memory tile
 constexpr int WARPS = K1_THREADS / 32;
-constexpr int QC = QPW * WARPS;  // queries per CTA
-constexpr int KROW = K1_KROW;  // padded bf16 row (33 words: conflict-free column reads)
+constexpr int QC = 16;       // queries per CTA: the rows of an m16n8k16 product
+constexpr int KROW = K1_KROW;
+constexpr int Q8ROW = DH + 16;  // int8 K row in shared memory, bytes (80)
+constexpr int SROW = DH + 4;    // f32 row of the combine state (68 words)
+constexpr int MAX_SPAN = 8;     // portable cluster size
 
-// One 64-key tile of a (b, h) slab's K and V rows into shared memory as
-// bf16; keys >= Ta read as 0 (common.cuh, shared with K9b).
-__device__ __forceinline__ void stage_tile(const bf16* kb, const bf16* vb,
-                                           bf16 (*kt)[KROW], bf16 (*vt)[KROW],
-                                           int t0, int Ta, int tid) {
-  k1_stage_tile(kb, vb, kt, vt, t0, Ta, tid);
+template <typename KV>
+__host__ __device__ constexpr bool is_q8() { return std::is_same<KV, int8_t>::value; }
+
+// one ring stage: bf16 K and V tiles [TK][KROW]; or int8 K [TK][Q8ROW],
+// int8 V [TK][DH], f32 ks [TK], vs [TK]
+template <typename KV>
+__host__ __device__ constexpr int stage_bytes() {
+  return is_q8<KV>() ? TK * Q8ROW + TK * DH + 2 * TK * 4 : 2 * TK * KROW * 2;
+}
+
+__host__ __device__ constexpr int part_bytes() { return 4 * QC * SROW * 4; }  // [64 rows][SROW] f32
+
+// the ring (K5: and the widened V tile); the combine reuses the ring
+template <typename KV>
+__host__ __device__ constexpr int smem_bytes() {
+  constexpr int ring = K1_STAGES * stage_bytes<KV>() + (is_q8<KV>() ? TK * KROW * 2 : 0);
+  return ring > part_bytes() ? ring : part_bytes();
 }
 
 // int8 row chunk (16 values) -> 16 bf16 at dst (4-byte aligned), exact
@@ -75,270 +121,437 @@ __device__ __forceinline__ void widen16(const uint4& raw, bf16* dst) {
                                   static_cast<float>(b8[2 * e + 1]));
 }
 
-// int8: 64 rows x 4 chunks of 16 bytes, for K and for V
+// two int8 values -> a packed bf16 pair (exact)
+__device__ __forceinline__ uint32_t widen2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return pack_bf16(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+
+// Issue one tile's copies into ring stage `st` (keys >= t_end land as 0).
+__device__ __forceinline__ void stage_tile(const bf16* kb, const bf16* vb, const float*,
+                                           const float*, unsigned char* st, int t0,
+                                           int t_end, int tid) {
+  bf16* kt = reinterpret_cast<bf16*>(st);
+  k1_stage_tile_async(kb, vb, kt, kt + K1_TILE_ELEMS, t0, t_end, tid);
+}
+
 __device__ __forceinline__ void stage_tile(const int8_t* kb, const int8_t* vb,
-                                           bf16 (*kt)[KROW], bf16 (*vt)[KROW],
-                                           int t0, int Ta, int tid) {
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < TK * (DH / 16); i += WARPS * 32) {
+                                           const float* ksb, const float* vsb,
+                                           unsigned char* st, int t0, int t_end,
+                                           int tid) {
+  unsigned char* k8 = st;
+  unsigned char* v8 = st + TK * Q8ROW;
+  float* kss = reinterpret_cast<float*>(v8 + TK * DH);
+#pragma unroll
+  for (int i = tid; i < TK * (DH / 16); i += K1_THREADS) {
     const int row = i / (DH / 16), c = i % (DH / 16);
     const int key = t0 + row;
-    uint4 kk = zero4, vv = zero4;
-    if (key < Ta) {
-      kk = reinterpret_cast<const uint4*>(kb + (size_t)key * DH)[c];
-      vv = reinterpret_cast<const uint4*>(vb + (size_t)key * DH)[c];
+    const bool ok = key < t_end;
+    const size_t off = ok ? (size_t)key * DH + c * 16 : 0;
+    cp_async<16>(k8 + row * Q8ROW + c * 16, kb + off, ok);
+    cp_async<16>(v8 + row * DH + c * 16, vb + off, ok);
+  }
+  // one scale a thread: ks for threads 0..63, vs for 64..127
+  const int row = tid % TK, key = t0 + row;
+  const bool ok = key < t_end;
+  cp_async<4>(kss + tid, (tid < TK ? ksb : vsb) + (ok ? key : 0), ok);
+}
+
+// Q [16, 64] of this chunk as m16n8k16 A fragments: bf16(f32(q) * scale),
+// rows >= Q zero
+__device__ __forceinline__ void load_q(uint32_t (*qa)[4], const bf16* q, int b, int h,
+                                       int q0, int Q, int H, int g, int tg, float scale) {
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q0 + g + (e & 1) * 8;
+      const int col = kc * 16 + tg * 2 + (e >> 1) * 8;
+      uint32_t val = 0u;
+      if (row < Q) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(
+            q + (((size_t)b * Q + row) * H + h) * DH + col));
+        val = pack_bf16(f.x * scale, f.y * scale);
+      }
+      qa[kc][e] = val;
     }
-    widen16(kk, &kt[row][c * 16]);
-    widen16(vv, &vt[row][c * 16]);
   }
 }
 
 // KV = bf16 (K1, K9; k_scale / v_scale unused) or int8_t (K5; per-position
 // f32 scales [L, B, H, Ta]). kLayer < 0: the layer is the argument `layer`;
-// kLayer >= 0: a compile-time layer (K9c). kSplit (K9d): blockIdx.z is
-// b * n_span + span, the CTA attends keys [span * span_keys, + span_keys)
-// and writes its unnormalized state to `part` [B, n_span, H, Q, DH + 2]
-// (acc, then m and l) in place of `out`.
-template <typename KV, int kLayer, bool kSplit>
-__global__ void __launch_bounds__(WARPS * 32)
+// kLayer >= 0: a compile-time layer (K9c). kRows: the CTA takes 64 queries
+// and warp w their rows 16w .. 16w + 15 over all 64 keys of a tile (Q > 16:
+// the prompt passes); else 16 queries and warp w keys 16w .. 16w + 15 of
+// each tile for all of them. Grid (n_span, H x query chunks, B), cluster
+// (n_span, 1, 1): blockIdx.x is the CTA's span.
+template <typename KV, int kLayer, bool kRows>
+__global__ void __launch_bounds__(K1_THREADS)
 cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
                   const float* __restrict__ k_scale, const KV* __restrict__ v,
-                  const float* __restrict__ v_scale, bf16* __restrict__ out,
-                  float* __restrict__ part, int B, int Q, int H, int Ta,
-                  int layer, int ta_total, int span_keys, float scale) {
-  constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
-  __shared__ __align__(16) float qs[QC][DH];
-  __shared__ __align__(16) bf16 kt[TK][KROW];
-  __shared__ __align__(16) bf16 vt[TK][KROW];
-  __shared__ float kscale[kQ8 ? TK : 1], vscale[kQ8 ? TK : 1];
+                  const float* __restrict__ v_scale, bf16* __restrict__ out, int B,
+                  int Q, int H, int Ta, int layer, int ta_total, int span_keys,
+                  float scale) {
+  constexpr bool kQ8 = is_q8<KV>();
+  constexpr int QCH = kRows ? 4 * QC : QC;  // queries a CTA
+  constexpr int NT = kRows ? TK / 8 : 2;     // n8 key blocks a warp a tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[WARPS][QC];  // a tile's row max, by warp (key split)
+  __shared__ float lst[4 * QC];     // a span's normalizer: by warp and row, then by row
+  __shared__ float mst[4 * QC];     // the span's running max, by row
 
-  const int q0 = blockIdx.x * QC;
-  const int h = blockIdx.y;
-  const int n_span = kSplit ? gridDim.z / B : 1;
-  const int b = blockIdx.z / n_span;
-  const int span = blockIdx.z % n_span;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_span = gridDim.x;
+  const int rank = blockIdx.x;
+  const int h = blockIdx.y % H;
+  const int q0 = (blockIdx.y / H) * QCH;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int kw = kRows ? 0 : warp * 16;  // this warp's first key of a tile
+  const int qr = kRows ? warp * 16 : 0;  // this warp's first row of the chunk
   const int lay = kLayer >= 0 ? kLayer : layer;
-  const int t_begin = kSplit ? span * span_keys : 0;
-  const int t_end = kSplit ? min(Ta, t_begin + span_keys) : Ta;
+  const int t_begin = rank * span_keys;
+  const int t_end = min(t_begin + span_keys, ta_total);
+  const int n_tiles = (t_end - t_begin + TK - 1) / TK;
 
   const size_t row0 = ((size_t)lay * B * H + (size_t)b * H + h) * Ta;
   const KV* kb = k + row0 * DH;
   const KV* vb = v + row0 * DH;
+  const float* ksb = kQ8 ? k_scale + row0 : nullptr;
+  const float* vsb = kQ8 ? v_scale + row0 : nullptr;
+  constexpr int NS = K1_STAGES;  // K5 too: six of its tiles ran slower (fewer CTAs an SM)
+  bf16* vw = reinterpret_cast<bf16*>(smem + NS * stage_bytes<KV>());  // K5
 
-  // queries of this chunk: bf16(f32(q) * scale), kept as f32 in shared memory
-  for (int i = tid; i < QC * DH; i += WARPS * 32) {
-    const int qi = i / DH, d = i % DH;
-    float val = 0.0f;
-    if (q0 + qi < Q) {
-      val = __bfloat162float(q[(((size_t)b * Q + q0 + qi) * H + h) * DH + d]);
-      val = bf16_round(val * scale);
-    }
-    qs[qi][d] = val;
-  }
-
-  float m[QPW], l[QPW], acc0[QPW], acc1[QPW];
+  // prologue: the first NS - 1 tiles in flight (one group a tile, empty
+  // where the span has fewer)
 #pragma unroll
-  for (int j = 0; j < QPW; ++j) {
-    m[j] = -1e30f;
-    l[j] = 0.0f;
-    acc0[j] = 0.0f;
-    acc1[j] = 0.0f;
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_tiles)
+      stage_tile(kb, vb, ksb, vsb, smem + s * stage_bytes<KV>(), t_begin + s * TK, t_end,
+                 tid);
+    cp_async_commit();
   }
 
-  for (int t0 = t_begin; t0 < t_end; t0 += TK) {
-    __syncthreads();  // previous tile fully consumed (and qs written)
-    stage_tile(kb, vb, kt, vt, t0, t_end, tid);
-    if constexpr (kQ8) {
-      if (tid < TK) {
-        const int key = t0 + tid;
-        kscale[tid] = key < Ta ? k_scale[row0 + key] : 0.0f;
-        vscale[tid] = key < Ta ? v_scale[row0 + key] : 0.0f;
+  uint32_t qa[DH / 16][4];
+  load_q(qa, q, b, h, q0 + qr, Q, H, g, tg, scale);
+
+  float m_lo = -1e30f, m_hi = -1e30f;  // running max of rows g, g + 8
+  float l_lo = 0.0f, l_hi = 0.0f;      // this thread's part of the normalizers
+  float o[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<NS - 2>();  // this thread's copies of tile j landed
+    __syncthreads();                 // everyone's landed; tile j - 1 consumed
+    {
+      const int nj = j + NS - 1;  // refill the stage tile j - 1 used
+      if (nj < n_tiles)
+        stage_tile(kb, vb, ksb, vsb, smem + (nj % NS) * stage_bytes<KV>(),
+                   t_begin + nj * TK, t_end, tid);
+      cp_async_commit();
+    }
+    unsigned char* st = smem + (j % NS) * stage_bytes<KV>();
+    const int t0 = t_begin + j * TK;
+
+    // S = Q K^T for this warp's rows and keys: s[nt][e] row g + 8 (e >> 1),
+    // key kw + 8 nt + 2 tg + (e & 1)
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+      const int krow = kw + nt * 8 + g;
+#pragma unroll
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        uint32_t b0, b1;
+        if constexpr (kQ8) {
+          const int8_t* r = reinterpret_cast<const int8_t*>(st) + krow * Q8ROW + kc * 16 + tg * 2;
+          b0 = widen2(r);
+          b1 = widen2(r + 8);
+        } else {
+          const bf16* r = reinterpret_cast<const bf16*>(st) + krow * KROW + kc * 16 + tg * 2;
+          b0 = lds32(r);
+          b1 = lds32(r + 8);
+        }
+        mma_bf16(s[nt], qa[kc], b0, b1);
       }
     }
-    __syncthreads();
+    const float* kss = reinterpret_cast<const float*>(st + TK * Q8ROW + TK * DH);
+    float mx_lo = WDT_NEG_INF, mx_hi = WDT_NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kt = kw + nt * 8 + tg * 2 + (e & 1);
+        float x = s[nt][e];
+        if constexpr (kQ8) x *= kss[kt];
+        s[nt][e] = t0 + kt < t_end ? x : WDT_NEG_INF;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    if (!kRows && tg == 0) {
+      red[warp][g] = mx_lo;
+      red[warp][g + 8] = mx_hi;
+    }
+    if constexpr (kQ8) {  // V of this tile widened to bf16 for ldmatrix
+      const unsigned char* v8 = st + TK * Q8ROW;
+      for (int i = tid; i < TK * (DH / 16); i += K1_THREADS) {
+        const int row = i / (DH / 16), c = i % (DH / 16);
+        widen16(*reinterpret_cast<const uint4*>(v8 + row * DH + c * 16),
+                vw + row * KROW + c * 16);
+      }
+    }
+    if (kQ8 || !kRows) __syncthreads();  // the tile's row maxima (K5: bf16 V) are in
 
-    const int key0 = t0 + lane, key1 = t0 + lane + 32;
-    const bool ok0 = key0 < t_end && key0 < ta_total;
-    const bool ok1 = key1 < t_end && key1 < ta_total;
-    float ks0 = 1.0f, ks1 = 1.0f, vs0 = 1.0f, vs1 = 1.0f;
-    if constexpr (kQ8) {
-      ks0 = kscale[lane];
-      ks1 = kscale[lane + 32];
-      vs0 = vscale[lane];
-      vs1 = vscale[lane + 32];
+    // the tile's max of each row over all its 64 keys: in the key split,
+    // from every warp's part
+    float tm_lo = mx_lo, tm_hi = mx_hi;
+    if constexpr (!kRows) {
+      tm_lo = red[0][g];
+      tm_hi = red[0][g + 8];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) {
+        tm_lo = fmaxf(tm_lo, red[w][g]);
+        tm_hi = fmaxf(tm_hi, red[w][g + 8]);
+      }
+    }
+    const float mn_lo = fmaxf(m_lo, tm_lo), mn_hi = fmaxf(m_hi, tm_hi);
+    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    const float* vss = kss + TK;
+    uint32_t pa[NT / 2][4];
+    float ps_lo = 0.0f, ps_hi = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = expf(s[nt][e] - ((e >> 1) ? mn_hi : mn_lo));
+      ps_lo += p[0] + p[1];  // the normalizer sums the unscaled, unrounded p
+      ps_hi += p[2] + p[3];
+      if constexpr (kQ8) {
+        const int kt = kw + nt * 8 + tg * 2;
+        const float v0 = vss[kt], v1 = vss[kt + 1];
+        p[0] *= v0;
+        p[1] *= v1;
+        p[2] *= v0;
+        p[3] *= v1;
+      }
+      // accumulator layout -> A fragment of keys 16 (nt / 2) .. + 15
+      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+    l_lo = l_lo * a_lo + ps_lo;
+    l_hi = l_hi * a_hi + ps_hi;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      o[nt][0] *= a_lo;
+      o[nt][1] *= a_lo;
+      o[nt][2] *= a_hi;
+      o[nt][3] *= a_hi;
+    }
+    const bf16* vt = kQ8 ? vw : reinterpret_cast<const bf16*>(st) + K1_TILE_ELEMS;
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      const int vrow = kw + kc * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int np = 0; np < DH / 16; ++np) {
+        uint32_t vb4[4];
+        ldsm_x4_trans(vb4, vt + vrow * KROW + np * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * np], pa[kc], vb4[0], vb4[1]);
+        mma_bf16(o[2 * np + 1], pa[kc], vb4[2], vb4[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the span's state
+
+  // state [QCH][SROW] (acc), lst (l), mst (m) by row of the chunk. The key
+  // split's four warps share the running max: their (acc, l) [WARPS][16]
+  // are summed in warp order; in the row split each warp owns its rows.
+  float* part = reinterpret_cast<float*>(smem);
+  {
+    float* pw = part + warp * QC * SROW;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      const int d = nt * 8 + tg * 2;
+      *reinterpret_cast<float2*>(pw + g * SROW + d) = make_float2(o[nt][0], o[nt][1]);
+      *reinterpret_cast<float2*>(pw + (g + 8) * SROW + d) = make_float2(o[nt][2], o[nt][3]);
+    }
+    l_lo = quad_sum(l_lo);
+    l_hi = quad_sum(l_hi);
+    if (tg == 0) {
+      lst[warp * QC + g] = l_lo;
+      lst[warp * QC + g + 8] = l_hi;
+      if (kRows || warp == 0) {
+        mst[qr + g] = m_lo;
+        mst[qr + g + 8] = m_hi;
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (!kRows) {
+    for (int i = tid; i < QC * DH; i += K1_THREADS) {
+      const int r = i / DH, d = i % DH;
+      float a = part[r * SROW + d];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) a += part[(w * QC + r) * SROW + d];
+      part[r * SROW + d] = a;
+    }
+    float a = 0.0f;
+    if (tid < QC) {
+      a = lst[tid];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) a += lst[w * QC + tid];
+    }
+    __syncthreads();  // every warp's l read before row tid's is written
+    if (tid < QC) lst[tid] = a;
+  }
+  cluster.sync();  // every span's state is in its CTA's shared memory
+
+  // combine: this CTA's rows (row % n_span == rank), every span in order
+  for (int i = tid; i < QCH * (DH / 2); i += K1_THREADS) {
+    const int r = i / (DH / 2), dp = i % (DH / 2);
+    if (r % n_span != rank || q0 + r >= Q) continue;
+    // every span's (m, l, acc) of the row, read all at once (the loop is
+    // unrolled: the remote loads are in flight together)
+    float mv[MAX_SPAN], lv[MAX_SPAN];
+    float2 av[MAX_SPAN];
+    float m_max = -1e30f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPAN; ++sp) {
+      if (sp < n_span) {
+        mv[sp] = *cluster.map_shared_rank(&mst[r], sp);
+        lv[sp] = *cluster.map_shared_rank(&lst[r], sp);
+        av[sp] = *reinterpret_cast<const float2*>(
+            cluster.map_shared_rank(part + r * SROW + 2 * dp, sp));
+      }
     }
 #pragma unroll
-    for (int j = 0; j < QPW; ++j) {
-      const int qi = warp * QPW + j;
-      if (q0 + qi >= Q) break;  // uniform across the warp
-      float s0 = 0.0f, s1 = 0.0f;
-      const bf162* k0row = reinterpret_cast<const bf162*>(&kt[lane][0]);
-      const bf162* k1row = reinterpret_cast<const bf162*>(&kt[lane + 32][0]);
-#pragma unroll 8
-      for (int dp = 0; dp < DH / 2; ++dp) {
-        const float2 qq = *reinterpret_cast<const float2*>(&qs[qi][2 * dp]);
-        const float2 a = __bfloat1622float2(k0row[dp]);
-        const float2 c = __bfloat1622float2(k1row[dp]);
-        s0 = fmaf(qq.x, a.x, fmaf(qq.y, a.y, s0));
-        s1 = fmaf(qq.x, c.x, fmaf(qq.y, c.y, s1));
-      }
-      s0 = ok0 ? s0 * ks0 : WDT_NEG_INF;
-      s1 = ok1 ? s1 * ks1 : WDT_NEG_INF;
-      const float m_new = fmaxf(m[j], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m[j] - m_new);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      l[j] = l[j] * alpha + warp_sum(p0 + p1);  // unscaled probabilities
-      const float pb0 = bf16_round(p0 * vs0), pb1 = bf16_round(p1 * vs1);
-      float a0 = acc0[j] * alpha, a1 = acc1[j] * alpha;
-      // lane owns output dims (2 * lane, 2 * lane + 1)
-#pragma unroll 8
-      for (int kk = 0; kk < 32; ++kk) {
-        const float p = __shfl_sync(0xffffffffu, pb0, kk);
-        const float2 vv = __bfloat1622float2(
-            reinterpret_cast<const bf162*>(&vt[kk][0])[lane]);
-        a0 = fmaf(p, vv.x, a0);
-        a1 = fmaf(p, vv.y, a1);
-      }
-#pragma unroll 8
-      for (int kk = 0; kk < 32; ++kk) {
-        const float p = __shfl_sync(0xffffffffu, pb1, kk);
-        const float2 vv = __bfloat1622float2(
-            reinterpret_cast<const bf162*>(&vt[kk + 32][0])[lane]);
-        a0 = fmaf(p, vv.x, a0);
-        a1 = fmaf(p, vv.y, a1);
-      }
-      acc0[j] = a0;
-      acc1[j] = a1;
-      m[j] = m_new;
-    }
-  }
-
+    for (int sp = 0; sp < MAX_SPAN; ++sp)
+      if (sp < n_span) m_max = fmaxf(m_max, mv[sp]);
+    float l = 0.0f, a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
-  for (int j = 0; j < QPW; ++j) {
-    const int qi = q0 + warp * QPW + j;
-    if (qi >= Q) break;
-    if constexpr (kSplit) {
-      float* st = part + ((((size_t)b * n_span + span) * H + h) * Q + qi) * (DH + 2);
-      reinterpret_cast<float2*>(st)[lane] = make_float2(acc0[j], acc1[j]);
-      if (lane == 0) {
-        st[DH] = m[j];
-        st[DH + 1] = l[j];
+    for (int sp = 0; sp < MAX_SPAN; ++sp) {
+      if (sp < n_span) {
+        const float w = expf(mv[sp] - m_max);
+        l = fmaf(lv[sp], w, l);
+        a0 = fmaf(av[sp].x, w, a0);
+        a1 = fmaf(av[sp].y, w, a1);
       }
-    } else {
-      const float inv = 1.0f / l[j];
-      bf162* o = reinterpret_cast<bf162*>(out + (((size_t)b * Q + qi) * H + h) * DH);
-      o[lane] = __floats2bfloat162_rn(acc0[j] * inv, acc1[j] * inv);
     }
+    const float inv = 1.0f / l;
+    reinterpret_cast<bf162*>(out + (((size_t)b * Q + q0 + r) * H + h) * DH)[dp] =
+        __floats2bfloat162_rn(a0 * inv, a1 * inv);
   }
-}
-
-// K9d's second pass: one warp per output row (b, q, h) rescales every
-// span's (acc, l) by exp(m - max m), sums them in span order and writes
-// bf16(acc / l); lane owns dims (2 * lane, 2 * lane + 1).
-__global__ void __launch_bounds__(128)
-combine_spans_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                     int B, int Q, int H, int n_span) {
-  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= B * Q * H) return;
-  const int h = row % H, qi = (row / H) % Q, b = row / (H * Q);
-  const size_t stride = (size_t)H * Q * (DH + 2);  // from one span to the next
-  const float* st = part + (((size_t)b * n_span * H + h) * Q + qi) * (DH + 2);
-  float m_max = -1e30f;
-  for (int s = 0; s < n_span; ++s) m_max = fmaxf(m_max, st[s * stride + DH]);
-  float l = 0.0f, a0 = 0.0f, a1 = 0.0f;
-  for (int s = 0; s < n_span; ++s) {
-    const float* sp = st + s * stride;
-    const float w = expf(sp[DH] - m_max);
-    const float2 acc = reinterpret_cast<const float2*>(sp)[lane];
-    l = fmaf(sp[DH + 1], w, l);
-    a0 = fmaf(acc.x, w, a0);
-    a1 = fmaf(acc.y, w, a1);
-  }
-  const float inv = 1.0f / l;
-  reinterpret_cast<bf162*>(out + (size_t)row * DH)[lane] =
-      __floats2bfloat162_rn(a0 * inv, a1 * inv);
+  cluster.sync();  // no CTA leaves while another may still read its state
 }
 
 constexpr float kScale = 0.125f;  // 64^-0.5
 constexpr int kConstLayer = 1;    // K9c's layer, as _attn_6d_const fixed it
 
+template <typename KV, int kLayer, bool kRows>
+cudaError_t launch_split(const bf16* q, const KV* k, const float* ks, const KV* v,
+                         const float* vs, bf16* out, int B, int Q, int H, int Ta,
+                         int layer, int ta_total, int n_span, int span_keys,
+                         cudaStream_t stream) {
+  constexpr int QCH = kRows ? 4 * QC : QC;
+  auto kern = cross_attn_kernel<KV, kLayer, kRows>;
+  constexpr int smem = smem_bytes<KV>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = n_span;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_span, H * ((Q + QCH - 1) / QCH), B);
+  cfg.blockDim = dim3(K1_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, q, k, ks, v, vs, out, B, Q, H, Ta, layer,
+                            ta_total, span_keys, kScale);
+}
+
+// The plan checked, then the key split (Q <= 16) or the row split (Q > 16;
+// ops/attn.py::cross_attn_plan counts query chunks the same way).
+template <typename KV, int kLayer>
+cudaError_t launch(const bf16* q, const KV* k, const float* ks, const KV* v,
+                   const float* vs, bf16* out, int B, int Q, int H, int Ta, int layer,
+                   int ta_total, int n_span, int span_keys, cudaStream_t stream) {
+  if (n_span < 1 || n_span > MAX_SPAN || span_keys <= 0 || span_keys % TK != 0 ||
+      ta_total <= 0 || ta_total > Ta || (long long)n_span * span_keys < ta_total ||
+      (long long)(n_span - 1) * span_keys >= ta_total)
+    return cudaErrorInvalidValue;
+  if (Q > QC)
+    return launch_split<KV, kLayer, true>(q, k, ks, v, vs, out, B, Q, H, Ta, layer,
+                                          ta_total, n_span, span_keys, stream);
+  return launch_split<KV, kLayer, false>(q, k, ks, v, vs, out, B, Q, H, Ta, layer,
+                                         ta_total, n_span, span_keys, stream);
+}
+
+int finish(cudaError_t err) {
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
-void launch_cross_attn(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                       int B, int Q, int H, int Ta, int layer, int ta_total,
-                       cudaStream_t stream) {
-  dim3 grid((Q + QC - 1) / QC, H, B);
-  cross_attn_kernel<bf16, -1, false><<<grid, WARPS * 32, 0, stream>>>(
-      q, k, nullptr, v, nullptr, out, nullptr, B, Q, H, Ta, layer, ta_total, 0,
-      kScale);
+cudaError_t launch_cross_attn(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                              int B, int Q, int H, int Ta, int layer, int ta_total,
+                              int n_span, int span_keys, cudaStream_t stream) {
+  return launch<bf16, -1>(q, k, nullptr, v, nullptr, out, B, Q, H, Ta, layer, ta_total,
+                          n_span, span_keys, stream);
 }
 
-void launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* ks,
-                          const int8_t* v8, const float* vs, bf16* out, int B,
-                          int Q, int H, int Ta, int layer, int ta_total,
-                          cudaStream_t stream) {
-  dim3 grid((Q + QC - 1) / QC, H, B);
-  cross_attn_kernel<int8_t, -1, false><<<grid, WARPS * 32, 0, stream>>>(
-      q, k8, ks, v8, vs, out, nullptr, B, Q, H, Ta, layer, ta_total, 0, kScale);
+cudaError_t launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* ks,
+                                 const int8_t* v8, const float* vs, bf16* out, int B,
+                                 int Q, int H, int Ta, int layer, int ta_total,
+                                 int n_span, int span_keys, cudaStream_t stream) {
+  return launch<int8_t, -1>(q, k8, ks, v8, vs, out, B, Q, H, Ta, layer, ta_total, n_span,
+                            span_keys, stream);
 }
 
-WDT_EXPORT int wdt_cross_attn(const void* q, const void* k, const void* v,
-                              void* out, int B, int Q, int H, int Ta,
-                              int layer, int ta_total, void* stream) {
-  launch_cross_attn(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Q,
-                    H, Ta, layer, ta_total, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+// q [B, Q, H, 64], k / v [L, B, H, Ta, 64] bf16; out [B, Q, H, 64]; all
+// contiguous; 0 < ta_total <= Ta; the plan (n_span, span_keys) of
+// ops/attn.py::cross_attn_plan.
+WDT_EXPORT int wdt_cross_attn(const void* q, const void* k, const void* v, void* out,
+                              int B, int Q, int H, int Ta, int layer, int ta_total,
+                              int n_span, int span_keys, void* stream) {
+  return finish(launch_cross_attn(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Q, H, Ta, layer, ta_total,
+      n_span, span_keys, static_cast<cudaStream_t>(stream)));
 }
 
 // q [B, Q, H, 64] bf16; k8 / v8 [L, B, H, Ta, 64] int8; ks / vs [L, B, H, Ta]
-// f32; out [B, Q, H, 64] bf16; all contiguous.
+// f32; out [B, Q, H, 64] bf16; all contiguous; the plan as for K1.
 WDT_EXPORT int wdt_cross_attn_q8(const void* q, const void* k8, const void* ks,
-                                 const void* v8, const void* vs, void* out,
-                                 int B, int Q, int H, int Ta, int layer,
-                                 int ta_total, void* stream) {
-  launch_cross_attn_q8(
+                                 const void* v8, const void* vs, void* out, int B,
+                                 int Q, int H, int Ta, int layer, int ta_total,
+                                 int n_span, int span_keys, void* stream) {
+  return finish(launch_cross_attn_q8(
       static_cast<const bf16*>(q), static_cast<const int8_t*>(k8),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v8),
-      static_cast<const float*>(vs), static_cast<bf16*>(out), B, Q, H, Ta,
-      layer, ta_total, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(vs), static_cast<bf16*>(out), B, Q, H, Ta, layer,
+      ta_total, n_span, span_keys, static_cast<cudaStream_t>(stream)));
 }
 
 // K9c: as K1 with the layer fixed at kConstLayer; k / v [L >= 2, B, H, Ta, 64].
-WDT_EXPORT int wdt_cross_attn_const_layer(const void* q, const void* k,
-                                          const void* v, void* out, int B,
-                                          int Q, int H, int Ta, int ta_total,
+WDT_EXPORT int wdt_cross_attn_const_layer(const void* q, const void* k, const void* v,
+                                          void* out, int B, int Q, int H, int Ta,
+                                          int ta_total, int n_span, int span_keys,
                                           void* stream) {
-  dim3 grid((Q + QC - 1) / QC, H, B);
-  cross_attn_kernel<bf16, kConstLayer, false>
-      <<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
-          static_cast<const bf16*>(v), nullptr, static_cast<bf16*>(out),
-          nullptr, B, Q, H, Ta, 0, ta_total, 0, kScale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K9d: as K1, the keys split into n_span spans of span_keys (a multiple of
-// 64) keys; part is f32 scratch [B, n_span, H, Q, 66].
-WDT_EXPORT int wdt_cross_attn_flat(const void* q, const void* k, const void* v,
-                                   void* part, void* out, int B, int Q, int H,
-                                   int Ta, int layer, int ta_total,
-                                   int span_keys, int n_span, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((Q + QC - 1) / QC, H, B * n_span);
-  cross_attn_kernel<bf16, -1, true><<<grid, WARPS * 32, 0, st>>>(
+  return finish(launch<bf16, kConstLayer>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
-      static_cast<const bf16*>(v), nullptr, nullptr, static_cast<float*>(part),
-      B, Q, H, Ta, layer, ta_total, span_keys, kScale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  combine_spans_kernel<<<(B * Q * H + 3) / 4, 128, 0, st>>>(
-      static_cast<const float*>(part), static_cast<bf16*>(out), B, Q, H, n_span);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const bf16*>(v), nullptr, static_cast<bf16*>(out), B, Q, H, Ta, 0,
+      ta_total, n_span, span_keys, static_cast<cudaStream_t>(stream)));
 }

@@ -21,11 +21,12 @@
 //
 // K9b kv_stream_sum replaces tools/bench_attn_kernel.py::_sum_6d: sum of
 // max(f32 k[layer], s) + f32 v[layer] over one layer of the cache
-// [L, B, H, Ta, 64]. It keeps K1's work split and loads on purpose: one CTA
-// of K1_THREADS per (b, h) walks its slab in key order and stages 64-key
-// tiles with K1's own k1_stage_tile (4-byte loads, no load in flight while
-// it sums). Its distance from K11 is the cost of K1's access pattern; K1's
-// distance from it is the cost of K1's compute.
+// [L, B, H, Ta, 64]. It keeps K1's work split and loads on purpose: K1's
+// key spans (one CTA of K1_THREADS per (b, h, span), cross_attn_plan over
+// Ta), each walked in key order through K1's ring of K1_STAGES tiles filled
+// by K1's own k1_stage_tile_async (cp.async, 16 bytes a copy). Its distance
+// from K11 is the cost of K1's access pattern; K1's distance from it is the
+// cost of K1's compute and combine.
 //
 // Every sum is deterministic: each CTA writes its f32 partial and one CTA
 // adds the partials in a fixed order (no float atomics). A thread sums each
@@ -83,24 +84,6 @@ stream_sum_kernel(const bf16* __restrict__ x, long long n, float s,
   if (blockIdx.x == gridDim.x - 1) acc += tail_sum(x, n, s);
   const float tot = block_sum(acc);
   if (threadIdx.x == 0) partial[blockIdx.x] = tot;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
 }
 
 // thread 0: stage j of this CTA (bytes [off, off + bytes) of x) into its slot
@@ -169,31 +152,56 @@ stream_sum_pipelined_kernel(const bf16* __restrict__ x, long long n, float s,
   if (threadIdx.x == 0) partial[blockIdx.x] = tot;
 }
 
+// K9b: the CTA of span blockIdx.x of slab (b = blockIdx.z, h = blockIdx.y)
+// walks its keys [rank * span_keys, + span_keys) of [0, Ta) through K1's
+// ring with K1's staging helper, and sums them.
 __global__ void __launch_bounds__(K1_THREADS)
 kv_stream_sum_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     int B, int H, int Ta, int layer, float s,
+                     int B, int H, int Ta, int layer, int span_keys, float s,
                      float* __restrict__ partial) {
-  __shared__ __align__(16) bf16 kt[K1_TK][K1_KROW];
-  __shared__ __align__(16) bf16 vt[K1_TK][K1_KROW];
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  extern __shared__ __align__(128) unsigned char ring[];
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const size_t row0 = ((size_t)layer * B * H + (size_t)b * H + h) * Ta;
+  const bf16* kb = k + row0 * K1_DH;
+  const bf16* vb = v + row0 * K1_DH;
+  const int t_begin = rank * span_keys;
+  const int t_end = min(t_begin + span_keys, Ta);
+  const int n_tiles = (t_end - t_begin + K1_TK - 1) / K1_TK;
+  auto tile = [&](int j) {
+    return reinterpret_cast<bf16*>(ring) + (j % K1_STAGES) * 2 * K1_TILE_ELEMS;
+  };
+  for (int j = 0; j < K1_STAGES - 1; ++j) {
+    if (j < n_tiles)
+      k1_stage_tile_async(kb, vb, tile(j), tile(j) + K1_TILE_ELEMS, t_begin + j * K1_TK,
+                          t_end, tid);
+    cp_async_commit();
+  }
   float acc = 0.0f;
-  for (int t0 = 0; t0 < Ta; t0 += K1_TK) {
-    __syncthreads();  // previous tile fully summed
-    k1_stage_tile(k + row0 * K1_DH, v + row0 * K1_DH, kt, vt, t0, Ta, tid);
-    __syncthreads();
-    const int pairs = min(K1_TK, Ta - t0) * (K1_DH / 2);
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<K1_STAGES - 2>();
+    __syncthreads();  // tile j landed for every thread; tile j - 1 summed
+    const int nj = j + K1_STAGES - 1;
+    if (nj < n_tiles)
+      k1_stage_tile_async(kb, vb, tile(nj), tile(nj) + K1_TILE_ELEMS,
+                          t_begin + nj * K1_TK, t_end, tid);
+    cp_async_commit();
+    const bf16* kt = tile(j);
+    const bf16* vt = kt + K1_TILE_ELEMS;
+    const int pairs = min(K1_TK, t_end - (t_begin + j * K1_TK)) * (K1_DH / 2);
     float part = 0.0f;
     for (int i = tid; i < pairs; i += K1_THREADS) {
       const int row = i / (K1_DH / 2), cp = i % (K1_DH / 2);
-      const float2 kk = __bfloat1622float2(reinterpret_cast<const bf162*>(&kt[row][0])[cp]);
-      const float2 vv = __bfloat1622float2(reinterpret_cast<const bf162*>(&vt[row][0])[cp]);
+      const float2 kk = __bfloat1622float2(
+          reinterpret_cast<const bf162*>(kt + row * K1_KROW)[cp]);
+      const float2 vv = __bfloat1622float2(
+          reinterpret_cast<const bf162*>(vt + row * K1_KROW)[cp]);
       part += (fmaxf(kk.x, s) + fmaxf(kk.y, s)) + (vv.x + vv.y);
     }
     acc += part;
   }
+  cp_async_wait<0>();
   const float tot = block_sum(acc);
-  if (tid == 0) partial[b * H + h] = tot;
+  if (tid == 0) partial[((size_t)b * H + h) * gridDim.x + rank] = tot;
 }
 
 __global__ void __launch_bounds__(SUM_THREADS)
@@ -238,13 +246,23 @@ WDT_EXPORT int wdt_stream_sum_pipelined(const void* x, long long n, float s,
   return finish(static_cast<const float*>(partial), ctas, static_cast<float*>(out), st);
 }
 
-// K9b: k / v [L, B, H, Ta, 64] bf16 contiguous; partial f32 [B * H]; out f32 [1].
+// K9b: k / v [L, B, H, Ta, 64] bf16 contiguous; the keys split into n_span
+// spans of span_keys as K1 splits them (ops/attn.py::cross_attn_plan over
+// Ta); partial f32 [B * H * n_span]; out f32 [1].
 WDT_EXPORT int wdt_kv_stream_sum(const void* k, const void* v, int B, int H, int Ta,
-                                 int layer, float s, void* partial, void* out,
-                                 void* stream) {
+                                 int layer, float s, int n_span, int span_keys,
+                                 void* partial, void* out, void* stream) {
+  if (n_span < 1 || span_keys <= 0 || span_keys % K1_TK != 0 ||
+      (long long)n_span * span_keys < Ta || (long long)(n_span - 1) * span_keys >= Ta)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = K1_STAGES * 2 * K1_TILE_ELEMS * 2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kv_stream_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kv_stream_sum_kernel<<<dim3(1, H, B), K1_THREADS, 0, st>>>(
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v), B, H, Ta, layer, s,
-      static_cast<float*>(partial));
-  return finish(static_cast<const float*>(partial), B * H, static_cast<float*>(out), st);
+  kv_stream_sum_kernel<<<dim3(n_span, H, B), K1_THREADS, smem, st>>>(
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), B, H, Ta, layer, span_keys,
+      s, static_cast<float*>(partial));
+  return finish(static_cast<const float*>(partial), B * H * n_span,
+                static_cast<float*>(out), st);
 }

@@ -29,7 +29,8 @@
 // skinny GEMM (16 rows x 64 columns per CTA on bf16 tensor-core MMA, with a
 // fused layernorm / row-scale prologue and a fused column-scale / bias /
 // GELU / residual epilogue, so no normalised or pre-activation tensor is
-// written to device memory) and K1's (or K5's) flash attention. The stacked
+// written to device memory) and K1's (or K5's) flash attention, one
+// cluster launch on the plan the wrapper passes. The stacked
 // [L, Din, Dout] weights are read in place: a layer is a pointer offset.
 // A persistent single-kernel tail is later work.
 #include "common.cuh"
@@ -206,7 +207,7 @@ void skinny_gemm(const bf16* A, const WT* W, const float* col_scale,
 // Scales (int8 only): o_ws, cq_ws, co_ws, fc1_ws [L, Dout] per output
 // column, fc2_ws [L, 4D] per input row; layer picked by pointer offset.
 template <typename WT>
-void tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
+cudaError_t tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
                 const WT* cq_w, const WT* co_w, const WT* fc1_w,
                 const WT* fc2_w, const float* o_ws, const float* cq_ws,
                 const float* co_ws, const float* fc1_ws, const float* fc2_ws,
@@ -216,7 +217,7 @@ void tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
                 const void* k, const void* v, const float* ks, const float* vs,
                 bf16* x1, bf16* cq, bf16* att, bf16* x2, bf16* h4, bf16* out,
                 int layer, int N, int D, int H, int Bc, int beams, int Ta,
-                int ta_total, cudaStream_t stream) {
+                int ta_total, int n_span, int span_keys, cudaStream_t stream) {
   const size_t l = static_cast<size_t>(layer);
   const size_t dd = static_cast<size_t>(D) * D;
   const size_t d4 = static_cast<size_t>(D) * 4 * D;
@@ -227,15 +228,15 @@ void tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
               nullptr, nullptr, x1, N, D, D, 0, stream);
   skinny_gemm(x1, cq_w + l * dd, S(cq_ws, d), nullptr, cq_b + l * d, nullptr,
               ln2_g + l * d, ln2_b + l * d, cq, N, D, D, 0, stream);
-  if (ks != nullptr) {
-    launch_cross_attn_q8(cq, static_cast<const int8_t*>(k), ks,
-                         static_cast<const int8_t*>(v), vs, att, Bc, beams, H,
-                         Ta, layer, ta_total, stream);
-  } else {
-    launch_cross_attn(cq, static_cast<const bf16*>(k),
-                      static_cast<const bf16*>(v), att, Bc, beams, H, Ta,
-                      layer, ta_total, stream);
-  }
+  const cudaError_t err =
+      ks != nullptr
+          ? launch_cross_attn_q8(cq, static_cast<const int8_t*>(k), ks,
+                                 static_cast<const int8_t*>(v), vs, att, Bc, beams, H,
+                                 Ta, layer, ta_total, n_span, span_keys, stream)
+          : launch_cross_attn(cq, static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), att, Bc, beams, H, Ta,
+                              layer, ta_total, n_span, span_keys, stream);
+  if (err != cudaSuccess) return err;
   skinny_gemm(att, co_w + l * dd, S(co_ws, d), nullptr, co_b + l * d, x1,
               nullptr, nullptr, x2, N, D, D, 0, stream);
   skinny_gemm(x2, fc1_w + l * d4, S(fc1_ws, 4 * d), nullptr, fc1_b + l * 4 * d,
@@ -243,6 +244,7 @@ void tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
               stream);
   skinny_gemm(h4, fc2_w + l * d4, nullptr, S(fc2_ws, 4 * d), fc2_b + l * d,
               x2, nullptr, nullptr, out, N, 4 * D, D, 0, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -261,7 +263,8 @@ void launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
 // K6's forms: o_ws != nullptr -> the five weights are int8 with the scales
 // o_ws, cq_ws, co_ws, fc1_ws (per output column) and fc2_ws (per input row);
 // ks != nullptr -> k, v are int8 with per-position scales ks, vs
-// [L, Bc, H, Ta]. Null scales: bf16 (K3).
+// [L, Bc, H, Ta]. Null scales: bf16 (K3). (n_span, span_keys): K1 / K5's
+// plan for Bc streams of `beams` queries (ops/attn.py::cross_attn_plan).
 WDT_EXPORT int wdt_fused_tail(
     const void* x, const void* self_out, const void* o_w, const void* o_b,
     const void* ln2_g, const void* ln2_b, const void* cq_w, const void* cq_b,
@@ -271,25 +274,27 @@ WDT_EXPORT int wdt_fused_tail(
     void* h4, void* out, const void* o_ws, const void* cq_ws,
     const void* co_ws, const void* fc1_ws, const void* fc2_ws, const void* ks,
     const void* vs, int layer, int N, int D, int H, int Bc, int beams, int Ta,
-    int ta_total, void* stream_) {
+    int ta_total, int n_span, int span_keys, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   auto P = [](const void* p) { return static_cast<const bf16*>(p); };
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto O = [](void* p) { return static_cast<bf16*>(p); };
+  cudaError_t err;
   if (o_ws != nullptr) {
     auto Q = [](const void* p) { return static_cast<const int8_t*>(p); };
-    tail_layer(P(x), P(self_out), Q(o_w), Q(cq_w), Q(co_w), Q(fc1_w), Q(fc2_w),
+    err = tail_layer(P(x), P(self_out), Q(o_w), Q(cq_w), Q(co_w), Q(fc1_w), Q(fc2_w),
                F(o_ws), F(cq_ws), F(co_ws), F(fc1_ws), F(fc2_ws), P(o_b),
                P(ln2_g), P(ln2_b), P(cq_b), P(co_b), P(ln3_g), P(ln3_b),
                P(fc1_b), P(fc2_b), k, v, F(ks), F(vs), O(x1), O(cq), O(att),
                O(x2), O(h4), O(out), layer, N, D, H, Bc, beams, Ta, ta_total,
-               stream);
+               n_span, span_keys, stream);
   } else {
-    tail_layer(P(x), P(self_out), P(o_w), P(cq_w), P(co_w), P(fc1_w), P(fc2_w),
+    err = tail_layer(P(x), P(self_out), P(o_w), P(cq_w), P(co_w), P(fc1_w), P(fc2_w),
                nullptr, nullptr, nullptr, nullptr, nullptr, P(o_b), P(ln2_g),
                P(ln2_b), P(cq_b), P(co_b), P(ln3_g), P(ln3_b), P(fc1_b),
                P(fc2_b), k, v, F(ks), F(vs), O(x1), O(cq), O(att), O(x2),
-               O(h4), O(out), layer, N, D, H, Bc, beams, Ta, ta_total, stream);
+               O(h4), O(out), layer, N, D, H, Bc, beams, Ta, ta_total, n_span,
+               span_keys, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -178,15 +178,20 @@ class Engine:
         if self.cfg.mesh_shape is not None:
             raise NotImplementedError(
                 "mesh_shape: multi-GPU inference is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+                "(ROADMAP Queue 1: Multi-GPU and training)")
         if self.cfg.draft_model_path:
             raise NotImplementedError(
                 "draft_model_path: speculative decoding is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
+                "(ROADMAP Queue 1: Speculative decoding)")
         if self.cfg.speculative_gamma != EngineConfig.speculative_gamma:
             raise NotImplementedError(
                 "speculative_gamma: speculative decoding is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
+                "(ROADMAP Queue 1: Speculative decoding)")
+        if self.cfg.dtype == "float32" and self.cfg.use_gpu is not False:
+            raise NotImplementedError(
+                "dtype='float32' on the card: the CUDA kernels take bfloat16 "
+                "only (ROADMAP Queue 1: f32 forms of the kernels); leave dtype "
+                "unset or 'bfloat16', or pass use_gpu=False for the f32 CPU path")
         if self.cfg.use_gpu is False:
             self.device = torch.device("cpu")
         else:
@@ -250,8 +255,8 @@ class Engine:
         if snap.is_file():
             raise NotImplementedError(
                 f"{snap}: GGML / OpenAI .pt checkpoint files are not ported yet "
-                "(ROADMAP Queue 1 item 8); pass a snapshot directory "
-                "(config.json + model.safetensors)")
+                "(ROADMAP Queue 1: Checkpoint files, CLI and tools); pass a "
+                "snapshot directory (config.json + model.safetensors)")
         params, cfg = weights_mod.load_model(snap, self.device, dtype)
         tokenizer = load_tokenizer(str(snap), multilingual=cfg.multilingual,
                                    num_languages=cfg.num_languages)
@@ -344,7 +349,7 @@ class Engine:
         if options.enable_diarize:
             raise NotImplementedError(
                 "enable_diarize: diarization is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
+                "(ROADMAP Queue 1: Diarization)")
 
         with torch.inference_mode():
             params, model_cfg, tokenizer = self._load_whisper(

@@ -34,15 +34,14 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures: name -> argtypes (every entry returns int = cudaError_t)
 _SIGNATURES = {
-    "wdt_cross_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "wdt_cross_attn_const_layer": [_P] * 4 + [_I] * 5 + [_P],
-    "wdt_cross_attn_flat": [_P] * 5 + [_I] * 8 + [_P],
-    "wdt_cross_attn_q8": [_P] * 6 + [_I] * 6 + [_P],
+    "wdt_cross_attn": [_P] * 4 + [_I] * 8 + [_P],
+    "wdt_cross_attn_const_layer": [_P] * 4 + [_I] * 7 + [_P],
+    "wdt_cross_attn_q8": [_P] * 6 + [_I] * 8 + [_P],
     "wdt_cross_kv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wdt_encoder_attn": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _P],
     "wdt_fused_front": [_P] * 10 + [_I] * 6 + [_P],
-    "wdt_fused_tail": [_P] * 31 + [_I] * 8 + [_P],
-    "wdt_kv_stream_sum": [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "wdt_fused_tail": [_P] * 31 + [_I] * 10 + [_P],
+    "wdt_kv_stream_sum": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P],
     "wdt_log_mel": [_P] * 5 + [_I] * 4 + [_P],
     "wdt_split_self_attn": [_P] * 8 + [_I] * 8 + [_P],
     "wdt_stream_sum": [_P, _L, _F, _P, _I, _P, _P],

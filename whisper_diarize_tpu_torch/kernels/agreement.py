@@ -246,6 +246,24 @@ def k2_faults(xa, ck_w, cv_w, cv_b, n_heads: int
     yield "K2 K of the previous layer", 0, k.roll(1, dims=0)
 
 
+def _split_faults(tag: str, layer: int, q, k, v, ta_total, ks=None, vs=None,
+                  rescale: bool = True) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of the key split (`attn.cross_attn_plan`, planted where it has
+    two spans or more): the middle span dropped from the cluster's combine,
+    and (`rescale`) every span's acc and l summed as they stand, without
+    the exp(m - max m) rescale."""
+    from ..ops.attn import combine_span_states, cross_attn_span_states
+
+    states = cross_attn_span_states(layer, q, k, v, ta_total, ks=ks, vs=vs)
+    if len(states) < 2:
+        return
+    yield f"{tag} a span dropped", combine_span_states(
+        states[:len(states) // 2] + states[len(states) // 2 + 1:], q.dtype)
+    if rescale:
+        flat = [(a, torch.zeros_like(m), l) for a, m, l in states]
+        yield f"{tag} spans combined without their rescale", combine_span_states(flat, q.dtype)
+
+
 def k1_faults(layer: int, q, k, v, ta_total) -> Iterator[Tuple[str, torch.Tensor]]:
     from ..ops.attn import cross_attn_layer_plain
 
@@ -253,6 +271,7 @@ def k1_faults(layer: int, q, k, v, ta_total) -> Iterator[Tuple[str, torch.Tensor
     yield "K1 wrong layer", cross_attn_layer_plain((layer + 1) % L, q, k, v, ta_total)
     yield "K1 q not scaled by Dh^-0.5", cross_attn_layer_plain(
         layer, (q.float() * Dh ** 0.5).to(q.dtype), k, v, ta_total)
+    yield from _split_faults("K1", layer, q, k, v, ta_total)
 
 
 def k4_faults(layer: int, q, pk, pv, dk, dv, anc_j, step: int, row_pad,
@@ -310,6 +329,7 @@ def k5_faults(layer: int, q, k8, ks, v8, vs, ta_total
                      v8[layer, :, :, :ta_total].float())
     yield "K5 vs folded into the normalizer", (
         o / pv.sum(dim=-1, keepdim=True)).permute(0, 2, 1, 3).to(q.dtype)
+    yield from _split_faults("K5", layer, q, k8, v8, ta_total, ks, vs, rescale=False)
 
 
 def k6_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total,
@@ -409,7 +429,10 @@ def k10_faults(q, k, v, ta_total: int, single_pass: bool
                ) -> Iterator[Tuple[str, torch.Tensor]]:
     """Slips of the encoder attention: the key padding left unmasked (keys
     zero-padded to the next multiple of 512, as the TPU kernel pads them,
-    and all attended), and the softmax taken over the query axis."""
+    and all attended), the softmax taken over the query axis, and each
+    64-key tile's P V taken against the V of the ring stage before it (the
+    slot read before its copy landed: the previous tile's V, zeros for the
+    first)."""
     from ..ops.attn import qk_scaled
     from ..ops.encoder_attn import encoder_self_attention_plain
 
@@ -422,6 +445,9 @@ def k10_faults(q, k, v, ta_total: int, single_pass: bool
     p = torch.softmax(s, dim=-2).to(v.dtype)
     yield "K10 softmax over the query axis", torch.matmul(
         p.float(), v[..., :ta_total, :].float()).to(q.dtype)
+    v_prev = torch.nn.functional.pad(v, (0, 0, 64, 0))[..., :T, :]
+    yield "K10 V of the previous ring stage", encoder_self_attention_plain(
+        q, k, v_prev, ta_total, single_pass)
 
 
 def k11a_faults(x: torch.Tensor, s: float, ctas: int) -> Iterator[Tuple[str, torch.Tensor]]:

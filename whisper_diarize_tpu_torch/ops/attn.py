@@ -8,6 +8,12 @@ Counterpart of `whisper_diarize_tpu/ops/pallas_attn.py`. The cross cache is
 not the TPU kernel's lane-tiled `[L, B, NT, H, Dh, 512]`; the int8 cache is
 the same layout in int8 with f32 scales `[L, B, H, Ta]`.
 
+K1 and K5 split a layer's keys across the CTAs of a thread-block cluster;
+`cross_attn_plan` picks the split from the shape and the wrappers (and the
+fused tail, `ops/tail.py`) pass it to the kernel. `cross_attn_split_plain`
+is the kernels' order of rounding in plain PyTorch, the tests' model of the
+split.
+
 Dispatch: a wrapper runs the plain version only when its tensors lie on the
 CPU. On a CUDA tensor it launches the hand-written kernel
 (`csrc/cross_attn.cu` for K1 and K5, `csrc/cross_kv.cu`,
@@ -17,7 +23,7 @@ its kernel launches in `<wrapper>.launches`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,6 +57,140 @@ def qk_scaled(x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# K1 / K5's launch plan: the key split inside a thread-block cluster
+# --------------------------------------------------------------------------
+
+CLUSTER_MAX = 8  # CTAs a cluster: the portable limit
+KEYS_PER_TILE = 64  # K1 / K5's shared-memory tile (csrc/cross_attn.cu)
+QUERY_CHUNK = 16  # queries a CTA at Q <= 16 (warps split the keys of a tile)
+ROW_CHUNK = 64  # queries a CTA at Q > 16 (each warp 16 of them, all keys)
+# CTAs a launch aims at, bf16 / int8 cache: the fewest that keep enough
+# bytes in flight. Each span costs a share of the cluster's combine, so at
+# B 8 two spans (320 CTAs) beat eight (1,280) for K1 and three for K5,
+# whose int8 tiles hold half the bytes; at B 1 every shape wants the full
+# cluster (`tools/bench_attn_kernel.py --plans` measures each split)
+CTA_TARGET = 320
+CTA_TARGET_INT8 = 480
+
+
+class CrossAttnPlan(NamedTuple):
+    n_span: int  # CTAs of a cluster, one key span each
+    span_keys: int  # keys a span (a multiple of KEYS_PER_TILE)
+
+
+def cross_attn_plan(B: int, H: int, Q: int, ta_total: int,
+                    int8: bool = False) -> CrossAttnPlan:
+    """How K1 / K5 split one layer's keys: one cluster of `n_span` CTAs per
+    (b, h, chunk of QUERY_CHUNK queries, ROW_CHUNK where Q > QUERY_CHUNK),
+    CTA r over keys [r * span_keys,
+    (r + 1) * span_keys) of [0, ta_total). As many spans as bring the grid
+    near CTA_TARGET CTAs (CTA_TARGET_INT8 over the int8 cache, `int8`), at
+    most CLUSTER_MAX and one 64-key tile each; the tiles are then dealt
+    evenly, so every span holds an unmasked key. A pure function of the
+    shape: the wrappers and the fused tail pass it to the kernel, which
+    refuses a plan that does not cover the keys."""
+    if min(B, H, Q, ta_total) <= 0:
+        raise ValueError(f"cross_attn_plan: B {B}, H {H}, Q {Q}, ta_total {ta_total}")
+    tiles = -(-ta_total // KEYS_PER_TILE)
+    ctas = B * H * -(-Q // (QUERY_CHUNK if Q <= QUERY_CHUNK else ROW_CHUNK))
+    target = CTA_TARGET_INT8 if int8 else CTA_TARGET
+    n = max(1, min(CLUSTER_MAX, tiles, -(-target // ctas)))
+    per = -(-tiles // n)
+    return CrossAttnPlan(-(-tiles // per), per * KEYS_PER_TILE)
+
+
+def split_plans(ta_total: int) -> List[CrossAttnPlan]:
+    """Every key split the kernels take at `ta_total` keys, one for each
+    number of spans up to CLUSTER_MAX (tiles dealt evenly, as
+    `cross_attn_plan` deals them): what `tools/bench_attn_kernel.py --plans`
+    times."""
+    tiles = -(-ta_total // KEYS_PER_TILE)
+    out = []
+    for n in range(1, min(CLUSTER_MAX, tiles) + 1):
+        per = -(-tiles // n)
+        plan = CrossAttnPlan(-(-tiles // per), per * KEYS_PER_TILE)
+        if plan not in out:
+            out.append(plan)
+    return out
+
+
+def _flash_tiles(qs: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor,
+                 ksl: Optional[torch.Tensor], vsl: Optional[torch.Tensor],
+                 t0: int, t1: int, tile: int):
+    """The flash recurrence over keys [t0, t1) in `tile`-key steps: f32
+    scores (times ksl, the int8 cache's key scales), the running max moving
+    once a step, the normalizer summing the unrounded p, and P.V on
+    bf16(p) (bf16(p * vsl) over the int8 cache). qs [B, Q, H, Dh] f32,
+    kl / vl [B, H, Ta, Dh], ksl / vsl [B, H, Ta] or None. Returns the
+    unnormalized state (acc [B, H, Q, Dh], m [B, H, Q], l [B, H, Q])."""
+    B, Q, H, Dh = qs.shape
+    m = torch.full((B, H, Q), -1e30, device=qs.device)
+    l = torch.zeros((B, H, Q), device=qs.device)
+    acc = torch.zeros((B, H, Q, Dh), device=qs.device)
+    for a in range(t0, t1, tile):
+        t = slice(a, min(a + tile, t1))
+        s = torch.einsum("bqhd,bhtd->bhqt", qs, kl[:, :, t].float())
+        if ksl is not None:
+            s = s * ksl[:, :, None, t].float()
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        if vsl is not None:
+            p = p * vsl[:, :, None, t].float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqt,bhtd->bhqd", p.to(torch.bfloat16).float(), vl[:, :, t].float())
+        m = m_new
+    return acc, m, l
+
+
+def cross_attn_span_states(
+    layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    ta_total: Optional[int] = None, plan: Optional[CrossAttnPlan] = None,
+    ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The plain model of K1's (with ks, vs: K5's) key split: for each span
+    of `plan` (default `cross_attn_plan`), in order, the unnormalized state
+    (acc, m, l) of the flash recurrence over the span's keys < ta_total in
+    64-key tiles, p rounded to bf16 against the span's running max, as one
+    CTA of the cluster computes it."""
+    B, Q, H, Dh = q.shape
+    ta = k.shape[3] if ta_total is None else int(ta_total)
+    n_span, span_keys = plan or cross_attn_plan(B, H, Q, ta, int8=ks is not None)
+    qs = (q.float() * Dh ** -0.5).to(torch.bfloat16).float()
+    ksl = None if ks is None else ks[layer]
+    vsl = None if vs is None else vs[layer]
+    return [_flash_tiles(qs, k[layer], v[layer], ksl, vsl, r * span_keys,
+                         min((r + 1) * span_keys, ta), KEYS_PER_TILE)
+            for r in range(n_span)]
+
+
+def combine_span_states(states, dtype: torch.dtype) -> torch.Tensor:
+    """The cluster's combine: each span's (acc, l) rescaled by exp(m - max m)
+    and summed in span order; bf16(acc / l) as [B, Q, H, Dh] of `dtype`."""
+    m_max = torch.stack([m for _, m, _ in states]).amax(dim=0)
+    acc, l = 0.0, 0.0
+    for a, m, s in states:
+        w = torch.exp(m - m_max)
+        acc = acc + a * w[..., None]
+        l = l + s * w
+    return (acc / l[..., None]).permute(0, 2, 1, 3).to(dtype)
+
+
+def cross_attn_split_plain(
+    layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    ta_total: Optional[int] = None, plan: Optional[CrossAttnPlan] = None,
+    ks: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K1's (K5's, with ks, vs) function in the kernel's order: the spans of
+    `cross_attn_span_states` combined by `combine_span_states`. It differs
+    from `cross_attn_layer_plain` only by where p is rounded to bf16; the
+    tests hold it to the JAX kernel (`kernels.agreement`)."""
+    return combine_span_states(
+        cross_attn_span_states(layer, q, k, v, ta_total, plan, ks, vs), q.dtype)
+
+
+# --------------------------------------------------------------------------
 # K1: cross-attention of one decoder layer
 # --------------------------------------------------------------------------
 
@@ -76,9 +216,10 @@ def cross_attn_layer_plain(
 
 def cross_attn_layer(
     layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    ta_total: Optional[int] = None,
+    ta_total: Optional[int] = None, plan: Optional[CrossAttnPlan] = None,
 ) -> torch.Tensor:
-    """K1. Same contract as `cross_attn_layer_plain`."""
+    """K1. Same contract as `cross_attn_layer_plain`. `plan` (default
+    `cross_attn_plan`) is for probes that compare key splits."""
     if q.device.type == "cpu":
         return cross_attn_layer_plain(layer, q, k, v, ta_total)
     _require_cuda("cross_attn_layer", q, k, v)
@@ -96,7 +237,8 @@ def cross_attn_layer(
     with torch.cuda.device(q.device):
         kernels.check(lib.wdt_cross_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Q, H, Ta, int(layer), ta, kernels.stream_ptr(q.device),
+            B, Q, H, Ta, int(layer), ta, *(plan or cross_attn_plan(B, H, Q, ta)),
+            kernels.stream_ptr(q.device),
         ), "cross_attn_layer")
     cross_attn_layer.launches += 1
     return out
@@ -157,32 +299,19 @@ def cross_attn_layer_q8_plain(
     unscaled probabilities p and whose P.V takes bf16(p * vs[t]) against
     the int8 values (exact in bf16); f32 accumulation divided by the
     normalizer at the end."""
-    B, Q, H, Dh = q.shape
+    Dh = q.shape[-1]
     ta = k8.shape[3] if ta_total is None else int(ta_total)
     qs = (q.float() * Dh ** -0.5).to(torch.bfloat16).float()
-    m = torch.full((B, H, Q), -1e30, device=q.device)
-    l = torch.zeros((B, H, Q), device=q.device)
-    acc = torch.zeros((B, H, Q, Dh), device=q.device)
-    for t0 in range(0, ta, KEY_TILE):
-        t = slice(t0, min(t0 + KEY_TILE, ta))
-        s = torch.einsum("bqhd,bhtd->bhqt", qs, k8[layer, :, :, t].float())
-        s = s * ks[layer, :, :, None, t].float()
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        pv = (p * vs[layer, :, :, None, t].float()).to(torch.bfloat16).float()
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqt,bhtd->bhqd", pv, v8[layer, :, :, t].float())
-        m = m_new
+    acc, _, l = _flash_tiles(qs, k8[layer], v8[layer], ks[layer], vs[layer], 0, ta, KEY_TILE)
     return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def cross_attn_layer_q8(
     layer: int, q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
     v8: torch.Tensor, vs: torch.Tensor, ta_total: Optional[int] = None,
+    plan: Optional[CrossAttnPlan] = None,
 ) -> torch.Tensor:
-    """K5. Same contract as `cross_attn_layer_q8_plain`."""
+    """K5. Same contract as `cross_attn_layer_q8_plain`; `plan` as for K1."""
     if q.device.type == "cpu":
         return cross_attn_layer_q8_plain(layer, q, k8, ks, v8, vs, ta_total)
     name = "cross_attn_layer_q8"
@@ -206,7 +335,7 @@ def cross_attn_layer_q8(
         kernels.check(lib.wdt_cross_attn_q8(
             q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
             vs.data_ptr(), out.data_ptr(), B, Q, H, Ta, int(layer), ta,
-            kernels.stream_ptr(q.device),
+            *(plan or cross_attn_plan(B, H, Q, ta, int8=True)), kernels.stream_ptr(q.device),
         ), name)
     cross_attn_layer_q8.launches += 1
     return out

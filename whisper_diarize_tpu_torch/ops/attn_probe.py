@@ -2,9 +2,9 @@
 measured beside it, each beside its plain PyTorch version: K9a
 `cross_attn_presliced` (one layer's K/V sliced out on the host), K9c
 `cross_attn_const_layer` (the layer a compile-time constant) and K9d
-`cross_attn_flat` (the audio axis split: one CTA per span of KEY_TILE keys,
-then a combine). Probes of where K1's time goes; the decoder never calls
-them.
+`cross_attn_flat` (the audio axis split as the TPU tool split it: spans of
+KEY_TILE keys, one CTA of K1's cluster each, in place of K1's own plan).
+Probes of where K1's time goes; the decoder never calls them.
 
 Numerics are `ops/attn.py::cross_attn_layer_plain`'s; ta_total defaults to
 1500 (whisper's audio context), as the TPU tool hard-coded it, and keys at
@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .attn import KEY_TILE, _require_cuda, cross_attn_layer_plain
+from .attn import KEY_TILE, _require_cuda, cross_attn_layer_plain, cross_attn_plan
 
 TA_TOTAL = 1500
 CONST_LAYER = 1  # K9c's layer, as the TPU tool fixed it
@@ -60,12 +60,14 @@ def cross_attn_presliced(q: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
     if ta_total <= 0:
         raise ValueError(f"{name}: ta_total {ta_total}")
     B, Q, H, _ = q.shape
+    Ta = k_l.shape[2]
+    ta = min(int(ta_total), Ta)
     out = torch.empty_like(q)
     lib = kernels.library()
     with torch.cuda.device(q.device):
         kernels.check(lib.wdt_cross_attn(
             q.data_ptr(), k_l.data_ptr(), v_l.data_ptr(), out.data_ptr(), B, Q, H,
-            k_l.shape[2], 0, int(ta_total), kernels.stream_ptr(q.device)), name)
+            Ta, 0, ta, *cross_attn_plan(B, H, Q, ta), kernels.stream_ptr(q.device)), name)
     cross_attn_presliced.launches += 1
     return out
 
@@ -95,12 +97,14 @@ def cross_attn_const_layer(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: {k.shape[0]} layers (needs > {CONST_LAYER}), "
                          f"ta_total {ta_total}")
     B, Q, H, _ = q.shape
+    ta = min(int(ta_total), k.shape[3])
     out = torch.empty_like(q)
     lib = kernels.library()
     with torch.cuda.device(q.device):
         kernels.check(lib.wdt_cross_attn_const_layer(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Q, H,
-            k.shape[3], int(ta_total), kernels.stream_ptr(q.device)), name)
+            k.shape[3], ta, *cross_attn_plan(B, H, Q, ta), kernels.stream_ptr(q.device)),
+            name)
     cross_attn_const_layer.launches += 1
     return out
 
@@ -143,6 +147,7 @@ def n_spans(Ta: int, ta_total: int) -> int:
     return -(-min(Ta, ta_total) // KEY_TILE)
 
 
+
 def cross_attn_flat(layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ta_total: int = TA_TOTAL) -> torch.Tensor:
     """K9d. Same contract as `cross_attn_flat_plain`."""
@@ -154,16 +159,14 @@ def cross_attn_flat(layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     L, Ta = k.shape[0], k.shape[3]
     if not (0 <= layer < L and ta_total > 0):
         raise ValueError(f"{name}: layer {layer} of {L}, ta_total {ta_total}")
-    B, Q, H, Dh = q.shape
-    spans = n_spans(Ta, ta_total)
-    part = torch.empty((B, spans, H, Q, Dh + 2), dtype=torch.float32, device=q.device)
+    B, Q, H, _ = q.shape
+    ta = min(int(ta_total), Ta)
     out = torch.empty_like(q)
     lib = kernels.library()
     with torch.cuda.device(q.device):
-        kernels.check(lib.wdt_cross_attn_flat(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(),
-            B, Q, H, Ta, int(layer), int(ta_total), KEY_TILE, spans,
-            kernels.stream_ptr(q.device)), name)
+        kernels.check(lib.wdt_cross_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Q, H, Ta,
+            int(layer), ta, n_spans(Ta, ta), KEY_TILE, kernels.stream_ptr(q.device)), name)
     cross_attn_flat.launches += 1
     return out
 

@@ -74,7 +74,8 @@ class DecodeConfig:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1 item 7)")
+                "device meshes are not ported yet "
+                "(ROADMAP Queue 1: Multi-GPU and training)")
         for knob, default in (("pallas_cross", False), ("pallas_split", None),
                               ("pallas_tail", None), ("unroll_layers", None)):
             if getattr(self, knob) != default:

@@ -21,7 +21,7 @@ from typing import List
 import torch
 
 from .. import kernels
-from .attn import _require_cuda
+from .attn import _require_cuda, cross_attn_plan
 
 # the kernels' shapes, as `csrc/stream_sum.cu` fixes them
 SUM_CTAS_PER_SM = 4  # K11a's grid: CTAs of SUM_THREADS an SM
@@ -150,13 +150,14 @@ def kv_stream_sum(layer: int, k: torch.Tensor, v: torch.Tensor, s: float) -> tor
     if Dh != 64 or v.shape != k.shape or not 0 <= layer < L:
         raise ValueError(f"kv_stream_sum: k {tuple(k.shape)} / v {tuple(v.shape)}, "
                          f"layer {layer} (kernel takes Dh = 64)")
-    partial = torch.empty((B * H,), dtype=torch.float32, device=k.device)
+    n_span, span_keys = cross_attn_plan(B, H, 1, Ta)  # K1's split of the keys
+    partial = torch.empty((B * H * n_span,), dtype=torch.float32, device=k.device)
     out = _sum_out(k.device)
     lib = kernels.library()
     with torch.cuda.device(k.device):
         kernels.check(lib.wdt_kv_stream_sum(
-            k.data_ptr(), v.data_ptr(), B, H, Ta, int(layer), float(s),
-            partial.data_ptr(), out.data_ptr(), kernels.stream_ptr(k.device)),
+            k.data_ptr(), v.data_ptr(), B, H, Ta, int(layer), float(s), n_span,
+            span_keys, partial.data_ptr(), out.data_ptr(), kernels.stream_ptr(k.device)),
             "kv_stream_sum")
     kv_stream_sum.launches += 1
     return out

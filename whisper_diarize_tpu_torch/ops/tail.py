@@ -21,10 +21,12 @@ The weights are the stacked decoder blocks `[L, Din, Dout]` as they are;
 the TPU kernel's packed tile layout (`pack_tail_weights`) is not carried
 over. On CUDA the wrapper launches `csrc/tail.cu` (a fixed sequence of
 hand-written launches: skinny GEMMs with fused layernorm / scales / bias /
-GELU / residual, and K1's or K5's attention) or raises; the plain version
+GELU / residual, and K1's or K5's attention on `attn.cross_attn_plan` for
+N // beams streams of `beams` queries) or raises; the plain version
 runs only for CPU tensors. `fused_tail_layer.launches` counts the wrapper's
 launches of the bf16 form (K3), `fused_tail_layer.launches_int8` those of
-an int8 form (K6).
+an int8 form (K6); `.cross_attn_launches` and `.cross_attn_q8_launches`
+count the K1 and K5 launches the tail makes inside them (one a call).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .attn import _require_cuda, cross_attn_layer_plain, cross_attn_layer_q8_plain
+from .attn import (_require_cuda, cross_attn_layer_plain, cross_attn_layer_q8_plain,
+                   cross_attn_plan)
 
 _TAIL_KEYS = ("o_w", "o_b", "ln2_s", "ln2_b", "cq_w", "cq_b", "co_w", "co_b",
               "ln3_s", "ln3_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
@@ -191,14 +194,20 @@ def fused_tail_layer(
             k.data_ptr(), v.data_ptr(), *[s.data_ptr() for s in scratch],
             h4.data_ptr(), out.data_ptr(), *scales,
             int(layer), N, D, H, Bc, int(beams), Ta, ta,
-            kernels.stream_ptr(dev),
+            *cross_attn_plan(Bc, H, int(beams), ta, int8=kvq), kernels.stream_ptr(dev),
         ), name)
     if wq or kvq:
         fused_tail_layer.launches_int8 += 1
     else:
         fused_tail_layer.launches += 1
+    if kvq:  # the attention inside: K5 over the int8 cache, else K1
+        fused_tail_layer.cross_attn_q8_launches += 1
+    else:
+        fused_tail_layer.cross_attn_launches += 1
     return out
 
 
 fused_tail_layer.launches = 0
 fused_tail_layer.launches_int8 = 0
+fused_tail_layer.cross_attn_launches = 0
+fused_tail_layer.cross_attn_q8_launches = 0
