@@ -18,16 +18,22 @@ traceback) and no result line is printed:
    `phase_int8_kernels`), with the tolerance of
    `whisper_diarize_tpu_torch/kernels/agreement.py` (a few bf16 ulps per
    element and 1e-2 relative L2 of the update), planted faults that the
-   check must refuse, and times of kernel, plain version and, for K1 and
-   K5, the library call `F.scaled_dot_product_attention` after warm-up
+   check must refuse (K2: a tile stored to the wrong stream among them;
+   K3 / K6: the slips of their skinny GEMM's split, `agreement.
+   tail_split_faults`), and times of kernel, plain version and the library
+   call where one PyTorch call computes the same function (K1 and K5:
+   `F.scaled_dot_product_attention`; K2: one `torch.addmm` of xa against
+   every layer's [ck_w | cv_w] side by side, without the head split) after
+   warm-up
    (K1 at B 8 with Q 1, 3, 4, 5, 15 and 64 and at B 1 with Q 3 and 5, K5
    at B 8 with Q 3, 5 and 15; each checked also at ta = 1493, no multiple
    of a span of its key split, `attn.cross_attn_plan`): CUDA
    events over back-to-back calls, and the profiled device time of their
-   kernels, the median of three profiled windows that lost no kernel
-   events (`timed`, `device_ms`); each beside its bound (`bound`); K1 and
-   K3 are timed on the 32-layer stack only (their per-layer shapes are the
-   same on both); then K7 (fused log-mel, f32, held to an absolute bound),
+   kernels (the union of their intervals), the median of three profiled
+   windows that lost no kernel events (`timed`, `device_ms`); each beside
+   its bound (`bound`); K1 and K3 are timed on the 32-layer stack only
+   (their per-layer shapes are the same on both), K3, K6 and K8 each call
+   on the next layer; then K7 (fused log-mel, f32, held to an absolute bound),
    K8 (greedy decoder front) and K10 (encoder self-attention, both forms;
    library call `F.scaled_dot_product_attention`) at the fused greedy
    path's shapes (`phase_fused_kernels`); then the diagnostic kernels, K11
@@ -188,7 +194,7 @@ def phase_build() -> None:
     kernels.library()
     took = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in kernels.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "C75" in ln or "warning" in ln]
     print(f"[build] kernels ready in {took:.2f} s (nvcc {kernels.build_seconds})",
           flush=True)
     for ln in ptxas:
@@ -265,11 +271,22 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
         if main:
             for name, i, bad in ag.k2_faults(*args):
                 ag.reject(name, (k, v)[i], bad)
+            del pk, pv
+            # the library yardstick: one GEMM of xa against every layer's
+            # [ck_w | cv_w] side by side, the bias row added (no head split)
+            wkv = torch.cat([blocks["ck_w"], blocks["cv_w"]], dim=2).permute(1, 0, 2).reshape(
+                D, L * 2 * D).contiguous()
+            bias_row = torch.cat([torch.zeros_like(blocks["cv_b"]), blocks["cv_b"]],
+                                 dim=1).reshape(-1)
+            x2 = xa.view(B * Ta, D)
             res["K2"] = timed(f"K2 B={B} L={L}", lambda: attn.cross_kv_build(*args),
                               lambda: attn.cross_kv_build_plain(*args),
+                              library=lambda: torch.addmm(bias_row, x2, wkv),
                               shape=f"B={B} Ta={Ta} D={D} L={L}",
                               **bound(B * Ta * D * 2 + 2 * L * D * D * 2 + L * D * 2
                                       + 2 * L * B * Ta * D * 2, 4 * L * B * Ta * D * D))
+            del wkv, bias_row
+            torch.cuda.empty_cache()
 
         for Q in ((1, 3, 4, 5, 15, 64) if main else (3, 5, 15)):
             q = ag.randn(g, dev, B, Q, H, Dh, scale=2.0)
@@ -306,16 +323,21 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
             if not main:
                 continue
             if beams == 5:
-                for name, bad in ag.k3_faults(*a):
+                for name, bad in itertools.chain(ag.k3_faults(*a), ag.tail_split_faults("K3", *a)):
                     ag.reject(name, got, bad, base=x)
             if not time_k1_k3:
                 continue
-            t = timed(f"K3 N={N} {at}", lambda: tail.fused_tail_layer(*a),
-                      lambda: tail.fused_tail_layer_plain(*a),
-                      shape=f"N={N} beams={beams} D={D} {at}",
+            # each call on the next layer, as a decode step reads them: one
+            # layer's weights (36 MB) would otherwise stay in the 50 MB L2
+            it, rest = itertools.count(), a[1:]
+            t = timed(f"K3 N={N} {at}", lambda: tail.fused_tail_layer(next(it) % L, *rest),
+                      lambda: tail.fused_tail_layer_plain(next(it) % L, *rest),
+                      shape=f"N={N} beams={beams} D={D} L={L}",
                       **tail_bound(N, beams, D, Ta, False, False))
+            res.setdefault("K3", t).setdefault("by_shape", {})[f"N={N}"] = {
+                key: t[key] for key in SHAPE_KEYS}
             if beams == 5:
-                res["K3"] = t
+                res["K3"].update({key: t[key] for key in t if key != "by_shape"})
     for key in res:
         res[key]["max_abs_err"] = errs[key]
     if k1_rows:
@@ -463,7 +485,8 @@ def phase_int8_kernels() -> dict:
                     tail.fused_tail_layer_plain(*a), base=x).max_abs_err)
                 if N != 40:
                     continue
-                for name, bad in ag.k6_faults(*a):
+                for name, bad in itertools.chain(ag.k6_faults(*a),
+                                                 ag.tail_split_faults("K6", *a)):
                     ag.reject(f"{name} ({form})", got, bad, base=x)
                 it, rest = itertools.count(), a[1:]
                 t = timed(f"K6 {form} N={N}",

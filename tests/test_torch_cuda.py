@@ -15,7 +15,9 @@ element and 1e-2 relative L2 of the update; K3 is judged on the update it
 adds to x; K7, an f32 kernel, on an absolute bound), and the planted faults
 that check must refuse. K1 / K5 also at the key splits of the served
 shapes (Q 1, 5 and 64, B 1 and 8, ta not a multiple of a span) with the
-split's faults; K10 at T 1500 with a fault of its TMA ring.
+split's faults; K10 at T 1500 with a fault of its TMA ring; K2 at every
+preset width over ragged streams; K3 / K6 / K8 (the split skinny GEMM) at
+N 1 - 80 with the split's faults, and both bit for bit across two calls.
 """
 
 import pytest
@@ -356,3 +358,94 @@ def test_probe_wrappers_reject_what_they_do_not_take(dev):
         attn_probe.cross_attn_const_layer(q, k1, k1)
     with pytest.raises(ValueError):
         attn_probe.cross_attn_flat(1, q, k1, k1)
+
+
+_WIDTHS = {"tiny": (384, 6), "base": (512, 8), "small": (768, 12), "medium": (1024, 16),
+           "large-v3": (1280, 20), "turbo": (1280, 20)}  # (D, H) of each preset's decoder
+
+
+@pytest.mark.parametrize("preset", sorted(_WIDTHS))
+@pytest.mark.parametrize("B,Ta", [(1, 1500), (3, 1493)])
+def test_k2_ragged_at_every_width(dev, preset, B, Ta):
+    """K2 (TMA + wgmma tiles of 192 rows of one stream) at each preset's
+    width, two layers, streams whose length is no multiple of a tile; its
+    planted faults (a tile stored to the wrong stream among them, B > 1)
+    refused; two calls give the same bits."""
+    D, H = _WIDTHS[preset]
+    g = torch.Generator(device=dev).manual_seed(B * 7 + D)
+    blocks = {key: t for key, t in ag.random_blocks(2, D, g, dev).items()
+              if key in ("ck_w", "cv_w", "cv_b")}
+    xa = ag.randn(g, dev, B, Ta, D)
+    a = (xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
+    k, v = attn.cross_kv_build(*a)
+    k2, v2 = attn.cross_kv_build(*a)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    pk, pv = attn.cross_kv_build_plain(*a)
+    ag.compare(f"K2 k {preset} B={B} Ta={Ta}", k, pk)
+    ag.compare(f"K2 v {preset} B={B} Ta={Ta}", v, pv)
+    names = [name for name, i, bad in ag.k2_faults(*a) if not ag.reject(name, (k, v)[i], bad).ok]
+    assert ("K2 a tile written to the wrong stream" in names) == (B > 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N", [1, 5, 8, 40, 80])
+def test_skinny_gemm_family_at_every_row_count(dev, N):
+    """K3, K6 (its three forms) and K8 at large-v3 width (D 1280, its split
+    `tail.skinny_plan`), N rows, two layers: against their plain versions,
+    the split's planted faults refused where it splits, and two calls give
+    the same bits (the cluster combine adds the spans in order)."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    L, D, H, Ta = 2, 1280, 20, 300
+    blocks = ag.random_blocks(L, D, g, dev)
+    q8w = tail.quantize_tail_weights(blocks)
+    beams = 5 if N % 5 == 0 else 1
+    k, v = (ag.randn(g, dev, L, N // beams, H, Ta, 64) for _ in range(2))
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    x = ag.randn(g, dev, N, 1, D)
+    so = ag.randn(g, dev, N, H, 1, 64, scale=0.3)
+    for wts, cache in ((blocks, (k, v, None, None)), (q8w, (k, v, None, None)),
+                       (blocks, (k8, v8, ks, vs)), (q8w, (k8, v8, ks, vs))):
+        a = (1, x, so, wts, cache[0], cache[1], beams, Ta, cache[2], cache[3])
+        got = tail.fused_tail_layer(*a)
+        assert torch.equal(got, tail.fused_tail_layer(*a))
+        ag.compare(f"K3 / K6 N={N}", got, tail.fused_tail_layer_plain(*a), base=x)
+        tag = "K6" if wts is q8w or cache[2] is not None else "K3"
+        names = [name for name, bad in ag.tail_split_faults(tag, *a)
+                 if not ag.reject(name, got, bad, base=x).ok]
+        assert len(names) == 3
+    fw = ag.random_front(L, D, g, dev)
+    kc, vc = (ag.randn(g, dev, L, N, H, 16, 64) for _ in range(2))
+    row_pad = torch.randint(0, 4, (N,), generator=g, device=dev)
+    got = front.fused_front_layer(1, 5, row_pad, x, fw, kc.clone(), vc.clone())
+    again = front.fused_front_layer(1, 5, row_pad, x, fw, kc.clone(), vc.clone())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = front.fused_front_layer_plain(1, 5, row_pad, x, fw, kc.clone(), vc.clone())
+    for name, a, b in zip(("self_out", "k_new", "v_new"), got, ref):
+        ag.compare(f"K8 {name} N={N}", a, b)
+    torch.cuda.synchronize()
+
+
+def test_skinny_gemm_refuses_a_plan_that_does_not_cover(dev):
+    """The C entry points check the split they are given."""
+    from whisper_diarize_tpu_torch import kernels
+    from whisper_diarize_tpu_torch.ops import front as fr
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    L, D, H, N = 1, 128, 2, 3
+    fw = ag.random_front(L, D, g, dev)
+    x = ag.randn(g, dev, N, 1, D)
+    kc = ag.randn(g, dev, L, N, H, 8, 64)
+    qkv = torch.empty(N, 3 * D, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(N, H, 1, 64, dtype=torch.bfloat16, device=dev)
+    rp = torch.zeros(N, dtype=torch.int32, device=dev)
+    ints = fr.front_int_args(0, N, D, H, 8, 2)
+    lib = kernels.library()
+    # short, bn, empty span, ragged span, ring too shallow, too deep
+    for bad in ((64, 1, 64, 4), (48, 1, 128, 4), (64, 3, 64, 4), (64, 1, 96, 4), (64, 1, 128, 2),
+                (64, 1, 128, 9)):
+        code = lib.wdt_fused_front(x.data_ptr(), *[fw[key].data_ptr() for key in fr._FRONT_KEYS],
+                                   qkv.data_ptr(), kc.data_ptr(), kc.clone().data_ptr(),
+                                   rp.data_ptr(), out.data_ptr(), *ints[:6], *bad,
+                                   kernels.stream_ptr(dev))
+        assert code != 0, bad
+    torch.cuda.synchronize()

@@ -57,9 +57,7 @@
 //   p, l and P V. The single pass's rounding point, p = bf16(exp(s -
 //   m_final)), needs the row's final max before any P V, so the two sweeps
 //   are what it costs; the two-pass form runs on the same kernel.
-#include "common.cuh"
-
-#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include "common.cuh"  // TMA, wgmma, mbarrier and tensor-map helpers
 
 namespace {
 
@@ -74,96 +72,6 @@ constexpr int TWO_PASS_SPAN = 512;     // the TPU kernel's key block
 // Q (two boxes), then the ring's K and V slots; 1024-byte aligned (the
 // 128-byte swizzle's period), plus the slack to align the base
 constexpr int SMEM_BYTES = (CONSUMERS + 2 * STAGES) * TILE_BYTES + 1024;
-
-__device__ __forceinline__ void fence_view_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N of this warpgroup's committed product groups are in
-// flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of the accumulator across
-// the asynchronous product (the asm above does not name the registers)
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle: start address >> 4,
-// leading byte offset 1 (unused: a 64-element row is one swizzle atom),
-// stride byte offset 1024 B (eight 128-byte rows) >> 4, layout B128
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// D (+)= A B on the tensor cores, one warpgroup: m64n64k16, bf16 in, f32
-// accumulate; A and B from shared memory through their descriptors, both
-// K-major. d: the m64n64 accumulator (n8 block j: d[4j..4j+1] row g,
-// d[4j+2..4j+3] row g + 8 of the warp's 16 rows, columns 8j + 2tg, + 1).
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D += A B with A (an m16n8k16 A fragment a warp, rows 16w..16w+15) from
-// registers and B from shared memory, MN-major (trans-b 1).
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// one 64-row box of a [B, H, T, 64] tensor into shared memory; the map's
-// dimensions are (d, then T / H / B in the order `pos` gives)
-__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, int4 pos,
-                                         int t, int h, int b, uint64_t* bar) {
-  int c[4] = {0, 0, 0, 0};
-  c[pos.x] = t;
-  c[pos.y] = h;
-  c[pos.z] = b;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c[0]), "r"(c[1]),
-         "r"(c[2]), "r"(c[3]), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // 8 bf16 values scaled in f32 and rounded back to bf16
 __device__ __forceinline__ uint4 scale8(uint4 raw, float scale) {
@@ -396,25 +304,6 @@ enc_attn_kernel(const __grid_constant__ CUtensorMap map_q,
             __floats2bfloat162_rn(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) !=
-            cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // a [B, H, T, 64] bf16 tensor at element strides (sb, sh, st), its outer

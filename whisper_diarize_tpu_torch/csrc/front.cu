@@ -21,12 +21,15 @@
 // [D, 3D] q/k/v weights (9.8 MB of bf16) for N = 8 .. 40 rows, plus the
 // rows' valid cache slots: ~3.4 us at N 8 and ~5 us at N 40 (3.35 TB/s).
 // Design: two launches from one C call, in the way K3 makes six: K3's
-// weight-streaming skinny GEMM (tail.cu) over the packed [D, 3D] matrix with
-// ln1 fused in its prologue and the biases in its epilogue, then one CTA per
-// (row, head) for the attention, as K4 without the ancestry map: 8 threads
-// read a 128-byte cache row as 16-byte chunks, 16 rows a pass; the scores
-// stay in shared memory (Tc <= 448); one warp takes the softmax; P.V runs
-// with per-thread f32 partials reduced in a fixed order.
+// weight-streaming skinny GEMM (tail.cu: its input dimension split across a
+// thread-block cluster, a cp.async weight ring) over the packed [D, 3D] matrix
+// with ln1 fused in its prologue (statistics exchanged across the split)
+// and the biases in its epilogue, on the split `ops/tail.py::skinny_plan`
+// gives it; then one CTA per (row, head) for the attention, as K4 without
+// the ancestry map: 8 threads read a 128-byte cache row as 16-byte chunks,
+// 16 rows a pass; the scores stay in shared memory (Tc <= 448); one warp
+// takes the softmax; P.V runs with per-thread f32 partials reduced in a
+// fixed order.
 #include "common.cuh"
 
 namespace {
@@ -144,18 +147,20 @@ front_attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
 // (scratch, and the returned k_new / v_new); kc / vc [L, N, H, Tc, 64]
 // updated at slot pos; row_pad [N] int32; out [N, H, 64]. All bf16 but
 // row_pad, contiguous. Needs D % 64 == 0 and Tc <= 448 (the wrapper checks).
+// (bn, n_split, span_k, stages): the product's split (ops/tail.py::skinny_plan).
 WDT_EXPORT int wdt_fused_front(const void* x, const void* w, const void* b,
                                const void* ln_g, const void* ln_b, void* qkv,
                                void* kc, void* vc, const void* row_pad, void* out,
-                               int layer, int N, int D, int H, int Tc, int pos,
-                               void* stream_) {
+                               int layer, int N, int D, int H, int Tc, int pos, int bn,
+                               int n_split, int span_k, int stages, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const size_t l = static_cast<size_t>(layer), d = static_cast<size_t>(D);
-  launch_skinny_gemm(static_cast<const bf16*>(x), static_cast<const bf16*>(w) + l * d * 3 * d,
-                     static_cast<const bf16*>(b) + l * 3 * d,
-                     static_cast<const bf16*>(ln_g) + l * d,
-                     static_cast<const bf16*>(ln_b) + l * d, static_cast<bf16*>(qkv),
-                     N, D, 3 * D, stream);
+  cudaError_t err = launch_skinny_gemm(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w) + l * d * 3 * d,
+      static_cast<const bf16*>(b) + l * 3 * d, static_cast<const bf16*>(ln_g) + l * d,
+      static_cast<const bf16*>(ln_b) + l * d, static_cast<bf16*>(qkv), N, D, 3 * D,
+      SkinnyPlan{bn, n_split, span_k, stages}, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, N);
   front_attn_kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(kc), static_cast<bf16*>(vc),

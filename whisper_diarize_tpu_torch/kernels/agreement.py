@@ -238,12 +238,21 @@ def random_front(L: int, D: int, g: torch.Generator, device,
 
 def k2_faults(xa, ck_w, cv_w, cv_b, n_heads: int
               ) -> Iterator[Tuple[str, int, torch.Tensor]]:
-    """(name, index of k / v it replaces, faulty tensor)."""
-    from ..ops.attn import cross_kv_build_plain
+    """(name, index of k / v it replaces, faulty tensor): the V bias dropped,
+    K of the previous layer, and (B >= 2) one tile of the kernel's walk
+    (`attn.cross_kv_tile`: the first rows and first two heads of stream 1's
+    K, layer 0) holding stream 0's values: a tile stored to the wrong
+    stream."""
+    from ..ops.attn import CROSS_KV_COLS, CROSS_KV_ROWS, cross_kv_build_plain
 
     k, v = cross_kv_build_plain(xa, ck_w, cv_w, torch.zeros_like(cv_b), n_heads)
     yield "K2 V bias dropped", 1, v
     yield "K2 K of the previous layer", 0, k.roll(1, dims=0)
+    if xa.shape[0] >= 2:
+        heads, rows = CROSS_KV_COLS // 64, min(CROSS_KV_ROWS, xa.shape[1])
+        bad = k.clone()
+        bad[0, 1, :heads, :rows] = k[0, 0, :heads, :rows]
+        yield "K2 a tile written to the wrong stream", 0, bad
 
 
 def _split_faults(tag: str, layer: int, q, k, v, ta_total, ks=None, vs=None,
@@ -296,6 +305,59 @@ def k4_faults(layer: int, q, pk, pv, dk, dv, anc_j, step: int, row_pad,
         row_pad, prompt_len)
 
 
+def _span_products(h: torch.Tensor, w: torch.Tensor, span_k: int):
+    """The f32 partial products of h @ w over spans of span_k input rows."""
+    hf, wf = h.float(), w.float()
+    return [torch.matmul(hf[..., k0:k0 + span_k], wf[k0:k0 + span_k])
+            for k0 in range(0, w.shape[0], span_k)]
+
+
+def tail_split_faults(tag: str, layer: int, x, self_out, blocks, k, v, beams: int, ta_total,
+                       ks=None, vs=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Slips of K3 / K6's skinny GEMM split (`ops/tail.py::tail_plans`; `tag`
+    names the kernel), built on
+    the plain tail with its products summed span by span: fc2's middle span
+    dropped from the combine, fc2's first span combined twice (planted
+    where fc2 has two spans or more), and both layer norms' statistics
+    taken over their product's first span only (where cq and fc1 have two
+    spans or more)."""
+    from ..ops.tail import fused_tail_layer_plain, tail_plans
+
+    N, D = x.shape[0], x.shape[-1]
+    plans = dict(zip(("o", "cq", "co", "fc1", "fc2"),
+                     tail_plans(N, D, blocks["o_w"].dtype == torch.int8)))
+    a = (layer, x, self_out, blocks, k, v, beams, ta_total, ks, vs)
+
+    def split_proj(slip):
+        def proj(name, h, w, b, col_scale):
+            parts = _span_products(h, w, plans[name].span_k)
+            if name == "fc2":
+                slip(parts)
+            y = parts[0]
+            for part in parts[1:]:
+                y = y + part
+            if col_scale is not None:
+                y = y * col_scale.float()
+            return y + b.float()
+        return proj
+
+    if plans["fc2"].n_split > 1:
+        yield f"{tag} a span of fc2's split dropped", fused_tail_layer_plain(
+            *a, proj=split_proj(lambda parts: parts.pop(len(parts) // 2)))
+        yield f"{tag} fc2's first span combined twice", fused_tail_layer_plain(
+            *a, proj=split_proj(lambda parts: parts.append(parts[0])))
+    if plans["cq"].n_split > 1 and plans["fc1"].n_split > 1:
+        def one_span(name, h, s, b):
+            hf = h.float()
+            part = hf[..., :plans["cq" if name == "ln2" else "fc1"].span_k]
+            mu = part.mean(dim=-1, keepdim=True)
+            var = (part - mu).pow(2).mean(dim=-1, keepdim=True)
+            return ((hf - mu) * torch.rsqrt(var + 1e-5) * s.float() + b.float()).to(h.dtype)
+
+        yield f"{tag} layer-norm statistics over one span only", fused_tail_layer_plain(
+            *a, ln=one_span)
+
+
 def k3_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total
               ) -> Iterator[Tuple[str, torch.Tensor]]:
     from ..ops.tail import fused_tail_layer_plain
@@ -337,7 +399,8 @@ def k6_faults(layer: int, x, self_out, blocks, k, v, beams: int, ta_total,
     """Slips of the int8 tail in the form given: with int8 weights, the fc2
     row scale applied to the output columns (the column-scale epilogue
     reused) and cq's column scale dropped; with the int8 cache, ks ignored
-    and vs folded in twice (into the scores as well)."""
+    and vs folded in twice (into the scores as well). The split's slips are
+    `tail_split_faults`."""
     from ..ops.tail import fused_tail_layer_plain as plain
 
     if blocks["o_w"].dtype == torch.int8:

@@ -1,4 +1,4 @@
-"""ctypes bindings to the native runtime (native/libwdt_native.so).
+"""ctypes bindings to the native runtime (`native/wdt_native.cpp`).
 
 The PyTorch port's own copy of `whisper_diarize_tpu/native.py`;
 the port imports nothing of the JAX package.
@@ -8,19 +8,31 @@ the hound WAV loader and whisper.cpp's host-side DTW. Everything here is a
 *fast path* — every function has a pure-Python/numpy fallback so the package
 works unbuilt; `is_available()` reports which path is active.
 
-Build with `make -C native` (g++, no external deps); the library is looked
-up next to the package and in `$WDT_NATIVE_PATH`.
+The port builds its own copy of the library from `native/wdt_native.cpp`
+with `g++` (no external deps) on first use, into
+`<checkout>/build/whisper_diarize_tpu_torch/native/` (or the directory in
+`$WDT_TORCH_NATIVE_DIR`), named by a hash of the source. It never writes
+`native/libwdt_native.so`, the JAX package's build. Processes that load at
+once share one build: the compile runs under an exclusive `flock` of the
+directory's lock file, into a temporary name that `os.replace` moves into
+place, so no process ever loads a half-written file. `$WDT_NATIVE_PATH`
+names a prebuilt library to load instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+_SOURCE = Path(__file__).resolve().parent.parent / "native" / "wdt_native.cpp"
+_BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "whisper_diarize_tpu_torch" / "native"
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -36,29 +48,46 @@ _WAV_ERRORS = {
 }
 
 
+def build_dir() -> Path:
+    env = os.environ.get("WDT_TORCH_NATIVE_DIR")
+    return Path(env) if env else _BUILD_DIR
+
+
+def build() -> Optional[Path]:
+    """The port's build of the native library, compiled on first call (see
+    the module docstring); None where the source or `g++` is missing or the
+    compile fails."""
+    if not _SOURCE.exists():
+        return None
+    src = _SOURCE.read_bytes()
+    out_dir = build_dir()
+    so = out_dir / f"libwdt_native-{hashlib.sha1(src).hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if so.exists():  # another process built it while this one waited
+            return so
+        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17", "-Wall",
+               "-shared", str(_SOURCE), "-o", str(tmp)]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        except (OSError, subprocess.SubprocessError):
+            tmp.unlink(missing_ok=True)
+            return None
+    return so
+
+
 def _candidates():
-    here = Path(__file__).resolve().parent
-    yield here.parent / "native" / "libwdt_native.so"
-    yield here / "libwdt_native.so"
     env = os.environ.get("WDT_NATIVE_PATH")
     if env:
         yield Path(env)
-
-
-def _try_build() -> None:
-    """Best-effort build when g++ is present and the source tree is local."""
-    src_dir = Path(__file__).resolve().parent.parent / "native"
-    if not (src_dir / "wdt_native.cpp").exists():
-        return
-    try:
-        subprocess.run(
-            ["make", "-C", str(src_dir)],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-    except Exception:
-        pass
+    built = build()
+    if built is not None:
+        yield built
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -66,11 +95,6 @@ def load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    for path in list(_candidates()):
-        if path.exists():
-            break
-    else:
-        _try_build()
     for path in _candidates():
         if path.exists():
             try:

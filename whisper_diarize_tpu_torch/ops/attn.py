@@ -369,6 +369,33 @@ def cross_kv_build_plain(
     return heads(k), heads(v)
 
 
+CROSS_KV_ROWS = 192  # rows of one stream a K2 tile (three 64-row warpgroups)
+CROSS_KV_COLS = 128  # output columns a K2 tile (two heads), of K's or of V's half
+
+
+class CrossKVTile(NamedTuple):
+    layer: int
+    stream: int
+    t0: int  # first row (audio position) of the tile
+    n0: int  # first column of [0, 2 H Dh): K's columns, then V's
+
+
+def cross_kv_tiles(L: int, B: int, Ta: int, HD: int) -> int:
+    """How many tiles K2's persistent CTAs walk (`cross_kv_tile`)."""
+    return L * B * -(-Ta // CROSS_KV_ROWS) * (2 * HD // CROSS_KV_COLS)
+
+
+def cross_kv_tile(i: int, L: int, B: int, Ta: int, HD: int) -> CrossKVTile:
+    """Tile i of K2's walk (`csrc/cross_kv.cu::tile_at`): the layer
+    outermost, then the stream and its row tile, the column innermost. A
+    tile's rows stay inside one stream; rows past Ta are the kernel's zero
+    fill and are not stored."""
+    row_tiles, col_tiles = -(-Ta // CROSS_KV_ROWS), 2 * HD // CROSS_KV_COLS
+    r = i // col_tiles % (B * row_tiles)
+    return CrossKVTile(i // (col_tiles * B * row_tiles), r // row_tiles,
+                       r % row_tiles * CROSS_KV_ROWS, i % col_tiles * CROSS_KV_COLS)
+
+
 def cross_kv_build(
     xa: torch.Tensor, ck_w: torch.Tensor, cv_w: torch.Tensor,
     cv_b: torch.Tensor, n_heads: int,
@@ -380,11 +407,12 @@ def cross_kv_build(
     B, Ta, D = xa.shape
     L, Dw, HD = ck_w.shape
     if (Dw != D or cv_w.shape != ck_w.shape or tuple(cv_b.shape) != (L, HD)
-            or D % 32 or HD % 64 or HD % n_heads):
+            or D % 64 or HD % CROSS_KV_COLS or HD != 64 * n_heads):
         raise ValueError(
             f"cross_kv_build: xa {tuple(xa.shape)}, weights "
-            f"{tuple(ck_w.shape)} / {tuple(cv_w.shape)} / {tuple(cv_b.shape)} "
-            "(kernel takes D % 32 == 0 and H*Dh % 64 == 0)")
+            f"{tuple(ck_w.shape)} / {tuple(cv_w.shape)} / {tuple(cv_b.shape)}, "
+            f"{n_heads} heads (kernel takes Dh = 64, D % 64 == 0 and "
+            f"H*Dh % {CROSS_KV_COLS} == 0)")
     Dh = HD // n_heads
     k = torch.empty((L, B, n_heads, Ta, Dh), dtype=xa.dtype, device=xa.device)
     v = torch.empty_like(k)

@@ -9,7 +9,8 @@ first frame its row is entered, at 20 ms per encoder frame.
 
 `alignment_cost_batch` runs on the device and reduces [B, K, S, Ta] maps to
 a [B, S, Ta] cost; the DP and backtrack run on the host — the native C++
-DP (`whisper_diarize_tpu.native`) when its library is built, otherwise the
+DP (`whisper_diarize_tpu_torch.native`, built on first use) when its library
+builds, otherwise the
 numpy DP below (the JAX package's `WDT_HOST_DTW=1` path). The on-device DP
 (`dtw_anchor_frames_batch`) is not ported yet.
 """

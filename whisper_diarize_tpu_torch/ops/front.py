@@ -17,7 +17,8 @@ as an extra "self column"; the port's decode step writes the cache in
 place, so both versions here write this step's K/V into slot `pos` of
 kc / vc themselves (the cache is UPDATED IN PLACE) and attend the slots up
 to `pos`: the same function. On CUDA the wrapper launches `csrc/front.cu`
-(K3's skinny GEMM over the packed weights, then one CTA per (row, head)) or
+(K3's skinny GEMM over the packed weights on the split
+`tail.skinny_plan(N, D, 3D, ln=True)`, then one CTA per (row, head)) or
 raises; the plain version runs only for CPU tensors.
 `fused_front_layer.launches` counts the wrapper's launches.
 """
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .attn import _int32_on, _require_cuda, qk_scaled
+from .tail import skinny_plan
 
 _FRONT_KEYS = ("w", "b", "ln1_s", "ln1_b")
 
@@ -104,6 +106,13 @@ def fused_front_layer_plain(
     return out, k_new, v_new
 
 
+def front_int_args(layer: int, N: int, D: int, H: int, Tc: int,
+                   pos: int) -> Tuple[int, ...]:
+    """The int arguments of `wdt_fused_front`, in order: the shape, the step
+    and the [D, 3D] product's split (`tail.skinny_plan`)."""
+    return (int(layer), N, D, H, Tc, int(pos), *skinny_plan(N, D, 3 * D, ln=True))
+
+
 def fused_front_layer(
     layer: int, pos: int, row_pad: Optional[torch.Tensor], x: torch.Tensor,
     front: Dict[str, torch.Tensor], kc: torch.Tensor, vc: torch.Tensor,
@@ -136,7 +145,7 @@ def fused_front_layer(
         kernels.check(lib.wdt_fused_front(
             x.data_ptr(), *[front[key].data_ptr() for key in _FRONT_KEYS],
             qkv.data_ptr(), kc.data_ptr(), vc.data_ptr(), row_pad.data_ptr(),
-            out.data_ptr(), int(layer), N, D, H, Tc, int(pos),
+            out.data_ptr(), *front_int_args(layer, N, D, H, Tc, pos),
             kernels.stream_ptr(x.device)), name)
     fused_front_layer.launches += 1
     heads = qkv.view(N, 3, H, 1, Dh)
