@@ -83,13 +83,31 @@ traceback) and no result line is printed:
    and `greedy_decode` with the front attached (K8 and K3 a step, K1 at
    the prompt pass), 32 tokens, then one `sample_best_of` rung (best_of 5,
    temperature 0.2) on the same batch; wall seconds per stage.
-   In 5-9 each request prints wall time, windows decoded and the launches
+10. engine, diarize path (`phase_diarize`): an `Engine` at random
+   `large-v3-turbo` weights (greedy, DTW on, batch 8, `enable_diarize` with
+   the "__random__" segmentation and CAM++ weights; depth cut: the fallback
+   ladder off, 16 tokens a window) serves a ~30 s whole-file request and
+   `transcribe_audio_batch` over four 10 s files, with the process-wide TF32
+   flags at PyTorch's defaults; every segment must carry a `str` speaker
+   id. Each request prints the segmentation seconds (`stage_s["segment"]`),
+   the embedding seconds (`stage_s["embed"]`) and the windows decoded. Then
+   the 30 s request's own audio goes through the kaldi fbank, the
+   segmentation net and CAM++ on the card and in f32 on the CPU at the same
+   weights (`models/net_check.py`: fbank 1e-3, log-probs 1e-3 with the
+   argmax equal wherever the CPU's top-2 gap exceeds 1e-3, embeddings
+   cosine >= 0.9999), and the planted faults (fbank without pre-emphasis,
+   the BiLSTM's backward direction run forward, CAM++'s frame mask
+   ignored) must fail that check.
+   In 5-10 each request prints wall time, windows decoded and the launches
    it added; a request that decoded a window must have raised the count of
    every kernel of its path (`PATHS`; the tools of phase 3 are paths too).
    The counts are set to 0 just before each path and read just after;
-10. with `--profile` only: the 45 s greedy request, the 30 s beam request,
-   the 30 s int8 beam request and the fused greedy batch under torch.profiler (device busy time
-   and kernel time by kind, also written to build/chip_smoke/profile.txt).
+11. with `--profile` only: the 45 s greedy request, the 30 s beam request,
+   the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
+   request under torch.profiler (device busy time
+   and kernel time by kind, also written to build/chip_smoke/profile.txt),
+   then each diarization net alone on the 30 s request's audio (CUDA-event
+   and profiled device time, `profile_diarize_nets`).
 Each phase prints its wall seconds (`[time]`).
 
 Then it prints one JSON line of per-kernel results (`launches` summed over
@@ -174,7 +192,7 @@ SHAPE_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
 PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6"),
          "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10"),
-         "bench-dma": ("K11",), "bench-attn": ("K1", "K9")}
+         "bench-dma": ("K11",), "bench-attn": ("K1", "K9"), "diarize": ("K1", "K2", "K3")}
 
 
 def phase_device() -> str:
@@ -1077,10 +1095,11 @@ def _check_missing(label: str, path: str, added: dict) -> None:
         raise AssertionError(f"{label}: {missing} were not launched: {added}")
 
 
-def phase_engine(eng, path: str, requests) -> dict:
+def phase_engine(eng, path: str, requests, check_cues=None) -> dict:
     """Serve `requests` on `eng`; the launch counts are set to 0 just before
     and read just after. Every request that decoded a window must have
-    launched every kernel of the path. Returns the path's counts."""
+    launched every kernel of the path; `check_cues(label, cue_lists)` runs
+    after each request where given. Returns the path's counts."""
     reset_counts()
     decoded_any = False
     for label, paths, opts in requests:
@@ -1099,6 +1118,8 @@ def phase_engine(eng, path: str, requests) -> dict:
         for c in (c for cues in cue_lists for c in cues):
             if not (math.isfinite(c.start) and math.isfinite(c.end) and c.end >= c.start >= 0):
                 raise AssertionError(f"{label}: malformed cue {c}")
+        if check_cues is not None:
+            check_cues(label, cue_lists)
         print(f"[engine {path}] {label}: wall {wall:.3f} s, windows {windows}, cues "
               f"{sum(len(c) for c in cue_lists)}, launches added {added}, stages "
               f"{ {k: round(v, 3) for k, v in eng.last_run['stage_s'].items()} }",
@@ -1246,6 +1267,73 @@ def phase_fused_greedy(eng) -> dict:
     return added
 
 
+def diarize_requests():
+    """Greedy, `enable_diarize=True`."""
+    opts = wdt.TranscribeOptions(enable_diarize=True, lang="en",
+                                 advanced=wdt.AdvancedTranscribe(sampling_strategy="greedy"))
+    batch = [_write_wav(WORK / f"k{i}.wav", 10.0, 50 + i) for i in range(4)]
+    return [("diarize whole-file 30 s", [_write_wav(WORK / "l.wav", 30.0, 9)], opts),
+            ("diarize batch of 4 files, 10 s each", batch, opts)]
+
+
+def phase_diarize(eng, requests) -> dict:
+    """The diarize path (phase 10 of the module docstring), with the
+    process-wide TF32 flags at PyTorch's defaults for the phase: the
+    requests, then the nets on the first request's audio against the f32
+    CPU run at the same weights, with the planted faults. Returns the
+    path's counts."""
+    from whisper_diarize_tpu_torch.models import campplus, net_check, segmentation
+
+    def check_cues(label, cue_lists):
+        cues = [c for cl in cue_lists for c in cl]
+        bad = [c for c in cues if not isinstance(c.speaker_id, str)]
+        if bad or not cues:
+            raise AssertionError(f"{label}: {len(cues)} cues, {len(bad)} without a speaker id")
+        st = eng.last_run["stage_s"]
+        print(f"[engine diarize] {label}: segmentation {st['segment']:.3f} s, embed "
+              f"{st['embed']:.3f} s, windows {eng.last_run['windows']}, speakers "
+              f"{sorted({c.speaker_id for c in cues})}", flush=True)
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        added = phase_engine(eng, "diarize", requests, check_cues)
+        dev = torch.device("cuda")
+        with torch.inference_mode():
+            net_check.check(segmentation.init_params(0, dev), campplus.init_params(0, dev),
+                            segmentation.init_params(0), campplus.init_params(0),
+                            wdt.read_wav(requests[0][1][0]))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return added
+
+
+def profile_diarize_nets(path: str) -> list:
+    """`--profile`: each diarization net on one file's audio (its 10 s
+    windows; a decode batch of 8 x 30 s, `net_check.stream_inputs`): CUDA-
+    event time of back-to-back calls and profiled device time. Returns the
+    printed lines."""
+    from whisper_diarize_tpu_torch.models import campplus, net_check, segmentation
+
+    dev = torch.device("cuda")
+    seg, emb = segmentation.init_params(0, dev), campplus.init_params(0, dev)
+    windows, audio, n_valid = net_check.stream_inputs(wdt.read_wav(path))
+    windows, audio = windows.to(dev), audio.to(dev)
+    nets = {f"segmentation forward, {len(windows)} windows of 10 s": (
+                lambda: segmentation.forward(seg, windows), 1),
+            "CAM++ embed_from_audio, 8 x 30 s": (
+                lambda: campplus.embed_from_audio(emb, audio, n_valid), 2),
+            "kaldi fbank, 8 x 30 s": (lambda: mel.kaldi_fbank(audio * 32768.0), 10)}
+    lines = []
+    with torch.inference_mode():
+        for tag, (fn, iters) in nets.items():
+            lines.append(f"{tag}: {time_ms(fn, iters=iters, warmup=1):.3f} ms a call (device "
+                         f"{device_ms(fn, iters=iters, warmup=0):.3f} ms)")
+            print(f"[profile] {lines[-1]}", flush=True)
+    return lines
+
+
 def _kernel_kind(name: str) -> str:
     if "split_self_kernel" in name:
         return "K4 split-cache self-attention"
@@ -1267,8 +1355,10 @@ def _kernel_kind(name: str) -> str:
         return "sorts (beam top-k)"
     if "copy" in name:
         return "dtype copies / casts"
+    if "conv" in name.lower() or "fprop" in name or "cudnn" in name.lower():
+        return "f32 convolutions (cuDNN: segmentation, CAM++)"
     if "f32f32" in name or "sgemm" in name or "gemvx" in name:
-        return "f32 GEMM (vocabulary logits)"
+        return "f32 GEMM (vocabulary logits, diarization nets)"
     if "gemm" in name.lower() or "nvjet" in name or "cutlass" in name:
         return "bf16 GEMM (encoder, q/k/v, prefill)"
     if "index" in name.lower() or "gather" in name or "scatter" in name:
@@ -1369,6 +1459,12 @@ def main() -> None:
                                        "int8-beam", int8)
     by_path["int8-greedy"] = timed_phase("step int8-greedy", phase_int8_step, int8_eng)
     by_path["fused-greedy"] = timed_phase("path fused-greedy", phase_fused_greedy, int8_eng)
+    # depth: the ladder off and 16 tokens a window
+    diar_eng = make_engine("large-v3-turbo", max_decode_tokens=16, temperature_fallback=False,
+                           diarize_segment_model_path="__random__",
+                           diarize_embedding_model_path="__random__", allow_random_weights=True)
+    diar = diarize_requests()
+    by_path["diarize"] = timed_phase("engine diarize", phase_diarize, diar_eng, diar)
     print(f"[time] all phases: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         lines = phase_profile("greedy, large-v3-turbo, whole-file 45 s",
@@ -1383,6 +1479,9 @@ def main() -> None:
                 f"{'fused' if fused_stages else 'plain-stage'} greedy, large-v3, 8 windows "
                 "of 30 s, 32 tokens + a best_of 5 rung",
                 lambda: f"stages {run_fused_greedy(setup, fused_stages)[-1]}")
+        lines += phase_profile("diarize greedy, large-v3-turbo, whole-file 30 s",
+                               engine_request(diar_eng, diar[0][1][0], diar[0][2]))
+        lines += profile_diarize_nets(diar[0][1][0])
         (WORK / "profile.txt").write_text("\n".join(lines) + "\n")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     print(json.dumps({"kernels": [

@@ -18,6 +18,12 @@ shapes (Q 1, 5 and 64, B 1 and 8, ta not a multiple of a span) with the
 split's faults; K10 at T 1500 with a fault of its TMA ring; K2 at every
 preset width over ragged streams; K3 / K6 / K8 (the split skinny GEMM) at
 N 1 - 80 with the split's faults, and both bit for bit across two calls.
+The diarization nets (kaldi fbank, segmentation, CAM++: plain PyTorch, no
+kernel) on the card against their f32 CPU run with TF32 left at PyTorch's
+defaults and with TF32 allowed everywhere (`models/net_check.py`: fbank
+1e-3, log-probs 1e-3 with the argmax equal where the CPU's top-2 gap
+exceeds 1e-3, embeddings cosine >= 0.9999; its planted faults refused),
+and a diarized Engine request at the tiny preset through K1 - K3.
 """
 
 import pytest
@@ -449,3 +455,63 @@ def test_skinny_gemm_refuses_a_plan_that_does_not_cover(dev):
                                    kernels.stream_ptr(dev))
         assert code != 0, bad
     torch.cuda.synchronize()
+
+
+@pytest.fixture(params=["defaults", "tf32-everywhere"])
+def tf32_flags(request):
+    """The process-wide TF32 flags at PyTorch's defaults (cuDNN may take
+    TF32, cuBLAS may not) or allowing TF32 everywhere; restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = request.param != "defaults"
+    torch.backends.cudnn.allow_tf32 = True
+    yield request.param
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def _speechlike(seconds: float, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    x = rng.standard_normal(t.size) * 0.02
+    x += ((t % 2.0) < 1.5) * np.sin(2 * np.pi * 180.0 * t) * (0.3 + 0.2 * rng.standard_normal(t.size))
+    return (np.clip(x, -1, 1) * 32767).astype(np.int16)
+
+
+def test_diarize_nets_match_cpu_on_card(tf32_flags):
+    from whisper_diarize_tpu_torch.models import campplus, net_check, segmentation
+
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        lines = net_check.check(segmentation.init_params(0, dev), campplus.init_params(0, dev),
+                                segmentation.init_params(0), campplus.init_params(0),
+                                _speechlike(31.0, 3))
+    assert len(lines) == 6
+    torch.cuda.synchronize()
+
+
+def test_diarized_engine_request_on_card(tmp_path):
+    import numpy as np
+
+    import whisper_diarize_tpu_torch as wdt
+    from whisper_diarize_tpu_torch.engine import Engine, EngineConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wav = str(tmp_path / "in.wav")
+    wdt.write_wav(wav, _speechlike(12.0, 4))
+    eng = Engine(EngineConfig(
+        cache_dir=str(tmp_path / "cache"), whisper_model_path="__random__:tiny",
+        diarize_segment_model_path="__random__", diarize_embedding_model_path="__random__",
+        batch_size=4, max_decode_tokens=8, temperature_fallback=False))
+    before = (attn.cross_attn_layer.launches, attn.cross_kv_build.launches,
+              tail.fused_tail_layer.launches)
+    cues = eng.transcribe_audio(wav, wdt.TranscribeOptions(
+        enable_diarize=True, lang="en", advanced=wdt.AdvancedTranscribe(sampling_strategy="greedy")))
+    after = (attn.cross_attn_layer.launches, attn.cross_kv_build.launches,
+             tail.fused_tail_layer.launches)
+    assert eng.last_run["windows"] >= 1 and all(a > b for a, b in zip(after, before))
+    assert all(isinstance(c.speaker_id, str) for c in cues)
+    assert np.isfinite([c.end for c in cues]).all()

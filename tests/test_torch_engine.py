@@ -1,6 +1,7 @@
 """The port's slice end to end: `Engine.transcribe_audio(use_gpu=False)` with
 greedy decoding and DTW word timestamps against the JAX Engine on the same
-snapshot, for the whole-file and the VAD branch, plus the Engine surface
+snapshot, for the whole-file, the VAD and the diarization branch, plus the
+Engine surface
 the slice keeps (callbacks, resume journal, multi-stream batches, caches)
 and the options it refuses.
 
@@ -118,6 +119,84 @@ def test_slice_matches_jax_engine(snapshot, wav, jax_engines, tmp_path, monkeypa
     assert any(c.words for c in got)
 
 
+def _recording_manager(base, sims_log):
+    """`base` (an EmbeddingManager class) logging, at every decision, the
+    similarities of the embedding to each speaker, best first."""
+    from whisper_diarize_tpu.diarize import cosine_similarity
+
+    class Recording(base):
+        def _best(self, embedding):
+            sims_log.append(sorted((cosine_similarity(embedding, sp.centroid)
+                                    for sp in self.speakers.values()), reverse=True))
+            return super()._best(embedding)
+
+    return Recording
+
+
+THRESHOLD = 0.97
+
+
+def test_diarized_slice_matches_jax_engine(snapshot, jax_engines, tmp_path, monkeypatch):
+    """`enable_diarize=True` (greedy, lang "en", max_speakers 2, threshold
+    THRESHOLD, the "__random__" segmentation and CAM++ weights of seed 0 in
+    both packages) on 10 s of noise and 10 s of a tone (two full
+    segmentation windows): the same cues (start, end, text) and the same
+    speaker ids as the JAX Engine, both speakers among them. Preconditions on
+    the JAX side, from the same run: every frame's top-2 log-prob gap
+    exceeds twice the largest log-prob difference between the packages (at
+    random weights many frames nearly tie, so no fixed gap holds,
+    `tests/test_torch_diarize.py`), and every speaker decision clears the
+    threshold and the runner-up by more than 1e-3."""
+    from whisper_diarize_tpu import diarize as jdz
+    from whisper_diarize_tpu.models import segmentation as jseg
+    from whisper_diarize_tpu_torch import diarize as tdz
+    from whisper_diarize_tpu_torch.models import segmentation as tseg
+
+    monkeypatch.setenv("WDT_HOST_DTW", "1")
+    rng = np.random.default_rng(3)
+    t = np.arange(16000 * 10) / 16000.0
+    wav20 = str(tmp_path / "twenty.wav")
+    write_wav(wav20, np.concatenate([  # two "speakers": noise, then a tone
+        rng.standard_normal(t.size) * 4000,
+        np.sin(2 * np.pi * 1000.0 * t) * 9000 + rng.standard_normal(t.size) * 300,
+    ]).astype(np.int16))
+    lps, sims = {"jax": [], "port": []}, []
+    for key, mod in (("jax", jseg), ("port", tseg)):
+        def forward(params, audio, *a, _inner=mod.forward, _sink=lps[key], **kw):
+            out = _inner(params, audio, *a, **kw)
+            _sink.append(np.asarray(out))
+            return out
+
+        monkeypatch.setattr(mod, "forward", forward)
+    monkeypatch.setattr(jdz, "EmbeddingManager", _recording_manager(jdz.EmbeddingManager, sims))
+    over = dict(diarize_segment_model_path="__random__",
+                diarize_embedding_model_path="__random__")
+    # random CAM++ weights put noise much nearer noise than a tone in cosine;
+    # THRESHOLD lies between the two
+    opts = TranscribeOptions(enable_diarize=True, lang="en", max_speakers=2,
+                             advanced=AdvancedTranscribe(sampling_strategy="greedy",
+                                                         diarize_threshold=THRESHOLD))
+    ref = jax_engines(**over).transcribe_audio(wav20, opts)
+    eng = _engine(snapshot, tmp_path, **over)
+    got = eng.transcribe_audio(wav20, opts)
+
+    (jlp,), (tlp,) = lps["jax"], lps["port"]
+    err = float(np.abs(jlp - tlp).max())
+    top2 = np.sort(jlp, axis=-1)[..., -2:]
+    assert err < 1e-4 and (top2[..., 1] - top2[..., 0]).min() > 2 * err, \
+        "precondition: a segmentation near-tie could flip the powerset argmax"
+    assert sims, "no speaker decision was made"
+    for s in sims:
+        assert not s or abs(s[0] - THRESHOLD) > 1e-3, f"precondition: similarity {s[0]} at the threshold"
+        assert len(s) < 2 or s[0] - s[1] > 1e-3, f"precondition: speakers tie at {s[:2]}"
+    _assert_cues_match(ref, got)
+    assert [c.speaker_id for c in got] == [c.speaker_id for c in ref]
+    assert all(isinstance(c.speaker_id, str) for c in got)
+    assert {c.speaker_id for c in got} == {"1", "2"}
+    assert eng.last_run["windows"] >= 2 and eng.last_run["stage_s"]["segment"] > 0
+    assert tdz.EmbeddingManager is not jdz.EmbeddingManager
+
+
 def test_fallback_ladder_is_deterministic(snapshot, wav, tmp_path):
     """The full slice (fallback ladder on: random weights fail the logprob
     threshold, so every window climbs it with best_of = 5 candidates)
@@ -164,7 +243,7 @@ def test_batch_of_streams_matches_single(snapshot, wav, tmp_path):
         eng.transcribe_audio("/nope/missing.wav", opts)
 
 
-@pytest.mark.parametrize("case", ["diarize", "mesh", "draft", "spec_gamma", "ggml_file"])
+@pytest.mark.parametrize("case", ["mesh", "draft", "spec_gamma", "ggml_file"])
 def test_unported_options_raise(snapshot, wav, tmp_path, case):
     opts = TranscribeOptions(enable_vad=False, lang="en", advanced=GREEDY)
     if case in ("mesh", "draft", "spec_gamma"):
@@ -173,13 +252,9 @@ def test_unported_options_raise(snapshot, wav, tmp_path, case):
         with pytest.raises(NotImplementedError):
             _engine(snapshot, tmp_path, **over)
         return
-    eng = _engine(snapshot, tmp_path)
-    if case == "diarize":
-        opts = TranscribeOptions(enable_diarize=True, lang="en", advanced=GREEDY)
-    else:
-        ggml = tmp_path / "ggml-tiny.bin"
-        ggml.write_bytes(b"lmgg" + b"\0" * 64)
-        eng = _engine(str(ggml), tmp_path)
+    ggml = tmp_path / "ggml-tiny.bin"
+    ggml.write_bytes(b"lmgg" + b"\0" * 64)
+    eng = _engine(str(ggml), tmp_path)
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.transcribe_audio(wav, opts)
 
@@ -263,4 +338,4 @@ def test_refusals_name_roadmap_headings():
             assert m, f"{rel}:{node.lineno}: names no ROADMAP item: {text!r}"
             assert m.group(1) in headings, f"{rel}:{node.lineno}: no heading {m.group(1)!r}"
             named.append(m.group(1))
-    assert len(named) == 7 and "f32 forms of the kernels" in named
+    assert len(named) == 6 and "f32 forms of the kernels" in named

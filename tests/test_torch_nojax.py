@@ -1,14 +1,17 @@
 """The port imports no JAX and nothing of the JAX package: a fresh
 interpreter imports the package and `chip_smoke`, runs a tiny CPU
 `Engine.transcribe_audio` that decodes one window (whole file), then a VAD
-request (the port's own Silero reader and audio code), then both
+request (the port's own Silero reader and audio code), then a diarized
+request (the port's segmentation net, CAM++ and kaldi fbank), then both
 diagnostic tools' `main` on the CPU at tiny shapes, and finds no `jax` and
 no `whisper_diarize_tpu`
 module loaded (a subprocess, because the test process imports JAX, see
 tests/conftest.py); and a static scan of every module of the port and of
-`chip_smoke.py` finds no import of either. Also: the port's VAD entry
-point, its loaders (`load_model`, `load_vad_params`) and its tools ask for
-the card unless the caller asks for the CPU."""
+`chip_smoke.py` finds no import of either, nor of the repo's top-level
+`evals/`. Also: the port's VAD and diarization entry points, its loaders
+(`load_model`, `load_vad_params`, `load_segmentation_params`,
+`load_campplus_params`) and its tools ask for the card unless the caller
+asks for the CPU."""
 
 import ast
 import os
@@ -46,6 +49,11 @@ SCRIPT = textwrap.dedent("""
     assert eng.last_run["windows"] == 1, eng.last_run
     eng.transcribe_audio(tmp + "/in.wav", wdt.TranscribeOptions(
         enable_vad=True, lang="en", advanced=greedy))
+    eng.cfg.diarize_segment_model_path = eng.cfg.diarize_embedding_model_path = "__random__"
+    diarized = eng.transcribe_audio(tmp + "/in.wav", wdt.TranscribeOptions(
+        enable_diarize=True, lang="en", advanced=greedy))
+    assert eng.last_run["windows"] >= 1 and "segment" in eng.last_run["stage_s"], eng.last_run
+    assert all(isinstance(c.speaker_id, str) for c in diarized), diarized
     for name in ("ModelManager", "to_srt", "wer", "translate_text", "get_segments"):
         getattr(wdt, name)
     from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
@@ -93,8 +101,12 @@ def test_static_scan_finds_no_jax_package_import():
         "front", "encoder_attn", "mel", "attn", "tail", "stream", "attn_probe")} <= scanned
     assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
         "bench_dma", "bench_attn_kernel", "timing")} <= scanned
+    assert {f"whisper_diarize_tpu_torch/{m}.py" for m in (
+        "diarize", "models/segmentation", "models/campplus", "models/onnx_io",
+        "models/convert", "models/net_check")} <= scanned
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
-           for mod, line in _imported(f) if mod.split(".")[0] in FORBIDDEN]
+           for mod, line in _imported(f)
+           if mod.split(".")[0] in FORBIDDEN + ("evals", "torch_refs")]
     assert not bad, bad
 
 
@@ -112,6 +124,28 @@ def test_get_segments_defaults_to_the_card():
             call()
     mask, segs = vad.get_segments("__random__", x, device="cpu")
     assert isinstance(mask, list) and isinstance(segs, list)
+
+
+def test_diarize_entry_points_default_to_the_card():
+    """Without `device` the segmentation windows, the CAM++ host path and
+    the diarization loaders ask for CUDA device 0: here, with no card, they
+    raise before computing anything; `device="cpu"` runs."""
+    from whisper_diarize_tpu_torch import diarize
+    from whisper_diarize_tpu_torch.models import campplus, convert
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    x = (np.random.default_rng(0).standard_normal(16000) * 3000).astype(np.int16)
+    for call in (lambda: diarize.get_segments(x), lambda: diarize.get_segments_batch([x]),
+                 lambda: campplus.compute_embeddings_batch({}, [x]),
+                 lambda: campplus.compute_embedding({}, x),
+                 lambda: convert.load_segmentation_params("__random__"),
+                 lambda: convert.load_campplus_params("__random__")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert isinstance(diarize.get_segments(x, device="cpu"), list)
+    params = convert.load_campplus_params("__random__", device="cpu")
+    assert campplus.compute_embeddings_batch(params, [x], device="cpu").shape == (1, 192)
 
 
 def test_loaders_default_to_the_card(tmp_path):

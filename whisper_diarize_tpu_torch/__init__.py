@@ -13,11 +13,14 @@ behaviour.
 Ported so far: transcription by beam search (the default, beam 5) and
 greedy decoding (`AdvancedTranscribe(sampling_strategy="greedy")`), with the
 temperature-fallback ladder, DTW word timestamps, the VAD and whole-file
-branches, cue formatting, and the int8 decode path
+branches, cue formatting, the int8 decode path
 (`EngineConfig(quantize_kv_cache=True)`, `DecodeConfig(quantize_cross_kv=...,
-quantize_tail_weights=...)`). Diarization, device meshes, speculative
-decoding and GGML / OpenAI `.pt` checkpoints raise NotImplementedError (see
-ROADMAP.md).
+quantize_tail_weights=...)`), and speaker diarization
+(`TranscribeOptions(enable_diarize=True)`: the pyannote segmentation net,
+CAM++ embeddings on the kaldi fbank, the reference's ONNX weight files
+converted on first use, a `speaker_id` on every segment). Device meshes,
+speculative decoding and GGML / OpenAI `.pt` checkpoints raise
+NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations

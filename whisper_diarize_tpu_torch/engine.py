@@ -1,10 +1,12 @@
 """Engine: the end-to-end transcription orchestrator of the PyTorch port
 (counterpart of `whisper_diarize_tpu/engine.py`).
 
-  audio.wav -> read_wav -> [VAD | whole-file] speech segments
+  audio.wav -> read_wav -> [diarization | VAD | whole-file] speech segments
   -> batched whisper decode (beam search by default, or greedy; +
-     temperature fallback, + DTW word timestamps) -> optional translate
-     post-pass -> language preset + overrides -> process_segments cues.
+     temperature fallback, + DTW word timestamps; + a CAM++ speaker
+     embedding of each chunk's first window when diarizing) -> optional
+     translate post-pass -> language preset + overrides -> process_segments
+     cues.
 
 The same `EngineConfig` / `TranscribeOptions` / `Callbacks` surface, model
 and step cache, resume journal, callbacks, chunk scheduler, one-deep DTW
@@ -14,11 +16,14 @@ host modules (the port imports nothing of the JAX package).
 raises without one; `use_gpu=False` runs on the CPU in f32 through the
 kernels' plain versions. `quantize_kv_cache=True` decodes over an int8
 cross K/V cache (K5, K6) on both devices; language detection reads the
-exact bf16 cache.
+exact bf16 cache. `TranscribeOptions(enable_diarize=True)` cuts each
+stream by the segmentation net and gives every segment the `speaker_id` of
+its chunk (per-stream online clustering of CAM++ embeddings); both nets run
+in f32 on the Engine's device.
 
 Not ported yet, and refused with NotImplementedError (never run some other
-way): diarization, device meshes, speculative decoding and GGML / OpenAI
-`.pt` checkpoint files — see ROADMAP.md.
+way): device meshes, speculative decoding and GGML / OpenAI `.pt`
+checkpoint files — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from .formatting import (
 from .model_manager import ModelManager
 from .types import (
     Callbacks,
+    DiarizeOptions,
     ProgressType,
     Segment,
     SpeechSegment,
@@ -58,6 +64,8 @@ from .ops import decode as dec
 from .parallel.batching import SAMPLE_RATE
 
 logger = logging.getLogger(__name__)
+
+UNBOUNDED_SPEAKERS = 2**62  # usize::MAX analogue (`engine.rs:108-111`)
 
 
 class _AsyncResult:
@@ -324,6 +332,31 @@ class Engine:
         return self._transcribe_paths(
             audio_paths, options, formatting_overrides, callbacks)
 
+    def _resolve_diarization(self, options: TranscribeOptions, cb: Callbacks
+                             ) -> Tuple[DiarizeOptions, Any]:
+        """The diarization options and the segmentation weights on the
+        Engine's device. Both model paths given: used as they are (.npz,
+        the reference's .onnx, or "__random__"); else downloaded by the
+        ModelManager (`engine.rs:94-100`). Unloadable weights raise
+        WeightIngestError unless `allow_random_weights`."""
+        from .models import convert as convert_mod
+
+        if self.cfg.diarize_segment_model_path and self.cfg.diarize_embedding_model_path:
+            seg_path = self.cfg.diarize_segment_model_path
+            emb_path = self.cfg.diarize_embedding_model_path
+        else:
+            seg_p, emb_p = self.models.ensure_diarize_models(
+                progress=cb.progress, is_cancelled=cb.is_cancelled)
+            seg_path, emb_path = str(seg_p), str(emb_p)
+        adv = options.advanced
+        diarize_options = DiarizeOptions(
+            segment_model_path=seg_path, embedding_model_path=emb_path,
+            threshold=(adv.diarize_threshold if adv else None) or 0.5,
+            max_speakers=options.max_speakers or UNBOUNDED_SPEAKERS)
+        seg_params = convert_mod.load_segmentation_params(
+            seg_path, allow_random=self.cfg.allow_random_weights, device=self.device)
+        return diarize_options, seg_params
+
     def _resolve_vad_model(self, cb: Callbacks):
         vad_model = self.cfg.vad_model_path
         if vad_model is None:
@@ -346,10 +379,6 @@ class Engine:
         for p in audio_paths:
             if not os.path.exists(p):
                 raise FileNotFoundError("audio file doesn't exist")
-        if options.enable_diarize:
-            raise NotImplementedError(
-                "enable_diarize: diarization is not ported yet "
-                "(ROADMAP Queue 1: Diarization)")
 
         with torch.inference_mode():
             params, model_cfg, tokenizer = self._load_whisper(
@@ -358,7 +387,19 @@ class Engine:
             all_samples = [audio_io.read_wav(p) for p in audio_paths]
             per_stream_segments: List[List[SpeechSegment]] = []
             vad_masks: List[Optional[VadMaskOracle]] = []
-            if options.enable_vad:
+            diarize_options: Optional[DiarizeOptions] = None
+            segment_s = None
+            if options.enable_diarize:
+                # every stream's windows through the segmentation net at once
+                from . import diarize as diarize_mod
+
+                diarize_options, seg_params = self._resolve_diarization(options, cb)
+                t0 = time.perf_counter()
+                per_stream_segments = diarize_mod.get_segments_batch(
+                    all_samples, SAMPLE_RATE, seg_params, device=self.device)
+                segment_s = time.perf_counter() - t0
+                vad_masks = [None] * len(audio_paths)
+            elif options.enable_vad:
                 from . import vad as vad_mod
 
                 vad_model = self._resolve_vad_model(cb)
@@ -372,7 +413,9 @@ class Engine:
                         start=0.0, end=len(samples) / SAMPLE_RATE, samples=samples)])
                     vad_masks.append(None)
             seg_lists, langs = self._run_pipeline_multi(
-                step, per_stream_segments, options, cb)
+                step, per_stream_segments, options, diarize_options, cb)
+            if segment_s is not None:
+                self.last_run["stage_s"]["segment"] = segment_s
 
         whisper_to_en = bool(options.whisper_to_english)
         out: List[List[Segment]] = []
@@ -390,11 +433,13 @@ class Engine:
     # ------------------------------------------------------------------
     def _run_pipeline_multi(
         self, step, per_stream_segments: List[List[SpeechSegment]],
-        options: TranscribeOptions, cb: Callbacks,
+        options: TranscribeOptions, diarize_options: Optional[DiarizeOptions],
+        cb: Callbacks,
     ) -> Tuple[List[List[Segment]], List[Optional[str]]]:
         """Batched multi-stream pipeline: windows of all streams fill the
-        same decode batches; language latches per stream; overlap clamping
-        and prompt carry are per stream; segments are emitted in order."""
+        same decode batches; language latches per stream; speakers cluster
+        per stream; overlap clamping and prompt carry are per stream;
+        segments are emitted in order."""
         from .parallel.batching import WindowScheduler, pack_batch
 
         S = len(per_stream_segments)
@@ -403,6 +448,18 @@ class Engine:
         task = "translate" if translated else "transcribe"
         preset_lang = options.lang if options.lang and options.lang != "auto" else None
         detected_langs: List[Optional[str]] = [preset_lang] * S
+
+        # diarization: one CAM++ net, speaker clusters per stream
+        emb_params, emb_managers = None, []
+        chunk_speakers: Dict[Tuple[int, int], str] = {}  # (stream, chunk) -> id
+        if diarize_options is not None:
+            from .diarize import EmbeddingManager
+            from .models import convert as convert_mod
+
+            emb_params = convert_mod.load_campplus_params(
+                diarize_options.embedding_model_path,
+                allow_random=self.cfg.allow_random_weights, device=self.device)
+            emb_managers = [EmbeddingManager(diarize_options.max_speakers) for _ in range(S)]
 
         seg_lists: List[List[Segment]] = [[] for _ in range(S)]
         previous_texts: List[Optional[str]] = [None] * S
@@ -423,7 +480,7 @@ class Engine:
         windows = 0
         empty_segments = 0
         total_chars = 0
-        stage_s = {"mel": 0.0, "encode": 0.0, "decode": 0.0}
+        stage_s = {"mel": 0.0, "encode": 0.0, "decode": 0.0, "embed": 0.0}
         journal = self._open_resume_journal(options, per_stream_segments)
 
         def tick_progress():
@@ -462,6 +519,58 @@ class Engine:
                     emit_ptr[si] = [emit_ptr[si][0] + 1, 0]
                     continue
                 break
+
+        def assign(key, emb) -> None:
+            manager = emb_managers[key[0]]
+            if len(manager.get_all_speakers()) == diarize_options.max_speakers:
+                sid = manager.get_best_speaker_match(emb)
+            else:
+                sid = manager.search_speaker(emb, diarize_options.threshold)
+            chunk_speakers[key] = str(sid) if sid is not None else "?"
+
+        def plan_embeddings(group):
+            """The (stream, chunk) keys that need an embedding this batch:
+            `fresh` ones ride the batch's device audio (the chunk's first
+            window), `late` ones (a resumed chunk whose first window was
+            replayed) take the chunk's own samples."""
+            fresh: List[Tuple[int, Tuple[int, int]]] = []
+            late: List[Tuple[int, int]] = []
+            seen = set()
+            for j, w in enumerate(group):
+                key = (w.stream_idx, w.chunk_idx)
+                if key in chunk_speakers or key in seen:
+                    continue
+                seen.add(key)
+                if w.window_idx == 0:
+                    fresh.append((j, key))
+                else:
+                    late.append(key)
+            return fresh, late
+
+        def dispatch_embeddings(fresh, audio_dev, n_valid):
+            """Enqueue the CAM++ pass over the decode batch's own device audio:
+            one embedding per chunk, from its first window (the net's context
+            is capped at ~20 s). Enqueued before the host alignment pass, so
+            the card computes while the host backtracks."""
+            from .models import campplus
+
+            if not fresh:
+                return None
+            return campplus.embed_from_audio(emb_params, audio_dev, n_valid)
+
+        def assign_speakers(fresh, late, embs_dev) -> None:
+            from .models import campplus
+
+            if fresh:
+                embs = embs_dev.cpu().numpy()
+                for j, key in fresh:
+                    assign(key, embs[j])
+            if late:
+                embs = campplus.compute_embeddings_batch(
+                    emb_params, [np.asarray(per_stream_segments[si][ci].samples, np.int16)
+                                 for si, ci in late], device=self.device)
+                for key, emb in zip(late, embs):
+                    assign(key, emb)
 
         pending: List[Optional[Any]] = [None]
 
@@ -509,7 +618,9 @@ class Engine:
                     segment = Segment(
                         start=word_timestamps[0].start if word_timestamps else approx_start,
                         end=word_timestamps[-1].end if word_timestamps else approx_end,
-                        text=text, words=word_timestamps or None)
+                        text=text, words=word_timestamps or None,
+                        speaker_id=(chunk_speakers.get((si, w.chunk_idx))
+                                    if diarize_options is not None else None))
                     results[key] = segment
                     if journal is not None:
                         journal.put(w.chunk_idx, w.window_idx, segment, si, adv=adv_steps[j])
@@ -536,7 +647,8 @@ class Engine:
                 windows += len(decode_group)
                 audio_batch, n_valid = pack_batch(decode_group, batch_size)
                 t0 = time.perf_counter()
-                mel = step.mel(step.place_audio(audio_batch))
+                audio_dev = step.place_audio(audio_batch)
+                mel = step.mel(audio_dev)
                 stage_s["mel"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 xa = step.encode(mel)
@@ -579,11 +691,20 @@ class Engine:
                 del cross  # not held across the alignment pass and the next encode
                 if cb.is_cancelled and cb.is_cancelled():
                     break
+                emb_plan = emb_dev = None
+                if diarize_options is not None:
+                    # the embedding pass first: it overlaps the host token pass
+                    emb_plan = plan_embeddings(decode_group)
+                    emb_dev = dispatch_embeddings(emb_plan[0], audio_dev, n_valid)
                 align_thunk = step.start_alignment(res, xa, n_valid, translated)
                 anchors_async = _AsyncResult(align_thunk) if align_thunk is not None else None
                 crs_a = step.build_chunk_results(
                     res, xa, n_valid, translated, anchors_all=[None] * len(n_valid))
                 stage_s["decode"] += time.perf_counter() - t0
+                if diarize_options is not None:
+                    t0 = time.perf_counter()
+                    assign_speakers(emb_plan[0], emb_plan[1], emb_dev)
+                    stage_s["embed"] += time.perf_counter() - t0
 
                 adv_steps: List[int] = []
                 ns_flags: List[bool] = []
@@ -622,9 +743,9 @@ class Engine:
         self.last_run = {"windows": windows, "stage_s": dict(stage_s),
                          "empty_segments": empty_segments,
                          "total_chars": total_chars}
-        logger.info("stage seconds: mel=%.3f encode=%.3f decode=%.3f "
+        logger.info("stage seconds: mel=%.3f encode=%.3f decode=%.3f embed=%.3f "
                     "(%d windows, %d streams)", stage_s["mel"], stage_s["encode"],
-                    stage_s["decode"], windows, S)
+                    stage_s["decode"], stage_s["embed"], windows, S)
         return seg_lists, detected_langs
 
     # ------------------------------------------------------------------

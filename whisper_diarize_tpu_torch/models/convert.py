@@ -1,13 +1,27 @@
-"""Silero VAD weight ingestion: the reference's `ggml-silero-v5.1.2.bin`
-(whisper.cpp's GGML VAD model file) -> the npz layout of
-`models/silero_vad.py`.
+"""Upstream artifact ingestion: the reference's model files -> the npz
+layouts of the port's nets (the PyTorch port's own copy of
+`whisper_diarize_tpu/models/convert.py`; the port imports nothing of the
+JAX package):
 
-The PyTorch port's own copy of the Silero part of
-`whisper_diarize_tpu/models/convert.py` (`silero_npz_from_ggml`, its GGML
-reader and state mapper, the artifact-resolution policy `_load_with`,
-`WeightIngestError`, `RANDOM_SENTINEL`); the port imports nothing of the
-JAX package. The converted npz is cached next to the artifact under the
-same name the JAX package uses, so both packages share one conversion.
+* `ggml-silero-v5.1.2.bin` (whisper.cpp's GGML VAD model file) ->
+  `models/silero_vad.py` (`silero_npz_from_ggml`, `map_silero_state`);
+* `segmentation-3.0.onnx` (pyannote PyanNet) -> `models/segmentation.py`
+  (`segmentation_npz_from_onnx`, `map_pyannote_state`);
+* `wespeaker_en_voxceleb_CAM++.onnx` -> `models/campplus.py`
+  (`campplus_npz_from_onnx`, `map_campplus_state`).
+
+The npz layouts are the JAX package's (convs `[k, in, out]`, fused LSTM
+weights); each net's `params_from_jax` turns them into its tensors. ONNX
+conversion is structural, not name-based: torch.onnx's constant folding
+renames most initializers and fuses BatchNorm into the preceding Conv, so
+the converters walk the weight-bearing nodes in trace order and map slots
+positionally, handling fused and unfused BN alike (a conv whose BN was
+folded away becomes the conv and an identity BN carrying its bias). ONNX
+LSTM gates are in i, o, f, c order; the layout's are i, f, g, o.
+
+The artifact-resolution policy is `_load_with` (`WeightIngestError`,
+`RANDOM_SENTINEL`). A converted npz is cached next to its artifact under
+the name the JAX package uses, so both packages share one conversion.
 """
 
 from __future__ import annotations
@@ -19,6 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .onnx_io import OnnxModel, OnnxNode, read_onnx
+
 logger = logging.getLogger(__name__)
 
 
@@ -26,10 +42,552 @@ class WeightIngestError(RuntimeError):
     """A model artifact exists but its weights cannot be ingested."""
 
 
+# ---------------------------------------------------------------------------
+# generic ONNX graph helpers
+# ---------------------------------------------------------------------------
+
+def _producer_map(model: OnnxModel) -> Dict[str, OnnxNode]:
+    out: Dict[str, OnnxNode] = {}
+    for n in model.nodes:
+        for o in n.outputs:
+            out[o] = n
+    return out
+
+
+def _resolve(model: OnnxModel, producers: Dict[str, OnnxNode],
+             name: str, depth: int = 8) -> Optional[np.ndarray]:
+    """Resolve a tensor name to a constant array, following trivial ops
+    (Identity / Unsqueeze / Squeeze / Reshape / Concat / Cast)."""
+    if not name or depth <= 0:
+        return None
+    if name in model.initializers:
+        return model.initializers[name]
+    node = producers.get(name)
+    if node is None:
+        return None
+    if node.op_type in ("Identity", "Cast"):
+        return _resolve(model, producers, node.inputs[0], depth - 1)
+    if node.op_type in ("Unsqueeze", "Squeeze"):
+        a = _resolve(model, producers, node.inputs[0], depth - 1)
+        if a is None:
+            return None
+        axes = node.attrs.get("axes")
+        if axes is None and len(node.inputs) > 1:  # opset >= 13: axes input
+            ax = _resolve(model, producers, node.inputs[1], depth - 1)
+            axes = list(np.asarray(ax).ravel()) if ax is not None else None
+        if axes is None:
+            if node.op_type == "Squeeze":
+                # axes-less Squeeze removes EVERY size-1 dim (ONNX spec);
+                # an Unsqueeze without axes is invalid — treat as no-op
+                return np.squeeze(a)
+            return a
+        if node.op_type == "Unsqueeze":
+            for ax in sorted(int(x) for x in axes):
+                a = np.expand_dims(a, ax)
+        else:
+            a = np.squeeze(a, axis=tuple(int(x) for x in axes))
+        return a
+    if node.op_type == "Reshape":
+        a = _resolve(model, producers, node.inputs[0], depth - 1)
+        shp = _resolve(model, producers, node.inputs[1], depth - 1)
+        if a is None or shp is None:
+            return None
+        return a.reshape([int(s) for s in np.asarray(shp).ravel()])
+    if node.op_type == "Concat":
+        parts = [_resolve(model, producers, i, depth - 1) for i in node.inputs]
+        if any(p is None for p in parts):
+            return None
+        return np.concatenate(parts, axis=int(node.attrs.get("axis", 0)))
+    return None
+
+
+class _Events:
+    """Weight-bearing nodes of a graph, in trace order, with resolved
+    constant operands. Consumed positionally by the per-model converters."""
+
+    def __init__(self, model: OnnxModel):
+        self.model = model
+        self.producers = _producer_map(model)
+        self.nodes = [
+            n for n in model.nodes
+            if n.op_type in ("Conv", "BatchNormalization",
+                             "InstanceNormalization", "LSTM", "MatMul", "Gemm")
+        ]
+        self.pos = 0
+        # consumers: tensor name -> nodes reading it (for MatMul-bias lookup)
+        self.consumers: Dict[str, List[OnnxNode]] = {}
+        for n in model.nodes:
+            for i in n.inputs:
+                self.consumers.setdefault(i, []).append(n)
+
+    def r(self, name: str) -> Optional[np.ndarray]:
+        return _resolve(self.model, self.producers, name)
+
+    def peek(self) -> Optional[OnnxNode]:
+        return self.nodes[self.pos] if self.pos < len(self.nodes) else None
+
+    def take(self, op_type: str, what: str) -> OnnxNode:
+        n = self.peek()
+        if n is None or n.op_type != op_type:
+            raise WeightIngestError(
+                f"expected {op_type} node for {what}, found "
+                f"{n.op_type if n else 'end of graph'} at position {self.pos}"
+            )
+        self.pos += 1
+        return n
+
+    # -- composite extractors ------------------------------------------------
+    def conv(self, what: str) -> Tuple[np.ndarray, Optional[np.ndarray], OnnxNode]:
+        n = self.take("Conv", what)
+        w = self.r(n.inputs[1])
+        if w is None:
+            raise WeightIngestError(f"unresolvable Conv weight for {what}")
+        b = self.r(n.inputs[2]) if len(n.inputs) > 2 and n.inputs[2] else None
+        return w, b, n
+
+    def conv_bn(self, what: str) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """A conv our layout pairs with a BatchNorm. Handles both the fused
+        export (BN folded into conv bias/weight -> identity BN) and the
+        unfused one (a BatchNormalization node consuming the conv output)."""
+        w, b, node = self.conv(what)
+        nxt = self.peek()
+        # pair only a BN fed EXCLUSIVELY by this conv (possibly through
+        # shape-only ops like the dense head's squeeze) — the same criterion
+        # the exporter's conv+BN fusion uses, so a multi-consumer conv output
+        # (e.g. a dense block input read by both bn1 and the concat) is never
+        # mistaken for this conv's own normalization
+        if (nxt is not None and nxt.op_type == "BatchNormalization"
+                and self._sole_path(node.outputs[0], nxt)):
+            bn = self.bn(what + ".bn")
+            if b is not None:  # conv bias folds into the BN mean
+                bn = dict(bn, m=bn["m"] - np.asarray(b, np.float32))
+            return w, bn
+        return w, _identity_bn(w.shape[0], b)
+
+    _PASSTHROUGH = ("Squeeze", "Unsqueeze", "Reshape", "Transpose",
+                    "Identity", "Flatten")
+
+    def _sole_path(self, name: str, target: OnnxNode) -> bool:
+        """True when `target` is reached from tensor `name` through a chain
+        of sole-consumer shape-only ops (its data input, not an axes/shape
+        operand)."""
+        for _ in range(6):
+            data_consumers = [
+                c for c in self.consumers.get(name, ()) if c.inputs[0] == name
+            ]
+            if len(data_consumers) != 1 or len(self.consumers.get(name, ())) != 1:
+                return False
+            c = data_consumers[0]
+            if c is target:
+                return True
+            if c.op_type not in self._PASSTHROUGH:
+                return False
+            name = c.outputs[0]
+        return False
+
+    def bn(self, what: str) -> Dict[str, np.ndarray]:
+        n = self.take("BatchNormalization", what)
+        vals = [self.r(i) for i in n.inputs[1:5]]
+        if any(v is None for v in vals):
+            raise WeightIngestError(f"unresolvable BatchNorm operands for {what}")
+        g, b, m, v = vals
+        return {"g": g, "b": b, "m": m, "v": v}
+
+    def inorm(self, what: str) -> Dict[str, np.ndarray]:
+        n = self.take("InstanceNormalization", what)
+        s = self.r(n.inputs[1])
+        b = self.r(n.inputs[2])
+        if s is None or b is None:
+            raise WeightIngestError(f"unresolvable InstanceNorm operands for {what}")
+        return {"s": s.reshape(-1), "b": b.reshape(-1)}
+
+    def lstm(self, what: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        n = self.take("LSTM", what)
+        W = self.r(n.inputs[1])
+        R = self.r(n.inputs[2])
+        B = self.r(n.inputs[3]) if len(n.inputs) > 3 and n.inputs[3] else None
+        if W is None or R is None:
+            raise WeightIngestError(f"unresolvable LSTM weights for {what}")
+        if B is None:
+            B = np.zeros((W.shape[0], 8 * R.shape[-1]), np.float32)
+        return W, R, B
+
+    def linear(self, what: str) -> Tuple[np.ndarray, np.ndarray]:
+        """A torch Linear: Gemm (2-D input) or MatMul + Add (N-D input).
+        Returns (w [in, out], b [out])."""
+        n = self.peek()
+        if n is not None and n.op_type == "Gemm":
+            self.pos += 1
+            w = self.r(n.inputs[1])
+            b = self.r(n.inputs[2]) if len(n.inputs) > 2 else None
+            if w is None:
+                raise WeightIngestError(f"unresolvable Gemm weight for {what}")
+            if n.attrs.get("transB", 0):
+                w = w.T
+            return np.ascontiguousarray(w), (
+                b if b is not None else np.zeros((w.shape[1],), np.float32)
+            )
+        n = self.take("MatMul", what)
+        w = self.r(n.inputs[1])
+        if w is None:
+            raise WeightIngestError(f"unresolvable MatMul weight for {what}")
+        b = np.zeros((w.shape[1],), np.float32)
+        for c in self.consumers.get(n.outputs[0], []):
+            if c.op_type == "Add":
+                other = [i for i in c.inputs if i != n.outputs[0]]
+                cand = self.r(other[0]) if other else None
+                if cand is not None:
+                    b = cand.reshape(-1)
+                    break
+        return w, b
+
+
+def _identity_bn(c: int, bias: Optional[np.ndarray]) -> Dict[str, np.ndarray]:
+    """BN params that reduce `(x - m) * rsqrt(v + eps) * g + b` to
+    `x + bias` exactly (v = 1 - eps cancels the epsilon)."""
+    from .campplus import BN_EPS
+
+    return {
+        "g": np.ones((c,), np.float32),
+        "b": (np.zeros((c,), np.float32) if bias is None
+              else np.asarray(bias, np.float32).reshape(-1)),
+        "m": np.zeros((c,), np.float32),
+        "v": np.full((c,), 1.0 - BN_EPS, np.float32),
+    }
+
+
+def _lstm_gates(a: np.ndarray) -> np.ndarray:
+    """Reorder ONNX LSTM gate blocks (i, o, f, c) -> torch order (i, f, g, o)
+    along the leading 4H axis."""
+    h4 = a.shape[0]
+    g = a.reshape(4, h4 // 4, *a.shape[1:])
+    return np.ascontiguousarray(g[[0, 2, 3, 1]].reshape(a.shape))
+
+
+def _lstm_dirs(out: Dict[str, np.ndarray], key_fn: Callable[[str], str],
+               W: np.ndarray, R: np.ndarray, B: np.ndarray) -> None:
+    """Split ONNX LSTM [num_dirs, ...] weights into fused per-direction
+    layouts: w = [in+H, 4H] (torch gate order), b = bias_ih + bias_hh."""
+    h4 = R.shape[1]
+    for d, direction in enumerate(("fwd", "bwd")[: W.shape[0]]):
+        w_ih = _lstm_gates(W[d])  # [4H, in]
+        w_hh = _lstm_gates(R[d])  # [4H, H]
+        b = _lstm_gates(B[d][:h4]) + _lstm_gates(B[d][h4:])
+        out[key_fn(direction) + ".w"] = np.concatenate(
+            [w_ih.T, w_hh.T], axis=0
+        ).astype(np.float32)
+        out[key_fn(direction) + ".b"] = b.astype(np.float32)
+
+
 def _conv1d_w(w: np.ndarray) -> np.ndarray:
     """ONNX/torch conv1d weight [out, in, k] -> ours [k, in, out]."""
     return np.ascontiguousarray(w.transpose(2, 1, 0)).astype(np.float32)
 
+
+def _conv2d_w(w: np.ndarray) -> np.ndarray:
+    """ONNX/torch conv2d weight [out, in, kh, kw] -> ours [kh, kw, in, out]."""
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# pyannote segmentation-3.0 ONNX -> models/segmentation.py layout
+# ---------------------------------------------------------------------------
+
+def segmentation_npz_from_onnx(path) -> Dict[str, np.ndarray]:
+    """Structural conversion of a PyanNet export (`segmentation-3.0.onnx`,
+    `engine.rs:90`). Trace order: wav InstanceNorm, sinc Conv, 3x
+    (MaxPool + InstanceNorm), 2 Convs, 4 BiLSTMs, 3 Linears."""
+    from .segmentation import LSTM_LAYERS
+
+    model = read_onnx(path)
+    ev = _Events(model)
+    out: Dict[str, np.ndarray] = {}
+
+    wn = ev.inorm("wav_norm")
+    out["wav_norm.s"], out["wav_norm.b"] = wn["s"], wn["b"]
+
+    # the sinc filterbank: exporters either keep the low_hz_/band_hz_
+    # parameters (filter computed in-graph) or fold the whole filterbank
+    # into a constant conv weight; support both. In-graph computation also
+    # leaves MatMul nodes (low_hz * n_) BEFORE the sinc conv — skip them.
+    low = band = None
+    for name, arr in model.initializers.items():
+        if name.endswith("low_hz_"):
+            low = arr.reshape(-1)
+        elif name.endswith("band_hz_"):
+            band = arr.reshape(-1)
+    while ev.peek() is not None and ev.peek().op_type in ("MatMul", "Gemm"):
+        ev.pos += 1
+    n = ev.take("Conv", "sincnet filterbank")
+    if low is not None and band is not None:
+        out["sinc.low_hz"], out["sinc.band_hz"] = (
+            low.astype(np.float32), band.astype(np.float32))
+    else:
+        w = ev.r(n.inputs[1])
+        if w is None:
+            raise WeightIngestError(
+                "sinc conv weight is computed in-graph and low_hz_/band_hz_ "
+                "initializers are absent — cannot extract the filterbank"
+            )
+        out["sinc.kernel"] = _conv1d_w(w)  # [K, 1, F]
+
+    ln = ev.inorm("sincnet norm1d.0")
+    out["ln0.s"], out["ln0.b"] = ln["s"], ln["b"]
+    for ci, (cname, lname) in enumerate((("conv1", "ln1"), ("conv2", "ln2"))):
+        w, b, _node = ev.conv(f"sincnet conv1d.{ci + 1}")
+        out[f"{cname}.w"] = _conv1d_w(w)
+        out[f"{cname}.b"] = (b if b is not None else
+                             np.zeros((w.shape[0],), np.float32))
+        ln = ev.inorm(f"sincnet norm1d.{ci + 1}")
+        out[f"{lname}.s"], out[f"{lname}.b"] = ln["s"], ln["b"]
+
+    for li in range(LSTM_LAYERS):
+        W, R, B = ev.lstm(f"lstm layer {li}")
+        if W.shape[0] != 2:
+            raise WeightIngestError(
+                f"lstm layer {li}: expected bidirectional (2 directions), "
+                f"got {W.shape[0]}"
+            )
+        _lstm_dirs(out, lambda d, li=li: f"lstm.{li}.{d}", W, R, B)
+
+    for name in ("fc1", "fc2", "cls"):
+        w, b = ev.linear(name)
+        out[f"{name}.w"] = w.astype(np.float32)
+        out[f"{name}.b"] = b.astype(np.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wespeaker CAM++ ONNX -> models/campplus.py layout
+# ---------------------------------------------------------------------------
+
+def campplus_npz_from_onnx(path) -> Dict[str, np.ndarray]:
+    """Structural conversion of the CAM++ export
+    (`wespeaker_en_voxceleb_CAM++.onnx`, `engine.rs:91`). Handles the
+    exporter's conv+BN fusion via identity-BN reconstruction."""
+    from .campplus import BLOCK_LAYERS
+
+    model = read_onnx(path)
+    ev = _Events(model)
+    out: Dict[str, np.ndarray] = {}
+
+    # FCM head: 12 conv2d(+bn) in trace order
+    w, bn = ev.conv_bn("fcm.conv1")
+    out["fcm.conv1_w"] = _conv2d_w(w)
+    _put_bn(out, "fcm.bn1", bn)
+    for layer in ("layer1", "layer2"):
+        for bi in range(2):
+            pre = f"fcm.{layer}.{bi}"
+            w, bn = ev.conv_bn(f"{pre}.conv1")
+            out[f"{pre}.conv1_w"] = _conv2d_w(w)
+            _put_bn(out, f"{pre}.bn1", bn)
+            w, bn = ev.conv_bn(f"{pre}.conv2")
+            out[f"{pre}.conv2_w"] = _conv2d_w(w)
+            _put_bn(out, f"{pre}.bn2", bn)
+            if bi == 0:  # stride-2 blocks carry a 1x1 shortcut
+                w, bn = ev.conv_bn(f"{pre}.shortcut")
+                out[f"{pre}.sc_w"] = _conv2d_w(w)
+                _put_bn(out, f"{pre}.sc_bn", bn)
+    w, bn = ev.conv_bn("fcm.conv2")
+    out["fcm.conv2_w"] = _conv2d_w(w)
+    _put_bn(out, "fcm.bn2", bn)
+
+    # TDNN stem
+    w, bn = ev.conv_bn("tdnn")
+    out["tdnn.w"] = _conv1d_w(w)
+    _put_bn(out, "tdnn.bn", bn)
+
+    # CAM-Dense-TDNN blocks
+    for b, n_layers in enumerate(BLOCK_LAYERS):
+        for i in range(n_layers):
+            okey = f"blocks.{b}.layers.{i}"
+            _put_bn(out, f"{okey}.bn1", ev.bn(f"{okey}.bn1"))
+            w, bn = ev.conv_bn(f"{okey}.linear1")
+            out[f"{okey}.lin1_w"] = _conv1d_w(w)
+            _put_bn(out, f"{okey}.bn2", bn)
+            w, bias, _n = ev.conv(f"{okey}.cam.local")
+            out[f"{okey}.local_w"] = _conv1d_w(w)
+            w, bias, _n = ev.conv(f"{okey}.cam.linear1")
+            out[f"{okey}.cam1_w"] = _conv1d_w(w)
+            out[f"{okey}.cam1_b"] = (
+                bias if bias is not None else np.zeros((w.shape[0],), np.float32))
+            w, bias, _n = ev.conv(f"{okey}.cam.linear2")
+            out[f"{okey}.cam2_w"] = _conv1d_w(w)
+            out[f"{okey}.cam2_b"] = (
+                bias if bias is not None else np.zeros((w.shape[0],), np.float32))
+        _put_bn(out, f"blocks.{b}.transit.bn", ev.bn(f"transit{b}"))
+        # the LAST transit conv feeds out_nonlinear's BN as its only
+        # consumer, so exporters fuse them — conv_bn recovers out_bn either
+        # way. Earlier transit outputs are multi-consumer (dense concat),
+        # so they can never carry a fused BN; verify that assumption.
+        w, post_bn = ev.conv_bn(f"transit{b}.linear")
+        out[f"blocks.{b}.transit.w"] = _conv1d_w(w)
+        if b == len(BLOCK_LAYERS) - 1:
+            _put_bn(out, "out_bn", post_bn)
+        elif not (np.allclose(post_bn["b"], 0.0) and np.allclose(post_bn["g"], 1.0)):
+            raise WeightIngestError(
+                f"transit{b} conv carries a fused BN/bias but the layout has "
+                "no slot for it (unexpected export structure)"
+            )
+
+    # dense head: conv1d + BatchNorm(affine=False); when fused, the conv
+    # bias b' folds into bn_m = -b' (forward subtracts m)
+    w, bn = ev.conv_bn("dense")
+    out["dense.w"] = _conv1d_w(w)
+    from .campplus import BN_EPS
+
+    scale = bn["g"] / np.sqrt(bn["v"] + BN_EPS)
+    # general BN: (x - m) * s * g + b; our dense slot is (x - m')*rsqrt(v'+eps)
+    # -> fold arbitrary affine into equivalent (m', v') when g == scale-only
+    out["dense.w"] = out["dense.w"] * scale.reshape(1, 1, -1)
+    out["dense.bn_m"] = (bn["m"] * scale - bn["b"]).astype(np.float32)
+    out["dense.bn_v"] = np.full_like(out["dense.bn_m"], 1.0 - BN_EPS)
+    return out
+
+
+def _put_bn(out: Dict[str, np.ndarray], key: str, bn: Dict[str, np.ndarray]) -> None:
+    for s, a in bn.items():
+        out[f"{key}.{s}"] = np.asarray(a, np.float32)
+
+
+def map_pyannote_state(sd: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], List[str], List[str]]:
+    """pyannote PyanNet torch state dict -> models/segmentation.load_params
+    layout. Returns (out, missing, mapped_names)."""
+    from .segmentation import LSTM_LAYERS
+
+    out: Dict[str, np.ndarray] = {}
+    mapped = set()
+    missing: List[str] = []
+
+    def put(key, name, transform=lambda a: a):
+        for cand in (name, name.replace("conv1d.0.", "conv1d.0.filterbank.")):
+            if cand in sd:
+                out[key] = np.asarray(transform(sd[cand]), np.float32)
+                mapped.add(cand)
+                return
+        missing.append(name)
+
+    put("wav_norm.s", "sincnet.wav_norm1d.weight", lambda a: a.reshape(-1))
+    put("wav_norm.b", "sincnet.wav_norm1d.bias", lambda a: a.reshape(-1))
+    put("sinc.low_hz", "sincnet.conv1d.0.low_hz_", lambda a: a.reshape(-1))
+    put("sinc.band_hz", "sincnet.conv1d.0.band_hz_", lambda a: a.reshape(-1))
+    put("conv1.w", "sincnet.conv1d.1.weight", lambda a: a.transpose(2, 1, 0))
+    put("conv1.b", "sincnet.conv1d.1.bias")
+    put("conv2.w", "sincnet.conv1d.2.weight", lambda a: a.transpose(2, 1, 0))
+    put("conv2.b", "sincnet.conv1d.2.bias")
+    for norm_i, ours in ((0, "ln0"), (1, "ln1"), (2, "ln2")):
+        put(f"{ours}.s", f"sincnet.norm1d.{norm_i}.weight")
+        put(f"{ours}.b", f"sincnet.norm1d.{norm_i}.bias")
+    for i in range(LSTM_LAYERS):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            ih = f"lstm.weight_ih_l{i}{suffix}"
+            hh = f"lstm.weight_hh_l{i}{suffix}"
+            bih = f"lstm.bias_ih_l{i}{suffix}"
+            bhh = f"lstm.bias_hh_l{i}{suffix}"
+            if ih in sd:
+                out[f"lstm.{i}.{direction}.w"] = np.concatenate(
+                    [np.asarray(sd[ih]).T, np.asarray(sd[hh]).T], axis=0
+                ).astype(np.float32)
+                out[f"lstm.{i}.{direction}.b"] = (
+                    np.asarray(sd[bih]) + np.asarray(sd[bhh])
+                ).astype(np.float32)
+                mapped.update((ih, hh, bih, bhh))
+            else:
+                missing.append(ih)
+    put("fc1.w", "linear.0.weight", lambda a: a.T)
+    put("fc1.b", "linear.0.bias")
+    put("fc2.w", "linear.1.weight", lambda a: a.T)
+    put("fc2.b", "linear.1.bias")
+    put("cls.w", "classifier.weight", lambda a: a.T)
+    put("cls.b", "classifier.bias")
+    return out, missing, sorted(mapped)
+
+
+def map_campplus_state(sd: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], List[str], List[str]]:
+    """wespeaker/modelscope CAM++ torch state dict ->
+    models/campplus.load_params layout. Returns (out, missing, unmapped)."""
+    from .campplus import BLOCK_LAYERS
+
+    out: Dict[str, np.ndarray] = {}
+    mapped = set()
+    missing: List[str] = []
+
+    def take(name):
+        if name in sd:
+            mapped.add(name)
+            return sd[name]
+        missing.append(name)
+        return None
+
+    def conv2d(key, name):
+        w = take(name)
+        if w is not None:
+            out[key] = _conv2d_w(np.asarray(w))
+
+    def conv1d(key, name):
+        w = take(name)
+        if w is not None:
+            out[key] = _conv1d_w(np.asarray(w))
+
+    def vec(key, name):
+        w = take(name)
+        if w is not None:
+            out[key] = np.asarray(w, np.float32)
+
+    def bn(key, name):
+        vec(f"{key}.g", f"{name}.weight")
+        vec(f"{key}.b", f"{name}.bias")
+        vec(f"{key}.m", f"{name}.running_mean")
+        vec(f"{key}.v", f"{name}.running_var")
+        mapped.add(f"{name}.num_batches_tracked")  # bookkeeping, unused
+
+    conv2d("fcm.conv1_w", "head.conv1.weight")
+    bn("fcm.bn1", "head.bn1")
+    for layer in ("layer1", "layer2"):
+        for bi in range(2):
+            pre = f"head.{layer}.{bi}"
+            okey = f"fcm.{layer}.{bi}"
+            conv2d(f"{okey}.conv1_w", f"{pre}.conv1.weight")
+            bn(f"{okey}.bn1", f"{pre}.bn1")
+            conv2d(f"{okey}.conv2_w", f"{pre}.conv2.weight")
+            bn(f"{okey}.bn2", f"{pre}.bn2")
+            if f"{pre}.shortcut.0.weight" in sd:  # stride-2 blocks only
+                conv2d(f"{okey}.sc_w", f"{pre}.shortcut.0.weight")
+                bn(f"{okey}.sc_bn", f"{pre}.shortcut.1")
+    conv2d("fcm.conv2_w", "head.conv2.weight")
+    bn("fcm.bn2", "head.bn2")
+
+    conv1d("tdnn.w", "xvector.tdnn.linear.weight")
+    bn("tdnn.bn", "xvector.tdnn.nonlinear.batchnorm")
+
+    for b, n_layers in enumerate(BLOCK_LAYERS):
+        for i in range(n_layers):
+            pre = f"xvector.block{b + 1}.tdnnd{i + 1}"
+            okey = f"blocks.{b}.layers.{i}"
+            bn(f"{okey}.bn1", f"{pre}.nonlinear1.batchnorm")
+            conv1d(f"{okey}.lin1_w", f"{pre}.linear1.weight")
+            bn(f"{okey}.bn2", f"{pre}.nonlinear2.batchnorm")
+            conv1d(f"{okey}.local_w", f"{pre}.cam_layer.linear_local.weight")
+            conv1d(f"{okey}.cam1_w", f"{pre}.cam_layer.linear1.weight")
+            vec(f"{okey}.cam1_b", f"{pre}.cam_layer.linear1.bias")
+            conv1d(f"{okey}.cam2_w", f"{pre}.cam_layer.linear2.weight")
+            vec(f"{okey}.cam2_b", f"{pre}.cam_layer.linear2.bias")
+        bn(f"blocks.{b}.transit.bn", f"xvector.transit{b + 1}.nonlinear.batchnorm")
+        conv1d(f"blocks.{b}.transit.w", f"xvector.transit{b + 1}.linear.weight")
+
+    bn("out_bn", "xvector.out_nonlinear.batchnorm")
+    conv1d("dense.w", "xvector.dense.linear.weight")
+    vec("dense.bn_m", "xvector.dense.nonlinear.batchnorm.running_mean")
+    vec("dense.bn_v", "xvector.dense.nonlinear.batchnorm.running_var")
+    mapped.add("xvector.dense.nonlinear.batchnorm.num_batches_tracked")
+
+    unmapped = sorted(set(sd) - mapped)
+    return out, missing, unmapped
+
+
+# ---------------------------------------------------------------------------
+# silero: state-dict mapper and GGML reader
+# ---------------------------------------------------------------------------
 
 def map_silero_state(sd: Dict[str, np.ndarray]) -> Tuple[Dict[str, np.ndarray], List[str]]:
     """Silero VAD v5 tensors (jit state dict / whisper.cpp GGML names) ->
@@ -219,3 +777,29 @@ def _load_with(path_str: Optional[str], kind: str,
         if isinstance(e, WeightIngestError):
             raise
         raise WeightIngestError(f"{kind}: failed to load {path_str}: {e}") from e
+
+
+def load_segmentation_params(path: Optional[str], allow_random: bool = False, device=None):
+    """Segmentation weights from a path (.npz, or the reference's .onnx,
+    converted and cached on first use) or "__random__", on `device` (CUDA
+    device 0 unless given one; raises without a card). Unloadable weights
+    raise WeightIngestError unless `allow_random`."""
+    from ..utils import default_device
+    from . import segmentation
+
+    device = default_device(device, "load_segmentation_params")
+    tree = _load_with(path, "segmentation", segmentation.init_params_np,
+                      segmentation.load_params_np, {".onnx": segmentation_npz_from_onnx},
+                      allow_random)
+    return segmentation.params_from_jax(tree, device)
+
+
+def load_campplus_params(path: Optional[str], allow_random: bool = False, device=None):
+    """CAM++ weights, as `load_segmentation_params`."""
+    from ..utils import default_device
+    from . import campplus
+
+    device = default_device(device, "load_campplus_params")
+    tree = _load_with(path, "campplus", campplus.init_params_np, campplus.load_params_np,
+                      {".onnx": campplus_npz_from_onnx}, allow_random)
+    return campplus.params_from_jax(tree, device)

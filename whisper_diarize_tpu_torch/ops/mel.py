@@ -15,6 +15,14 @@ cores, never TF32), on a CPU tensor its plain version `log_mel_fused_plain`
 (the matmuls above). `frontend` adds the clamp and the scaling outside the
 kernel, as the TPU version leaves them to XLA. `log_mel_spectrogram` is the
 plain path on every device. `log_mel_fused.launches` counts K7's launches.
+
+`kaldi_fbank` is the Kaldi-style log-mel fbank that feeds the CAM++
+speaker-embedding net (counterpart of the JAX `kaldi_fbank`): 25 ms / 10 ms
+snip-edges frames, per-frame DC removal, pre-emphasis 0.97, the Povey
+window, a 512-point real DFT as one f32 matmul against the bases cut to a
+frame's 400 rows, 80 HTK-mel bands, natural log floored at f32 epsilon. No
+TPU kernel computes it; it runs as plain PyTorch on either device, its
+products held in f32 on the card (`utils.exact_f32`).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils import exact_f32
 from .attn import _require_cuda
 
 SAMPLE_RATE = 16_000
@@ -59,21 +68,32 @@ def _mel_to_hz_slaney(m: np.ndarray) -> np.ndarray:
     return np.where(above, min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs)
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=8)
 def mel_filterbank(n_mels: int = 80, n_fft: int = N_FFT, sr: int = SAMPLE_RATE,
-                   fmax: Optional[float] = None) -> np.ndarray:
-    """Slaney-scale, slaney-normalized triangular filters [n_mels, n_fft//2+1]
-    (librosa's `filters.mel` defaults, as in openai-whisper's asset)."""
+                   fmin: float = 0.0, fmax: Optional[float] = None, htk: bool = False,
+                   norm_slaney: bool = True) -> np.ndarray:
+    """Triangular mel filters [n_mels, n_fft//2+1]. The defaults are librosa's
+    `filters.mel` (slaney scale, slaney area normalization), as in
+    openai-whisper's asset; `htk=True, norm_slaney=False` gives kaldi's
+    filters for `kaldi_fbank`."""
     fmax = fmax if fmax is not None else sr / 2.0
     fft_freqs = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
-    mel_pts = np.linspace(_hz_to_mel_slaney(0.0), _hz_to_mel_slaney(fmax), n_mels + 2)
-    hz_pts = _mel_to_hz_slaney(mel_pts)
+    if htk:
+        def to_mel(f):
+            return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+        def to_hz(m):
+            return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
+    else:
+        to_mel, to_hz = _hz_to_mel_slaney, _mel_to_hz_slaney
+    hz_pts = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     fdiff = np.diff(hz_pts)
     ramps = hz_pts[:, None] - fft_freqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
-    weights *= (2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels]))[:, None]
+    if norm_slaney:
+        weights *= (2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels]))[:, None]
     return weights.astype(np.float32)
 
 
@@ -207,3 +227,54 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     squeeze, x = _batched(audio)
     out = _normalize(log_mel_fused_plain(x, n_mels))
     return out[0] if squeeze else out
+
+
+KALDI_FRAME_LEN = 400  # 25 ms
+KALDI_FRAME_SHIFT = 160  # 10 ms
+KALDI_N_FFT = 512
+KALDI_PREEMPHASIS = 0.97
+KALDI_LOG_FLOOR = 1.1920928955078125e-07  # kaldi's epsilon (f32 machine epsilon)
+
+
+@functools.lru_cache(maxsize=8)
+def _kaldi_tables(device: torch.device, n_mels: int):
+    """(bases [400, 2 x 257], filters [257, n_mels]) f32 on `device`: the
+    Povey-windowed 512-point DFT's cosine and sine bases side by side, cut to
+    the 400 rows a frame fills (its zero padding to 512 adds nothing), and
+    kaldi's mel filters (HTK scale, 20 Hz to Nyquist, unnormalized). The
+    window is taken over the 512 points, as the JAX package takes it."""
+    n_bins = KALDI_N_FFT // 2 + 1
+    n = np.arange(KALDI_N_FFT)[:, None]
+    k = np.arange(n_bins)[None, :]
+    ang = -2.0 * np.pi * n * k / KALDI_N_FFT
+    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(KALDI_N_FFT) / (KALDI_N_FFT - 1))
+    win = (hann ** 0.85)[:, None]
+    cos = (np.cos(ang) * win).astype(np.float32)[:KALDI_FRAME_LEN]
+    sin = (np.sin(ang) * win).astype(np.float32)[:KALDI_FRAME_LEN]
+    fb = mel_filterbank(n_mels, n_fft=KALDI_N_FFT, fmin=20.0, fmax=SAMPLE_RATE / 2.0,
+                        htk=True, norm_slaney=False)
+    return (torch.from_numpy(np.concatenate([cos, sin], axis=1)).to(device),
+            torch.from_numpy(fb.T.copy()).to(device))
+
+
+def kaldi_fbank(audio, n_mels: int = 80) -> torch.Tensor:
+    """Kaldi-compatible log-mel fbank (snip_edges, no dither) of int16-scale
+    samples (raw PCM cast to float: CAM++ is scale-sensitive), a tensor on
+    any device or a numpy array (CPU): [..., T] -> [..., 1 + (T - 400) //
+    160, n_mels] f32 on the input's device."""
+    audio = torch.as_tensor(audio, dtype=torch.float32)
+    n = audio.shape[-1]
+    if n < KALDI_FRAME_LEN:
+        raise ValueError(f"audio too short for fbank: {n} < {KALDI_FRAME_LEN}")
+    frames = audio.unfold(-1, KALDI_FRAME_LEN, KALDI_FRAME_SHIFT)  # [..., F, 400]
+    frames = frames - frames.mean(dim=-1, keepdim=True)  # DC offset per frame
+    # pre-emphasis; kaldi's first sample subtracts itself
+    prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+    frames = frames - KALDI_PREEMPHASIS * prev
+    bases, fb = _kaldi_tables(audio.device, n_mels)
+    n_bins = KALDI_N_FFT // 2 + 1
+    with exact_f32():
+        spec = frames @ bases  # [..., F, 2 x 257]: re | im
+        re, im = spec[..., :n_bins], spec[..., n_bins:]
+        mel_energy = (re * re + im * im) @ fb
+    return torch.log(torch.clamp(mel_energy, min=KALDI_LOG_FLOOR))

@@ -7,11 +7,13 @@ Mirrors the reference's `src/utils.rs`: `calculate_dtw_mem_size`
 (`utils.rs:3-49`), `round_to_places` (`utils.rs:51-54`), `cs_to_s`
 (`utils.rs:57-59`), `get_translate_languages` (`utils.rs:62-72`) and
 `get_whisper_languages` (`utils.rs:75-87`). `default_device` is the port's
-rule for public entry points that take a device.
+rule for public entry points that take a device; `exact_f32` holds f32
+products in f32 on the card whatever the process-wide TF32 flags say.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 __all__ = [
@@ -21,6 +23,7 @@ __all__ = [
     "get_translate_languages",
     "get_whisper_languages",
     "default_device",
+    "exact_f32",
 ]
 
 
@@ -35,6 +38,24 @@ def default_device(device, what: str):
         raise RuntimeError(f"{what} runs on CUDA device 0 by default and none is "
                            "available; pass device=\"cpu\" for the CPU")
     return torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 matmuls (cuBLAS) and convolutions (cuDNN) inside the block run in
+    f32, never TF32, whatever the process-wide flags say (PyTorch lets cuDNN
+    take TF32 by default); the flags are restored on exit. The diarization
+    nets and the kaldi fbank keep the JAX package's f32 semantics with it."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def calculate_dtw_mem_size(num_samples: int) -> int:
