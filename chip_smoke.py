@@ -25,7 +25,8 @@ traceback) and no result line is printed:
    `F.scaled_dot_product_attention`; K2: one `torch.addmm` of xa against
    every layer's [ck_w | cv_w] side by side, without the head split) after
    warm-up
-   (K1 at B 8 with Q 1, 3, 4, 5, 15 and 64 and at B 1 with Q 3 and 5, K5
+   (K1 at B 8 with Q 1, 3, 4, 5, 8 (the verify pass at gamma 8), 15 and 64
+   and at B 1 with Q 3 and 5, K5
    at B 8 with Q 3, 5 and 15; each checked also at ta = 1493, no multiple
    of a span of its key split, `attn.cross_attn_plan`): CUDA
    events over back-to-back calls, and the profiled device time of their
@@ -98,16 +99,41 @@ traceback) and no result line is printed:
    cosine >= 0.9999), and the planted faults (fbank without pre-emphasis,
    the BiLSTM's backward direction run forward, CAM++'s frame mask
    ignored) must fail that check.
-   In 5-10 each request prints wall time, windows decoded and the launches
+   In 5-13 each request prints wall time, windows decoded and the launches
    it added; a request that decoded a window must have raised the count of
    every kernel of its path (`PATHS`; the tools of phase 3 are paths too).
    The counts are set to 0 just before each path and read just after;
-11. with `--profile` only: the 45 s greedy request, the 30 s beam request,
+11. engine, speculative path (`phase_speculative`): an `Engine` at random
+   `large-v3` weights (32 + 32 layers, greedy, DTW on, the ladder off, 32
+   tokens a window) with `draft_model_path` a small random draft that the
+   port's `save_params` wrote under build/chip_smoke/ (large-v3's
+   vocabulary and 128 mel bins, D 384, 2 + 2 layers; `draft_snapshot`)
+   serves a 30 s whole-file request and a batch of eight 10 s files, first
+   with the draft removed, then with it (`speculative_greedy_run` wrapped to
+   count rounds); it prints rounds, tokens a round and both wall times.
+   Every emitted token must pass the margin check on the card (`spec_gap`:
+   within 2e-2 x max|logit| of its position's best token, the target
+   teacher-forced over the emitted tokens), and the planted fault,
+   `sim_accept=1.0` with that unrelated draft, must fail it;
+12. `tools/bench_speculative.py`'s `main()` (`phase_bench_spec`, path
+   "bench-spec"): rows greedy, self-g4, turbo-a1.0-g4 and turbo-a0.8-g4,
+   each once after a warm-up at large-v3, batch 16, 64 tokens; self-g4
+   must need fewer rounds than tokens; greedy and self-g4 pass the margin
+   check;
+13. checkpoint files (`phase_ggml`, path "ggml"): a q5_0 GGML file and an
+   OpenAI `.pt` file at the `tiny` preset through an Engine on the card and
+   through the CLI (`__main__.main`); the loaded params must equal the CPU
+   load cast to bf16 and cues must come out.
+   The reference phase (4) also holds speculative greedy at the `tiny`
+   preset, with a self-draft and an unrelated random draft, to the f32 CPU
+   greedy decode;
+14. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
    request under torch.profiler (device busy time
    and kernel time by kind, also written to build/chip_smoke/profile.txt),
    then each diarization net alone on the 30 s request's audio (CUDA-event
-   and profiled device time, `profile_diarize_nets`).
+   and profiled device time, `profile_diarize_nets`), then the speculative
+   30 s request with and without its draft.
 Each phase prints its wall seconds (`[time]`).
 
 Then it prints one JSON line of per-kernel results (`launches` summed over
@@ -136,7 +162,7 @@ from whisper_diarize_tpu_torch import kernels
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
 from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
-from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
+from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma, bench_speculative
 from whisper_diarize_tpu_torch.tools.timing import (F32_FLOPS, attn_bound, bound, device_ms,
                                                     nvidia_smi_line, sum_bound, time_ms)
 
@@ -192,7 +218,13 @@ SHAPE_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
 PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "int8-beam": ("K2", "K4", "K5", "K6"), "int8-greedy": ("K2", "K5", "K6"),
          "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10"),
-         "bench-dma": ("K11",), "bench-attn": ("K1", "K9"), "diarize": ("K1", "K2", "K3")}
+         "bench-dma": ("K11",), "bench-attn": ("K1", "K9"), "diarize": ("K1", "K2", "K3"),
+         "speculative": ("K1", "K2", "K3"), "bench-spec": ("K1", "K2", "K3"),
+         "ggml": ("K1", "K2", "K3")}
+# the margin check of a decode on the card: every emitted token within
+# TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
+# `spec_gap`)
+TOKEN_GAP = 2e-2
 
 
 def phase_device() -> str:
@@ -306,7 +338,7 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
             del wkv, bias_row
             torch.cuda.empty_cache()
 
-        for Q in ((1, 3, 4, 5, 15, 64) if main else (3, 5, 15)):
+        for Q in ((1, 3, 4, 5, 8, 15, 64) if main else (3, 5, 15)):
             q = ag.randn(g, dev, B, Q, H, Dh, scale=2.0)
             for ta in (Ta, Ta - 7):  # Ta - 7: no multiple of a span
                 a = (lay, q, k, v, ta)
@@ -935,7 +967,7 @@ def phase_reference() -> None:
     audio = np.zeros((2, 480000), np.float32)
     audio[:, :160000] = rng.standard_normal((2, 160000)).astype(np.float32) * 0.1
     prompt = torch.tensor(tk.sot_sequence(language="en"))
-    tol, out, ok = 2e-2, {}, True
+    tol, out, ok = TOKEN_GAP, {}, True
     with torch.inference_mode():
         xa = {side: steps[side, "greedy"].encode(steps[side, "greedy"].mel(audio))
               for side in params}
@@ -960,6 +992,25 @@ def phase_reference() -> None:
         print(f"[reference] fused-greedy (K7, K10, K8): encoder rel err {rel_f:.4g} (tol "
               f"5e-2), worst card-token logit gap vs f32 CPU best, of max|logit| "
               f"{out['fused-greedy']:.4g} (tol {tol:g})", flush=True)
+        # speculative greedy (the draft's steps on K3, the verify pass on K1
+        # at Q = 4) with a self-draft and an unrelated random draft, held to
+        # the f32 CPU greedy decode by the greedy check
+        from whisper_diarize_tpu_torch.ops import speculative
+
+        card = steps["card", "greedy"]
+        other = weights.params_from_jax(wm.init_params_np(cfg, seed=99), "cuda", torch.bfloat16)
+        drafts = {"speculative self-draft": (params["card"], xa["card"]),
+                  "speculative unrelated draft": (other, wm.encode(other, card.mel(audio), cfg))}
+        for name, (pd, xd) in drafts.items():
+            res, rounds = speculative.speculative_greedy_run(
+                params["card"], cfg, pd, cfg, base, tk.specials, xa["card"], xd,
+                prompt[None].repeat(2, 1).cuda(), len(prompt), card._suppress, gamma=4)
+            out[name] = err = _greedy_gap(steps["ref", "greedy"], ref, prompt, res)
+            ok &= err <= tol
+            print(f"[reference] {name}: lengths {res.lengths.tolist()}, rounds {int(rounds)}, "
+                  f"worst card-token logit gap vs f32 CPU best, of max|logit| {err:.4g} "
+                  f"(tol {tol:g})", flush=True)
+        del other, drafts
         # planted faults: each must fail its check
         real_step = wm.decode_step_split
 
@@ -1309,6 +1360,220 @@ def phase_diarize(eng, requests) -> dict:
     return added
 
 
+def spec_gap(params, cfg, dc, sp, suppress, xa, prompt, res) -> float:
+    """The margin check of a decode on `params`' device: the emitted tokens
+    of `res` teacher-forced through the target in one pass (the prompt and
+    every emitted token but the last), and over every emitted token (eot
+    included) the worst gap between its position's best prepared logit and
+    the token's, over that position's max|prepared logit|. The grammar
+    state is replayed from the emitted tokens, as the decode advanced it."""
+    from whisper_diarize_tpu_torch.ops import decode as dec
+    from whisper_diarize_tpu_torch.ops import speculative
+
+    toks, lens = res.tokens, res.lengths
+    B, T = toks.shape
+    n, P = min(int(lens.max()) + 1, T), prompt.shape[1]
+    cache = wm.init_self_cache(cfg, B, xa.dtype, xa.device, P + n)
+    seq = torch.cat([prompt, toks[:, :n - 1]], dim=1)
+    with torch.inference_mode():
+        logits = wm.decode_step(params, cfg, seq, 0, cache, dec.build_cross_cache(
+            params, cfg, dc, xa), logits_at=tuple(range(P - 1, P + n - 1)))
+        g = dict(last_was_ts=torch.zeros_like(lens, dtype=torch.bool),
+                 penult_was_ts=torch.zeros_like(lens, dtype=torch.bool),
+                 max_ts_tok=torch.full_like(lens, sp.timestamp_begin),
+                 ts_seen=torch.zeros_like(lens, dtype=torch.bool))
+        worst = torch.zeros((), device=xa.device)
+        for t in range(n):
+            li = dec._prepare_logits(logits[:, t], suppress, sp, dc, t,
+                                     *(g[k] for k in speculative.GRAMMAR))
+            tok, live = toks[:, t], t <= lens  # emitted at t, eot included
+            scale = torch.where(torch.isfinite(li), li.abs(), 0.0).amax(dim=-1)
+            gap = (li.amax(dim=-1) - li.gather(1, tok[:, None])[:, 0]) / scale
+            worst = torch.maximum(worst, torch.where(live, gap, 0.0).max())
+            g = speculative._advance_grammar(g, tok, live, sp)
+    return float(worst)
+
+
+def _emitted(res) -> torch.Tensor:
+    """Tokens each row emitted: its length, plus the eot where one fits."""
+    return res.lengths + (res.lengths < res.tokens.shape[1]).long()
+
+
+def draft_snapshot() -> str:
+    """A small random draft for large-v3 written by the port's
+    `save_params`: large-v3's vocabulary (51866) and 128 mel bins, D 384
+    (Dh 64, as the kernels take), 2 + 2 layers."""
+    import dataclasses
+
+    from whisper_diarize_tpu_torch.models import weights
+
+    cfg = dataclasses.replace(wm.PRESETS["large-v3"], n_audio_state=384, n_audio_head=6,
+                              n_audio_layer=2, n_text_state=384, n_text_head=6, n_text_layer=2)
+    path = WORK / "draft"
+    weights.save_params(weights.params_from_jax(wm.init_params_np(cfg, seed=11), "cpu",
+                                                torch.float32), cfg, path)
+    return str(path)
+
+
+def speculative_requests():
+    """Greedy; two requests of uniform prompts (speculation engages)."""
+    opts = wdt.TranscribeOptions(enable_vad=False, lang="en",
+                                 advanced=wdt.AdvancedTranscribe(sampling_strategy="greedy"))
+    batch = [_write_wav(WORK / f"m{i}.wav", 10.0, 60 + i) for i in range(8)]
+    return [("speculative whole-file 30 s", [_write_wav(WORK / "n.wav", 30.0, 12)], opts),
+            ("speculative batch of 8 whole files, 10 s each", batch, opts)]
+
+
+def phase_speculative(eng, requests) -> dict:
+    """The speculative path: `eng` (a large-v3 target with `draft_model_path`)
+    serves `requests` with `speculative_greedy_run` wrapped to count its
+    rounds and keep its inputs (`phase_engine`: the counts set to 0 just
+    before, K1-K3 must launch); the rounds must not be zero. Prints rounds,
+    tokens a round (the longest row's) and the wall time against the same
+    requests with the draft removed (the same Engine, run before). Every
+    call's emitted tokens must pass `spec_gap` on the card, and a run of the
+    first call's inputs with `sim_accept=1.0` (the unrelated draft's
+    proposals all taken: tokens the target did not choose) must fail it.
+    Returns the path's counts."""
+    from whisper_diarize_tpu_torch.ops import speculative
+
+    def serve():
+        t0 = time.perf_counter()
+        for _, paths, opts in requests:
+            eng.transcribe_audio_batch(paths, opts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    draft, eng.cfg.draft_model_path = eng.cfg.draft_model_path, None
+    plain_wall = serve()
+    eng.cfg.draft_model_path = draft
+    calls, real = [], speculative.speculative_greedy_run
+
+    def counted(*a, **k):
+        res, rounds = real(*a, **k)
+        calls.append((a, k, res, int(rounds)))
+        return res, rounds
+
+    speculative.speculative_greedy_run = counted
+    try:
+        t0 = time.perf_counter()
+        added = phase_engine(eng, "speculative", requests)
+        spec_wall = time.perf_counter() - t0
+    finally:
+        speculative.speculative_greedy_run = real
+    rounds = sum(c[3] for c in calls)
+    emitted = sum(int(_emitted(c[2]).sum()) for c in calls)
+    per_round = sum(int(_emitted(c[2]).max()) for c in calls) / max(rounds, 1)
+    print(f"[engine speculative] {len(calls)} speculative windows: rounds {rounds}, tokens "
+          f"emitted {emitted}, tokens a round (longest row) {per_round:.3f}; wall {spec_wall:.3f} "
+          f"s with the draft (the draft's first load included), {plain_wall:.3f} s without",
+          flush=True)
+    if not calls or rounds == 0:
+        raise AssertionError(f"speculative path: {len(calls)} calls, {rounds} rounds")
+    gaps = [spec_gap(a[0], a[1], a[4], a[5], a[10], a[6], a[8], res) for a, _, res, _ in calls]
+    a, k, _, _ = calls[0]
+    bad, _ = real(*a, **dict(k, sim_accept=1.0))
+    fault = spec_gap(a[0], a[1], a[4], a[5], a[10], a[6], a[8], bad)
+    print(f"[engine speculative] worst emitted-token logit gap vs the card's teacher-forced "
+          f"best, of max|logit|: {max(gaps):.4g} (tol {TOKEN_GAP:g}); planted fault, "
+          f"sim_accept=1.0: {fault:.4g} ({'refused' if fault > TOKEN_GAP else 'NOT refused'})",
+          flush=True)
+    if max(gaps) > TOKEN_GAP or not fault > TOKEN_GAP:
+        raise AssertionError(f"speculative path: gaps {gaps}, planted fault {fault}")
+    return added
+
+
+def phase_bench_spec() -> dict:
+    """`tools/bench_speculative.py`'s `main()` once at four of its rows
+    (greedy, self-g4, turbo-a1.0-g4, turbo-a0.8-g4: the other two, which
+    only move the acceptance, are cut to keep the run's length; large-v3
+    target at batch 16, 64 tokens; one warm-up and one timed call a row);
+    the counts set to 0 just before and read just after. The self-g4 row
+    must need fewer rounds than its 64 tokens, and the rows that keep
+    exactness (greedy, self-g4) must pass `spec_gap`; the gap of
+    turbo-a1.0-g4 (every proposal of the turbo draft taken) is printed. Returns
+    the path's counts."""
+    reset_counts()
+    b = bench_speculative.main(rows=("greedy", "self-g4", "turbo-a1.0-g4", "turbo-a0.8-g4"),
+                               repeat=1)
+    torch.cuda.synchronize()
+    added = counts()
+    gaps = {name: spec_gap(b.params, b.cfg, b.dc, b.sp, b.suppress, b.xa, b.prompt,
+                           b.results[name])
+            for name in ("greedy", "self-g4", "turbo-a1.0-g4")}
+    rows = {r["row"]: r for r in b.rows}
+    print(f"[tool bench-spec] {len(b.rows)} rows, launches {added}; emitted-token logit gaps "
+          f"{ {k: round(v, 5) for k, v in gaps.items()} } (tol {TOKEN_GAP:g} for greedy and "
+          "self-g4; turbo-a1.0-g4 breaks exactness by design)", flush=True)
+    steps = b.dc.max_tokens
+    if not (rows["self-g4"]["rounds"] < steps and gaps["greedy"] <= TOKEN_GAP
+            and gaps["self-g4"] <= TOKEN_GAP
+            and all(math.isfinite(r["decode_ms"]) and r["decode_ms"] > 0 for r in b.rows)):
+        raise AssertionError(f"bench-spec: rows {b.rows}, gaps {gaps}")
+    _check_missing("tool bench-spec", "bench-spec", added)
+    del b
+    torch.cuda.empty_cache()
+    return added
+
+
+def phase_ggml() -> dict:
+    """Checkpoint files on the card: the `tiny` preset (the JAX package's
+    random init, the token embedding biased towards printable bytes so the
+    byte-level vocabulary decodes text) written as a q5_0 GGML file and as an
+    OpenAI `.pt` file; each goes through an Engine on the card (greedy, DTW
+    on, ladder off, 32 tokens) and through the CLI (`__main__.main`,
+    `--greedy`, JSON to a file). The Engine's params must equal the CPU load
+    cast to bf16, and cues must come out of both. The counts set to 0 just
+    before, K1-K3 must launch. Returns the path's counts."""
+    from whisper_diarize_tpu_torch.__main__ import main as cli
+    from whisper_diarize_tpu_torch.engine import Engine, EngineConfig
+    from whisper_diarize_tpu_torch.models import ggml, weights
+
+    cfg = wm.PRESETS["tiny"]
+    tree = wm.init_params_np(cfg, seed=0)
+    emb = tree["decoder"]["tok_emb"]
+    emb[33:127] *= np.random.default_rng(0).uniform(2.0, 4.0, (94, 1)).astype(np.float32)
+    emb[256:50257] = 0.0  # ids between the bytes and eot
+    sd = weights.openai_state_dict(weights.params_from_jax(tree, "cpu", torch.float32))
+    dims = {k: getattr(cfg, k) for k in (
+        "n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head", "n_audio_layer",
+        "n_text_ctx", "n_text_state", "n_text_head", "n_text_layer", "n_mels")}
+    files = {"ggml q5_0": str(WORK / "ggml-tiny-q5_0.bin"), "openai .pt": str(WORK / "tiny.pt")}
+    ggml.write_ggml(files["ggml q5_0"], sd, dims, np.zeros((cfg.n_mels, 201), np.float32),
+                    [bytes([i]) for i in range(256)], quantize="q5_0")
+    torch.save({"dims": dims, "model_state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               files["openai .pt"])
+    wav = _write_wav(WORK / "o.wav", 20.0, 13)
+    opts = wdt.TranscribeOptions(enable_vad=False, lang="en",
+                                 advanced=wdt.AdvancedTranscribe(sampling_strategy="greedy"))
+    reset_counts()
+    for label, path in files.items():
+        eng = Engine(EngineConfig(cache_dir=str(WORK / "cache"), whisper_model_path=path,
+                                  vad_model_path="__random__", batch_size=8, enable_dtw=True,
+                                  temperature_fallback=False, max_decode_tokens=32))
+        cues = eng.transcribe_audio(wav, opts)
+        (params, _, tk), = eng._whisper_cache.values()
+        cpu = (ggml.load_ggml(path, "cpu")[0] if label.startswith("ggml")
+               else weights.load_openai_pt(path, "cpu")[0])
+        flat, want = weights._flatten(params), weights._flatten(cpu)
+        diff = [k for k in want if not torch.equal(flat[k].cpu(), want[k].to(torch.bfloat16))]
+        out = WORK / f"cli-{label.split()[0]}.json"
+        rc = cli(["transcribe", wav, "--model-dir", path, "--cache-dir", str(WORK / "cache"),
+                  "--greedy", "--max-tokens", "32", "--no-vad", "--quiet",
+                  "--vad-model", "__random__", "-o", str(out)])
+        cli_cues = json.loads(out.read_text())
+        print(f"[ggml] {label}: tokenizer {type(tk).__name__}, params differing from the CPU "
+              f"load cast to bf16: {diff}; Engine cues {len(cues)}, CLI rc {rc}, cues "
+              f"{len(cli_cues)}; first {cues[0].text[:40] if cues else None!r}", flush=True)
+        if diff or not cues or rc != 0 or not cli_cues:
+            raise AssertionError(f"{label}: params differ {diff}, cues {len(cues)}, "
+                                 f"CLI rc {rc}, CLI cues {len(cli_cues)}")
+    torch.cuda.synchronize()
+    added = counts()
+    _check_missing("checkpoint files", "ggml", added)
+    return added
+
+
 def profile_diarize_nets(path: str) -> list:
     """`--profile`: each diarization net on one file's audio (its 10 s
     windows; a decode batch of 8 x 30 s, `net_check.stream_inputs`): CUDA-
@@ -1465,6 +1730,14 @@ def main() -> None:
                            diarize_embedding_model_path="__random__", allow_random_weights=True)
     diar = diarize_requests()
     by_path["diarize"] = timed_phase("engine diarize", phase_diarize, diar_eng, diar)
+    # depth: the ladder off and 32 tokens a window
+    spec_eng = make_engine("large-v3", max_decode_tokens=32, temperature_fallback=False,
+                           draft_model_path=draft_snapshot())
+    spec = speculative_requests()
+    by_path["speculative"] = timed_phase("engine speculative", phase_speculative, spec_eng,
+                                         spec)
+    by_path["bench-spec"] = timed_phase("tool bench-spec", phase_bench_spec)
+    by_path["ggml"] = timed_phase("ggml", phase_ggml)
     print(f"[time] all phases: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         lines = phase_profile("greedy, large-v3-turbo, whole-file 45 s",
@@ -1482,6 +1755,12 @@ def main() -> None:
         lines += phase_profile("diarize greedy, large-v3-turbo, whole-file 30 s",
                                engine_request(diar_eng, diar[0][1][0], diar[0][2]))
         lines += profile_diarize_nets(diar[0][1][0])
+        lines += phase_profile("speculative greedy, large-v3 + the 2-layer draft, whole-file 30 s",
+                               engine_request(spec_eng, spec[0][1][0], spec[0][2]))
+        draft, spec_eng.cfg.draft_model_path = spec_eng.cfg.draft_model_path, None
+        lines += phase_profile("greedy, large-v3, whole-file 30 s (the same Engine, no draft)",
+                               engine_request(spec_eng, spec[0][1][0], spec[0][2]))
+        spec_eng.cfg.draft_model_path = draft
         (WORK / "profile.txt").write_text("\n".join(lines) + "\n")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     print(json.dumps({"kernels": [

@@ -24,6 +24,9 @@ defaults and with TF32 allowed everywhere (`models/net_check.py`: fbank
 1e-3, log-probs 1e-3 with the argmax equal where the CPU's top-2 gap
 exceeds 1e-3, embeddings cosine >= 0.9999; its planted faults refused),
 and a diarized Engine request at the tiny preset through K1 - K3.
+Speculative greedy decoding at the tiny preset on the card (K1 - K3) held
+to the margin check of `chip_smoke.spec_gap`, its planted fault refused;
+the checkpoint-file loaders onto the card.
 """
 
 import pytest
@@ -515,3 +518,72 @@ def test_diarized_engine_request_on_card(tmp_path):
     assert eng.last_run["windows"] >= 1 and all(a > b for a, b in zip(after, before))
     assert all(isinstance(c.speaker_id, str) for c in cues)
     assert np.isfinite([c.end for c in cues]).all()
+
+
+@pytest.mark.parametrize("draft", ["self", "unrelated"])
+def test_speculative_margin_on_card(dev, draft):
+    """Speculative greedy decoding on the card (the draft's steps on K3,
+    the verify pass on K1 at Q = 4) at the tiny preset: every emitted token
+    within 2e-2 x max|logit| of its position's best token, the target
+    teacher-forced over the emitted tokens on the card
+    (`chip_smoke.spec_gap`); `sim_accept=1.0` with the unrelated draft (its
+    proposals taken unchecked) must fail that check."""
+    import chip_smoke
+    from whisper_diarize_tpu_torch.models import weights
+    from whisper_diarize_tpu_torch.models import whisper as wm
+    from whisper_diarize_tpu_torch.ops import speculative
+    from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
+
+    cfg = wm.PRESETS["tiny"]
+    target = weights.params_from_jax(wm.init_params_np(cfg, seed=0), dev, torch.bfloat16)
+    other = weights.params_from_jax(wm.init_params_np(cfg, seed=99), dev, torch.bfloat16)
+    sp = DebugTokenizer().specials
+    dc = dec.DecodeConfig(max_tokens=24, blank_id=32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    mel_in = torch.randn((2, 80, 3000), generator=g, device=dev)
+    xa = wm.encode(target, mel_in, cfg)
+    pd, xd = (target, xa) if draft == "self" else (other, wm.encode(other, mel_in, cfg))
+    prompt = torch.tensor([DebugTokenizer().sot_sequence(language="en")] * 2, device=dev)
+    sup = torch.from_numpy(dec.build_suppress_mask(sp, cfg.n_vocab)).to(dev)
+    before = (attn.cross_attn_layer.launches, tail.fused_tail_layer.launches)
+    with torch.inference_mode():
+        res, rounds = speculative.speculative_greedy_run(
+            target, cfg, pd, cfg, dc, sp, xa, xd, prompt, prompt.shape[1], sup, gamma=4)
+    assert all(a > b for a, b in zip(
+        (attn.cross_attn_layer.launches, tail.fused_tail_layer.launches), before))
+    assert 0 < int(rounds) <= dc.max_tokens
+    gap = chip_smoke.spec_gap(target, cfg, dc, sp, sup, xa, prompt, res)
+    assert gap <= chip_smoke.TOKEN_GAP, gap
+    if draft == "unrelated":
+        with torch.inference_mode():
+            bad, _ = speculative.speculative_greedy_run(
+                target, cfg, pd, cfg, dc, sp, xa, xd, prompt, prompt.shape[1], sup, gamma=4,
+                sim_accept=1.0)
+        assert chip_smoke.spec_gap(target, cfg, dc, sp, sup, xa, prompt, bad) > chip_smoke.TOKEN_GAP
+
+
+def test_checkpoint_files_load_on_card(dev, tmp_path):
+    """`load_ggml` and `load_openai_pt` load onto the card by default; the
+    params equal the CPU load cast to the dtype asked for."""
+    from whisper_diarize_tpu_torch.models import ggml, weights
+    from whisper_diarize_tpu_torch.models import whisper as wm
+
+    cfg = wm.PRESETS["tiny"]
+    sd = weights.openai_state_dict(weights.params_from_jax(wm.init_params_np(cfg, seed=0), "cpu",
+                                                           torch.float32))
+    dims = {k: getattr(cfg, k) for k in (
+        "n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head", "n_audio_layer",
+        "n_text_ctx", "n_text_state", "n_text_head", "n_text_layer", "n_mels")}
+    ggml.write_ggml(tmp_path / "g.bin", sd, dims, torch.zeros(80, 201).numpy(), [b"a"],
+                    quantize="q8_0")
+    torch.save({"dims": dims, "model_state_dict": {k: torch.tensor(v) for k, v in sd.items()}},
+               tmp_path / "m.pt")
+    for load, path in ((ggml.load_ggml, tmp_path / "g.bin"),
+                       (weights.load_openai_pt, tmp_path / "m.pt")):
+        got = load(path, dtype=torch.bfloat16)[0]
+        want = load(path, device="cpu")[0]
+        flat, ref = weights._flatten(got), weights._flatten(want)
+        assert sorted(flat) == sorted(ref)
+        for k in ref:
+            assert flat[k].device.type == "cuda" and flat[k].dtype == torch.bfloat16, k
+            assert torch.equal(flat[k].cpu(), ref[k].to(torch.bfloat16)), k

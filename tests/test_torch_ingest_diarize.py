@@ -103,7 +103,8 @@ def test_converted_segmentation_reproduces_the_replica(pyannet, tmp_path):
     npz = tmp_path / "seg.npz"
     np.savez(npz, **tcv.segmentation_npz_from_onnx(path))
     with torch.inference_mode():
-        got = segmentation.forward(segmentation.load_params(str(npz)), x[:, 0]).numpy()
+        params = segmentation.load_params(str(npz), device="cpu")
+        got = segmentation.forward(params, x[:, 0]).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)
 
@@ -116,7 +117,7 @@ def test_converted_campplus_reproduces_the_replica(campnet, tmp_path):
     npz = tmp_path / "cp.npz"
     np.savez(npz, **tcv.campplus_npz_from_onnx(path))
     with torch.inference_mode():
-        got = campplus.embed_from_fbank(campplus.load_params(str(npz)), x,
+        got = campplus.embed_from_fbank(campplus.load_params(str(npz), device="cpu"), x,
                                         torch.ones(2, 398)).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=5e-4)

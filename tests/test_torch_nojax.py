@@ -2,15 +2,18 @@
 interpreter imports the package and `chip_smoke`, runs a tiny CPU
 `Engine.transcribe_audio` that decodes one window (whole file), then a VAD
 request (the port's own Silero reader and audio code), then a diarized
-request (the port's segmentation net, CAM++ and kaldi fbank), then both
-diagnostic tools' `main` on the CPU at tiny shapes, and finds no `jax` and
-no `whisper_diarize_tpu`
+request (the port's segmentation net, CAM++ and kaldi fbank), then a
+greedy request with a draft model the port wrote (`save_params`:
+speculative decoding), a GGML file written and read back, the CLI's
+`models list`, then the diagnostic tools' `main` on the CPU at tiny shapes, and
+finds no `jax` and no `whisper_diarize_tpu`
 module loaded (a subprocess, because the test process imports JAX, see
 tests/conftest.py); and a static scan of every module of the port and of
 `chip_smoke.py` finds no import of either, nor of the repo's top-level
 `evals/`. Also: the port's VAD and diarization entry points, its loaders
 (`load_model`, `load_vad_params`, `load_segmentation_params`,
-`load_campplus_params`) and its tools ask for the card unless the caller
+`load_campplus_params`, `load_ggml`, `load_openai_pt`, the nets'
+`load_params`), its tools and its CLI ask for the card unless the caller
 asks for the CPU."""
 
 import ast
@@ -56,9 +59,28 @@ SCRIPT = textwrap.dedent("""
     assert all(isinstance(c.speaker_id, str) for c in diarized), diarized
     for name in ("ModelManager", "to_srt", "wer", "translate_text", "get_segments"):
         getattr(wdt, name)
-    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
+    from whisper_diarize_tpu_torch.models import ggml, weights, whisper
+    from whisper_diarize_tpu_torch.__main__ import main as cli
+    cfg = whisper.PRESETS["tiny"]
+    params = whisper.init_params(cfg, seed=1)
+    weights.save_params(params, cfg, tmp + "/draft")
+    eng.cfg.draft_model_path = tmp + "/draft"
+    eng.transcribe_audio(tmp + "/in.wav", wdt.TranscribeOptions(
+        enable_vad=False, lang="en", advanced=greedy))
+    assert any(s.draft is not None for s in eng._step_cache.values()), eng._step_cache
+    hp = {k: getattr(cfg, k) for k in (
+        "n_vocab", "n_audio_ctx", "n_audio_state", "n_audio_head", "n_audio_layer",
+        "n_text_ctx", "n_text_state", "n_text_head", "n_text_layer", "n_mels")}
+    ggml.write_ggml(tmp + "/g.bin", {"decoder.ln.weight": params["decoder"]["ln_s"].numpy()},
+                    hp, np.zeros((80, 201), np.float32), [b"a"], quantize="q8_0")
+    assert ggml.read_ggml(tmp + "/g.bin")[1]["n_text_state"] == cfg.n_text_state
+    assert cli(["models", "list", "--cache-dir", tmp + "/cache"]) == 0
+    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma, bench_speculative
     assert len(bench_dma.main(device="cpu", tiles=(1,))) == 12
     assert len(bench_attn_kernel.main(device="cpu", layers=2, batch=1)) == 8
+    b = bench_speculative.main(device="cpu", preset="tiny", batch=1, steps=4,
+                               rows=["greedy", "self-g4"], repeat=1)
+    assert [r["row"] for r in b.rows] == ["greedy", "self-g4"] and b.rows[1]["rounds"] == 1
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not leaked, leaked
     jax_pkg = sorted(m for m in sys.modules
@@ -100,10 +122,11 @@ def test_static_scan_finds_no_jax_package_import():
     assert {f"whisper_diarize_tpu_torch/ops/{m}.py" for m in (
         "front", "encoder_attn", "mel", "attn", "tail", "stream", "attn_probe")} <= scanned
     assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
-        "bench_dma", "bench_attn_kernel", "timing")} <= scanned
+        "bench_dma", "bench_attn_kernel", "bench_speculative", "timing")} <= scanned
     assert {f"whisper_diarize_tpu_torch/{m}.py" for m in (
         "diarize", "models/segmentation", "models/campplus", "models/onnx_io",
-        "models/convert", "models/net_check")} <= scanned
+        "models/convert", "models/net_check", "models/ggml", "ops/speculative",
+        "__main__")} <= scanned
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
            for mod, line in _imported(f)
            if mod.split(".")[0] in FORBIDDEN + ("evals", "torch_refs")]
@@ -167,13 +190,38 @@ def test_loaders_default_to_the_card(tmp_path):
                    if isinstance(t, torch.Tensor))
 
 
-def test_tools_default_to_the_card():
-    """Both diagnostic tools run on CUDA device 0 unless given a device:
-    here, with no card, `main()` raises before it allocates anything."""
-    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma
+@pytest.mark.parametrize("net", ["silero_vad", "segmentation", "campplus"])
+def test_net_load_params_default_to_the_card(tmp_path, net):
+    """Each net's `load_params` loads onto CUDA device 0 unless given a
+    device: here, with no card, it raises before reading anything."""
+    import importlib
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for main in (bench_dma.main, bench_attn_kernel.main):
+    mod = importlib.import_module(f"whisper_diarize_tpu_torch.models.{net}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.load_params(str(tmp_path / "missing.npz"))
+
+
+def test_checkpoint_file_loaders_default_to_the_card(tmp_path):
+    """`load_ggml` and `load_openai_pt` load onto CUDA device 0 unless given
+    a device: here, with no card, they raise before reading anything."""
+    from whisper_diarize_tpu_torch.models import ggml, weights
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for load in (ggml.load_ggml, weights.load_openai_pt):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load(tmp_path / "missing.bin")
+
+
+def test_tools_default_to_the_card():
+    """Both diagnostic tools run on CUDA device 0 unless given a device:
+    here, with no card, `main()` raises before it allocates anything."""
+    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma, bench_speculative
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for main in (bench_dma.main, bench_attn_kernel.main, bench_speculative.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()

@@ -18,9 +18,11 @@ branches, cue formatting, the int8 decode path
 quantize_tail_weights=...)`), and speaker diarization
 (`TranscribeOptions(enable_diarize=True)`: the pyannote segmentation net,
 CAM++ embeddings on the kaldi fbank, the reference's ONNX weight files
-converted on first use, a `speaker_id` on every segment). Device meshes,
-speculative decoding and GGML / OpenAI `.pt` checkpoints raise
-NotImplementedError (see ROADMAP.md).
+converted on first use, a `speaker_id` on every segment), speculative
+greedy decoding (`EngineConfig(draft_model_path=...)`), GGML and OpenAI
+`.pt` checkpoint files (`EngineConfig(whisper_model_path=<file>)`) and the
+command line (`python -m whisper_diarize_tpu_torch`). Device meshes and
+f32 on the card raise NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -19,11 +19,14 @@ cross K/V cache (K5, K6) on both devices; language detection reads the
 exact bf16 cache. `TranscribeOptions(enable_diarize=True)` cuts each
 stream by the segmentation net and gives every segment the `speaker_id` of
 its chunk (per-stream online clustering of CAM++ embeddings); both nets run
-in f32 on the Engine's device.
+in f32 on the Engine's device. `draft_model_path` runs greedy windows by
+speculative decoding (`ops/speculative.py`, `speculative_gamma` proposals a
+verify pass; the output is the target's own), and `whisper_model_path` may
+also name a checkpoint file: a whisper.cpp GGML file (its embedded
+vocabulary builds the tokenizer) or an OpenAI `.pt` file.
 
 Not ported yet, and refused with NotImplementedError (never run some other
-way): device meshes, speculative decoding and GGML / OpenAI `.pt`
-checkpoint files — see ROADMAP.md.
+way): device meshes, and f32 on the card — see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import struct
 import threading
 import time
 from dataclasses import asdict, dataclass
@@ -160,7 +164,8 @@ class EngineConfig:
     vad_model_path: Optional[str] = None
     diarize_segment_model_path: Optional[str] = None
     diarize_embedding_model_path: Optional[str] = None
-    whisper_model_path: Optional[str] = None  # snapshot dir or "__random__[:preset]"
+    # snapshot dir, GGML or OpenAI .pt file, or "__random__[:preset]"
+    whisper_model_path: Optional[str] = None
     batch_size: int = 8
     dtype: Optional[str] = None  # "bfloat16" | "float32" (auto by device)
     sequential_prompt: bool = False
@@ -170,8 +175,10 @@ class EngineConfig:
     no_speech_threshold: float = 0.6
     mesh_shape: Optional[Tuple[int, int]] = None  # not ported
     long_form_seek: bool = True
-    draft_model_path: Optional[str] = None  # not ported
-    speculative_gamma: int = 4  # not ported (only the default)
+    # speculative greedy decoding: a snapshot dir of a smaller model sharing
+    # the vocabulary proposes speculative_gamma tokens a verify pass
+    draft_model_path: Optional[str] = None
+    speculative_gamma: int = 4
     # int8 cross-K/V decode cache (K5, K6) on either device; language
     # detection reads the exact bf16 cache
     quantize_kv_cache: bool = False
@@ -187,14 +194,6 @@ class Engine:
             raise NotImplementedError(
                 "mesh_shape: multi-GPU inference is not ported yet "
                 "(ROADMAP Queue 1: Multi-GPU and training)")
-        if self.cfg.draft_model_path:
-            raise NotImplementedError(
-                "draft_model_path: speculative decoding is not ported yet "
-                "(ROADMAP Queue 1: Speculative decoding)")
-        if self.cfg.speculative_gamma != EngineConfig.speculative_gamma:
-            raise NotImplementedError(
-                "speculative_gamma: speculative decoding is not ported yet "
-                "(ROADMAP Queue 1: Speculative decoding)")
         if self.cfg.dtype == "float32" and self.cfg.use_gpu is not False:
             raise NotImplementedError(
                 "dtype='float32' on the card: the CUDA kernels take bfloat16 "
@@ -216,6 +215,7 @@ class Engine:
         self.models = ModelManager(self.cfg.cache_dir)
         self._whisper_cache: dict = {}
         self._step_cache: dict = {}
+        self._draft_cache: Optional[Tuple[str, Any]] = None  # (path, (params, cfg))
         self.last_run: Dict[str, Any] = {}  # windows decoded, stage seconds
 
     # ------------------------------------------------------------------
@@ -261,10 +261,19 @@ class Engine:
         snap = Path(path) if path else self.models.ensure_whisper_model(
             options.model, progress, is_cancelled)
         if snap.is_file():
-            raise NotImplementedError(
-                f"{snap}: GGML / OpenAI .pt checkpoint files are not ported yet "
-                "(ROADMAP Queue 1: Checkpoint files, CLI and tools); pass a "
-                "snapshot directory (config.json + model.safetensors)")
+            from .models import ggml
+            from .tokenizer import VocabTokenizer
+
+            with open(snap, "rb") as f:
+                magic = f.read(4)
+            if magic == struct.pack("<i", ggml.GGML_MAGIC):
+                # the reference's own format; its vocabulary builds the tokenizer
+                params, cfg, vocab = ggml.load_ggml(snap, self.device, dtype)
+                return params, cfg, VocabTokenizer(vocab, multilingual=cfg.multilingual,
+                                                   num_languages=cfg.num_languages)
+            params, cfg = weights_mod.load_openai_pt(snap, self.device, dtype)
+            return params, cfg, load_tokenizer(None, multilingual=cfg.multilingual,
+                                               num_languages=cfg.num_languages)
         params, cfg = weights_mod.load_model(snap, self.device, dtype)
         tokenizer = load_tokenizer(str(snap), multilingual=cfg.multilingual,
                                    num_languages=cfg.num_languages)
@@ -281,6 +290,7 @@ class Engine:
             adv.sampling_strategy if adv else None,
             adv.temperature if adv else None,
             adv.max_text_ctx if adv else None,
+            self.cfg.draft_model_path, self.cfg.speculative_gamma,
         )
         hit = self._step_cache.get(step_key)
         if hit is not None:
@@ -288,21 +298,49 @@ class Engine:
         # `advanced=None` and any strategy but "greedy" run beam search
         # (beam 5 by default, temperature 0), as in the JAX Engine
         greedy = bool(adv and adv.sampling_strategy == "greedy")
+        temperature = float(adv.temperature) if greedy and adv.temperature else 0.0
         dc = dec.DecodeConfig(
             beam_size=max((adv.best_of_or_beam_size if adv else None) or 5, 1),
-            temperature=float(adv.temperature) if greedy and adv.temperature else 0.0,
+            temperature=temperature,
             max_tokens=self.cfg.max_decode_tokens,
             blank_id=32 if isinstance(tokenizer, DebugTokenizer) else 220,
             quantize_cross_kv=bool(self.cfg.quantize_kv_cache),
         )
+        draft = None
+        if self.cfg.draft_model_path:
+            if greedy and temperature == 0.0:
+                draft = self._load_draft(cfg)
+            else:
+                logger.warning(
+                    "draft_model_path set but speculative decoding needs greedy strategy "
+                    "and temperature 0 (strategy=%s, temperature=%s) — ignoring",
+                    "greedy" if greedy else "beam_search", temperature)
         step = TranscribeStep(
             params, cfg, tokenizer, model_name=options.model,
             enable_dtw=bool(self.cfg.enable_dtw), decode_config=dc,
             strategy="greedy" if greedy else "beam_search",
             max_text_ctx=adv.max_text_ctx if adv else None,
+            draft=draft, spec_gamma=self.cfg.speculative_gamma,
         )
         self._step_cache[step_key] = step
         return step
+
+    def _load_draft(self, target_cfg):
+        """The speculative draft (params, cfg) on the Engine's device and
+        dtype, loaded once per path; None, with a warning, when its
+        vocabulary differs from the target's."""
+        from .models import weights as weights_mod
+
+        path = str(self.cfg.draft_model_path)
+        if self._draft_cache is None or self._draft_cache[0] != path:
+            self._draft_cache = (path, weights_mod.load_model(
+                Path(path), self.device, self._resolve_dtype()))
+        entry = self._draft_cache[1]
+        if entry[1].n_vocab != target_cfg.n_vocab:
+            logger.warning("draft model vocab %d != target %d; speculative decoding disabled",
+                           entry[1].n_vocab, target_cfg.n_vocab)
+            return None
+        return entry
 
     # ------------------------------------------------------------------
     def transcribe_audio(
@@ -652,6 +690,10 @@ class Engine:
                 stage_s["mel"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 xa = step.encode(mel)
+                # lazy: a batch that falls back to plain greedy (per-row
+                # prompts) never pays a draft encode
+                xa_d = ((lambda a=audio_dev: step.encode_draft(a))
+                        if step.draft is not None else None)
                 stage_s["encode"] += time.perf_counter() - t0
 
                 # built once, shared by language detection (on the bf16 cache)
@@ -683,10 +725,10 @@ class Engine:
                     res, row_temps = step.decode_with_fallback(
                         xa, row_langs, task, prev_tokens=row_prev,
                         n_valid_rows=len(decode_group), is_cancelled=cb.is_cancelled,
-                        cross=cross)
+                        cross=cross, xa_d=xa_d)
                 else:
                     res = step.decode(xa, row_langs, task, prev_tokens=row_prev,
-                                      is_cancelled=cb.is_cancelled, cross=cross)
+                                      is_cancelled=cb.is_cancelled, cross=cross, xa_d=xa_d)
                     row_temps = np.zeros((batch_size,), np.float32)
                 del cross  # not held across the alignment pass and the next encode
                 if cb.is_cancelled and cb.is_cancelled():

@@ -148,7 +148,10 @@ def load_params_np(path: str) -> Dict[str, Any]:
     return listify(out)
 
 
-def load_params(path: str, device="cpu") -> Dict[str, Any]:
+def load_params(path: str, device=None) -> Dict[str, Any]:
+    """`load_params_np` onto `device`: CUDA device 0 unless given one
+    (raises without a card)."""
+    device = default_device(device, "campplus.load_params")
     return params_from_jax(load_params_np(path), device)
 
 

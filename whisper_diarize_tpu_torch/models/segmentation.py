@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import exact_f32
+from ..utils import default_device, exact_f32
 
 SAMPLE_RATE = 16_000
 WINDOW_SECONDS = 10.0
@@ -169,7 +169,10 @@ def load_params_np(path: str) -> Dict[str, Any]:
     return out
 
 
-def load_params(path: str, device="cpu") -> Dict[str, Any]:
+def load_params(path: str, device=None) -> Dict[str, Any]:
+    """`load_params_np` onto `device`: CUDA device 0 unless given one
+    (raises without a card)."""
+    device = default_device(device, "segmentation.load_params")
     return params_from_jax(load_params_np(path), device)
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import default_device
+
 SAMPLE_RATE = 16_000
 CHUNK = 512  # samples per VAD frame (32 ms)
 CONTEXT = 64  # left context carried from the previous chunk
@@ -106,7 +108,10 @@ def load_params_np(path: str) -> Dict[str, Any]:
     }
 
 
-def load_params(path: str, device="cpu") -> Dict[str, Any]:
+def load_params(path: str, device=None) -> Dict[str, Any]:
+    """`load_params_np` onto `device`: CUDA device 0 unless given one
+    (raises without a card)."""
+    device = default_device(device, "silero_vad.load_params")
     return params_from_jax(load_params_np(path), device)
 
 

@@ -7,7 +7,12 @@
   stay; the conv stem's `WIO` kernels become torch's `[out, in, k]`.
 * `load_model` — a snapshot directory (`config.json` + `model.safetensors`),
   in the native layout (`_flatten` keys, as `save_params` writes) or the HF
-  transformers layout, onto CUDA device 0 unless given a device.
+  transformers layout, onto CUDA device 0 unless given a device;
+  `save_params` writes the native layout.
+* `load_openai_pt` — an original OpenAI checkpoint file (`.pt`: {"dims",
+  "model_state_dict"}), through `convert_openai_params`, which GGML files
+  (`models/ggml.py`) share: their tensors carry the OpenAI names;
+  `openai_state_dict` is its inverse (files for tests and re-export).
 * `init_params_fast` — the deterministic `arange % 1009` pattern of the JAX
   package's `init_params_fast`, filled on the device.
 * `tail_q8_from_jax` — the JAX package's int8 tail pack
@@ -70,6 +75,49 @@ def hf_config_to_whisper_config(cfg: Dict[str, Any]) -> wm.WhisperConfig:
     )
 
 
+def whisper_config_to_dict(cfg: wm.WhisperConfig) -> Dict[str, Any]:
+    return {
+        "num_mel_bins": cfg.n_mels,
+        "vocab_size": cfg.n_vocab,
+        "max_source_positions": cfg.n_audio_ctx,
+        "d_model": cfg.n_audio_state,
+        "encoder_attention_heads": cfg.n_audio_head,
+        "encoder_layers": cfg.n_audio_layer,
+        "max_target_positions": cfg.n_text_ctx,
+        "decoder_attention_heads": cfg.n_text_head,
+        "decoder_layers": cfg.n_text_layer,
+    }
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def save_params(params: Dict[str, Any], cfg: wm.WhisperConfig, dir_path) -> None:
+    """Write the port's params as a native-layout snapshot directory
+    (config.json + model.safetensors, the JAX package's layout: the conv
+    stem back in "WIO"), in f32 (bf16 values are exact in f32)."""
+    from safetensors.numpy import save_file
+
+    d = Path(dir_path)
+    d.mkdir(parents=True, exist_ok=True)
+    flat = {}
+    for key, t in _flatten(params).items():
+        if key.rsplit(".", 1)[-1] in _CONV_LEAVES:
+            t = t.permute(2, 1, 0)
+        flat[key] = np.ascontiguousarray(t.detach().float().cpu().numpy())
+    save_file(flat, str(d / "model.safetensors"), metadata={"format": "wdt-native"})
+    (d / "config.json").write_text(json.dumps({**whisper_config_to_dict(cfg),
+                                               "wdt_native": True}))
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for k, v in flat.items():
@@ -81,6 +129,34 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
+def _stack_blocks(sd: Dict[str, np.ndarray], pre: str, L: int, lns: Dict[str, str],
+                  attns: Dict[str, str], attn: Dict[str, str], fcs: Dict[str, str]
+                  ) -> Dict[str, np.ndarray]:
+    """One stack's per-layer tensors (names `pre` formatted with i) ->
+    the JAX layout's stacked blocks: layer norms `lns` (ours: theirs),
+    attention modules `attns` (our prefix: their module) with projections
+    named by `attn` (no key bias), the MLP's linears `fcs`; linears
+    [out, in] -> [in, out]."""
+
+    def stack(name, lin=False):
+        return np.stack([np.asarray(sd[name.format(i=i)]).T if lin
+                         else np.asarray(sd[name.format(i=i)]) for i in range(L)])
+
+    out = {}
+    for ours, theirs in lns.items():
+        out[ours + "_s"] = stack(pre + theirs + ".weight")
+        out[ours + "_b"] = stack(pre + theirs + ".bias")
+    for prefix, module in attns.items():
+        for key in ("q", "k", "v", "o"):
+            out[f"{prefix}{key}_w"] = stack(f"{pre}{module}.{attn[key]}.weight", lin=True)
+            if key != "k":
+                out[f"{prefix}{key}_b"] = stack(f"{pre}{module}.{attn[key]}.bias")
+    for ours, theirs in fcs.items():
+        out[ours + "_w"] = stack(pre + theirs + ".weight", lin=True)
+        out[ours + "_b"] = stack(pre + theirs + ".bias")
+    return out
+
+
 def convert_hf_params(flat: Dict[str, np.ndarray], cfg: wm.WhisperConfig) -> Dict[str, Any]:
     """HF transformers whisper tensors -> the JAX-layout numpy tree
     (linears [out, in] -> [in, out], layers stacked, conv -> WIO)."""
@@ -88,40 +164,17 @@ def convert_hf_params(flat: Dict[str, np.ndarray], cfg: wm.WhisperConfig) -> Dic
     def g(name):
         return np.asarray(flat[name])
 
-    def lin_w(name):
-        return g(name).T
-
-    def stack(fmt, L, f):
-        return np.stack([f(fmt.format(i=i)) for i in range(L)])
-
     Le, Ld = cfg.n_audio_layer, cfg.n_text_layer
     e, d = "model.encoder.layers.{i}.", "model.decoder.layers.{i}."
     attn = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "out_proj"}
-
-    def blocks(pre, L, lns, attns):
-        out = {}
-        for ours, theirs in lns.items():
-            out[ours + "_s"] = stack(pre + theirs + ".weight", L, g)
-            out[ours + "_b"] = stack(pre + theirs + ".bias", L, g)
-        for prefix, (module, keys) in attns.items():
-            for key in keys:
-                out[f"{prefix}{key}_w"] = stack(
-                    f"{pre}{module}.{attn[key]}.weight", L, lin_w)
-                if key != "k":
-                    out[f"{prefix}{key}_b"] = stack(
-                        f"{pre}{module}.{attn[key]}.bias", L, g)
-        for fc in ("fc1", "fc2"):
-            out[fc + "_w"] = stack(pre + fc + ".weight", L, lin_w)
-            out[fc + "_b"] = stack(pre + fc + ".bias", L, g)
-        return out
-
-    qkvo = ("q", "k", "v", "o")
-    enc_blocks = blocks(e, Le, {"ln1": "self_attn_layer_norm", "ln2": "final_layer_norm"},
-                        {"": ("self_attn", qkvo)})
-    dec_blocks = blocks(d, Ld, {"ln1": "self_attn_layer_norm",
-                                "ln2": "encoder_attn_layer_norm",
-                                "ln3": "final_layer_norm"},
-                        {"": ("self_attn", qkvo), "c": ("encoder_attn", qkvo)})
+    fcs = {"fc1": "fc1", "fc2": "fc2"}
+    enc_blocks = _stack_blocks(flat, e, Le, {"ln1": "self_attn_layer_norm",
+                                             "ln2": "final_layer_norm"},
+                               {"": "self_attn"}, attn, fcs)
+    dec_blocks = _stack_blocks(flat, d, Ld, {"ln1": "self_attn_layer_norm",
+                                             "ln2": "encoder_attn_layer_norm",
+                                             "ln3": "final_layer_norm"},
+                               {"": "self_attn", "c": "encoder_attn"}, attn, fcs)
     return {
         "encoder": {
             "conv1_w": g("model.encoder.conv1.weight").transpose(2, 1, 0),
@@ -159,6 +212,113 @@ def load_model(model_dir, device=None, dtype=torch.float32
     else:
         tree = convert_hf_params(flat, cfg)
     return params_from_jax(tree, device, dtype), cfg
+
+
+def _dims_to_config(dims: Dict[str, Any]) -> wm.WhisperConfig:
+    """An OpenAI `dims` (or GGML hparams) dict -> WhisperConfig."""
+    vocab = int(dims["n_vocab"])
+    return wm.WhisperConfig(
+        n_mels=int(dims["n_mels"]), n_vocab=vocab,
+        n_audio_ctx=int(dims["n_audio_ctx"]), n_audio_state=int(dims["n_audio_state"]),
+        n_audio_head=int(dims["n_audio_head"]), n_audio_layer=int(dims["n_audio_layer"]),
+        n_text_ctx=int(dims["n_text_ctx"]), n_text_state=int(dims["n_text_state"]),
+        n_text_head=int(dims["n_text_head"]), n_text_layer=int(dims["n_text_layer"]),
+        multilingual=vocab != 51864, num_languages=100 if vocab == 51866 else 99,
+    )
+
+
+def load_openai_pt(path, device=None, dtype=torch.float32
+                   ) -> Tuple[Dict[str, Any], wm.WhisperConfig]:
+    """(params, config) from an original OpenAI whisper checkpoint (.pt:
+    {"dims", "model_state_dict"}), on `device`: CUDA device 0 unless given
+    one (raises without a card). The file is a pickle (`weights_only=False`:
+    OpenAI's `dims` may be an object): load only files you trust."""
+    device = default_device(device, "load_openai_pt")
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    dims = ckpt["dims"]
+    if not isinstance(dims, dict):
+        dims = dims.__dict__
+    sd = {k: v.float().numpy() for k, v in ckpt["model_state_dict"].items()}
+    cfg = _dims_to_config(dims)
+    return params_from_jax(convert_openai_params(sd, cfg), device, dtype), cfg
+
+
+def convert_openai_params(sd: Dict[str, np.ndarray], cfg: wm.WhisperConfig
+                          ) -> Dict[str, Any]:
+    """OpenAI-named tensors (as in `.pt` and GGML files) -> the JAX-layout
+    numpy tree. The encoder's sinusoids are recomputed when the state dict
+    lacks them."""
+
+    def g(name):
+        return np.asarray(sd[name])
+
+    Le, Ld = cfg.n_audio_layer, cfg.n_text_layer
+    attn = {"q": "query", "k": "key", "v": "value", "o": "out"}
+    fcs = {"fc1": "mlp.0", "fc2": "mlp.2"}
+    enc_blocks = _stack_blocks(sd, "encoder.blocks.{i}.", Le,
+                               {"ln1": "attn_ln", "ln2": "mlp_ln"}, {"": "attn"}, attn, fcs)
+    dec_blocks = _stack_blocks(sd, "decoder.blocks.{i}.", Ld,
+                               {"ln1": "attn_ln", "ln2": "cross_attn_ln", "ln3": "mlp_ln"},
+                               {"": "attn", "c": "cross_attn"}, attn, fcs)
+    enc_pos = (g("encoder.positional_embedding") if "encoder.positional_embedding" in sd
+               else wm.sinusoids(cfg.n_audio_ctx, cfg.n_audio_state))
+    return {
+        "encoder": {
+            "conv1_w": g("encoder.conv1.weight").transpose(2, 1, 0),
+            "conv1_b": g("encoder.conv1.bias").reshape(-1),
+            "conv2_w": g("encoder.conv2.weight").transpose(2, 1, 0),
+            "conv2_b": g("encoder.conv2.bias").reshape(-1),
+            "pos": enc_pos,
+            "blocks": enc_blocks,
+            "ln_post_s": g("encoder.ln_post.weight"),
+            "ln_post_b": g("encoder.ln_post.bias"),
+        },
+        "decoder": {
+            "tok_emb": g("decoder.token_embedding.weight"),
+            "pos_emb": g("decoder.positional_embedding"),
+            "blocks": dec_blocks,
+            "ln_s": g("decoder.ln.weight"),
+            "ln_b": g("decoder.ln.bias"),
+        },
+    }
+
+
+def openai_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's params under the OpenAI names, f32 numpy ([out, in]
+    linears, torch conv kernels, conv biases flat): what `.pt` files and
+    `ggml.write_ggml` take. `convert_openai_params` inverts it."""
+    attn = {"q": "query", "k": "key", "v": "value", "o": "out"}
+    enc, dec = params["encoder"], params["decoder"]
+
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    sd = {"encoder.conv1.weight": a(enc["conv1_w"]), "encoder.conv1.bias": a(enc["conv1_b"]),
+          "encoder.conv2.weight": a(enc["conv2_w"]), "encoder.conv2.bias": a(enc["conv2_b"]),
+          "encoder.positional_embedding": a(enc["pos"]),
+          "encoder.ln_post.weight": a(enc["ln_post_s"]),
+          "encoder.ln_post.bias": a(enc["ln_post_b"]),
+          "decoder.token_embedding.weight": a(dec["tok_emb"]),
+          "decoder.positional_embedding": a(dec["pos_emb"]),
+          "decoder.ln.weight": a(dec["ln_s"]), "decoder.ln.bias": a(dec["ln_b"])}
+    for pre, blocks, lns, mods in (
+            ("encoder", enc["blocks"], {"ln1": "attn_ln", "ln2": "mlp_ln"}, {"": "attn"}),
+            ("decoder", dec["blocks"], {"ln1": "attn_ln", "ln2": "cross_attn_ln", "ln3": "mlp_ln"},
+             {"": "attn", "c": "cross_attn"})):
+        for i in range(blocks["q_w"].shape[0]):
+            p = f"{pre}.blocks.{i}."
+            for ours, theirs in lns.items():
+                sd[p + theirs + ".weight"] = a(blocks[ours + "_s"][i])
+                sd[p + theirs + ".bias"] = a(blocks[ours + "_b"][i])
+            for prefix, mod in mods.items():
+                for key, name in attn.items():
+                    sd[f"{p}{mod}.{name}.weight"] = a(blocks[f"{prefix}{key}_w"][i].t())
+                    if key != "k":
+                        sd[f"{p}{mod}.{name}.bias"] = a(blocks[f"{prefix}{key}_b"][i])
+            for fc, name in (("fc1", "mlp.0"), ("fc2", "mlp.2")):
+                sd[f"{p}{name}.weight"] = a(blocks[fc + "_w"][i].t())
+                sd[f"{p}{name}.bias"] = a(blocks[fc + "_b"][i])
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
 
 
 def init_params_fast(cfg: wm.WhisperConfig, device, dtype, scale: float = 0.02

@@ -23,6 +23,11 @@ from `ops/tail.py::quantize_tail_weights`, held by `TranscribeStep`) run the
 single-token tails on K6 as well. Either is independent of the other.
 Language detection always reads the bf16 cache and the bf16 weights.
 
+Speculative decoding: `decode_step_pos` is `decode_step` with a base
+position per row (a scatter into the cache, per-row position embeddings
+and causal mask); S == 1 runs its tails on K3 / K6, S > 1 (the verify pass)
+on K1 / K5 at Q = S.
+
 The all-fused greedy path: `encode(..., flash=True)` runs the encoder's
 self-attention on K10 (`ops/encoder_attn.py::encoder_self_attention`, single
 pass, as the JAX `make_encode(cfg, "flash-custom")` does), and a "front"
@@ -496,6 +501,61 @@ def decode_step(
             x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, beams, cfg)
     if logits_at is not None:
         x = torch.cat([x[:, p:p + 1] for p in logits_at], dim=1)
+    x = _ln(x, dec["ln_s"], dec["ln_b"])
+    return _vocab_logits(x, dec["tok_emb"])
+
+
+def decode_step_pos(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens: torch.Tensor,  # [B, S] int64
+    pos0: torch.Tensor,  # [B] buffer slot of tokens[:, 0], PER ROW
+    self_cache: Dict[str, torch.Tensor],
+    cross_cache: Dict[str, torch.Tensor],
+) -> torch.Tensor:
+    """`decode_step` with per-row base positions (speculative decoding):
+    row b's S tokens take slots pos0[b] .. pos0[b] + S - 1 of the cache,
+    which is UPDATED IN PLACE by a scatter; position embeddings and the
+    causal mask (kpos <= qpos) are per row. Slots are clamped to Tc - 1:
+    finished rows keep being fed in lockstep and their writes land in the
+    last slot, which no live row reads. Stale K/V of rejected proposals
+    past a row's position is hidden by the mask and overwritten later.
+
+    S == 1 runs each layer tail on K3 (K6 over the int8 cache), S > 1 on
+    `_decoder_layer_tail`, whose cross attention is K1 (K5 over
+    int8) at Q = S. With a constant pos0 this equals `decode_step`.
+    Returns f32 logits [B, S, V]."""
+    dec = params["decoder"]
+    dtype = dec["tok_emb"].dtype
+    device = tokens.device
+    B, S = tokens.shape
+    H = cfg.n_text_head
+    Tc = self_cache["k"].shape[-2]
+
+    qpos = torch.clamp(pos0[:, None] + torch.arange(S, device=device)[None, :], max=Tc - 1)
+    x = dec["tok_emb"][tokens] + dec["pos_emb"][
+        torch.clamp(qpos, max=cfg.n_text_ctx - 1)].to(dtype)
+    kpos = torch.arange(Tc, device=device)
+    mask = torch.where(kpos[None, None, :] <= qpos[:, :, None],
+                       torch.tensor(0.0, device=device),
+                       torch.tensor(float("-inf"), device=device))[:, None]  # [B, 1, S, Tc]
+    b_idx = torch.arange(B, device=device)[:, None]  # [B, 1] against qpos [B, S]
+
+    kc, vc = self_cache["k"], self_cache["v"]
+    blocks = dec["blocks"]
+    for l in range(cfg.n_text_layer):
+        blk = _layer(blocks, l)
+        q, k_new, v_new = _decoder_qkv(x, blk, H)  # [B, H, S, Dh]
+        # numpy's mixed-index rule: the advanced (b, t) pairs come first, so
+        # the slots take [B, S, H, Dh]; a plain put (repeated clamped slots
+        # are never read)
+        kc[l][b_idx, :, qpos] = k_new.transpose(1, 2)
+        vc[l][b_idx, :, qpos] = v_new.transpose(1, 2)
+        self_out = _attn(q, kc[l], vc[l], mask)
+        if S == 1:
+            x = _tail_step(l, x, self_out.contiguous(), blocks, cross_cache, 1, cfg)
+        else:
+            x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, 1, cfg)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
     return _vocab_logits(x, dec["tok_emb"])
 

@@ -112,10 +112,19 @@ def build_suppress_mask(
     return mask
 
 
+def _first_rows(step):
+    """The rows at their first sampled token, as a mask that broadcasts
+    against [N, V]: True for an int step 0, None for any other int, and
+    `step == 0` per row [N, 1] for a tensor."""
+    if isinstance(step, torch.Tensor):
+        return (step == 0)[:, None]
+    return True if step == 0 else None
+
+
 def _timestamp_rule_mask(
     logits: torch.Tensor,  # [N, V] f32
     sp: SpecialTokens,
-    step: int,
+    step,  # int, or [N] (speculative rows sit at different sampled indices)
     last_was_ts: torch.Tensor,  # [N] bool
     penult_was_ts: torch.Tensor,
     max_ts_tok: torch.Tensor,  # [N] int64
@@ -125,7 +134,9 @@ def _timestamp_rule_mask(
 ) -> torch.Tensor:
     """Whisper's timestamp grammar as one fused ban (pair rule,
     monotonicity, first-token rule) and then the probability rule:
-    timestamps only when logsumexp(ts) > max(text) on the masked logits."""
+    timestamps only when logsumexp(ts) > max(text) on the masked logits.
+    The first-token rule applies where `step` is 0: to every row for an
+    int, per row (a mask, no host read) for an [N] tensor."""
     V = logits.shape[-1]
     ids = torch.arange(V, device=logits.device)
     is_ts = ids >= sp.timestamp_begin
@@ -138,11 +149,12 @@ def _timestamp_rule_mask(
     banned = force_text[:, None] & is_ts[None, :]
     banned |= force_ts[:, None] & (ids < sp.eot)[None, :]
     banned |= is_ts[None, :] & (ids[None, :] < min_allowed[:, None])
-    if step == 0:
+    first = _first_rows(step)
+    if first is not None:
         first_ban = ~is_ts | (ids > sp.timestamp_begin + max_initial_ts_idx)
         if extra_first_ban is not None:
             first_ban = first_ban | extra_first_ban
-        banned |= first_ban[None, :]
+        banned |= first & first_ban[None, :]
     logits = logits.masked_fill(banned, NEG_INF)
     ts_lse = torch.logsumexp(logits[:, sp.timestamp_begin:], dim=-1)
     max_text = logits[:, : sp.timestamp_begin].amax(dim=-1)
@@ -155,7 +167,7 @@ def _prepare_logits(
     suppress_mask: torch.Tensor,  # [V]
     sp: SpecialTokens,
     dc: DecodeConfig,
-    step: int,
+    step,  # int, or [N] per row
     last_was_ts, penult_was_ts, max_ts_tok, ts_seen,
 ) -> torch.Tensor:
     logits = raw_logits + suppress_mask[None, :]
@@ -166,10 +178,11 @@ def _prepare_logits(
         return _timestamp_rule_mask(
             logits, sp, step, last_was_ts, penult_was_ts, max_ts_tok, ts_seen,
             int(round(dc.max_initial_timestamp / 0.02)), extra_first_ban=blank_ban)
-    banned = ids >= sp.timestamp_begin
-    if blank_ban is not None and step == 0:
-        banned = banned | blank_ban
-    return logits.masked_fill(banned[None, :], NEG_INF)
+    banned = (ids >= sp.timestamp_begin)[None, :]
+    first = _first_rows(step)
+    if blank_ban is not None and first is not None:
+        banned = banned | (first & blank_ban[None, :])
+    return logits.masked_fill(banned, NEG_INF)
 
 
 def build_cross_cache(params, cfg: wm.WhisperConfig, dc: DecodeConfig,

@@ -6,7 +6,9 @@ token streams -> word timestamps -> chunk results.
 * `TranscribeStep` — one batched model invocation over a window of audio
   chunks (mel -> encode -> beam search or greedy decode with the
   temperature-fallback ladder -> DTW) for the Engine's scheduler, over the
-  bf16 or the int8 cross cache and tail weights its DecodeConfig selects.
+  bf16 or the int8 cross cache and tail weights its DecodeConfig selects,
+  with speculative greedy decoding (`ops/speculative.py`) when it holds a
+  draft model.
 """
 
 from __future__ import annotations
@@ -97,7 +99,12 @@ class TranscribeStep:
     With `quantize_tail_weights`, strategies other than beam search build
     the int8 tail weights once, here (`tail_q8`), and hand them to the
     greedy loops; under beam search the knob changes nothing. That is the JAX package's attach
-    rule (its TranscribeStep attaches no tail pack under beam search)."""
+    rule (its TranscribeStep attaches no tail pack under beam search).
+
+    `draft` = (params, cfg) of a smaller model sharing the vocabulary:
+    `decode` then runs speculative greedy decoding (`spec_gamma` proposals
+    a verify pass) wherever it applies, with the draft's audio from
+    `encode_draft`."""
 
     def __init__(
         self,
@@ -109,6 +116,8 @@ class TranscribeStep:
         decode_config: Optional[dec.DecodeConfig] = None,
         strategy: str = "beam_search",
         max_text_ctx: Optional[int] = None,
+        draft: Optional[Tuple[Dict[str, Any], wm.WhisperConfig]] = None,
+        spec_gamma: int = 4,
     ):
         if strategy not in ("greedy", "beam_search"):
             raise ValueError(f"unknown sampling strategy {strategy!r}")
@@ -120,6 +129,8 @@ class TranscribeStep:
         self.dc = decode_config or dec.DecodeConfig()
         self.strategy = strategy
         self.max_text_ctx = max_text_ctx
+        self.draft = draft
+        self.spec_gamma = spec_gamma
         self.tail_q8 = None
         if self.dc.quantize_tail_weights and strategy != "beam_search":
             from .ops.tail import quantize_tail_weights
@@ -141,6 +152,13 @@ class TranscribeStep:
 
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
         return wm.encode(self.params, mel, self.cfg)
+
+    def encode_draft(self, audio: torch.Tensor) -> torch.Tensor:
+        """The draft's encoding of the uploaded audio, through its own mel
+        bank count."""
+        dparams, dcfg = self.draft
+        return wm.encode(dparams, log_mel_spectrogram(audio.to(self.device), n_mels=dcfg.n_mels),
+                         dcfg)
 
     def _build_prompt(self, batch: int, language, task: str, prev_tokens=None
                       ) -> Tuple[torch.Tensor, int, int, Optional[torch.Tensor]]:
@@ -194,12 +212,29 @@ class TranscribeStep:
                prev_tokens: Optional[Sequence[int]] = None,
                generator: Optional[torch.Generator] = None,
                is_cancelled=None,
-               cross: Optional[Dict[str, torch.Tensor]] = None) -> dec.DecodeResult:
+               cross: Optional[Dict[str, torch.Tensor]] = None,
+               xa_d=None) -> dec.DecodeResult:
         """Decode one window batch; `cross` is the cross K/V of `xa` when
-        the caller already built it (K2 runs once per window)."""
+        the caller already built it (K2 runs once per window). `xa_d`, the
+        draft's audio (a tensor, or a thunk that encodes it), engages
+        speculative decoding under greedy, temperature 0 and uniform
+        prompts (per-row padded prompts run plain greedy and never call
+        the thunk)."""
         B = xa.shape[0]
         prompt, prompt_len, sot_pos, row_pad = self._build_prompt(
             B, language, task, prev_tokens)
+        if (self.strategy == "greedy" and self.draft is not None and xa_d is not None
+                and self.dc.temperature == 0 and row_pad is None):
+            from .ops import speculative
+
+            dparams, dcfg = self.draft
+            # windows of ~32 tokens between polls, as plain greedy
+            return speculative.speculative_greedy_decode(
+                self.params, self.cfg, dparams, dcfg, self.dc, self.sp, xa,
+                xa_d() if callable(xa_d) else xa_d, prompt, prompt_len,
+                suppress_mask=self._suppress, gamma=self.spec_gamma, sot_pos=sot_pos,
+                is_cancelled=is_cancelled, poll_rounds=max(1, 32 // max(self.spec_gamma, 1)),
+                cross=cross)
         if self.strategy == "beam_search":
             return dec.beam_decode(
                 self.params, self.cfg, self.dc, self.sp, xa, prompt, prompt_len,
@@ -229,6 +264,7 @@ class TranscribeStep:
         best_of: Optional[int] = None,
         is_cancelled=None,
         cross: Optional[Dict[str, torch.Tensor]] = None,
+        xa_d=None,  # the draft's audio, for the t = 0 pass only
     ) -> Tuple[dec.DecodeResult, np.ndarray]:
         """Temperature fallback: decode at t=0 (beam search or greedy), then
         re-decode the rows whose text is degenerate (gzip ratio above
@@ -240,7 +276,7 @@ class TranscribeStep:
         if cross is None:
             cross = self.cross_cache(xa)
         result = self.decode(xa, language, task, prev_tokens=prev_tokens,
-                             is_cancelled=is_cancelled, cross=cross)
+                             is_cancelled=is_cancelled, cross=cross, xa_d=xa_d)
         B = xa.shape[0]
         n_valid_rows = B if n_valid_rows is None else n_valid_rows
         best_of = best_of or self.dc.beam_size
