@@ -49,7 +49,13 @@ traceback) and no result line is printed:
    then each diagnostic tool's `main()` on the card, a path of its own
    (`phase_tool`): `whisper_diarize_tpu_torch.tools.bench_dma` once (its
    two array sizes) and `...tools.bench_attn_kernel` at its shapes and at
-   K1's served shape (B 8, Q 3, 32 layers);
+   K1's served shape (B 8, Q 3, 32 layers); and the f32 forms of K1-K6
+   (`phase_f32_kernels`, "kernels f32": K1 at B 8, Q 1 / 3 / 15 / 64 and B 1,
+   K2 at L 4 and 32, K3 at N 8 and 40, K4 at steps 0, 31, 63, K5 at Q 3 and
+   15, K6 `kvq` and `wq+kvq` at N 40) against their f32 plain versions with
+   TF32 off by the f32 check (`agreement.F32`, `F32_Q8`), the TF32 and
+   bf16-rounding faults refused by 10x and more, timed beside SDPA (K1, K5)
+   and `torch.addmm` (K2) in f32;
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
@@ -99,7 +105,7 @@ traceback) and no result line is printed:
    cosine >= 0.9999), and the planted faults (fbank without pre-emphasis,
    the BiLSTM's backward direction run forward, CAM++'s frame mask
    ignored) must fail that check.
-   In 5-13 each request prints wall time, windows decoded and the launches
+   In 5-14 each request prints wall time, windows decoded and the launches
    it added; a request that decoded a window must have raised the count of
    every kernel of its path (`PATHS`; the tools of phase 3 are paths too).
    The counts are set to 0 just before each path and read just after;
@@ -127,7 +133,16 @@ traceback) and no result line is printed:
    The reference phase (4) also holds speculative greedy at the `tiny`
    preset, with a self-draft and an unrelated random draft, to the f32 CPU
    greedy decode;
-14. with `--profile` only: the 45 s greedy request, the 30 s beam request,
+14. engine f32 (`phase_engine_f32`): Engines with `dtype="float32"`
+   (32 tokens a window) serve a large-v3 beam-5 30 s request (lang auto,
+   ladder on), a large-v3-turbo greedy request with the ladder, a
+   `quantize_kv_cache` beam request and a speculative request with the
+   2-layer draft written in f32, each its own path of the f32 forms; each
+   request's first decode's tokens are teacher-forced on the card and on
+   the f32 CPU port (max|logit difference| <= 1e-4 x max|logit|), the bf16
+   Engine's logits (a planted fault) must miss that bound, and the beam
+   request's encoder output must match the f32 CPU encoder;
+15. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
    request under torch.profiler (device busy time
    and kernel time by kind, also written to build/chip_smoke/profile.txt),
@@ -138,7 +153,8 @@ Each phase prints its wall seconds (`[time]`).
 
 Then it prints one JSON line of per-kernel results (`launches` summed over
 the paths' runs; for K1 and K5 also `launches_in_tail`, the launches the
-fused tail K3 / K6 makes of them), the `nvidia-smi` name and power limit
+fused tail K3 / K6 makes of them; the f32 forms as "K1-f32" .. "K6-f32",
+whose wrappers' `launches` count in the bf16 rows too), the `nvidia-smi` name and power limit
 line, and last
 `{"ok": true, "device": {...}}`. It writes only under `build/` of the
 checkout.
@@ -163,8 +179,9 @@ from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
 from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
 from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma, bench_speculative
-from whisper_diarize_tpu_torch.tools.timing import (F32_FLOPS, attn_bound, bound, device_ms,
-                                                    nvidia_smi_line, sum_bound, time_ms)
+from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, attn_bound, bound,
+                                                    device_ms, nvidia_smi_line, sum_bound,
+                                                    time_ms)
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -212,6 +229,13 @@ KERNELS = {
                 source="whisper_diarize_tpu_torch/csrc/stream_sum.cu",
                 replaces="tools/bench_dma.py:58"),
 }
+# the f32 forms of K1 - K6, counted apart (each wrapper's `launches` counts
+# both of its forms)
+KERNELS.update({f"{key}-f32": dict(KERNELS[key], name=f"{KERNELS[key]['name']} [f32]",
+                                   count=count)
+                for key, count in (("K1", "launches_f32"), ("K2", "launches_f32"),
+                                   ("K3", "launches_f32"), ("K4", "launches_f32"),
+                                   ("K5", "launches_f32"), ("K6", "launches_int8_f32"))})
 # the numbers a kernel's timed row keeps for each shape it is timed at
 SHAPE_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
               "library_device_ms", "bound_ms", "bound_by")
@@ -220,7 +244,11 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "fused-greedy": ("K1", "K2", "K3", "K7", "K8", "K10"),
          "bench-dma": ("K11",), "bench-attn": ("K1", "K9"), "diarize": ("K1", "K2", "K3"),
          "speculative": ("K1", "K2", "K3"), "bench-spec": ("K1", "K2", "K3"),
-         "ggml": ("K1", "K2", "K3")}
+         "ggml": ("K1", "K2", "K3"),
+         "f32-beam": ("K1-f32", "K2-f32", "K3-f32", "K4-f32"),
+         "f32-greedy": ("K1-f32", "K2-f32", "K3-f32"),
+         "f32-int8-beam": ("K2-f32", "K4-f32", "K5-f32", "K6-f32"),
+         "f32-speculative": ("K1-f32", "K2-f32", "K3-f32")}
 # the margin check of a decode on the card: every emitted token within
 # TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
 # `spec_gap`)
@@ -251,15 +279,29 @@ def phase_build() -> None:
         print(f"[build] {ln}", flush=True)
 
 
-def tail_bound(N: int, beams: int, D: int, Ta: int, wq: bool, kvq: bool) -> dict:
+def tail_bound(N: int, beams: int, D: int, Ta: int, wq: bool, kvq: bool,
+               es: int = 2) -> dict:
     """K3 / K6 for one layer: the five weights (11 D^2, bf16 or int8 with
-    f32 scales), biases and layer norms (12 D bf16), x, self_out and the
-    output (N x D bf16), the stream's cross K / V rows."""
+    f32 scales), biases and layer norms (12 D), x, self_out and the output
+    (N x D), the stream's cross K / V rows; `es` bytes an activation (2, or
+    4 for the f32 forms, whose float weights and cache are f32 too and whose
+    products run at the f32 rate but for K5's bf16 ones)."""
     H, Bc = D // 64, N // beams
-    weights = 11 * D * D * (1 if wq else 2) + (11 * D * 4 if wq else 0)
-    cache = 2 * Bc * H * Ta * (64 + 4 if kvq else 128)
-    return bound(weights + 12 * D * 2 + 3 * N * D * 2 + cache,
-                 2 * N * 11 * D * D + 4 * N * H * Ta * 64)
+    weights = 11 * D * D * (1 if wq else es) + (11 * D * 4 if wq else 0)
+    cache = 2 * Bc * H * Ta * (64 + 4 if kvq else 64 * es)
+    nbytes = weights + 12 * D * es + 3 * N * D * es + cache
+    if es == 2:
+        return bound(nbytes, 2 * N * 11 * D * D + 4 * N * H * Ta * 64)
+    attn = 4 * N * H * Ta * 64  # at the bf16 rate over the int8 cache (K5)
+    return bound(nbytes, 2 * N * 11 * D * D + (0 if kvq else attn), F32_FLOPS)
+
+
+def f32_attn_bound(B: int, Q: int, H: int, Ta: int, kv_row_bytes: int) -> dict:
+    """K1 / K5's f32 forms: q in and out [B, Q, H, 64] f32, one layer's Ta
+    K and V rows (`kv_row_bytes` a row: 256 f32, 64 + 4 int8 with its
+    scale); the products at the f32 rate (K1) or K5's bf16 rate."""
+    return bound(2 * B * Q * H * 64 * 4 + 2 * B * H * Ta * kv_row_bytes,
+                 4 * B * H * Q * Ta * 64, F32_FLOPS if kv_row_bytes == 256 else BF16_FLOPS)
 
 
 def timed(tag: str, fn, plain, library=None, **extra) -> dict:
@@ -548,6 +590,169 @@ def phase_int8_kernels() -> dict:
                     key: t[key] for key in ("ms", "device_ms", "plain_ms", "plain_device_ms",
                                             "bound_ms")}
         del xa, k, v, k8, ks, v8, vs
+    for key in res:
+        res[key]["max_abs_err"] = errs[key]
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_f32_kernels() -> dict:
+    """The f32 forms of K1-K6 against their f32 plain versions on the card
+    (TF32 off, `phase_device`) at large-v3 widths by the f32 check
+    (`agreement.F32`; `F32_Q8` for K5 and K6 `kvq`, whose products stay
+    bf16 and whose plain version is the kernels' split model,
+    `agreement.split_attend`): K1 at B 8 with Q 1, 3, 15, 64 and at B 1
+    (Q 3), each also at ta 1493; K2 at L 4 and 32 (B 8); K3 at N 8 and 40;
+    K4 at B 8, K 5, prompt 3, 64 decode slots, steps 0, 31, 63; K5 at Q 3
+    and 15; K6 `kvq` and `wq+kvq` at N 40. At each shape the two f32 faults
+    (`agreement.*_f32_faults`: TF32 inputs, the bf16 form's rounding points)
+    must be refused by `F32_REFUSAL` or more, and the earlier faults of each
+    kernel (K1 at Q 15, K2 at L 4, K3 / K6 at N 40, K4 at step 31, K5 at Q
+    15) too. Times (`timed`): kernel, plain version and the library call
+    (K1, K5: SDPA in f32; K2: `torch.addmm` in f32), each beside its f32
+    bound; K3, K4, K5 and K6 each call on the next layer. Returns the
+    results under "K1-f32" .. "K6-f32"."""
+    cfg = wm.PRESETS["large-v3"]
+    dev = torch.device("cuda")
+    f32, tol, refuse = torch.float32, ag.F32, ag.F32_REFUSAL
+    g = torch.Generator(device=dev).manual_seed(3)
+    D, H, L, Ta = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_audio_ctx
+    lay = L - 1
+    errs = {f"K{i}-f32": 0.0 for i in range(1, 7)}
+    res = {}
+
+    def check(key, tag, got, ref, faults=(), base=None, tol=tol):
+        errs[key] = max(errs[key], ag.compare(tag, got, ref, base=base, tol=tol).max_abs_err)
+        for name, bad in faults:
+            new = "TF32" in name or "bf16" in name
+            ag.reject(f"{name} (f32)", got, bad, base=base, tol=tol,
+                      factor=refuse if new else 1.0)
+
+    def keep(key, shape, t):
+        res.setdefault(key, dict(t)).setdefault("by_shape", {})[shape] = {
+            k: t[k] for k in SHAPE_KEYS}
+
+    blocks = ag.random_blocks(L, D, g, dev, dtype=f32)
+    xa = ag.randn(g, dev, 8, Ta, D, dtype=f32)
+    for Lk in (4, L):  # K2 (L 32)
+        a = (xa, blocks["ck_w"][:Lk], blocks["cv_w"][:Lk], blocks["cv_b"][:Lk], H)
+        k, v = attn.cross_kv_build(*a)
+        pk, pv = attn.cross_kv_build_plain(*a)
+        faults = list(itertools.chain(ag.k2_f32_faults(*a), ag.k2_faults(*a))) if Lk < L else []
+        for i, (got, ref) in enumerate(((k, pk), (v, pv))):
+            check("K2-f32", f"K2-f32 {'kv'[i]} B=8 L={Lk}", got, ref,
+                  [(n, bad) for n, j, bad in faults if j == i])
+        del pk, pv, faults
+        wkv = torch.cat([a[1], a[2]], dim=2).permute(1, 0, 2).reshape(D, Lk * 2 * D).contiguous()
+        bias_row = torch.cat([torch.zeros_like(a[3]), a[3]], dim=1).reshape(-1)
+        x2 = xa.view(-1, D)
+        t = timed(f"K2-f32 B=8 L={Lk}", lambda: attn.cross_kv_build(*a),
+                  lambda: attn.cross_kv_build_plain(*a),
+                  library=lambda: torch.addmm(bias_row, x2, wkv), shape=f"L={Lk}",
+                  **bound(8 * Ta * D * 4 + 2 * Lk * D * D * 4 + Lk * D * 4
+                          + 2 * Lk * 8 * Ta * D * 4, 4 * Lk * 8 * Ta * D * D, F32_FLOPS))
+        keep("K2-f32", f"L={Lk}", t)
+        if Lk == L:
+            res["K2-f32"].update({k: t[k] for k in SHAPE_KEYS})
+        del wkv, bias_row
+    torch.cuda.empty_cache()
+
+    for B in (8, 1):  # K1 on the L 32 cache (B 1: stream 0's slab)
+        kb, vb = (k, v) if B == 8 else (k[:, :1].contiguous(), v[:, :1].contiguous())
+        for Q in ((1, 3, 15, 64) if B == 8 else (3,)):
+            q = ag.randn(g, dev, B, Q, H, 64, scale=2.0, dtype=f32)
+            for ta in (Ta, Ta - 7):
+                a = (lay, q, kb, vb, ta)
+                faults = ag.k1_f32_faults(*a) if ta == Ta else ()
+                if ta == Ta and B == 8 and Q == 15:
+                    faults = itertools.chain(faults, ag.k1_faults(*a))
+                check("K1-f32", f"K1-f32 B={B} Q={Q} ta={ta}", attn.cross_attn_layer(*a),
+                      attn.cross_attn_layer_plain(*a), faults)
+            a = (lay, q, kb, vb, Ta)
+            qt, kl, vl = q.transpose(1, 2), kb[lay], vb[lay]
+            t = timed(f"K1-f32 B={B} Q={Q}", lambda: attn.cross_attn_layer(*a),
+                      lambda: attn.cross_attn_layer_plain(*a),
+                      library=lambda: F.scaled_dot_product_attention(qt, kl, vl),
+                      shape=f"B={B} Q={Q}", **f32_attn_bound(B, Q, H, Ta, 256))
+            keep("K1-f32", f"B={B} Q={Q}", t)
+            if B == 8 and Q == 3:
+                res["K1-f32"].update({k: t[k] for k in SHAPE_KEYS})
+
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    for Q in (3, 15):  # K5 over the int8 cache, f32 q / out
+        q = ag.randn(g, dev, 8, Q, H, 64, scale=2.0, dtype=f32)
+        for ta in (Ta, Ta - 7):
+            a = (lay, q, k8, ks, v8, vs, ta)
+            faults = ag.k5_f32_faults(*a) if ta == Ta else ()
+            if ta == Ta and Q == 15:
+                faults = itertools.chain(faults, ag.k5_faults(*a))
+            check("K5-f32", f"K5-f32 Q={Q} ta={ta}", attn.cross_attn_layer_q8(*a),
+                  ag.split_attend(lay, q, k8, v8, ta, ks, vs), faults, tol=ag.F32_Q8)
+        it, rest = itertools.count(), (q, k8, ks, v8, vs, Ta)
+        qt = q.transpose(1, 2)
+        t = timed(f"K5-f32 Q={Q}", lambda: attn.cross_attn_layer_q8(next(it) % L, *rest),
+                  lambda: attn.cross_attn_layer_q8_plain(next(it) % L, *rest),
+                  library=lambda: F.scaled_dot_product_attention(qt, k[lay], v[lay]),
+                  shape=f"B=8 Q={Q}", **f32_attn_bound(8, Q, H, Ta, 64 + 4))
+        keep("K5-f32", f"Q={Q}", t)
+        if Q == 3:
+            res["K5-f32"].update({k: t[k] for k in SHAPE_KEYS})
+
+    q8w = tail.quantize_tail_weights(blocks)
+    for beams in (1, 5):  # K3, and K6 at N 40
+        N = 8 * beams
+        x = ag.randn(g, dev, N, 1, D, dtype=f32)
+        so = ag.randn(g, dev, N, H, 1, 64, scale=0.3, dtype=f32)
+        forms = [("K3-f32", "", blocks, (k, v, None, None))]
+        if N == 40:
+            forms += [("K6-f32", "kvq", blocks, (k8, v8, ks, vs)),
+                      ("K6-f32", "wq+kvq", q8w, (k8, v8, ks, vs))]
+        for key, form, w, c in forms:
+            a = (lay, x, so, w, c[0], c[1], beams, Ta, c[2], c[3])
+            kvq = c[2] is not None
+            faults = ag.tail_f32_faults(key[:2], *a)
+            if N == 40:
+                old = ag.k6_faults(*a) if kvq else ag.k3_faults(*a[:8])
+                faults = itertools.chain(faults, old, ag.tail_split_faults(key[:2], *a))
+            attend = ag.split_attend if kvq else None
+            check(key, f"{key} {form} N={N}".replace("  ", " "), tail.fused_tail_layer(*a),
+                  tail.fused_tail_layer_plain(*a, attend=attend), faults, base=x,
+                  tol=ag.F32_Q8 if kvq else tol)
+            it, rest = itertools.count(), a[1:]
+            t = timed(f"{key} {form} N={N}".replace("  ", " "),
+                      lambda: tail.fused_tail_layer(next(it) % L, *rest),
+                      lambda: tail.fused_tail_layer_plain(next(it) % L, *rest),
+                      shape=f"{form} N={N}".strip(),
+                      **tail_bound(N, beams, D, Ta, form.startswith("wq"), kvq, es=4))
+            keep(key, f"{form} N={N}".strip(), t)
+            if N == 40 and form in ("", "kvq"):
+                res[key].update({k: t[k] for k in SHAPE_KEYS})
+    del k, v, k8, ks, v8, vs, blocks, q8w, xa
+    torch.cuda.empty_cache()
+
+    B, K, Tp, Td = 8, 5, 3, 64  # K4
+    q = ag.randn(g, dev, B, K, H, 64, scale=2.0, dtype=f32)
+    pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64, dtype=f32) for _ in range(2))
+    dk, dv = (ag.randn(g, dev, L, B * K, H, Td, 64, dtype=f32) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, device=dev, dtype=torch.int32)
+    row_pad = torch.randint(0, 2, (B,), generator=g, device=dev, dtype=torch.int32)
+    for step in (0, 31, 63):
+        a = (lay, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp)
+        faults = ag.k4_f32_faults(*a)
+        if step == 31:
+            faults = itertools.chain(faults, ag.k4_faults(*a))
+        check("K4-f32", f"K4-f32 step={step}", attn.split_self_attn_layer(*a),
+              attn.split_self_attn_layer_plain(*a), faults)
+        it, rest = itertools.count(), a[1:]
+        rows = B * H * Tp + B * K * H * (step + 1)
+        t = timed(f"K4-f32 step={step}", lambda: attn.split_self_attn_layer(next(it) % L, *rest),
+                  lambda: attn.split_self_attn_layer_plain(next(it) % L, *rest),
+                  shape=f"step={step}",
+                  **bound(2 * B * K * H * 64 * 4 + rows * 64 * 4 * 2 + B * K * Td * 4 + B * 4,
+                          4 * B * K * H * (Tp + step + 1) * 64, F32_FLOPS))
+        keep("K4-f32", f"step={step}", t)
+        if step == 31:
+            res["K4-f32"].update({k: t[k] for k in SHAPE_KEYS})
     for key in res:
         res[key]["max_abs_err"] = errs[key]
     torch.cuda.empty_cache()
@@ -1062,7 +1267,9 @@ def _counted(spec: dict):
 
 # K1 and K5 launched by the fused tail (K3 / K6), one a tail call, beside the
 # launches of their own wrappers
-IN_TAIL = {"K1 in K3 / K6": "cross_attn_launches", "K5 in K6": "cross_attn_q8_launches"}
+IN_TAIL = {"K1 in K3 / K6": "cross_attn_launches", "K5 in K6": "cross_attn_q8_launches",
+           "K1-f32 in K3-f32 / K6-f32": "cross_attn_launches_f32",
+           "K5-f32 in K6-f32": "cross_attn_q8_launches_f32"}
 
 
 def counts() -> dict:
@@ -1574,6 +1781,161 @@ def phase_ggml() -> dict:
     return added
 
 
+# the f32 Engine against the f32 CPU port: max|logit difference| over
+# max|logit| of the emitted tokens teacher-forced (`phase_engine_f32`);
+# the bf16 Engine's logits must lie beyond it
+F32_LOGIT_GAP = 1e-4
+
+
+def _tree(x, fn):
+    """`fn` on every tensor of a nested dict of params."""
+    return {k: _tree(v, fn) for k, v in x.items()} if isinstance(x, dict) else fn(x)
+
+
+def _teacher_logits(params, cfg, dc, xa, prompt, row_pad, toks) -> torch.Tensor:
+    """Raw f32 logits [n, V] of one stream (xa [1, Ta, D], prompt [1, P])
+    for its n emitted tokens `toks`, each given the tokens before it: the
+    prompt pass, then one single-token step a token (`decode_step`: on the
+    card K1 at the prompt pass, K3 or K6 a step), over the cross cache `dc`
+    selects (int8 with `quantize_cross_kv`), on `params`' device and dtype."""
+    from whisper_diarize_tpu_torch.ops import decode as dec
+
+    P = prompt.shape[1]
+    dt = params["decoder"]["tok_emb"].dtype
+    cross = dec.build_cross_cache(params, cfg, dc, xa.to(dt))
+    cache = wm.init_self_cache(cfg, 1, dt, xa.device, P + len(toks) + 1)
+    rows = [wm.decode_step(params, cfg, prompt, 0, cache, cross, row_pad=row_pad,
+                           logits_at=(P - 1,))[:, 0]]
+    for t in range(len(toks) - 1):
+        rows.append(wm.decode_step(params, cfg, toks[None, t:t + 1], P + t, cache, cross,
+                                   row_pad=row_pad)[:, 0])
+    return torch.cat(rows).float()
+
+
+class _SplitK5OnCpu:
+    """On the CPU, K5's plain version replaced by its split model (the
+    card's order: p * vs rounded to bf16 against each 64-key tile's running
+    max, `attn.cross_attn_split_plain`), in the wrapper and in the tail."""
+
+    def __enter__(self):
+        self.saved = attn.cross_attn_layer_q8_plain, tail.cross_attn_layer_q8_plain
+
+        def split(layer, q, k8, ks, v8, vs, ta_total=None):
+            return attn.cross_attn_split_plain(layer, q, k8, v8, ta_total, ks=ks, vs=vs)
+
+        attn.cross_attn_layer_q8_plain = tail.cross_attn_layer_q8_plain = split
+
+    def __exit__(self, *exc):
+        attn.cross_attn_layer_q8_plain, tail.cross_attn_layer_q8_plain = self.saved
+
+
+def f32_requests():
+    """(path, Engine settings, request) of the f32 Engine phase."""
+    greedy = wdt.AdvancedTranscribe(sampling_strategy="greedy")
+    return [
+        ("f32-beam", dict(model="large-v3"),
+         ("f32 beam whole-file 30 s, lang auto", [_write_wav(WORK / "p.wav", 30.0, 14)],
+          wdt.TranscribeOptions(enable_vad=False, lang="auto"))),
+        ("f32-greedy", dict(model="large-v3-turbo"),
+         ("f32 greedy whole-file 20 s, ladder on", [_write_wav(WORK / "q.wav", 20.0, 15)],
+          wdt.TranscribeOptions(enable_vad=False, lang="en", advanced=greedy))),
+        ("f32-int8-beam", dict(model="large-v3", quantize_kv_cache=True,
+                               temperature_fallback=False),
+         ("f32 int8 beam whole-file 10 s", [_write_wav(WORK / "r.wav", 10.0, 16)],
+          wdt.TranscribeOptions(enable_vad=False, lang="en"))),
+        ("f32-speculative", dict(model="large-v3", temperature_fallback=False, draft=True),
+         ("f32 speculative whole-file 10 s", [_write_wav(WORK / "s.wav", 10.0, 17)],
+          wdt.TranscribeOptions(enable_vad=False, lang="en", advanced=greedy))),
+    ]
+
+
+def phase_engine_f32() -> dict:
+    """Engines with `dtype="float32"` on the card (32 tokens a window): a
+    large-v3 beam-5 request at full width (32 + 32 layers, 30 s, lang auto,
+    the ladder on), a large-v3-turbo greedy request with the ladder, a
+    `quantize_kv_cache` beam request at large-v3 and a speculative request
+    at large-v3 with the phase's 2-layer draft written in f32
+    (`draft_snapshot`); each its own path (`phase_engine`: the counts set to
+    0 just before, the f32 forms of its kernels must launch). The first
+    decode call of each request is kept (`TranscribeStep.decode` wrapped):
+    its first stream's emitted tokens (eot included) are teacher-forced on
+    the card (`_teacher_logits`) and on the f32 CPU port at the same weights
+    and encoder output (the int8 request with K5's split model on the CPU,
+    the card's order of bf16 rounding), and max|logit difference| must stay
+    within F32_LOGIT_GAP x max|logit|; the same tokens teacher-forced on the
+    card in bf16 (params and encoder output cast: the bf16 Engine's logits)
+    must not. The beam request's first window's encoder output must also
+    agree with the f32 CPU encoder on the same mel within F32_LOGIT_GAP of
+    its max (TF32 convolutions would not). Returns counts by path."""
+    from whisper_diarize_tpu_torch.transcribe import TranscribeStep
+
+    real_decode, real_encode = TranscribeStep.decode, TranscribeStep.encode
+    calls, encoded = [], []
+
+    def decode(self, xa, language, task, *a, **k):
+        res = real_decode(self, xa, language, task, *a, **k)
+        if not calls:
+            prev = a[0] if a else k.get("prev_tokens")
+            calls.append((self, xa, self._build_prompt(xa.shape[0], language, task, prev), res))
+        return res
+
+    def encode(self, mel):
+        xa = real_encode(self, mel)
+        if not encoded:
+            encoded.append((mel[:1], xa[:1]))
+        return xa
+
+    by_path, gaps = {}, {}
+    for path, over, request in f32_requests():
+        over = dict(over)
+        model = over.pop("model")
+        if over.pop("draft", False):
+            over["draft_model_path"] = draft_snapshot()
+        eng = make_engine(model, dtype="float32", max_decode_tokens=32, **over)
+        calls.clear()
+        TranscribeStep.decode, TranscribeStep.encode = decode, encode
+        try:
+            by_path[path] = phase_engine(eng, path, [request])
+        finally:
+            TranscribeStep.decode, TranscribeStep.encode = real_decode, real_encode
+        step, xa, (prompt, _, _, row_pad), res = calls[0]
+        n = min(int(res.lengths[0]) + 1, res.tokens.shape[1])
+        toks, rp = res.tokens[0, :n], None if row_pad is None else row_pad[:1]
+        params, cfg, dc = step.params, step.cfg, step.dc
+        with torch.inference_mode():
+            card = _teacher_logits(params, cfg, dc, xa[:1], prompt[:1], rp, toks)
+            bf16 = _teacher_logits(_tree(params, lambda t: t.to(torch.bfloat16)
+                                         if t.is_floating_point() else t),
+                                   cfg, dc, xa[:1], prompt[:1], rp, toks)
+            cpu_params = _tree(params, lambda t: t.cpu())
+            with _SplitK5OnCpu():
+                ref = _teacher_logits(cpu_params, cfg, dc, xa[:1].cpu(), prompt[:1].cpu(),
+                                      None if rp is None else rp.cpu(), toks.cpu())
+            scale = float(ref.abs().max())
+            gap = float((card.cpu() - ref).abs().max()) / scale
+            fault = float((bf16.cpu() - ref).abs().max()) / scale
+            line = ""
+            if path == "f32-beam":
+                mel, xa_card = encoded[0]
+                xa_cpu = wm.encode(cpu_params, mel.cpu(), cfg)
+                enc = float((xa_card.cpu() - xa_cpu).abs().max() / xa_cpu.abs().max())
+                gaps["encoder"] = enc
+                line = f"; encoder output vs f32 CPU {enc:.3g} of its max"
+            del cpu_params
+        gaps[path] = gap
+        print(f"[engine f32] {path}: {n} tokens teacher-forced, max|logit - f32 CPU| "
+              f"{gap:.3g} x max|logit| (tol {F32_LOGIT_GAP:g}); planted fault, the bf16 "
+              f"Engine's logits: {fault:.3g} ({'refused' if fault > F32_LOGIT_GAP else 'NOT refused'})"
+              f"{line}", flush=True)
+        if not (gap <= F32_LOGIT_GAP < fault and gaps.get("encoder", 0.0) <= F32_LOGIT_GAP):
+            raise AssertionError(f"f32 Engine, {path}: logit gap {gap}, bf16 fault {fault}, "
+                                 f"encoder {gaps.get('encoder')}")
+        del eng, step, xa, res, params, card, bf16, ref
+        calls.clear()
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def profile_diarize_nets(path: str) -> list:
     """`--profile`: each diarization net on one file's audio (its 10 s
     windows; a decode batch of 8 x 30 s, `net_check.stream_inputs`): CUDA-
@@ -1610,6 +1972,10 @@ def _kernel_kind(name: str) -> str:
         return "K10 encoder self-attention"
     if "log_mel_kernel" in name:
         return "K7 log-mel"
+    if "cross_attn_f32_kernel" in name:
+        return "K1 f32 attention (prefill, and inside K3 f32)"
+    if "cross_kv_f32_kernel" in name:
+        return "K2 f32 cross K/V"
     if "cross_attn_kernel" in name:  # one template: bf16 K/V (K1, K9) or int8 (K5)
         if "cross_attn_kernel<__nv_bfloat16" in name or "cross_attn_kernelI13__nv" in name:
             return "K1 attention (prefill, and inside K3)"
@@ -1701,6 +2067,7 @@ def main() -> None:
     res = timed_phase("kernels K1-K3", phase_kernels_all)
     res.update(timed_phase("kernels K4", phase_k4))
     res.update(timed_phase("kernels K5 K6", phase_int8_kernels))
+    res.update(timed_phase("kernels f32", phase_f32_kernels))
     res.update(timed_phase("kernels K7 K8 K10", phase_fused_kernels))
     res.update(timed_phase("kernels K9 K11", phase_probe_kernels, res))
     by_path = {"bench-dma": timed_phase("tool bench-dma", phase_tool, "bench-dma",
@@ -1738,6 +2105,8 @@ def main() -> None:
                                          spec)
     by_path["bench-spec"] = timed_phase("tool bench-spec", phase_bench_spec)
     by_path["ggml"] = timed_phase("ggml", phase_ggml)
+    torch.cuda.empty_cache()
+    by_path.update(timed_phase("engine f32", phase_engine_f32))
     print(f"[time] all phases: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         lines = phase_profile("greedy, large-v3-turbo, whole-file 45 s",

@@ -29,6 +29,8 @@ to the margin check of `chip_smoke.spec_gap`, its planted fault refused;
 the checkpoint-file loaders onto the card.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -155,7 +157,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         attn.cross_attn_layer(0, q, k, k)
     with pytest.raises(TypeError):
-        attn.cross_attn_layer(0, q.float(), k.float(), k.float())
+        attn.cross_attn_layer(0, q.float(), k, k)  # f32 q over a bf16 cache: mixed
     q64 = torch.zeros(1, 2, 2, 64, dtype=torch.bfloat16, device=dev)
     p64 = torch.zeros(1, 1, 2, 4, 64, dtype=torch.bfloat16, device=dev)
     d64 = torch.zeros(1, 2, 2, 8, 64, dtype=torch.bfloat16, device=dev)
@@ -587,3 +589,146 @@ def test_checkpoint_files_load_on_card(dev, tmp_path):
         for k in ref:
             assert flat[k].device.type == "cuda" and flat[k].dtype == torch.bfloat16, k
             assert torch.equal(flat[k].cpu(), ref[k].to(torch.bfloat16)), k
+
+
+# --------------------------------------------------------------------------
+# The f32 forms of K1 - K6 (`kernels.agreement.F32`; `F32_Q8` for K5 and K6
+# `kvq`, held to the split model, `agreement.split_attend`): each against
+# its f32 plain version with TF32 off, its two f32 faults refused by
+# `F32_REFUSAL` and its earlier faults refused; an f32 Engine request
+# --------------------------------------------------------------------------
+
+def _refuse(got, faults, tol=ag.F32, base=None):
+    for name, bad in faults:
+        factor = ag.F32_REFUSAL if ("TF32" in name or "bf16" in name) else 1.0
+        ag.reject(name, got, bad, base=base, tol=tol, factor=factor)
+
+
+@pytest.mark.parametrize("B,Ta,Q", [(2, 100, 3), (3, 1500, 17), (8, 1500, 1)])
+def test_f32_forms_k1_k2_k3_on_card(dev, B, Ta, Q):
+    g = torch.Generator(device=dev).manual_seed(B + 50)
+    L, H = 2, 4
+    D = H * 64
+    f32 = torch.float32
+    blocks = ag.random_blocks(L, D, g, dev, dtype=f32)
+    xa = ag.randn(g, dev, B, Ta, D, dtype=f32)
+    a = (xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
+    before = attn.cross_kv_build.launches_f32
+    k, v = attn.cross_kv_build(*a)
+    assert attn.cross_kv_build.launches_f32 == before + 1
+    ref = attn.cross_kv_build_plain(*a)
+    faults = list(itertools.chain(ag.k2_f32_faults(*a), ag.k2_faults(*a)))
+    for i in range(2):
+        ag.compare("K2 f32", (k, v)[i], ref[i], tol=ag.F32)
+        _refuse((k, v)[i], [(n, bad) for n, j, bad in faults if j == i])
+    q = ag.randn(g, dev, B, Q, H, 64, scale=2.0, dtype=f32)
+    for layer in range(L):
+        got = attn.cross_attn_layer(layer, q, k, v, Ta - 7)
+        ag.compare("K1 f32", got, attn.cross_attn_layer_plain(layer, q, k, v, Ta - 7), tol=ag.F32)
+        _refuse(got, itertools.chain(ag.k1_f32_faults(layer, q, k, v, Ta - 7),
+                                     ag.k1_faults(layer, q, k, v, Ta - 7)))
+        for beams in (1, 3):
+            x = ag.randn(g, dev, B * beams, 1, D, dtype=f32)
+            so = ag.randn(g, dev, B * beams, H, 1, 64, scale=0.3, dtype=f32)
+            args = (layer, x, so, blocks, k, v, beams, Ta)
+            got = tail.fused_tail_layer(*args)
+            ag.compare("K3 f32 update", got, tail.fused_tail_layer_plain(*args), base=x,
+                       tol=ag.F32)
+            _refuse(got, itertools.chain(ag.tail_f32_faults("K3", *args), ag.k3_faults(*args)),
+                    base=x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("step", [0, 31, 63])
+def test_f32_form_k4_on_card(dev, step):
+    g = torch.Generator(device=dev).manual_seed(step + 7)
+    L, B, K, H, Tp, Td = 2, 3, 5, 4, 19, 64
+    f32 = torch.float32
+    q = ag.randn(g, dev, B, K, H, 64, scale=2.0, dtype=f32)
+    pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64, dtype=f32) for _ in range(2))
+    dk, dv = (ag.randn(g, dev, L, B * K, H, Td, 64, dtype=f32) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, device=dev, dtype=torch.int32)
+    row_pad = torch.tensor([2, 0, 5], dtype=torch.int32, device=dev)
+    a = (1, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp)
+    got = attn.split_self_attn_layer(*a)
+    ag.compare("K4 f32", got, attn.split_self_attn_layer_plain(*a), tol=ag.F32)
+    _refuse(got, itertools.chain(ag.k4_f32_faults(*a), ag.k4_faults(*a) if step else ()))
+
+
+@pytest.mark.parametrize("form", ["wq", "kvq", "wq+kvq"])
+def test_f32_forms_k5_k6_on_card(dev, form):
+    """At large-v3 widths (20 heads, 1500 keys), where a bf16 flip of K5's
+    query weighs little (`agreement.REL_L2_Q8`)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    L, B, H, Ta, beams = 2, 2, 20, 1500, 5
+    D, f32 = H * 64, torch.float32
+    blocks = ag.random_blocks(L, D, g, dev, dtype=f32)
+    xa = ag.randn(g, dev, B, Ta, D, dtype=f32)
+    k, v = attn.cross_kv_build(xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    if "kvq" in form:
+        q = ag.randn(g, dev, B, 3, H, 64, scale=2.0, dtype=f32)
+        a = (1, q, k8, ks, v8, vs, Ta - 7)
+        got = attn.cross_attn_layer_q8(*a)
+        ag.compare("K5 f32", got, ag.split_attend(1, q, k8, v8, Ta - 7, ks, vs), tol=ag.F32_Q8)
+        _refuse(got, itertools.chain(ag.k5_f32_faults(*a), ag.k5_faults(*a)), tol=ag.F32_Q8)
+    w = tail.quantize_tail_weights(blocks) if form.startswith("wq") else blocks
+    cache = (k8, v8, ks, vs) if "kvq" in form else (k, v, None, None)
+    x = ag.randn(g, dev, B * beams, 1, D, dtype=f32)
+    so = ag.randn(g, dev, B * beams, H, 1, 64, scale=0.3, dtype=f32)
+    a = (1, x, so, w, cache[0], cache[1], beams, Ta, cache[2], cache[3])
+    before = tail.fused_tail_layer.launches_int8_f32
+    got = tail.fused_tail_layer(*a)
+    assert tail.fused_tail_layer.launches_int8_f32 == before + 1
+    tol = ag.F32_Q8 if "kvq" in form else ag.F32
+    ag.compare(f"K6 f32 {form}", got, tail.fused_tail_layer_plain(
+        *a, attend=ag.split_attend if "kvq" in form else None), base=x, tol=tol)
+    _refuse(got, itertools.chain(ag.tail_f32_faults("K6", *a), ag.k6_faults(*a)), tol=tol,
+            base=x)
+
+
+def test_f32_wrappers_refuse_mixed_dtypes_and_k8_k10(dev):
+    """One float dtype a call; K8 and K10 have no f32 form (ROADMAP)."""
+    f32 = torch.float32
+    q = torch.zeros(1, 1, 2, 64, dtype=f32, device=dev)
+    k = torch.zeros(1, 1, 2, 64, 64, dtype=f32, device=dev)
+    with pytest.raises(TypeError):
+        attn.cross_attn_layer(0, q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(TypeError):
+        attn.cross_kv_build(q[0], k[0, 0].bfloat16(), k[0, 0].bfloat16(),
+                            k[0, 0, 0].bfloat16(), 1)
+    qe = torch.zeros(1, 2, 64, 64, dtype=f32, device=dev)
+    with pytest.raises(TypeError):
+        encoder_attn.encoder_self_attention(qe, qe, qe)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pack = ag.random_front(1, 128, g, dev, dtype=f32)
+    cache = torch.zeros(1, 2, 2, 16, 64, dtype=f32, device=dev)
+    with pytest.raises(TypeError):
+        front.fused_front_layer(0, 0, None, torch.zeros(2, 1, 128, dtype=f32, device=dev),
+                                pack, cache, cache.clone())
+
+
+def test_f32_engine_request_on_card(tmp_path):
+    """`EngineConfig(dtype="float32")` on the card: a beam-5 request at the
+    tiny preset through the f32 forms of K1 - K4, cues out."""
+    import numpy as np
+
+    import whisper_diarize_tpu_torch as wdt
+    from whisper_diarize_tpu_torch.engine import Engine, EngineConfig
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wav = str(tmp_path / "in.wav")
+    wdt.write_wav(wav, _speechlike(12.0, 5))
+    eng = Engine(EngineConfig(
+        cache_dir=str(tmp_path / "cache"), whisper_model_path="__random__:tiny",
+        vad_model_path="__random__", dtype="float32", batch_size=4, max_decode_tokens=8,
+        temperature_fallback=False))
+    fns = (attn.cross_attn_layer, attn.cross_kv_build, tail.fused_tail_layer,
+           attn.split_self_attn_layer)
+    before = [f.launches_f32 for f in fns]
+    cues = eng.transcribe_audio(wav, wdt.TranscribeOptions(enable_vad=False, lang="en"))
+    assert all(f.launches_f32 > b for f, b in zip(fns, before))
+    (params, _, _), = eng._whisper_cache.values()
+    assert params["decoder"]["tok_emb"].dtype == torch.float32
+    assert eng.last_run["windows"] >= 1 and np.isfinite([c.end for c in cues]).all()

@@ -249,7 +249,7 @@ SASS = """
         /*0060*/  STS [R12], R1 ;
         /*0070*/  LDS R13, [R12] ;
         /*0080*/  STS [R14], R3 ;
-        Function : _ZN12_GLOBAL__N_117cross_attn_kernelI13__nv_bfloat16Lin1ELb0EEEvPKS1_
+        Function : _ZN12_GLOBAL__N_117cross_attn_kernelI13__nv_bfloat16S1_Lin1ELb0EEEvPKT0_PKT_
         /*0010*/  LDGSTS.E.BYPASS.128 [R1], desc[UR8][R2.64] ;
         /*0020*/  LDGSTS.E.BYPASS.128 [R1+0x2400], desc[UR8][R2.64] ;
         /*0030*/  LDGDEPBAR ;

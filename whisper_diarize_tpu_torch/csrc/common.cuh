@@ -54,6 +54,64 @@ __device__ __forceinline__ float block_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
+// Activations in bf16 or f32 (the f32 forms of K1 - K6): overloads picked by
+// a typed null pointer (`static_cast<const T*>(nullptr)`) or the pointer
+// itself
+// ---------------------------------------------------------------------------
+
+// x rounded to the activation type and back: a bf16 store and load, or x
+__device__ __forceinline__ float round_to(float x, const bf16*) { return bf16_round(x); }
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+
+__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ void store_f(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+
+// two adjacent values (4- or 8-byte aligned) as f32, and stored from f32
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// a 16-byte chunk (8 bf16 or 4 f32) as f32 values, and back (bf16: each
+// pair rounded by __floats2bfloat162_rn)
+__device__ __forceinline__ void chunk_floats(const uint4& raw, float* f, const bf16*) {
+  const bf162* x = reinterpret_cast<const bf162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = __bfloat1622float2(x[j]);
+    f[2 * j] = v.x;
+    f[2 * j + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void chunk_floats(const uint4& raw, float* f, const float*) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ uint4 floats_chunk(const float* f, const bf16*) {
+  uint4 raw;
+  bf162* x = reinterpret_cast<bf162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+  return raw;
+}
+__device__ __forceinline__ uint4 floats_chunk(const float* f, const float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+// ---------------------------------------------------------------------------
 // Tensor-core and shared-memory helpers (K1 / K5 cross_attn.cu, K9b)
 // ---------------------------------------------------------------------------
 
@@ -435,6 +493,19 @@ cudaError_t launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* k
                                  int B, int Q, int H, int Ta, int layer,
                                  int ta_total, int n_span, int span_keys,
                                  cudaStream_t stream);
+
+// K1's and K5's f32 forms (cross_attn.cu), for the fused tail at f32: q,
+// out f32; k / v f32 (K1: FFMA products) or int8 with f32 scales (K5: its
+// bf16 products, q and out in f32); the plan as above.
+cudaError_t launch_cross_attn_f32(const float* q, const float* k, const float* v,
+                                  float* out, int B, int Q, int H, int Ta, int layer,
+                                  int ta_total, int n_span, int span_keys,
+                                  cudaStream_t stream);
+cudaError_t launch_cross_attn_q8_f32(const float* q, const int8_t* k8, const float* ks,
+                                     const int8_t* v8, const float* vs, float* out,
+                                     int B, int Q, int H, int Ta, int layer,
+                                     int ta_total, int n_span, int span_keys,
+                                     cudaStream_t stream);
 
 // The split of one weight-streaming skinny GEMM (tail.cu), as
 // ops/tail.py::skinny_plan gives it: column strips of `bn` (32 or 64)

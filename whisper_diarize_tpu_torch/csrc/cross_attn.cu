@@ -66,6 +66,23 @@
 //   widened in registers, V widened once a tile into a bf16 tile (`widen16`)
 //   that ldmatrix reads.
 //
+// The f32 forms (the TPU kernels cast q to the cache dtype and p to the V
+// dtype, so at f32 every product is f32): K5's keeps its bf16 products
+// (the TPU kernel casts q * scale and p * vs to bf16 whatever the
+// activation dtype); only its q load and out store take f32 (the template's
+// AT). K1's (`cross_attn_f32_kernel`) keeps the plan, the cluster key split,
+// the copy ring and the combine in distributed shared memory, and computes
+// on the CUDA cores in f32: its tiles are f32 rows padded to 68 floats
+// (272 bytes: a quarter warp's 16-byte reads of eight consecutive rows fall
+// in distinct banks), three stages of K and V 104 KB. Warp w takes the
+// chunk's rows w, w + 4, ...; for a tile, lane l scores keys l and l + 32
+// (K rows as float4, q broadcast from shared memory), the row's tile max
+// and sum are warp reductions, p goes through shared memory, and lane l
+// accumulates output dims 2l and 2l + 1 of P.V (V rows as float2). At f32
+// the cache moves twice the bytes: `cross_attn_plan(f32=True)` aims at
+// twice the CTAs (four spans of 384 keys at B 8, Q <= 16), the bytes a CTA
+// streams as the bf16 plan's.
+//
 // K9a, K9c and K9d: the same kernel in the three forms that
 // tools/bench_attn_kernel.py measured beside K1 (_attn_4d, _attn_6d_const,
 // _attn_6d_flat). K9a is K1's own entry point on one layer's K/V already
@@ -158,8 +175,9 @@ __device__ __forceinline__ void stage_tile(const int8_t* kb, const int8_t* vb,
 }
 
 // Q [16, 64] of this chunk as m16n8k16 A fragments: bf16(f32(q) * scale),
-// rows >= Q zero
-__device__ __forceinline__ void load_q(uint32_t (*qa)[4], const bf16* q, int b, int h,
+// rows >= Q zero; q bf16 or f32 (AT)
+template <typename AT>
+__device__ __forceinline__ void load_q(uint32_t (*qa)[4], const AT* q, int b, int h,
                                        int q0, int Q, int H, int g, int tg, float scale) {
 #pragma unroll
   for (int kc = 0; kc < DH / 16; ++kc) {
@@ -169,8 +187,7 @@ __device__ __forceinline__ void load_q(uint32_t (*qa)[4], const bf16* q, int b, 
       const int col = kc * 16 + tg * 2 + (e >> 1) * 8;
       uint32_t val = 0u;
       if (row < Q) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(
-            q + (((size_t)b * Q + row) * H + h) * DH + col));
+        const float2 f = load2(q + (((size_t)b * Q + row) * H + h) * DH + col);
         val = pack_bf16(f.x * scale, f.y * scale);
       }
       qa[kc][e] = val;
@@ -178,18 +195,61 @@ __device__ __forceinline__ void load_q(uint32_t (*qa)[4], const bf16* q, int b, 
   }
 }
 
+// The cluster's combine, shared by both kernels: after a cluster barrier,
+// this CTA's rows of the chunk (row % n_span == rank), every span's (m, l,
+// acc) of the row read from distributed shared memory all at once (the loop
+// is unrolled: the remote loads are in flight together), rescaled by
+// exp(m - max m) and summed in span order; acc / l stored as AT.
+template <typename AT>
+__device__ __forceinline__ void combine_spans(cg::cluster_group& cluster, float* part,
+                                              float* lst, float* mst, AT* out, int qch,
+                                              int q0, int Q, int b, int h, int H,
+                                              int n_span, int rank, int tid) {
+  for (int i = tid; i < qch * (DH / 2); i += K1_THREADS) {
+    const int r = i / (DH / 2), dp = i % (DH / 2);
+    if (r % n_span != rank || q0 + r >= Q) continue;
+    float mv[MAX_SPAN], lv[MAX_SPAN];
+    float2 av[MAX_SPAN];
+    float m_max = -1e30f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPAN; ++sp) {
+      if (sp < n_span) {
+        mv[sp] = *cluster.map_shared_rank(&mst[r], sp);
+        lv[sp] = *cluster.map_shared_rank(&lst[r], sp);
+        av[sp] = *reinterpret_cast<const float2*>(
+            cluster.map_shared_rank(part + r * SROW + 2 * dp, sp));
+      }
+    }
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPAN; ++sp)
+      if (sp < n_span) m_max = fmaxf(m_max, mv[sp]);
+    float l = 0.0f, a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPAN; ++sp) {
+      if (sp < n_span) {
+        const float w = expf(mv[sp] - m_max);
+        l = fmaf(lv[sp], w, l);
+        a0 = fmaf(av[sp].x, w, a0);
+        a1 = fmaf(av[sp].y, w, a1);
+      }
+    }
+    const float inv = 1.0f / l;
+    store2(out + (((size_t)b * Q + q0 + r) * H + h) * DH + 2 * dp, a0 * inv, a1 * inv);
+  }
+}
+
 // KV = bf16 (K1, K9; k_scale / v_scale unused) or int8_t (K5; per-position
-// f32 scales [L, B, H, Ta]). kLayer < 0: the layer is the argument `layer`;
+// f32 scales [L, B, H, Ta]); AT = bf16 or (K5's f32 form) float: q and out. kLayer < 0: the layer is the argument `layer`;
 // kLayer >= 0: a compile-time layer (K9c). kRows: the CTA takes 64 queries
 // and warp w their rows 16w .. 16w + 15 over all 64 keys of a tile (Q > 16:
 // the prompt passes); else 16 queries and warp w keys 16w .. 16w + 15 of
 // each tile for all of them. Grid (n_span, H x query chunks, B), cluster
 // (n_span, 1, 1): blockIdx.x is the CTA's span.
-template <typename KV, int kLayer, bool kRows>
+template <typename KV, typename AT, int kLayer, bool kRows>
 __global__ void __launch_bounds__(K1_THREADS)
-cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+cross_attn_kernel(const AT* __restrict__ q, const KV* __restrict__ k,
                   const float* __restrict__ k_scale, const KV* __restrict__ v,
-                  const float* __restrict__ v_scale, bf16* __restrict__ out, int B,
+                  const float* __restrict__ v_scale, AT* __restrict__ out, int B,
                   int Q, int H, int Ta, int layer, int ta_total, int span_keys,
                   float scale) {
   constexpr bool kQ8 = is_q8<KV>();
@@ -413,90 +473,251 @@ cross_attn_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     if (tid < QC) lst[tid] = a;
   }
   cluster.sync();  // every span's state is in its CTA's shared memory
+  combine_spans(cluster, part, lst, mst, out, QCH, q0, Q, b, h, H, n_span, rank, tid);
+  cluster.sync();  // no CTA leaves while another may still read its state
+}
 
-  // combine: this CTA's rows (row % n_span == rank), every span in order
-  for (int i = tid; i < QCH * (DH / 2); i += K1_THREADS) {
-    const int r = i / (DH / 2), dp = i % (DH / 2);
-    if (r % n_span != rank || q0 + r >= Q) continue;
-    // every span's (m, l, acc) of the row, read all at once (the loop is
-    // unrolled: the remote loads are in flight together)
-    float mv[MAX_SPAN], lv[MAX_SPAN];
-    float2 av[MAX_SPAN];
-    float m_max = -1e30f;
+// K1's f32 form: the kernel above with f32 tiles and FFMA products (see the
+// head of this file). Rows of the chunk: QCH (16, or 64 where kRows); warp
+// w takes rows w + 4i, i < RW.
+constexpr int FROW = DH + 4;                      // f32 row in shared memory (68 floats)
+constexpr int F32_STAGE = 2 * TK * FROW;          // K and V tiles, floats
+
+template <bool kRows>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  // the ring, the chunk's scaled queries [QCH][DH], its p [QCH][TK]
+  return (K1_STAGES * F32_STAGE + (kRows ? 4 : 1) * QC * (DH + TK)) * 4;
+}
+
+// Issue one f32 tile's copies (keys >= t_end land as 0): 16 of K and 16 of V
+// a thread, 16 bytes each
+__device__ __forceinline__ void stage_tile_f32(const float* kb, const float* vb, float* kt,
+                                               int t0, int t_end, int tid) {
+  float* vt = kt + TK * FROW;
 #pragma unroll
-    for (int sp = 0; sp < MAX_SPAN; ++sp) {
-      if (sp < n_span) {
-        mv[sp] = *cluster.map_shared_rank(&mst[r], sp);
-        lv[sp] = *cluster.map_shared_rank(&lst[r], sp);
-        av[sp] = *reinterpret_cast<const float2*>(
-            cluster.map_shared_rank(part + r * SROW + 2 * dp, sp));
-      }
-    }
-#pragma unroll
-    for (int sp = 0; sp < MAX_SPAN; ++sp)
-      if (sp < n_span) m_max = fmaxf(m_max, mv[sp]);
-    float l = 0.0f, a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int sp = 0; sp < MAX_SPAN; ++sp) {
-      if (sp < n_span) {
-        const float w = expf(mv[sp] - m_max);
-        l = fmaf(lv[sp], w, l);
-        a0 = fmaf(av[sp].x, w, a0);
-        a1 = fmaf(av[sp].y, w, a1);
-      }
-    }
-    const float inv = 1.0f / l;
-    reinterpret_cast<bf162*>(out + (((size_t)b * Q + q0 + r) * H + h) * DH)[dp] =
-        __floats2bfloat162_rn(a0 * inv, a1 * inv);
+  for (int i = tid; i < TK * (DH / 4); i += K1_THREADS) {
+    const int row = i / (DH / 4), c = i % (DH / 4);
+    const int key = t0 + row;
+    const bool ok = key < t_end;
+    const size_t off = ok ? (size_t)key * DH + c * 4 : 0;
+    cp_async<16>(kt + row * FROW + c * 4, kb + off, ok);
+    cp_async<16>(vt + row * FROW + c * 4, vb + off, ok);
   }
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float s) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
+}
+
+template <bool kRows>
+__global__ void __launch_bounds__(K1_THREADS)
+cross_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out, int B, int Q,
+                      int H, int Ta, int layer, int ta_total, int span_keys, float scale) {
+  constexpr int QCH = kRows ? 4 * QC : QC;  // queries a CTA
+  constexpr int RW = QCH / WARPS;           // rows a warp
+  constexpr int NS = K1_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float lst[4 * QC];  // the span's normalizer, by row
+  __shared__ float mst[4 * QC];  // the span's running max, by row
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_span = gridDim.x;
+  const int rank = blockIdx.x;
+  const int h = blockIdx.y % H;
+  const int q0 = (blockIdx.y / H) * QCH;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t_begin = rank * span_keys;
+  const int t_end = min(t_begin + span_keys, ta_total);
+  const int n_tiles = (t_end - t_begin + TK - 1) / TK;
+  const size_t row0 = ((size_t)layer * B * H + (size_t)b * H + h) * Ta;
+  const float* kb = k + row0 * DH;
+  const float* vb = v + row0 * DH;
+  float* ring = reinterpret_cast<float*>(smem);
+  float* qs = ring + NS * F32_STAGE;  // [QCH][DH]
+  float* ps = qs + QCH * DH;          // [QCH][TK]
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_tiles) stage_tile_f32(kb, vb, ring + s * F32_STAGE, t_begin + s * TK, t_end, tid);
+    cp_async_commit();
+  }
+  // the chunk's queries times Dh^-0.5 (f32: cast to the cache dtype is
+  // the identity); rows past Q are zeros and never attended
+  for (int i = tid; i < QCH * DH; i += K1_THREADS) {
+    const int r = i / DH;
+    qs[i] = q0 + r < Q ? q[(((size_t)b * Q + q0 + r) * H + h) * DH + i % DH] * scale : 0.0f;
+  }
+
+  float m[RW], l[RW], o[RW][2];  // running max, this lane's normalizer, its dims
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.0f;
+    o[i][0] = o[i][1] = 0.0f;
+  }
+  // live rows of this warp: w + 4i < QCH and q0 + w + 4i < Q
+  const int live = min(RW, max(0, (Q - q0 - warp + WARPS - 1) / WARPS));
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<NS - 2>();  // this thread's copies of tile j landed
+    __syncthreads();          // everyone's landed; tile j - 1 consumed
+    {
+      const int nj = j + NS - 1;
+      if (nj < n_tiles)
+        stage_tile_f32(kb, vb, ring + (nj % NS) * F32_STAGE, t_begin + nj * TK, t_end, tid);
+      cp_async_commit();
+    }
+    const float* kt = ring + (j % NS) * F32_STAGE;
+    const float* vt = kt + TK * FROW;
+    const int t0 = t_begin + j * TK;
+
+    // S = q K^T: lane's keys lane and lane + 32
+    float s[RW][2];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) s[i][0] = s[i][1] = 0.0f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      const float4 k0 = *reinterpret_cast<const float4*>(kt + lane * FROW + 4 * d4);
+      const float4 k1 = *reinterpret_cast<const float4*>(kt + (lane + 32) * FROW + 4 * d4);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        if (i < live) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (warp + WARPS * i) * DH + 4 * d4);
+          s[i][0] = dot4(qv, k0, s[i][0]);
+          s[i][1] = dot4(qv, k1, s[i][1]);
+        }
+      }
+    }
+    const bool ok0 = t0 + lane < t_end, ok1 = t0 + lane + 32 < t_end;
+    // the tile's max of each row over its 64 keys moves the running max;
+    // p against it, its unrounded sum into the normalizer
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      if (i < live) {
+        const float x0 = ok0 ? s[i][0] : WDT_NEG_INF, x1 = ok1 ? s[i][1] : WDT_NEG_INF;
+        const float mn = fmaxf(m[i], warp_max(fmaxf(x0, x1)));
+        const float a = expf(m[i] - mn);
+        m[i] = mn;
+        const float p0 = expf(x0 - mn), p1 = expf(x1 - mn);
+        l[i] = l[i] * a + (p0 + p1);
+        o[i][0] *= a;
+        o[i][1] *= a;
+        float* pr = ps + (warp + WARPS * i) * TK;
+        pr[lane] = p0;
+        pr[lane + 32] = p1;
+      }
+    }
+    __syncwarp();  // the warp's p are in
+    // O += P V: lane's dims 2 lane, 2 lane + 1, four keys a step
+#pragma unroll 2
+    for (int k4 = 0; k4 < TK / 4; ++k4) {
+      float2 vv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        vv[e] = *reinterpret_cast<const float2*>(vt + (4 * k4 + e) * FROW + 2 * lane);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        if (i < live) {
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + (warp + WARPS * i) * TK + 4 * k4);
+          o[i][0] = fmaf(p4.w, vv[3].x, fmaf(p4.z, vv[2].x, fmaf(p4.y, vv[1].x, fmaf(p4.x, vv[0].x, o[i][0]))));
+          o[i][1] = fmaf(p4.w, vv[3].y, fmaf(p4.z, vv[2].y, fmaf(p4.y, vv[1].y, fmaf(p4.x, vv[0].y, o[i][1]))));
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the span's state
+
+  float* part = ring;  // [QCH][SROW]
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    if (i < live) {
+      const int r = warp + WARPS * i;
+      *reinterpret_cast<float2*>(part + r * SROW + 2 * lane) = make_float2(o[i][0], o[i][1]);
+      const float lt = warp_sum(l[i]);
+      if (lane == 0) {
+        lst[r] = lt;
+        mst[r] = m[i];
+      }
+    }
+  }
+  cluster.sync();  // every span's state is in its CTA's shared memory
+  combine_spans(cluster, part, lst, mst, out, QCH, q0, Q, b, h, H, n_span, rank, tid);
   cluster.sync();  // no CTA leaves while another may still read its state
 }
 
 constexpr float kScale = 0.125f;  // 64^-0.5
 constexpr int kConstLayer = 1;    // K9c's layer, as _attn_6d_const fixed it
 
-template <typename KV, int kLayer, bool kRows>
-cudaError_t launch_split(const bf16* q, const KV* k, const float* ks, const KV* v,
-                         const float* vs, bf16* out, int B, int Q, int H, int Ta,
-                         int layer, int ta_total, int n_span, int span_keys,
-                         cudaStream_t stream) {
-  constexpr int QCH = kRows ? 4 * QC : QC;
-  auto kern = cross_attn_kernel<KV, kLayer, kRows>;
-  constexpr int smem = smem_bytes<KV>();
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
+// a cluster launch of `kern`: grid (n_span, H x chunks of qch queries, B)
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern kern, int smem, int qch, int B, int Q, int H, int n_span,
+                           cudaStream_t stream, Args... args) {
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = n_span;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_span, H * ((Q + QCH - 1) / QCH), B);
+  cfg.gridDim = dim3(n_span, H * ((Q + qch - 1) / qch), B);
   cfg.blockDim = dim3(K1_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, q, k, ks, v, vs, out, B, Q, H, Ta, layer,
-                            ta_total, span_keys, kScale);
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+template <typename KV, typename AT, int kLayer, bool kRows>
+cudaError_t launch_split(const AT* q, const KV* k, const float* ks, const KV* v,
+                         const float* vs, AT* out, int B, int Q, int H, int Ta,
+                         int layer, int ta_total, int n_span, int span_keys,
+                         cudaStream_t stream) {
+  constexpr int QCH = kRows ? 4 * QC : QC;
+  auto kern = cross_attn_kernel<KV, AT, kLayer, kRows>;
+  constexpr int smem = smem_bytes<KV>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  return launch_cluster(kern, smem, QCH, B, Q, H, n_span, stream, q, k, ks, v, vs, out, B,
+                        Q, H, Ta, layer, ta_total, span_keys, kScale);
+}
+
+// a plan that covers [0, ta_total) with non-empty spans of whole tiles
+bool plan_ok(int Ta, int ta_total, int n_span, int span_keys) {
+  return n_span >= 1 && n_span <= MAX_SPAN && span_keys > 0 && span_keys % TK == 0 &&
+         ta_total > 0 && ta_total <= Ta && (long long)n_span * span_keys >= ta_total &&
+         (long long)(n_span - 1) * span_keys < ta_total;
 }
 
 // The plan checked, then the key split (Q <= 16) or the row split (Q > 16;
 // ops/attn.py::cross_attn_plan counts query chunks the same way).
-template <typename KV, int kLayer>
-cudaError_t launch(const bf16* q, const KV* k, const float* ks, const KV* v,
-                   const float* vs, bf16* out, int B, int Q, int H, int Ta, int layer,
+template <typename KV, typename AT, int kLayer>
+cudaError_t launch(const AT* q, const KV* k, const float* ks, const KV* v,
+                   const float* vs, AT* out, int B, int Q, int H, int Ta, int layer,
                    int ta_total, int n_span, int span_keys, cudaStream_t stream) {
-  if (n_span < 1 || n_span > MAX_SPAN || span_keys <= 0 || span_keys % TK != 0 ||
-      ta_total <= 0 || ta_total > Ta || (long long)n_span * span_keys < ta_total ||
-      (long long)(n_span - 1) * span_keys >= ta_total)
-    return cudaErrorInvalidValue;
+  if (!plan_ok(Ta, ta_total, n_span, span_keys)) return cudaErrorInvalidValue;
   if (Q > QC)
-    return launch_split<KV, kLayer, true>(q, k, ks, v, vs, out, B, Q, H, Ta, layer,
-                                          ta_total, n_span, span_keys, stream);
-  return launch_split<KV, kLayer, false>(q, k, ks, v, vs, out, B, Q, H, Ta, layer,
-                                         ta_total, n_span, span_keys, stream);
+    return launch_split<KV, AT, kLayer, true>(q, k, ks, v, vs, out, B, Q, H, Ta, layer,
+                                              ta_total, n_span, span_keys, stream);
+  return launch_split<KV, AT, kLayer, false>(q, k, ks, v, vs, out, B, Q, H, Ta, layer,
+                                             ta_total, n_span, span_keys, stream);
+}
+
+template <bool kRows>
+cudaError_t launch_f32_split(const float* q, const float* k, const float* v, float* out,
+                             int B, int Q, int H, int Ta, int layer, int ta_total,
+                             int n_span, int span_keys, cudaStream_t stream) {
+  auto kern = cross_attn_f32_kernel<kRows>;
+  constexpr int smem = f32_smem_bytes<kRows>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  return launch_cluster(kern, smem, kRows ? 4 * QC : QC, B, Q, H, n_span, stream, q, k, v,
+                        out, B, Q, H, Ta, layer, ta_total, span_keys, kScale);
 }
 
 int finish(cudaError_t err) {
@@ -508,16 +729,35 @@ int finish(cudaError_t err) {
 cudaError_t launch_cross_attn(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                               int B, int Q, int H, int Ta, int layer, int ta_total,
                               int n_span, int span_keys, cudaStream_t stream) {
-  return launch<bf16, -1>(q, k, nullptr, v, nullptr, out, B, Q, H, Ta, layer, ta_total,
-                          n_span, span_keys, stream);
+  return launch<bf16, bf16, -1>(q, k, nullptr, v, nullptr, out, B, Q, H, Ta, layer, ta_total,
+                                n_span, span_keys, stream);
 }
 
 cudaError_t launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* ks,
                                  const int8_t* v8, const float* vs, bf16* out, int B,
                                  int Q, int H, int Ta, int layer, int ta_total,
                                  int n_span, int span_keys, cudaStream_t stream) {
-  return launch<int8_t, -1>(q, k8, ks, v8, vs, out, B, Q, H, Ta, layer, ta_total, n_span,
-                            span_keys, stream);
+  return launch<int8_t, bf16, -1>(q, k8, ks, v8, vs, out, B, Q, H, Ta, layer, ta_total,
+                                  n_span, span_keys, stream);
+}
+
+cudaError_t launch_cross_attn_f32(const float* q, const float* k, const float* v, float* out,
+                                  int B, int Q, int H, int Ta, int layer, int ta_total,
+                                  int n_span, int span_keys, cudaStream_t stream) {
+  if (!plan_ok(Ta, ta_total, n_span, span_keys)) return cudaErrorInvalidValue;
+  if (Q > QC)
+    return launch_f32_split<true>(q, k, v, out, B, Q, H, Ta, layer, ta_total, n_span,
+                                  span_keys, stream);
+  return launch_f32_split<false>(q, k, v, out, B, Q, H, Ta, layer, ta_total, n_span,
+                                 span_keys, stream);
+}
+
+cudaError_t launch_cross_attn_q8_f32(const float* q, const int8_t* k8, const float* ks,
+                                     const int8_t* v8, const float* vs, float* out, int B,
+                                     int Q, int H, int Ta, int layer, int ta_total,
+                                     int n_span, int span_keys, cudaStream_t stream) {
+  return launch<int8_t, float, -1>(q, k8, ks, v8, vs, out, B, Q, H, Ta, layer, ta_total,
+                                   n_span, span_keys, stream);
 }
 
 // q [B, Q, H, 64], k / v [L, B, H, Ta, 64] bf16; out [B, Q, H, 64]; all
@@ -545,12 +785,35 @@ WDT_EXPORT int wdt_cross_attn_q8(const void* q, const void* k8, const void* ks,
       ta_total, n_span, span_keys, static_cast<cudaStream_t>(stream)));
 }
 
+// K1's and K5's f32 forms: q, out [B, Q, H, 64] f32; k / v [L, B, H, Ta, 64]
+// f32 (K1) or int8 with ks / vs [L, B, H, Ta] f32 (K5); the plan as above
+// (ops/attn.py::cross_attn_plan with f32=True for K1).
+WDT_EXPORT int wdt_cross_attn_f32(const void* q, const void* k, const void* v, void* out,
+                                  int B, int Q, int H, int Ta, int layer, int ta_total,
+                                  int n_span, int span_keys, void* stream) {
+  return finish(launch_cross_attn_f32(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), B, Q, H, Ta, layer, ta_total,
+      n_span, span_keys, static_cast<cudaStream_t>(stream)));
+}
+
+WDT_EXPORT int wdt_cross_attn_q8_f32(const void* q, const void* k8, const void* ks,
+                                     const void* v8, const void* vs, void* out, int B,
+                                     int Q, int H, int Ta, int layer, int ta_total,
+                                     int n_span, int span_keys, void* stream) {
+  return finish(launch_cross_attn_q8_f32(
+      static_cast<const float*>(q), static_cast<const int8_t*>(k8),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(v8),
+      static_cast<const float*>(vs), static_cast<float*>(out), B, Q, H, Ta, layer,
+      ta_total, n_span, span_keys, static_cast<cudaStream_t>(stream)));
+}
+
 // K9c: as K1 with the layer fixed at kConstLayer; k / v [L >= 2, B, H, Ta, 64].
 WDT_EXPORT int wdt_cross_attn_const_layer(const void* q, const void* k, const void* v,
                                           void* out, int B, int Q, int H, int Ta,
                                           int ta_total, int n_span, int span_keys,
                                           void* stream) {
-  return finish(launch<bf16, kConstLayer>(
+  return finish(launch<bf16, bf16, kConstLayer>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
       static_cast<const bf16*>(v), nullptr, static_cast<bf16*>(out), B, Q, H, Ta, 0,
       ta_total, n_span, span_keys, static_cast<cudaStream_t>(stream)));

@@ -40,6 +40,21 @@
 // - Epilogue: bias in f32, one bf16 rounding, the tile staged in shared
 //   memory with the 128-byte swizzle (conflict-free), then two TMA stores a
 //   warpgroup, one a head: [64 rows, 64] contiguous runs of one (l, b, h).
+//
+// The f32 form (`cross_kv_f32_kernel`): the same function in f32, the TPU
+// kernel's one rounding being the identity. Hopper's wgmma has no f32 x f32
+// product (only TF32, 10 mantissa bits: not an f32 product), so it is a
+// CUDA-core SGEMM: a 128 x 128 output tile a CTA of 256 threads, 8 x 8 a
+// thread (rows 4 ty .. + 3 and 64 + 4 ty .., columns likewise: the float4
+// reads of a warp fall on few addresses), k steps of 8 double-buffered in
+// shared memory (xa stored transposed from registers, the weights by
+// cp.async), each output a sequential f32 FMA chain over D, the bias added
+// in f32 and the head split written from registers as float4. Rows run
+// over all B x Ta positions (a tile may cross a stream), columns over
+// [K | V] (each tile in one of them). Bound at large-v3 (L 32, B 8, Ta
+// 1500) by operations: 4 x 12000 x 1280^2 x 32 = 2.5e12 FLOP, 37.6 ms at
+// 67 TFLOP/s; grid (2 H Dh / 128, row tiles, L), the layer outermost so a
+// layer's weights (13 MB) stay in L2.
 #include "common.cuh"
 
 namespace {
@@ -197,6 +212,105 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
   if (ct == 0) bulk_wait<0>();
 }
 
+constexpr int SG_BM = 128, SG_BN = 128, SG_BK = 8, SG_THREADS = 256;
+
+__global__ void __launch_bounds__(SG_THREADS)
+cross_kv_f32_kernel(const float* __restrict__ xa, const float* __restrict__ kw,
+                    const float* __restrict__ vw, const float* __restrict__ vb,
+                    float* __restrict__ ko, float* __restrict__ vo, int B, int Ta, int D,
+                    int HD) {
+  __shared__ __align__(16) float As[2][SG_BK][SG_BM];  // xa's tile, k-major
+  __shared__ __align__(16) float Bs[2][SG_BK][SG_BN];  // the weights' tile
+  const int M = B * Ta;
+  const int l = blockIdx.z;
+  const int n0 = blockIdx.x * SG_BN;  // of [0, 2 HD): K's columns, then V's
+  const int m0 = blockIdx.y * SG_BM;
+  const bool is_v = n0 >= HD;
+  const int c0 = n0 - (is_v ? HD : 0);
+  const float* W = (is_v ? vw : kw) + (size_t)l * D * HD + c0;
+  const int tid = threadIdx.x;
+  // copies: xa row tid / 2, k (tid % 2) * 4 .. + 3; weights k row tid / 32,
+  // columns (tid % 32) * 4 .. + 3
+  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
+  const int b_row = tid >> 5, b_col = (tid & 31) * 4;
+  const bool a_ok = m0 + a_row < M;
+  const float* a_src = xa + (size_t)(a_ok ? m0 + a_row : 0) * D + a_k;
+  const float* b_src = W + (size_t)b_row * HD + b_col;
+  const int ty = tid >> 4, tx = tid & 15;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  const int nk = D / SG_BK;
+  float4 ar = a_ok ? *reinterpret_cast<const float4*>(a_src) : zero;
+  cp_async<16>(&Bs[0][b_row][b_col], b_src, true);
+  cp_async_commit();
+  As[0][a_k + 0][a_row] = ar.x;
+  As[0][a_k + 1][a_row] = ar.y;
+  As[0][a_k + 2][a_row] = ar.z;
+  As[0][a_k + 3][a_row] = ar.w;
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1, nxt = cur ^ 1;
+    const bool more = kt + 1 < nk;
+    if (more) {  // the next tile in flight while this one is computed
+      ar = a_ok ? *reinterpret_cast<const float4*>(a_src + (kt + 1) * SG_BK) : zero;
+      cp_async<16>(&Bs[nxt][b_row][b_col], b_src + (size_t)(kt + 1) * SG_BK * HD, true);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < SG_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+    }
+    if (more) {  // buffer nxt was last read before the previous barrier
+      As[nxt][a_k + 0][a_row] = ar.x;
+      As[nxt][a_k + 1][a_row] = ar.y;
+      As[nxt][a_k + 2][a_row] = ar.z;
+      As[nxt][a_k + 3][a_row] = ar.w;
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+
+  // epilogue: V's bias in f32, the head split [L, B, H, Ta, 64], float4 stores
+  const int H = HD / DH;
+  float* out = is_v ? vo : ko;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (r >= M) continue;
+    const int b = r / Ta, t = r % Ta;
+#pragma unroll
+    for (int gj = 0; gj < 2; ++gj) {
+      const int c = c0 + gj * 64 + tx * 4;  // a column of [0, HD)
+      float4 y = make_float4(acc[i][4 * gj], acc[i][4 * gj + 1], acc[i][4 * gj + 2],
+                             acc[i][4 * gj + 3]);
+      if (is_v) {
+        const float4 bias = *reinterpret_cast<const float4*>(vb + (size_t)l * HD + c);
+        y.x += bias.x;
+        y.y += bias.y;
+        y.z += bias.z;
+        y.w += bias.w;
+      }
+      *reinterpret_cast<float4*>(
+          out + ((((size_t)l * B + b) * H + c / DH) * Ta + t) * DH + c % DH) = y;
+    }
+  }
+}
+
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 0;
@@ -239,5 +353,23 @@ WDT_EXPORT int wdt_cross_kv(const void* xa, const void* kw, const void* vw,
   const int grid = static_cast<int>(n_tiles < sm_count() ? n_tiles : sm_count());
   cross_kv_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       mx, mkw, mvw, mko, mvo, static_cast<const bf16*>(vb), L, B, Ta, D, HD);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 form: the same arguments in f32, 16-byte aligned; the same shape
+// rules (the f32 SGEMM's k step is 8 rows, its column tile 128).
+WDT_EXPORT int wdt_cross_kv_f32(const void* xa, const void* kw, const void* vw,
+                                const void* vb, void* k, void* v, int L, int B,
+                                int Ta, int D, int H, int Dh, void* stream) {
+  const int HD = H * Dh;
+  const long long row_tiles = ((long long)B * Ta + SG_BM - 1) / SG_BM;
+  if (Dh != DH || D % SG_BK != 0 || HD % SG_BN != 0 || L <= 0 || L > 65535 || B <= 0 ||
+      Ta <= 0 || row_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(2 * HD / SG_BN, static_cast<unsigned>(row_tiles), L);
+  cross_kv_f32_kernel<<<grid, SG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xa), static_cast<const float*>(kw),
+      static_cast<const float*>(vw), static_cast<const float*>(vb), static_cast<float*>(k),
+      static_cast<float*>(v), B, Ta, D, HD);
   return static_cast<int>(cudaGetLastError());
 }

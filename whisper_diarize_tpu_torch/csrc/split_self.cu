@@ -7,10 +7,13 @@
 // under one softmax. The decode cache [L, B*K, H, Td, Dh] is never permuted:
 // beam k reads slot t (t <= step) from row b*K + anc[b, k, t].
 //
-// Numerics follow the TPU kernel: q is scaled by Dh^-0.5 in f32 and rounded
-// to bf16; scores, max and normalizer are f32; the probabilities are rounded
-// to bf16 before P.V; the f32 accumulator is divided by the normalizer and
-// rounded to bf16 at the end.
+// Numerics follow the TPU kernel, whose body works in the cache's dtype: q
+// is scaled by Dh^-0.5 in f32 and rounded to the cache dtype; scores, max
+// and normalizer are f32; the probabilities are rounded to the cache dtype
+// before P.V; the f32 accumulator is divided by the normalizer and rounded
+// to it at the end. The kernel is a template on that dtype, T = bf16 or
+// float: at f32 both roundings are the identity and a 16-byte chunk of a
+// row holds 4 values, not 8 (16 chunks a row, 16 rows read a pass).
 //
 // The TPU kernel cannot gather: it scores every query against all K physical
 // rows of the stream and picks the ancestor's score with a one-hot, K times
@@ -23,9 +26,9 @@
 // valid rows, each a 128-byte line. Design: one CTA per (stream b, head h)
 // owns all K beams (160 CTAs at B 8, H 20). It builds a table of row offsets
 // (prompt rows once for all beams, decode rows through the ancestry map),
-// then 8 threads per row read it as 16-byte chunks, 32 rows in flight per
-// pass with the loads of four passes issued together, so a warp moves four
-// whole rows per load. The K x (Tp + step + 1) f32 scores stay in shared
+// then 8 threads per row read it as 16-byte chunks (16 at f32), 32 rows (16)
+// in flight per pass with the loads of four passes issued together, so a
+// warp moves four (two) whole rows per load. The K x (Tp + step + 1) f32 scores stay in shared
 // memory (a few KB); each beam's max and sum are one warp's; P.V runs beam
 // by beam with f32 accumulators reduced in a fixed order (deterministic).
 // No tensor cores: the products are a few MFLOP a layer.
@@ -35,37 +38,46 @@ namespace {
 
 constexpr int DH = 64;                  // head dimension (every Whisper checkpoint)
 constexpr int THREADS = 256;
-constexpr int CHUNKS = DH / 8;          // 16-byte chunks of a bf16 row
-constexpr int SLOTS = THREADS / CHUNKS;  // rows read per pass
 constexpr int UNROLL = 4;               // passes whose loads are issued together
 constexpr int MASKED = -1;              // row offset codes
 constexpr int BAD_ANCESTOR = -2;
 
+template <typename T>
+struct Row {
+  static constexpr int ELEMS = 16 / sizeof(T);      // values a 16-byte chunk
+  static constexpr int CHUNKS = DH / ELEMS;          // chunks a row: 8 or 16
+  static constexpr int SLOTS = THREADS / CHUNKS;     // rows read per pass
+};
+
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
 // dynamic shared memory, in 4-byte words
+template <typename T>
 __host__ __device__ inline int smem_words(int K, int t_all) {
-  return align4(K * DH) + align4(K * t_all) * 2 + SLOTS * DH + align4(K);
+  return align4(K * DH) + align4(K * t_all) * 2 + Row<T>::SLOTS * DH + align4(K);
 }
 
-__device__ __forceinline__ float dot8(const uint4 raw, const float* q) {
-  const bf162* x = reinterpret_cast<const bf162*>(&raw);
+template <typename T>
+__device__ __forceinline__ float dot_chunk(const uint4 raw, const float* q) {
+  constexpr int E = Row<T>::ELEMS;
+  float f[E];
+  chunk_floats(raw, f, static_cast<const T*>(nullptr));
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(x[j]);
-    s = fmaf(q[2 * j], f.x, fmaf(q[2 * j + 1], f.y, s));
-  }
+  for (int j = 0; j < E; j += 2) s = fmaf(q[j], f[j], fmaf(q[j + 1], f[j + 1], s));
   return s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
-                  const bf16* __restrict__ pv, const bf16* __restrict__ dk,
-                  const bf16* __restrict__ dv, const int* __restrict__ anc,
-                  const int* __restrict__ row_pad, bf16* __restrict__ out,
+split_self_kernel(const T* __restrict__ q, const T* __restrict__ pk,
+                  const T* __restrict__ pv, const T* __restrict__ dk,
+                  const T* __restrict__ dv, const int* __restrict__ anc,
+                  const int* __restrict__ row_pad, T* __restrict__ out,
                   int B, int K, int H, int Tp, int Td, int layer, int step,
                   int prompt_len, float scale) {
+  constexpr int E = Row<T>::ELEMS, CHUNKS = Row<T>::CHUNKS, SLOTS = Row<T>::SLOTS;
+  const T* tag = nullptr;  // selects the overloads for T
   extern __shared__ __align__(16) float smem[];
   const int t_all = Tp + step + 1;  // joint slots: prompt, then decode
   const int n = K * t_all;
@@ -85,7 +97,7 @@ split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
 
   for (int i = tid; i < K * DH; i += THREADS) {
     const int k = i / DH, d = i % DH;
-    qs[i] = bf16_round(__bfloat162float(q[(((size_t)b * K + k) * H + h) * DH + d]) * scale);
+    qs[i] = round_to(load_f(q + (((size_t)b * K + k) * H + h) * DH + d) * scale, tag);
   }
   // offset of each (beam, slot) row from its half's base, or a code
   for (int i = tid; i < n; i += THREADS) {
@@ -115,17 +127,16 @@ split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
       o[u] = idx[u] < n ? off[idx[u]] : MASKED;
       raw[u] = zero4;
       if (o[u] >= 0) {
-        const bf16* row = ((idx[u] % t_all) < Tp ? pk + prompt_base : dk + decode_base) + o[u];
+        const T* row = ((idx[u] % t_all) < Tp ? pk + prompt_base : dk + decode_base) + o[u];
         raw[u] = reinterpret_cast<const uint4*>(row)[c];
       }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       float s = 0.0f;
-      if (idx[u] < n) s = dot8(raw[u], qs + (idx[u] / t_all) * DH + c * 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (idx[u] < n) s = dot_chunk<T>(raw[u], qs + (idx[u] / t_all) * DH + c * E);
+#pragma unroll
+      for (int w = 1; w < CHUNKS; w <<= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
       if (c == 0 && idx[u] < n) {
         sc[idx[u]] = o[u] >= 0 ? s : (o[u] == MASKED ? WDT_NEG_INF : __int_as_float(0x7fffffff));
       }
@@ -133,7 +144,8 @@ split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
   }
   __syncthreads();
 
-  // softmax per beam (one warp a beam): f32 max and sum, bf16 probabilities
+  // softmax per beam (one warp a beam): f32 max and sum, probabilities
+  // rounded to T
   const int warp = tid >> 5, lane = tid & 31;
   for (int k = warp; k < K; k += THREADS / 32) {
     float* row = sc + k * t_all;
@@ -144,7 +156,7 @@ split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
     for (int t = lane; t < t_all; t += 32) {
       const float p = expf(row[t] - m);
       l += p;
-      row[t] = bf16_round(p);
+      row[t] = round_to(p, tag);
     }
     l = warp_sum(l);
     if (lane == 0) lsum[k] = l;
@@ -155,9 +167,9 @@ split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
   for (int k = 0; k < K; ++k) {
     const float* p_row = sc + k * t_all;
     const int* o_row = off + k * t_all;
-    float acc[8];
+    float acc[E];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < E; ++j) acc[j] = 0.0f;
     for (int t0 = 0; t0 < t_all; t0 += SLOTS * UNROLL) {
       uint4 raw[UNROLL];
       float p[UNROLL];
@@ -169,52 +181,68 @@ split_self_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
         raw[u] = zero4;
         if (o >= 0) {
           p[u] = p_row[t];
-          const bf16* row = (t < Tp ? pv + prompt_base : dv + decode_base) + o;
+          const T* row = (t < Tp ? pv + prompt_base : dv + decode_base) + o;
           raw[u] = reinterpret_cast<const uint4*>(row)[c];
         }
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        const bf162* x = reinterpret_cast<const bf162*>(&raw[u]);
+        float f[E];
+        chunk_floats(raw[u], f, tag);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(x[j]);
-          acc[2 * j] = fmaf(p[u], f.x, acc[2 * j]);
-          acc[2 * j + 1] = fmaf(p[u], f.y, acc[2 * j + 1]);
-        }
+        for (int j = 0; j < E; ++j) acc[j] = fmaf(p[u], f[j], acc[j]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) red[slot * DH + c * 8 + j] = acc[j];
+    for (int j = 0; j < E; ++j) red[slot * DH + c * E + j] = acc[j];
     __syncthreads();
     if (tid < DH) {
       float s = 0.0f;
       for (int r = 0; r < SLOTS; ++r) s += red[r * DH + tid];
-      out[(((size_t)b * K + k) * H + h) * DH + tid] = __float2bfloat16(s / lsum[k]);
+      store_f(out + (((size_t)b * K + k) * H + h) * DH + tid, s / lsum[k]);
     }
     __syncthreads();
   }
 }
 
+template <typename T>
+int launch(const void* q, const void* pk, const void* pv, const void* dk, const void* dv,
+           const void* anc, const void* row_pad, void* out, int B, int K, int H, int Tp,
+           int Td, int layer, int step, int prompt_len, void* stream) {
+  const size_t smem = (size_t)smem_words<T>(K, Tp + step + 1) * 4;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        split_self_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid(H, B);
+  split_self_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv),
+      static_cast<const T*>(dk), static_cast<const T*>(dv), static_cast<const int*>(anc),
+      static_cast<const int*>(row_pad), static_cast<T*>(out), B, K, H, Tp, Td, layer, step,
+      prompt_len, 0.125f /* 64^-0.5 */);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// q [B, K, H, 64], pk / pv [L, B, H, Tp, 64], dk / dv [L, B*K, H, Td, 64],
+// out [B, K, H, 64]: bf16 (wdt_split_self_attn) or f32 (..._f32); anc
+// [B, K, Td] and row_pad [B] int32; all contiguous.
 WDT_EXPORT int wdt_split_self_attn(const void* q, const void* pk, const void* pv,
                                    const void* dk, const void* dv, const void* anc,
                                    const void* row_pad, void* out, int B, int K,
                                    int H, int Tp, int Td, int layer, int step,
                                    int prompt_len, void* stream) {
-  const size_t smem = (size_t)smem_words(K, Tp + step + 1) * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        split_self_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(H, B);
-  split_self_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pk),
-      static_cast<const bf16*>(pv), static_cast<const bf16*>(dk),
-      static_cast<const bf16*>(dv), static_cast<const int*>(anc),
-      static_cast<const int*>(row_pad), static_cast<bf16*>(out), B, K, H, Tp, Td,
-      layer, step, prompt_len, 0.125f /* 64^-0.5 */);
-  return static_cast<int>(cudaGetLastError());
+  return launch<bf16>(q, pk, pv, dk, dv, anc, row_pad, out, B, K, H, Tp, Td, layer, step,
+                      prompt_len, stream);
+}
+
+WDT_EXPORT int wdt_split_self_attn_f32(const void* q, const void* pk, const void* pv,
+                                       const void* dk, const void* dv, const void* anc,
+                                       const void* row_pad, void* out, int B, int K,
+                                       int H, int Tp, int Td, int layer, int step,
+                                       int prompt_len, void* stream) {
+  return launch<float>(q, pk, pv, dk, dv, anc, row_pad, out, B, K, H, Tp, Td, layer, step,
+                       prompt_len, stream);
 }

@@ -75,6 +75,22 @@
 //   adding the spans in rank order; the span is then normalised in shared
 //   memory, 8 columns a thread a step. fc2's int8 row scale is applied to
 //   each streamed tile as it lands.
+//
+// The f32 forms (`wdt_fused_tail_f32`: f32 activations, biases, layer
+// norms and cache; weights f32, or int8 widened to f32, exact, then scaled
+// as above): the TPU kernel rounds every update to the activation dtype, so
+// at f32 nothing is rounded, and every product runs in f32 on the CUDA
+// cores (no TF32). The same split, ring, layer-norm exchange and combine
+// over f32 rows (16-byte padded, as the bf16 ones); the products: thread t
+// owns column t % bn of the strip and the k-quads t / bn, t / bn + 128 / bn,
+// .. of each tile, reads each weight of them once from shared memory into a
+// register and applies it to all N rows (up to 80 accumulators a thread),
+// the rows' activations read as float4 broadcasts; the k-groups' partials
+// add in group order. The attention is K1's f32 form (K5's with `kvq`). At
+// N 40 the f32 tail is near the card's balance point: a layer's weights are
+// 11 D^2 = 18.0 M floats (72 MB) plus 123 MB of f32 cross cache at B 8,
+// 0.058 ms at 3.35 TB/s; the products 2 N 11 D^2 = 1.4 GFLOP, 0.022 ms at
+// 67 TFLOP/s.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -94,42 +110,48 @@ constexpr int SMEM_MAX = 200 * 1024;  // dynamic shared memory a CTA may take
 template <typename WT>
 __host__ __device__ constexpr bool is_q8() { return std::is_same<WT, int8_t>::value; }
 
-// bytes of one staged weight row: bf16 padded by 16 bytes (ldmatrix reads
-// of eight rows fall in distinct banks), int8 by 16 (the fragments' byte
-// reads of four rows do)
+// bytes of one staged weight row: padded by 16 bytes (bf16: ldmatrix reads
+// of eight rows fall in distinct banks; int8: the fragments' byte reads of
+// four rows do)
 template <typename WT, int BN>
-__host__ __device__ constexpr int wrow_bytes() { return is_q8<WT>() ? BN + 16 : BN * 2 + 16; }
+__host__ __device__ constexpr int wrow_bytes() { return BN * static_cast<int>(sizeof(WT)) + 16; }
 
-// One activation row of a streamed tile: 64 bf16 padded to 72 (144 bytes:
-// the ldmatrix reads of eight rows fall in distinct banks).
-constexpr int AT_ROW = BK + 8;
+// One activation row of a streamed tile: 64 values padded by 16 bytes (72
+// bf16, 144 bytes: the ldmatrix reads of eight rows fall in distinct banks;
+// or 68 f32).
+template <typename AT>
+__host__ __device__ constexpr int at_row() { return BK + 16 / static_cast<int>(sizeof(AT)); }
+constexpr int AT_ROW = at_row<bf16>();  // the bf16 rows the mma reads (and its zero row)
 
 // Dynamic shared memory of one CTA, in order: with a layer norm (LN), the
-// activations' whole span (rows 0 .. N - 1 and a zero row N, each span_k +
-// 8 bf16) and ln_g / ln_b over the span (bf16); the combine's receive
+// activations' whole span (rows 0 .. N - 1 and a zero row N, each span_k
+// values and 16 bytes) and ln_g / ln_b over the span; the combine's receive
 // buffer (every span's share of this CTA's pairs of outputs, f32); the ring,
 // each tile the weights' 64 rows and, without a layer norm, the same 64
 // columns of the N activation rows.
 __host__ __device__ inline int recv_bytes(int rows, int bn) { return (rows * bn / 2 + 8) * 8; }
 
-template <typename WT, int BN, bool LN>
+template <typename AT, typename WT, int BN, bool LN>
 __host__ __device__ inline int tile_bytes(int rows) {
-  return BK * wrow_bytes<WT, BN>() + (LN ? 0 : rows * AT_ROW * 2);
+  return BK * wrow_bytes<WT, BN>() +
+         (LN ? 0 : rows * at_row<AT>() * static_cast<int>(sizeof(AT)));
 }
 
-template <typename WT, int BN, bool LN>
+template <typename AT, typename WT, int BN, bool LN>
 __host__ __device__ inline int smem_bytes(int rows, int span_k, int stages) {
-  return (LN ? (rows + 1) * (span_k + 8) * 2 + 4 * span_k : 0) + recv_bytes(rows, BN) +
-         stages * tile_bytes<WT, BN, LN>(rows);
+  constexpr int ES = sizeof(AT);
+  return (LN ? (rows + 1) * (span_k * ES + 16) + 2 * ES * span_k : 0) + recv_bytes(rows, BN) +
+         stages * tile_bytes<AT, WT, BN, LN>(rows);
 }
 
 // Issue one ring tile's copies, 16 bytes a copy: (w != nullptr) the
 // weights' rows 0 .. 63 of the span's strip (row stride ld_w elements), and
 // (rows > 0) columns 0 .. 63 of `rows` activation rows (row stride ld_a).
-template <typename WT, int BN>
-__device__ __forceinline__ void stage_tile(const WT* w, int ld_w, const bf16* a, int ld_a,
+template <typename AT, typename WT, int BN>
+__device__ __forceinline__ void stage_tile(const WT* w, int ld_w, const AT* a, int ld_a,
                                            int rows, unsigned char* dst, int tid) {
   constexpr int CH = BN * static_cast<int>(sizeof(WT)) / 16;  // copies a row
+  constexpr int EPC = 16 / static_cast<int>(sizeof(AT));       // values a copy
   if (w != nullptr) {
 #pragma unroll
     for (int i = tid; i < BK * CH; i += THREADS) {
@@ -138,10 +160,10 @@ __device__ __forceinline__ void stage_tile(const WT* w, int ld_w, const bf16* a,
                    reinterpret_cast<const unsigned char*>(w + (size_t)r * ld_w) + c * 16, true);
     }
   }
-  bf16* at = reinterpret_cast<bf16*>(dst + BK * wrow_bytes<WT, BN>());
-  for (int i = tid; i < rows * (BK / 8); i += THREADS) {
-    const int r = i / (BK / 8), c = i % (BK / 8);
-    cp_async<16>(at + r * AT_ROW + c * 8, a + (size_t)r * ld_a + c * 8, true);
+  AT* at = reinterpret_cast<AT*>(dst + BK * wrow_bytes<WT, BN>());
+  for (int i = tid; i < rows * (BK / EPC); i += THREADS) {
+    const int r = i / (BK / EPC), c = i % (BK / EPC);
+    cp_async<16>(at + r * at_row<AT>() + c * EPC, a + (size_t)r * ld_a + c * EPC, true);
   }
 }
 
@@ -162,29 +184,31 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 
 // The f32 sums of each row of the span (of (x - mean[r])^2 where `mean`)
 // over the cluster's spans, in span order: S threads a row sum 16-byte
-// chunks, their partials add in order, then every span's row sum is read
-// over distributed shared memory (all at once) and added in rank order.
-__device__ __forceinline__ void cluster_row_sums(cg::cluster_group& cluster, const bf16* as,
+// chunks (a pair of values at a time), their partials add in order, then
+// every span's row sum is read over distributed shared memory (all at once)
+// and added in rank order.
+template <typename AT>
+__device__ __forceinline__ void cluster_row_sums(cg::cluster_group& cluster, const AT* as,
                                                  int AROW, int N, int kc, const float* mean,
                                                  float* red, float* part, float* out, int tid,
                                                  int n_split, float scale) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(AT));
   const int S = THREADS / N > 0 ? THREADS / N : 1;
   if (tid < N * S) {
     const int r = tid / S, s = tid % S;
     const float mu = mean ? mean[r] : 0.0f;
     float acc = 0.0f;
 #pragma unroll 4
-    for (int c8 = s; c8 < kc / 8; c8 += S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(as + r * AROW + c8 * 8);
-      const bf162* x2 = reinterpret_cast<const bf162*>(&raw);
+    for (int c = s; c < kc / EPC; c += S) {
+      float f[EPC];
+      chunk_floats(*reinterpret_cast<const uint4*>(as + r * AROW + c * EPC), f, as);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(x2[e]);
+      for (int e = 0; e < EPC; e += 2) {
         if (mean) {
-          acc = fmaf(f.x - mu, f.x - mu, acc);
-          acc = fmaf(f.y - mu, f.y - mu, acc);
+          acc = fmaf(f[e] - mu, f[e] - mu, acc);
+          acc = fmaf(f[e + 1] - mu, f[e + 1] - mu, acc);
         } else {
-          acc += f.x + f.y;
+          acc += f[e] + f[e + 1];
         }
       }
     }
@@ -211,27 +235,34 @@ __device__ __forceinline__ void cluster_row_sums(cg::cluster_group& cluster, con
   __syncthreads();
 }
 
-// out[N, Dout] = epi(pro(A)[N, Din] @ W[Din, Dout]); W is bf16 or int8
-//   pro: LN -> bf16((a - mean) * rstd * g + b), f32 statistics;
-//        row_scale != nullptr -> bf16(f32(a) * row_scale[k]) (per input row)
-//   epi: y = acc (* col_scale[col]) + bias; gelu -> gelu_tanh(y); o = bf16(y);
-//        residual != nullptr -> o = bf16(residual + o)
+// out[N, Dout] = epi(pro(A)[N, Din] @ W[Din, Dout]); A and out bf16 or f32
+// (AT), W AT or int8 (WT)
+//   pro: LN -> round((a - mean) * rstd * g + b), f32 statistics;
+//        row_scale != nullptr -> round(f32(a) * row_scale[k]) (per input row)
+//   epi: y = acc (* col_scale[col]) + bias; gelu -> gelu_tanh(y); o = round(y);
+//        residual != nullptr -> o = round(residual + o)
+// (round: to AT; the identity at f32). bf16: mma.sync products; f32: FFMA.
 // Grid (n_split, Dout / BN), cluster (n_split, 1, 1): blockIdx.x is the
 // CTA's span of the input dimension, blockIdx.y its column strip.
-template <typename WT, int BN, bool LN>
+template <typename AT, typename WT, int BN, bool LN>
 __global__ void __launch_bounds__(THREADS)
-skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
+skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
                    const float* __restrict__ col_scale,
                    const float* __restrict__ row_scale,
-                   const bf16* __restrict__ bias,
-                   const bf16* __restrict__ residual,
-                   const bf16* __restrict__ ln_g, const bf16* __restrict__ ln_b,
-                   bf16* __restrict__ out, int N, int Din, int Dout, int gelu, int span_k,
+                   const AT* __restrict__ bias,
+                   const AT* __restrict__ residual,
+                   const AT* __restrict__ ln_g, const AT* __restrict__ ln_b,
+                   AT* __restrict__ out, int N, int Din, int Dout, int gelu, int span_k,
                    int n_stages) {
   constexpr bool kQ8 = is_q8<WT>();
+  constexpr bool kF32 = std::is_same<AT, float>::value;
+  constexpr int ES = sizeof(AT);
+  constexpr int EPC = 16 / ES;           // values a 16-byte chunk
+  constexpr int ATR = at_row<AT>();
   constexpr int WROW = wrow_bytes<WT, BN>();
   constexpr int NCH = BN / 16;      // 16-column chunks: one a warp
   constexpr int KSPLIT = 4 / NCH;   // warps sharing a chunk, over the tile's k16 steps
+  constexpr int KG = THREADS / BN;  // f32: threads sharing a column, over the tile's k-quads
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[THREADS], psum[MAX_ROWS], psq[MAX_ROWS], mean_s[MAX_ROWS],
       var_s[MAX_ROWS];
@@ -245,17 +276,18 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
   const int k0 = rank * span_k;
   const int kc = min(span_k, Din - k0);  // this span's rows (a multiple of BK)
   const int n_tiles = kc / BK;
-  const int AROW = span_k + 8;           // LN: a row of the staged span
-  const int TILE = tile_bytes<WT, BN, LN>(N);
-  bf16* as = reinterpret_cast<bf16*>(smem);                  // LN: the span
-  unsigned char* cparam = smem + (N + 1) * AROW * 2;         // LN: ln_g | ln_b
-  float* recv = reinterpret_cast<float*>(LN ? cparam + 4 * span_k : smem);
+  const int AROW = span_k + EPC;         // LN: a row of the staged span
+  const int TILE = tile_bytes<AT, WT, BN, LN>(N);
+  AT* as = reinterpret_cast<AT*>(smem);                      // LN: the span
+  unsigned char* cparam = smem + (N + 1) * AROW * ES;        // LN: ln_g | ln_b
+  float* recv = reinterpret_cast<float*>(LN ? cparam + 2 * ES * span_k : smem);
   unsigned char* ring = reinterpret_cast<unsigned char*>(recv) + recv_bytes(N, BN);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
   const WT* wb = W + (size_t)k0 * Dout + n0;
-  const bf16* ab = A + k0;
+  const AT* ab = A + k0;
+  const AT* tag = nullptr;  // selects the overloads for AT
 
   if (tid < AT_ROW / 8) reinterpret_cast<uint4*>(zero_row)[tid] = make_uint4(0u, 0u, 0u, 0u);
   if (LN && tid == 0) {
@@ -270,22 +302,22 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
     // the span of the N rows and ln_g / ln_b over it: bulk copies, all in
     // flight at once (warp 0 issues them); then the first weight tiles
     if (warp == 0) {
-      if (lane == 0) mbar_expect_tx(&abar, N * kc * 2 + 4 * kc);
+      if (lane == 0) mbar_expect_tx(&abar, N * kc * ES + 2 * kc * ES);
       __syncwarp();
       for (int r = lane; r < N; r += 32)
-        bulk_load(as + r * AROW, ab + (size_t)r * Din, kc * 2, &abar);
+        bulk_load(as + r * AROW, ab + (size_t)r * Din, kc * ES, &abar);
       if (lane == 0) {
-        bulk_load(cparam, ln_g + k0, kc * 2, &abar);
-        bulk_load(cparam + 2 * span_k, ln_b + k0, kc * 2, &abar);
+        bulk_load(cparam, ln_g + k0, kc * ES, &abar);
+        bulk_load(cparam + ES * span_k, ln_b + k0, kc * ES, &abar);
       }
     }
     for (int s = 0; s < n_stages - 1; ++s) {
       if (s < n_tiles)
-        stage_tile<WT, BN>(wb + (size_t)s * BK * Dout, Dout, nullptr, 0, 0, ring + s * TILE,
-                           tid);
+        stage_tile<AT, WT, BN>(wb + (size_t)s * BK * Dout, Dout, nullptr, 0, 0,
+                               ring + s * TILE, tid);
       cp_async_commit();
     }
-    for (int c = tid * 8; c < kc; c += THREADS * 8)
+    for (int c = tid * EPC; c < kc; c += THREADS * EPC)
       *reinterpret_cast<uint4*>(as + N * AROW + c) = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();  // the barrier's init and the zero row, seen by all
     mbar_wait(&abar, 0);
@@ -295,29 +327,21 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
                      1.0f / Din);
     cluster_row_sums(cluster, as, AROW, N, kc, mean_s, red, psq, var_s, tid, n_split,
                      1.0f / Din);
-    // normalise the span in place, 8 columns a thread a step
-    const bf16* gs = reinterpret_cast<const bf16*>(cparam);
-    const bf16* bs = gs + span_k;
-    const int c8n = kc / 8;
+    // normalise the span in place, a 16-byte chunk a thread a step
+    const AT* gs = reinterpret_cast<const AT*>(cparam);
+    const AT* bs = gs + span_k;
+    const int cn = kc / EPC;
 #pragma unroll 4
-    for (int i = tid; i < N * c8n; i += THREADS) {
-      const int r = i / c8n, c = (i % c8n) * 8;
-      uint4 raw = *reinterpret_cast<const uint4*>(as + r * AROW + c);
-      bf162* x2 = reinterpret_cast<bf162*>(&raw);
+    for (int i = tid; i < N * cn; i += THREADS) {
+      const int r = i / cn, c = (i % cn) * EPC;
+      float x[EPC], gf[EPC], bf[EPC];
+      chunk_floats(*reinterpret_cast<const uint4*>(as + r * AROW + c), x, tag);
+      chunk_floats(*reinterpret_cast<const uint4*>(gs + c), gf, tag);
+      chunk_floats(*reinterpret_cast<const uint4*>(bs + c), bf, tag);
       const float mu = mean_s[r], rs = rsqrtf(var_s[r] + 1e-5f);
-      const uint4 g4 = *reinterpret_cast<const uint4*>(gs + c);
-      const uint4 b4 = *reinterpret_cast<const uint4*>(bs + c);
-      const bf162* g2 = reinterpret_cast<const bf162*>(&g4);
-      const bf162* b2 = reinterpret_cast<const bf162*>(&b4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 xf = __bfloat1622float2(x2[e]);
-        const float2 gf = __bfloat1622float2(g2[e]);
-        const float2 bf = __bfloat1622float2(b2[e]);
-        x2[e] = __floats2bfloat162_rn((xf.x - mu) * rs * gf.x + bf.x,
-                                      (xf.y - mu) * rs * gf.y + bf.y);
-      }
-      *reinterpret_cast<uint4*>(as + r * AROW + c) = raw;
+      for (int e = 0; e < EPC; ++e) x[e] = (x[e] - mu) * rs * gf[e] + bf[e];
+      *reinterpret_cast<uint4*>(as + r * AROW + c) = floats_chunk(x, tag);
     }
     __syncthreads();
   } else {
@@ -325,28 +349,33 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
     // their activations, one group
     for (int s = 0; s < n_stages - 1; ++s) {
       if (s < n_tiles)
-        stage_tile<WT, BN>(wb + (size_t)s * BK * Dout, Dout, nullptr, 0, 0, ring + s * TILE,
-                           tid);
+        stage_tile<AT, WT, BN>(wb + (size_t)s * BK * Dout, Dout, nullptr, 0, 0,
+                               ring + s * TILE, tid);
       cp_async_commit();
     }
     for (int s = 0; s < n_stages - 1 && s < n_tiles; ++s)
-      stage_tile<WT, BN>(nullptr, 0, ab + s * BK, Din, N, ring + s * TILE, tid);
+      stage_tile<AT, WT, BN>(nullptr, 0, ab + s * BK, Din, N, ring + s * TILE, tid);
     cp_async_commit();
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every CTA has started
   }
 
-  // the products: warp w takes the 16 columns of chunk w % NCH and the k16
-  // steps kq, kq + KSPLIT, .. of every tile (kq = w / NCH); acc[mt][nb] is
-  // m16 tile mt, n8 block nb of its chunk
-  const int chunk = warp % NCH, kq = warp / NCH;
+  // bf16: warp w takes the 16 columns of chunk w % NCH and the k16 steps
+  // kq, kq + KSPLIT, .. of every tile (kq = w / NCH); acc[mt][nb] is m16
+  // tile mt, n8 block nb of its chunk. f32: thread t takes column t % BN
+  // and the k-quads kq, kq + KG, .. of every tile (kq = t / BN); fa[r] is
+  // row r of its column.
+  const int chunk = warp % NCH, kq = kF32 ? tid / BN : warp / NCH;
   const int MT = (N + 15) / 16;
-  float acc[MAX_ROWS / 16][2][4];
+  float acc[kF32 ? 1 : MAX_ROWS / 16][2][4];
+  float fa[kF32 ? MAX_ROWS : 1];
 #pragma unroll
-  for (int mt = 0; mt < MAX_ROWS / 16; ++mt)
+  for (int mt = 0; mt < (kF32 ? 1 : MAX_ROWS / 16); ++mt)
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < (kF32 ? MAX_ROWS : 1); ++r) fa[r] = 0.0f;
 
   for (int j = 0; j < n_tiles; ++j) {
     // wait for tile j: its group is the (n_stages - 2)-th newest; without a
@@ -357,59 +386,79 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
     {
       const int nj = j + n_stages - 1;  // refill the tile j - 1 used
       if (nj < n_tiles)
-        stage_tile<WT, BN>(wb + (size_t)nj * BK * Dout, Dout, ab + nj * BK, Din, LN ? 0 : N,
-                           ring + (nj % n_stages) * TILE, tid);
+        stage_tile<AT, WT, BN>(wb + (size_t)nj * BK * Dout, Dout, ab + nj * BK, Din,
+                               LN ? 0 : N, ring + (nj % n_stages) * TILE, tid);
       cp_async_commit();
     }
     unsigned char* st = ring + (j % n_stages) * TILE;
-    bf16* at = reinterpret_cast<bf16*>(st + BK * WROW);  // !LN: the tile's activations
+    AT* at = reinterpret_cast<AT*>(st + BK * WROW);  // !LN: the tile's activations
     if (!LN && row_scale != nullptr) {  // fc2's int8 scale, per input row
-      for (int i = tid; i < N * (BK / 8); i += THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        uint4 raw = *reinterpret_cast<const uint4*>(at + r * AT_ROW + c);
-        bf162* x2 = reinterpret_cast<bf162*>(&raw);
+      for (int i = tid; i < N * (BK / EPC); i += THREADS) {
+        const int r = i / (BK / EPC), c = (i % (BK / EPC)) * EPC;
+        float x[EPC];
+        chunk_floats(*reinterpret_cast<const uint4*>(at + r * ATR + c), x, tag);
         const float* rsc = row_scale + k0 + j * BK + c;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 xf = __bfloat1622float2(x2[e]);
-          x2[e] = __floats2bfloat162_rn(xf.x * rsc[2 * e], xf.y * rsc[2 * e + 1]);
-        }
-        *reinterpret_cast<uint4*>(at + r * AT_ROW + c) = raw;
+        for (int e = 0; e < EPC; ++e) x[e] *= rsc[e];
+        *reinterpret_cast<uint4*>(at + r * ATR + c) = floats_chunk(x, tag);
       }
       __syncthreads();
     }
+    if constexpr (kF32) {
+      const int col = tid % BN;
+#pragma unroll 2
+      for (int q4 = kq; q4 < BK / 4; q4 += KG) {
+        float w[4];
 #pragma unroll
-    for (int kk = kq; kk < BK / 16; kk += KSPLIT) {
-      uint32_t b[2][2];
-      if constexpr (kQ8) {  // int8 -> bf16 pairs (exact), rows 2tg, 2tg + 1 (+ 8)
+        for (int e = 0; e < 4; ++e)
+          w[e] = static_cast<float>(reinterpret_cast<const WT*>(st + (4 * q4 + e) * WROW)[col]);
+        const AT* src = LN ? as + j * BK + 4 * q4 : at + 4 * q4;
+        const int stride = LN ? AROW : ATR;
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          const int8_t* p = reinterpret_cast<const int8_t*>(st) + (kk * 16 + 2 * tg) * WROW +
-                            chunk * 16 + nb * 8 + g;
-          b[nb][0] = pack_bf16(static_cast<float>(p[0]), static_cast<float>(p[WROW]));
-          b[nb][1] = pack_bf16(static_cast<float>(p[8 * WROW]), static_cast<float>(p[9 * WROW]));
+        for (int r = 0; r < MAX_ROWS; ++r) {
+          if (r < N) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                reinterpret_cast<const float*>(src) + r * stride);
+            fa[r] = fmaf(a.w, w[3], fmaf(a.z, w[2], fmaf(a.y, w[1], fmaf(a.x, w[0], fa[r]))));
+          }
         }
-      } else {
-        uint32_t r4[4];
-        const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-        ldsm_x4_trans(r4, reinterpret_cast<const bf16*>(st + row * WROW) + chunk * 16 +
-                              (lane >> 4) * 8);
-        b[0][0] = r4[0];
-        b[0][1] = r4[1];
-        b[1][0] = r4[2];
-        b[1][1] = r4[3];
       }
-      const int kcol = kk * 16 + (lane >> 4) * 8;  // within the tile
+    } else {
 #pragma unroll
-      for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
-        if (mt < MT) {
-          const int r = mt * 16 + (lane & 15);
-          const bf16* src = LN ? as + min(r, N) * AROW + j * BK + kcol  // row N: zeros
-                               : (r < N ? at + r * AT_ROW + kcol : zero_row + kcol);
-          uint32_t a[4];
-          ldsm_x4(a, src);
-          mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-          mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
+      for (int kk = kq; kk < BK / 16; kk += KSPLIT) {
+        uint32_t b[2][2];
+        if constexpr (kQ8) {  // int8 -> bf16 pairs (exact), rows 2tg, 2tg + 1 (+ 8)
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const int8_t* p = reinterpret_cast<const int8_t*>(st) + (kk * 16 + 2 * tg) * WROW +
+                              chunk * 16 + nb * 8 + g;
+            b[nb][0] = pack_bf16(static_cast<float>(p[0]), static_cast<float>(p[WROW]));
+            b[nb][1] = pack_bf16(static_cast<float>(p[8 * WROW]), static_cast<float>(p[9 * WROW]));
+          }
+        } else {
+          uint32_t r4[4];
+          const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+          ldsm_x4_trans(r4, reinterpret_cast<const bf16*>(st + row * WROW) + chunk * 16 +
+                                (lane >> 4) * 8);
+          b[0][0] = r4[0];
+          b[0][1] = r4[1];
+          b[1][0] = r4[2];
+          b[1][1] = r4[3];
+        }
+        const int kcol = kk * 16 + (lane >> 4) * 8;  // within the tile
+#pragma unroll
+        for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
+          if (mt < MT) {
+            const int r = mt * 16 + (lane & 15);
+            const bf16* src =
+                LN ? reinterpret_cast<const bf16*>(as) + min(r, N) * AROW + j * BK + kcol  // row N: zeros
+                   : (r < N ? reinterpret_cast<const bf16*>(at) + r * AT_ROW + kcol
+                            : zero_row + kcol);
+            uint32_t a[4];
+            ldsm_x4(a, src);
+            mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
+            mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
+          }
         }
       }
     }
@@ -418,31 +467,44 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
   __syncthreads();  // the ring is free: it holds the CTA's partial [N, BN]
 
   float* part = reinterpret_cast<float*>(ring);
+  if constexpr (kF32) {
 #pragma unroll
-  for (int q = 0; q < KSPLIT; ++q) {  // the k-split warps' sums, in warp order
-    if (kq == q) {
+    for (int q = 0; q < KG; ++q) {  // the k-groups' sums, in group order
+      if (kq == q) {
+        const int col = tid % BN;
 #pragma unroll
-      for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
-        if (mt >= MT) continue;
+        for (int r = 0; r < MAX_ROWS; ++r)
+          if (r < N) part[r * BN + col] = q > 0 ? part[r * BN + col] + fa[r] : fa[r];
+      }
+      __syncthreads();
+    }
+  } else {
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          const int c = chunk * 16 + nb * 8 + 2 * tg;
+    for (int q = 0; q < KSPLIT; ++q) {  // the k-split warps' sums, in warp order
+      if (kq == q) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = mt * 16 + g + 8 * h;
-            if (r >= N) continue;
-            float2* p = reinterpret_cast<float2*>(part + r * BN + c);
-            float2 v = make_float2(acc[mt][nb][2 * h], acc[mt][nb][2 * h + 1]);
-            if (q > 0) {
-              v.x += p->x;
-              v.y += p->y;
+        for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
+          if (mt >= MT) continue;
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb) {
+            const int c = chunk * 16 + nb * 8 + 2 * tg;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = mt * 16 + g + 8 * h;
+              if (r >= N) continue;
+              float2* p = reinterpret_cast<float2*>(part + r * BN + c);
+              float2 v = make_float2(acc[mt][nb][2 * h], acc[mt][nb][2 * h + 1]);
+              if (q > 0) {
+                v.x += p->x;
+                v.y += p->y;
+              }
+              *p = v;
             }
-            *p = v;
           }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // the combine: pair p of (row, 2 columns) belongs to the CTA of rank
@@ -474,52 +536,53 @@ skinny_gemm_kernel(const bf16* __restrict__ A, const WT* __restrict__ W,
       y0 *= col_scale[col];
       y1 *= col_scale[col + 1];
     }
-    const float2 bb = __bfloat1622float2(*reinterpret_cast<const bf162*>(bias + col));
+    const float2 bb = load2(bias + col);
     y0 += bb.x;
     y1 += bb.y;
     if (gelu) {
       y0 = gelu_tanh(y0);
       y1 = gelu_tanh(y1);
     }
-    y0 = bf16_round(y0);
-    y1 = bf16_round(y1);
+    y0 = round_to(y0, tag);
+    y1 = round_to(y1, tag);
     const size_t o = (size_t)r * Dout + col;
     if (residual != nullptr) {
-      const float2 rr = __bfloat1622float2(*reinterpret_cast<const bf162*>(residual + o));
+      const float2 rr = load2(residual + o);
       y0 += rr.x;
       y1 += rr.y;
     }
-    *reinterpret_cast<bf162*>(out + o) = __floats2bfloat162_rn(y0, y1);
+    store2(out + o, y0, y1);
   }
 }
 
-template <typename WT, int BN>
+template <typename AT, typename WT, int BN>
 bool fits(int rows, int span_k, int stages, bool ln) {
   // the CTA's partial [rows, BN] f32 lives in the ring once the loop is done
-  const int ring = stages * (ln ? tile_bytes<WT, BN, true>(rows) : tile_bytes<WT, BN, false>(rows));
-  const int smem = ln ? smem_bytes<WT, BN, true>(rows, span_k, stages)
-                      : smem_bytes<WT, BN, false>(rows, span_k, stages);
+  const int ring = stages * (ln ? tile_bytes<AT, WT, BN, true>(rows)
+                                : tile_bytes<AT, WT, BN, false>(rows));
+  const int smem = ln ? smem_bytes<AT, WT, BN, true>(rows, span_k, stages)
+                      : smem_bytes<AT, WT, BN, false>(rows, span_k, stages);
   return ring >= rows * BN * 4 && smem <= SMEM_MAX;
 }
 
 // the plan checked against the shape (ops/tail.py::skinny_plan's rules)
-template <typename WT>
+template <typename AT, typename WT>
 bool plan_ok(int rows, int Din, int Dout, bool ln, SkinnyPlan p) {
   if ((p.bn != 32 && p.bn != 64) || Dout % p.bn != 0 || Din % BK != 0 || p.span_k <= 0 ||
       p.span_k % BK != 0 || p.n_split < 1 || p.n_split > MAX_SPLIT ||
       (long long)p.n_split * p.span_k < Din || (long long)(p.n_split - 1) * p.span_k >= Din ||
       p.stages < 3 || p.stages > 8)
     return false;
-  return p.bn == 32 ? fits<WT, 32>(rows, p.span_k, p.stages, ln)
-                    : fits<WT, 64>(rows, p.span_k, p.stages, ln);
+  return p.bn == 32 ? fits<AT, WT, 32>(rows, p.span_k, p.stages, ln)
+                    : fits<AT, WT, 64>(rows, p.span_k, p.stages, ln);
 }
 
-template <typename WT, int BN, bool LN>
-cudaError_t launch_bn(const bf16* A, const WT* W, const float* col_scale,
-                      const float* row_scale, const bf16* bias, const bf16* residual,
-                      const bf16* ln_g, const bf16* ln_b, bf16* out, int N, int Din,
+template <typename AT, typename WT, int BN, bool LN>
+cudaError_t launch_bn(const AT* A, const WT* W, const float* col_scale,
+                      const float* row_scale, const AT* bias, const AT* residual,
+                      const AT* ln_g, const AT* ln_b, AT* out, int N, int Din,
                       int Dout, int gelu, SkinnyPlan p, cudaStream_t stream) {
-  auto kern = skinny_gemm_kernel<WT, BN, LN>;
+  auto kern = skinny_gemm_kernel<AT, WT, BN, LN>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return attr;
@@ -531,7 +594,7 @@ cudaError_t launch_bn(const bf16* A, const WT* W, const float* col_scale,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.n_split, Dout / BN, 1);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem_bytes<WT, BN, LN>(N, p.span_k, p.stages);
+  cfg.dynamicSmemBytes = smem_bytes<AT, WT, BN, LN>(N, p.span_k, p.stages);
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 1;
@@ -539,31 +602,31 @@ cudaError_t launch_bn(const bf16* A, const WT* W, const float* col_scale,
                             ln_b, out, N, Din, Dout, gelu, p.span_k, p.stages);
 }
 
-template <typename WT>
-cudaError_t launch_plan(const bf16* A, const WT* W, const float* col_scale,
-                        const float* row_scale, const bf16* bias, const bf16* residual,
-                        const bf16* ln_g, const bf16* ln_b, bf16* out, int N, int Din,
+template <typename AT, typename WT>
+cudaError_t launch_plan(const AT* A, const WT* W, const float* col_scale,
+                        const float* row_scale, const AT* bias, const AT* residual,
+                        const AT* ln_g, const AT* ln_b, AT* out, int N, int Din,
                         int Dout, int gelu, SkinnyPlan p, cudaStream_t stream) {
   const bool ln = ln_g != nullptr;
   if (p.bn == 32)
-    return ln ? launch_bn<WT, 32, true>(A, W, col_scale, row_scale, bias, residual, ln_g, ln_b,
-                                        out, N, Din, Dout, gelu, p, stream)
-              : launch_bn<WT, 32, false>(A, W, col_scale, row_scale, bias, residual, ln_g,
-                                         ln_b, out, N, Din, Dout, gelu, p, stream);
-  return ln ? launch_bn<WT, 64, true>(A, W, col_scale, row_scale, bias, residual, ln_g, ln_b,
-                                      out, N, Din, Dout, gelu, p, stream)
-            : launch_bn<WT, 64, false>(A, W, col_scale, row_scale, bias, residual, ln_g, ln_b,
-                                       out, N, Din, Dout, gelu, p, stream);
+    return ln ? launch_bn<AT, WT, 32, true>(A, W, col_scale, row_scale, bias, residual, ln_g,
+                                            ln_b, out, N, Din, Dout, gelu, p, stream)
+              : launch_bn<AT, WT, 32, false>(A, W, col_scale, row_scale, bias, residual, ln_g,
+                                             ln_b, out, N, Din, Dout, gelu, p, stream);
+  return ln ? launch_bn<AT, WT, 64, true>(A, W, col_scale, row_scale, bias, residual, ln_g,
+                                          ln_b, out, N, Din, Dout, gelu, p, stream)
+            : launch_bn<AT, WT, 64, false>(A, W, col_scale, row_scale, bias, residual, ln_g,
+                                           ln_b, out, N, Din, Dout, gelu, p, stream);
 }
 
 // One product on the plan; N > MAX_ROWS rows go in launches of MAX_ROWS.
-template <typename WT>
-cudaError_t skinny_gemm(const bf16* A, const WT* W, const float* col_scale,
-                        const float* row_scale, const bf16* bias, const bf16* residual,
-                        const bf16* ln_g, const bf16* ln_b, bf16* out, int N, int Din,
+template <typename AT, typename WT>
+cudaError_t skinny_gemm(const AT* A, const WT* W, const float* col_scale,
+                        const float* row_scale, const AT* bias, const AT* residual,
+                        const AT* ln_g, const AT* ln_b, AT* out, int N, int Din,
                         int Dout, int gelu, SkinnyPlan p, cudaStream_t stream) {
   if (N <= 0 || (ln_g != nullptr && row_scale != nullptr) ||
-      !plan_ok<WT>(N < MAX_ROWS ? N : MAX_ROWS, Din, Dout, ln_g != nullptr, p))
+      !plan_ok<AT, WT>(N < MAX_ROWS ? N : MAX_ROWS, Din, Dout, ln_g != nullptr, p))
     return cudaErrorInvalidValue;
   for (int r0 = 0; r0 < N; r0 += MAX_ROWS) {
     const int rows = N - r0 < MAX_ROWS ? N - r0 : MAX_ROWS;
@@ -576,20 +639,47 @@ cudaError_t skinny_gemm(const bf16* A, const WT* W, const float* col_scale,
   return cudaSuccess;
 }
 
-// The five projections of one layer's tail, over bf16 or int8 weights.
+// the tail's attention: K1 over a bf16 / f32 cache, K5 over int8 (ks != nullptr)
+cudaError_t tail_attention(const bf16* cq, const void* k, const void* v, const float* ks,
+                           const float* vs, bf16* att, int Bc, int beams, int H, int Ta,
+                           int layer, int ta_total, int n_span, int span_keys,
+                           cudaStream_t stream) {
+  return ks != nullptr
+             ? launch_cross_attn_q8(cq, static_cast<const int8_t*>(k), ks,
+                                    static_cast<const int8_t*>(v), vs, att, Bc, beams, H, Ta,
+                                    layer, ta_total, n_span, span_keys, stream)
+             : launch_cross_attn(cq, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                                 att, Bc, beams, H, Ta, layer, ta_total, n_span, span_keys,
+                                 stream);
+}
+
+cudaError_t tail_attention(const float* cq, const void* k, const void* v, const float* ks,
+                           const float* vs, float* att, int Bc, int beams, int H, int Ta,
+                           int layer, int ta_total, int n_span, int span_keys,
+                           cudaStream_t stream) {
+  return ks != nullptr
+             ? launch_cross_attn_q8_f32(cq, static_cast<const int8_t*>(k), ks,
+                                        static_cast<const int8_t*>(v), vs, att, Bc, beams, H,
+                                        Ta, layer, ta_total, n_span, span_keys, stream)
+             : launch_cross_attn_f32(cq, static_cast<const float*>(k),
+                                     static_cast<const float*>(v), att, Bc, beams, H, Ta, layer,
+                                     ta_total, n_span, span_keys, stream);
+}
+
+// The five projections of one layer's tail, over AT or int8 weights.
 // Scales (int8 only): o_ws, cq_ws, co_ws, fc1_ws [L, Dout] per output
 // column, fc2_ws [L, 4D] per input row; layer picked by pointer offset.
 // plan[0..4]: the splits of o, cq, co, fc1, fc2.
-template <typename WT>
-cudaError_t tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
+template <typename AT, typename WT>
+cudaError_t tail_layer(const AT* x, const AT* self_out, const WT* o_w,
                        const WT* cq_w, const WT* co_w, const WT* fc1_w,
                        const WT* fc2_w, const float* o_ws, const float* cq_ws,
                        const float* co_ws, const float* fc1_ws, const float* fc2_ws,
-                       const bf16* o_b, const bf16* ln2_g, const bf16* ln2_b,
-                       const bf16* cq_b, const bf16* co_b, const bf16* ln3_g,
-                       const bf16* ln3_b, const bf16* fc1_b, const bf16* fc2_b,
+                       const AT* o_b, const AT* ln2_g, const AT* ln2_b,
+                       const AT* cq_b, const AT* co_b, const AT* ln3_g,
+                       const AT* ln3_b, const AT* fc1_b, const AT* fc2_b,
                        const void* k, const void* v, const float* ks, const float* vs,
-                       bf16* x1, bf16* cq, bf16* att, bf16* x2, bf16* h4, bf16* out,
+                       AT* x1, AT* cq, AT* att, AT* x2, AT* h4, AT* out,
                        int layer, int N, int D, int H, int Bc, int beams, int Ta,
                        int ta_total, int n_span, int span_keys, const SkinnyPlan* plan,
                        cudaStream_t stream) {
@@ -598,54 +688,33 @@ cudaError_t tail_layer(const bf16* x, const bf16* self_out, const WT* o_w,
   const size_t d4 = static_cast<size_t>(D) * 4 * D;
   const size_t d = static_cast<size_t>(D);
   auto S = [l](const float* p, size_t n) { return p ? p + l * n : nullptr; };
+  const AT* none = nullptr;
   cudaError_t err;
   if ((err = skinny_gemm(self_out, o_w + l * dd, S(o_ws, d), nullptr, o_b + l * d, x,
-                         nullptr, nullptr, x1, N, D, D, 0, plan[0], stream)) != cudaSuccess)
+                         none, none, x1, N, D, D, 0, plan[0], stream)) != cudaSuccess)
     return err;
-  if ((err = skinny_gemm(x1, cq_w + l * dd, S(cq_ws, d), nullptr, cq_b + l * d, nullptr,
+  if ((err = skinny_gemm(x1, cq_w + l * dd, S(cq_ws, d), nullptr, cq_b + l * d, none,
                          ln2_g + l * d, ln2_b + l * d, cq, N, D, D, 0, plan[1], stream)) !=
       cudaSuccess)
     return err;
-  err = ks != nullptr
-            ? launch_cross_attn_q8(cq, static_cast<const int8_t*>(k), ks,
-                                   static_cast<const int8_t*>(v), vs, att, Bc, beams, H, Ta,
-                                   layer, ta_total, n_span, span_keys, stream)
-            : launch_cross_attn(cq, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                                att, Bc, beams, H, Ta, layer, ta_total, n_span, span_keys,
-                                stream);
-  if (err != cudaSuccess) return err;
+  if ((err = tail_attention(cq, k, v, ks, vs, att, Bc, beams, H, Ta, layer, ta_total, n_span,
+                            span_keys, stream)) != cudaSuccess)
+    return err;
   if ((err = skinny_gemm(att, co_w + l * dd, S(co_ws, d), nullptr, co_b + l * d, x1,
-                         nullptr, nullptr, x2, N, D, D, 0, plan[2], stream)) != cudaSuccess)
+                         none, none, x2, N, D, D, 0, plan[2], stream)) != cudaSuccess)
     return err;
   if ((err = skinny_gemm(x2, fc1_w + l * d4, S(fc1_ws, 4 * d), nullptr, fc1_b + l * 4 * d,
-                         nullptr, ln3_g + l * d, ln3_b + l * d, h4, N, D, 4 * D, 1, plan[3],
+                         none, ln3_g + l * d, ln3_b + l * d, h4, N, D, 4 * D, 1, plan[3],
                          stream)) != cudaSuccess)
     return err;
   return skinny_gemm(h4, fc2_w + l * d4, nullptr, S(fc2_ws, 4 * d), fc2_b + l * d, x2,
-                     nullptr, nullptr, out, N, 4 * D, D, 0, plan[4], stream);
+                     none, none, out, N, 4 * D, D, 0, plan[4], stream);
 }
 
-}  // namespace
-
-cudaError_t launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
-                               const bf16* ln_g, const bf16* ln_b, bf16* out, int N,
-                               int Din, int Dout, SkinnyPlan plan, cudaStream_t stream) {
-  return skinny_gemm(A, W, nullptr, nullptr, bias, nullptr, ln_g, ln_b, out, N, Din, Dout,
-                     0, plan, stream);
-}
-
-// x, self_out [N, D] (self_out is [N, H, 1, Dh] viewed flat); the stacked
-// decoder weights [L, ...] are passed at layer 0 and offset by `layer` here;
-// k, v [L, Bc, H, Ta, 64] with N = Bc * beams; x1, cq, att, x2 [N, D] and
-// h4 [N, 4D] are scratch; out [N, D]. Needs D % 64 == 0 (the wrapper checks).
-// K6's forms: o_ws != nullptr -> the five weights are int8 with the scales
-// o_ws, cq_ws, co_ws, fc1_ws (per output column) and fc2_ws (per input row);
-// ks != nullptr -> k, v are int8 with per-position scales ks, vs
-// [L, Bc, H, Ta]. Null scales: bf16 (K3). (n_span, span_keys): K1 / K5's
-// plan for Bc streams of `beams` queries (ops/attn.py::cross_attn_plan).
-// (bn, n_split, span_k, stages) x 5: the splits of o, cq, co, fc1 and fc2
-// (ops/tail.py::skinny_plan).
-WDT_EXPORT int wdt_fused_tail(
+// wdt_fused_tail(_f32)'s body for activations AT: int8 weights where o_ws
+// is given, else AT
+template <typename AT>
+int fused_tail(
     const void* x, const void* self_out, const void* o_w, const void* o_b,
     const void* ln2_g, const void* ln2_b, const void* cq_w, const void* cq_b,
     const void* co_w, const void* co_b, const void* ln3_g, const void* ln3_b,
@@ -654,19 +723,10 @@ WDT_EXPORT int wdt_fused_tail(
     void* h4, void* out, const void* o_ws, const void* cq_ws,
     const void* co_ws, const void* fc1_ws, const void* fc2_ws, const void* ks,
     const void* vs, int layer, int N, int D, int H, int Bc, int beams, int Ta,
-    int ta_total, int n_span, int span_keys, int o_bn, int o_split, int o_span,
-    int o_stages, int cq_bn, int cq_split, int cq_span, int cq_stages, int co_bn,
-    int co_split, int co_span, int co_stages, int fc1_bn, int fc1_split, int fc1_span,
-    int fc1_stages, int fc2_bn, int fc2_split, int fc2_span, int fc2_stages, void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const SkinnyPlan plan[5] = {{o_bn, o_split, o_span, o_stages},
-                              {cq_bn, cq_split, cq_span, cq_stages},
-                              {co_bn, co_split, co_span, co_stages},
-                              {fc1_bn, fc1_split, fc1_span, fc1_stages},
-                              {fc2_bn, fc2_split, fc2_span, fc2_stages}};
-  auto P = [](const void* p) { return static_cast<const bf16*>(p); };
+    int ta_total, int n_span, int span_keys, const SkinnyPlan* plan, cudaStream_t stream) {
+  auto P = [](const void* p) { return static_cast<const AT*>(p); };
   auto F = [](const void* p) { return static_cast<const float*>(p); };
-  auto O = [](void* p) { return static_cast<bf16*>(p); };
+  auto O = [](void* p) { return static_cast<AT*>(p); };
   cudaError_t err;
   if (o_ws != nullptr) {
     auto Q = [](const void* p) { return static_cast<const int8_t*>(p); };
@@ -686,3 +746,53 @@ WDT_EXPORT int wdt_fused_tail(
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
+
+}  // namespace
+
+cudaError_t launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
+                               const bf16* ln_g, const bf16* ln_b, bf16* out, int N,
+                               int Din, int Dout, SkinnyPlan plan, cudaStream_t stream) {
+  return skinny_gemm(A, W, nullptr, nullptr, bias, static_cast<const bf16*>(nullptr), ln_g,
+                     ln_b, out, N, Din, Dout, 0, plan, stream);
+}
+
+#define WDT_FUSED_TAIL_ARGS                                                                   \
+  const void *x, const void *self_out, const void *o_w, const void *o_b, const void *ln2_g,   \
+      const void *ln2_b, const void *cq_w, const void *cq_b, const void *co_w,                \
+      const void *co_b, const void *ln3_g, const void *ln3_b, const void *fc1_w,              \
+      const void *fc1_b, const void *fc2_w, const void *fc2_b, const void *k, const void *v,  \
+      void *x1, void *cq, void *att, void *x2, void *h4, void *out, const void *o_ws,         \
+      const void *cq_ws, const void *co_ws, const void *fc1_ws, const void *fc2_ws,           \
+      const void *ks, const void *vs, int layer, int N, int D, int H, int Bc, int beams,      \
+      int Ta, int ta_total, int n_span, int span_keys, int o_bn, int o_split, int o_span,     \
+      int o_stages, int cq_bn, int cq_split, int cq_span, int cq_stages, int co_bn,           \
+      int co_split, int co_span, int co_stages, int fc1_bn, int fc1_split, int fc1_span,      \
+      int fc1_stages, int fc2_bn, int fc2_split, int fc2_span, int fc2_stages, void *stream_
+#define WDT_FUSED_TAIL_CALL(AT)                                                               \
+  const SkinnyPlan plan[5] = {{o_bn, o_split, o_span, o_stages},                              \
+                              {cq_bn, cq_split, cq_span, cq_stages},                          \
+                              {co_bn, co_split, co_span, co_stages},                          \
+                              {fc1_bn, fc1_split, fc1_span, fc1_stages},                      \
+                              {fc2_bn, fc2_split, fc2_span, fc2_stages}};                     \
+  return fused_tail<AT>(x, self_out, o_w, o_b, ln2_g, ln2_b, cq_w, cq_b, co_w, co_b, ln3_g,   \
+                        ln3_b, fc1_w, fc1_b, fc2_w, fc2_b, k, v, x1, cq, att, x2, h4, out,    \
+                        o_ws, cq_ws, co_ws, fc1_ws, fc2_ws, ks, vs, layer, N, D, H, Bc,       \
+                        beams, Ta, ta_total, n_span, span_keys, plan,                         \
+                        static_cast<cudaStream_t>(stream_))
+
+// x, self_out [N, D] (self_out is [N, H, 1, Dh] viewed flat); the stacked
+// decoder weights [L, ...] are passed at layer 0 and offset by `layer` here;
+// k, v [L, Bc, H, Ta, 64] with N = Bc * beams; x1, cq, att, x2 [N, D] and
+// h4 [N, 4D] are scratch; out [N, D]. Needs D % 64 == 0 (the wrapper checks).
+// K6's forms: o_ws != nullptr -> the five weights are int8 with the scales
+// o_ws, cq_ws, co_ws, fc1_ws (per output column) and fc2_ws (per input row);
+// ks != nullptr -> k, v are int8 with per-position scales ks, vs
+// [L, Bc, H, Ta]. Null scales: bf16 (K3). (n_span, span_keys): K1 / K5's
+// plan for Bc streams of `beams` queries (ops/attn.py::cross_attn_plan).
+// (bn, n_split, span_k, stages) x 5: the splits of o, cq, co, fc1 and fc2
+// (ops/tail.py::skinny_plan).
+WDT_EXPORT int wdt_fused_tail(WDT_FUSED_TAIL_ARGS) { WDT_FUSED_TAIL_CALL(bf16); }
+
+// The f32 forms: every bf16 operand above in f32 (int8 weights and cache
+// as above); the plans of ops/tail.py with f32=True.
+WDT_EXPORT int wdt_fused_tail_f32(WDT_FUSED_TAIL_ARGS) { WDT_FUSED_TAIL_CALL(float); }

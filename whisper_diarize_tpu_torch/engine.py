@@ -12,9 +12,10 @@ The same `EngineConfig` / `TranscribeOptions` / `Callbacks` surface, model
 and step cache, resume journal, callbacks, chunk scheduler, one-deep DTW
 pipeline and formatting as the JAX Engine, on the port's own copies of the
 host modules (the port imports nothing of the JAX package).
-`EngineConfig(use_gpu=True)` (the default) runs on a CUDA card in bf16 and
-raises without one; `use_gpu=False` runs on the CPU in f32 through the
-kernels' plain versions. `quantize_kv_cache=True` decodes over an int8
+`EngineConfig(use_gpu=True)` (the default) runs on a CUDA card in bf16, or
+in f32 with `dtype="float32"` (the kernels' f32 forms, every torch product
+in f32: `utils.exact_f32`), and raises without one; `use_gpu=False` runs
+on the CPU in f32 through the kernels' plain versions. `quantize_kv_cache=True` decodes over an int8
 cross K/V cache (K5, K6) on both devices; language detection reads the
 exact bf16 cache. `TranscribeOptions(enable_diarize=True)` cuts each
 stream by the segmentation net and gives every segment the `speaker_id` of
@@ -26,11 +27,12 @@ also name a checkpoint file: a whisper.cpp GGML file (its embedded
 vocabulary builds the tokenizer) or an OpenAI `.pt` file.
 
 Not ported yet, and refused with NotImplementedError (never run some other
-way): device meshes, and f32 on the card — see ROADMAP.md.
+way): device meshes — see ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -66,6 +68,7 @@ from .types import (
 
 from .ops import decode as dec
 from .parallel.batching import SAMPLE_RATE
+from .utils import exact_f32
 
 logger = logging.getLogger(__name__)
 
@@ -158,7 +161,7 @@ class EngineConfig:
 
     cache_dir: str = "./cache"
     enable_dtw: Optional[bool] = True
-    enable_flash_attn: Optional[bool] = False  # only False: K1 always runs
+    enable_flash_attn: Optional[bool] = False  # accepted, changes nothing: K1 always runs
     use_gpu: Optional[bool] = True  # CUDA (required) vs CPU plain path
     gpu_device: Optional[int] = None  # CUDA device ordinal
     vad_model_path: Optional[str] = None
@@ -194,11 +197,6 @@ class Engine:
             raise NotImplementedError(
                 "mesh_shape: multi-GPU inference is not ported yet "
                 "(ROADMAP Queue 1: Multi-GPU and training)")
-        if self.cfg.dtype == "float32" and self.cfg.use_gpu is not False:
-            raise NotImplementedError(
-                "dtype='float32' on the card: the CUDA kernels take bfloat16 "
-                "only (ROADMAP Queue 1: f32 forms of the kernels); leave dtype "
-                "unset or 'bfloat16', or pass use_gpu=False for the f32 CPU path")
         if self.cfg.use_gpu is False:
             self.device = torch.device("cpu")
         else:
@@ -208,10 +206,11 @@ class Engine:
                     "available; pass use_gpu=False for the CPU path")
             self.device = torch.device("cuda", self.cfg.gpu_device or 0)
         if self.cfg.enable_flash_attn:
-            raise ValueError(
-                "enable_flash_attn selects nothing in the port: the decoder's "
-                "cross attention always runs on its flash kernel (K1) on CUDA "
-                "and on its plain version on the CPU; leave it False")
+            # as the JAX Engine: accepted for API parity, changes nothing
+            logger.warning(
+                "enable_flash_attn=True has no effect: the decoder's cross "
+                "attention always runs on its flash kernel (K1) on CUDA and on "
+                "its plain version on the CPU")
         self.models = ModelManager(self.cfg.cache_dir)
         self._whisper_cache: dict = {}
         self._step_cache: dict = {}
@@ -418,7 +417,10 @@ class Engine:
             if not os.path.exists(p):
                 raise FileNotFoundError("audio file doesn't exist")
 
-        with torch.inference_mode():
+        # an f32 Engine's torch products in f32 on the card: cuDNN's
+        # convolutions (the encoder's conv1d) would take TF32 by default
+        f32 = self._resolve_dtype() == torch.float32
+        with torch.inference_mode(), (exact_f32() if f32 else contextlib.nullcontext()):
             params, model_cfg, tokenizer = self._load_whisper(
                 options, cb.progress, cb.is_cancelled)
             step = self._make_step(params, model_cfg, tokenizer, options)

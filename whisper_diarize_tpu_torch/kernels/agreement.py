@@ -25,6 +25,34 @@ plain versions, and `reject` fails unless the check refuses each of them.
 K5 and K6 take int8 inputs: `quantize_cross_kv` and `quantize_tail_weights`
 of such random tensors.
 
+The f32 forms of K1-K6 (`F32`, `F32_Q8`) are held the same way with f32
+constants: the elementwise bound is ULPS_F32 f32 ulps at the element's (or
+its residual's) magnitude plus ATOL_RMS_F32 of the update's rms, and the
+whole tensor's relative L2 must stay under REL_L2_F32. The constants come
+from the longest dot product, 4D = 5120 (fc2; D = 1280 for K2 and the
+other products): a sum of n f32 terms with random signs, taken in another
+order, lands about 2^-24 * sqrt(n / 2) of its terms' scale away, 3.0e-6
+relative at n = 5120 even for a plain running sum; the kernels sum in
+shorter chains and land closer (the H100's f32 forms lie 0 - 6e-7 from
+their plain versions at large-v3 widths). REL_L2_F32 = 2^-17 (7.6e-6)
+leaves 2.5x above that running-sum estimate; the elementwise term 2^-14 is
+eight times it, the largest of ~10^7 such errors. Two faults must be
+refused by at least 10x (`F32_REFUSAL`): the inputs rounded to TF32 (10
+mantissa bits: 1.5e-4 - 6e-4 relative, 20x REL_L2_F32 and more), and the
+bf16 form's rounding points (q * scale and p, or a product's output,
+rounded to bf16: ~2e-3). K5 and K6's `kvq`
+keep the TPU kernel's bf16 products (q * scale and p * vs), and a p that
+lies within an f32 ulp of a bf16 rounding boundary may round the other way
+in kernel and plain version. So does K6's query, which its K5 rounds to
+bf16 from an f32 product that kernel and plain version sum in other
+orders. At large-v3 widths (Ta 1500, 20 heads) such flips leave K5 and
+K6 `kvq` up to 1.1e-5 from their float64 plain version (at N 8 and 40, Q
+3 and 15, three seeds), while the faults land at 3.5e-4 (K6 kvq in TF32)
+and above. `F32_Q8` takes K5's elementwise bf16 bound with REL_L2_Q8 =
+2^-15 (3.1e-5): the faults are refused by 11x and more. A flip weighs
+more in a narrow test (a few heads, tens of keys: 3.2e-5 at Ta 60), so
+the tests hold the int8 forms at f32 at 1500 keys.
+
 K7 computes in f32 and writes f32: it is held to an absolute bound instead
 of the bf16 one (`F32_ATOL`, and the same relative L2), since a few bf16
 ulps would let a wrong DFT span pass, or a kernel whose products take
@@ -44,7 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -60,6 +88,11 @@ BIAS_SCALE = 0.5  # std of biases and layernorm shifts; layernorm scales are 1 +
 # over a hundred times further from it (`k7_faults`).
 F32_ATOL = 1e-3
 SUM_RTOL = 2.0 ** -16  # of sum|terms|, for the stream sums (K9b, K11)
+ULPS_F32 = 8  # f32 ulps at the element's magnitude (or its residual's)
+ATOL_RMS_F32 = 2.0 ** -14  # of the update's rms, an element
+REL_L2_F32 = 2.0 ** -17  # relative L2 error of the update
+F32_REFUSAL = 10.0  # how far past the f32 check the f32 faults must land
+REL_L2_Q8 = 2.0 ** -15  # K5 / K6 kvq at f32: bf16 flips of q or p * vs
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -68,28 +101,62 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.where(m == 0, torch.zeros_like(m), torch.ldexp(torch.ones_like(m), e - 8))
 
 
+def f32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of f32 numbers at |x| (24 significant bits); 0 where x == 0."""
+    m, e = torch.frexp(x.float().abs())
+    return torch.where(m == 0, torch.zeros_like(m), torch.ldexp(torch.ones_like(m), e - 24))
+
+
+@dataclasses.dataclass(frozen=True)
+class Tolerance:
+    """One check: `ulps` units in the last place (`ulp`) at the element's
+    magnitude plus `atol_rms` of the update's rms an element, and the
+    update's relative L2 error under `rel_l2`."""
+    ulp: Callable[[torch.Tensor], torch.Tensor]
+    ulps: float
+    atol_rms: float
+    rel_l2: float
+
+
+BF16 = Tolerance(bf16_ulp, ULPS, ATOL_RMS, REL_L2)
+F32 = Tolerance(f32_ulp, ULPS_F32, ATOL_RMS_F32, REL_L2_F32)
+# K5 and K6 kvq at f32: bf16 products inside (elementwise bf16)
+F32_Q8 = Tolerance(bf16_ulp, ULPS, ATOL_RMS, REL_L2_Q8)
+
+
 @dataclasses.dataclass
 class Agreement:
     max_abs_err: float
     worst: float  # max over elements of |got - ref| / elementwise bound
     rel_l2: float
     finite: bool
+    rel_tol: float = REL_L2
 
     @property
     def ok(self) -> bool:
-        return self.finite and self.worst <= 1.0 and self.rel_l2 <= REL_L2
+        return self.finite and self.worst <= 1.0 and self.rel_l2 <= self.rel_tol
+
+    @property
+    def excess(self) -> float:
+        """How far past the check the result lies: the larger of `worst`
+        and rel_l2 over its tolerance (inf where either is not finite, as
+        against a fault that gives NaN)."""
+        vals = (self.worst, self.rel_l2 / self.rel_tol)
+        if not self.finite or not all(math.isfinite(v) for v in vals):
+            return math.inf
+        return max(vals)
 
     def __str__(self) -> str:
         return (f"max_abs_err {self.max_abs_err:.4g}, worst {self.worst:.3g} of the "
-                f"elementwise bound, rel_l2 {self.rel_l2:.3g} (tol {REL_L2:g}), "
+                f"elementwise bound, rel_l2 {self.rel_l2:.3g} (tol {self.rel_tol:g}), "
                 f"finite {self.finite}")
 
 
 def agreement(got: torch.Tensor, ref: torch.Tensor,
               base: Optional[torch.Tensor] = None,
-              atol: Optional[float] = None) -> Agreement:
-    """The elementwise bound is ULPS bf16 ulps + ATOL_RMS of the update's
-    rms, or `atol` where given (an f32 kernel)."""
+              atol: Optional[float] = None, tol: Tolerance = BF16) -> Agreement:
+    """The elementwise bound is `tol.ulps` ulps + `tol.atol_rms` of the
+    update's rms, or `atol` where given (K7, an f32 kernel)."""
     g, r = got.float(), ref.float()
     upd = r if base is None else r - base.float()
     err = (g - r).abs()
@@ -99,21 +166,22 @@ def agreement(got: torch.Tensor, ref: torch.Tensor,
         mag = torch.maximum(g.abs(), r.abs())
         if base is not None:
             mag = torch.maximum(mag, base.float().abs())
-        bound = ULPS * bf16_ulp(mag) + ATOL_RMS * upd.pow(2).mean().sqrt()
+        bound = tol.ulps * tol.ulp(mag) + tol.atol_rms * upd.pow(2).mean().sqrt()
     tiny = torch.finfo(torch.float32).tiny
     return Agreement(
         max_abs_err=float(err.max()),
         worst=float((err / bound.clamp_min(tiny)).max()),
         rel_l2=float(err.norm() / upd.norm().clamp_min(tiny)),
         finite=bool(torch.isfinite(g).all()),
+        rel_tol=tol.rel_l2,
     )
 
 
 def compare(tag: str, got: torch.Tensor, ref: torch.Tensor,
             base: Optional[torch.Tensor] = None,
-            atol: Optional[float] = None) -> Agreement:
+            atol: Optional[float] = None, tol: Tolerance = BF16) -> Agreement:
     """Print the agreement of kernel and plain version; raise on a miss."""
-    a = agreement(got, ref, base, atol)
+    a = agreement(got, ref, base, atol, tol)
     print(f"[kernels] {tag}: {a} -> {'ok' if a.ok else 'FAIL'}", flush=True)
     if not a.ok:
         raise AssertionError(f"{tag}: kernel disagrees with its plain version ({a})")
@@ -122,13 +190,18 @@ def compare(tag: str, got: torch.Tensor, ref: torch.Tensor,
 
 def reject(tag: str, got: torch.Tensor, faulty: torch.Tensor,
            base: Optional[torch.Tensor] = None,
-           atol: Optional[float] = None) -> Agreement:
-    """The check must refuse a planted fault; raise if it lets one pass."""
-    a = agreement(got, faulty, base, atol)
+           atol: Optional[float] = None, tol: Tolerance = BF16,
+           factor: float = 1.0) -> Agreement:
+    """The check must refuse a planted fault, by `factor` (its `excess`)
+    or more; raise if it does not."""
+    a = agreement(got, faulty, base, atol, tol)
+    caught = not a.ok and a.excess >= factor
     print(f"[kernels] planted fault {tag}: worst {a.worst:.3g}, rel_l2 "
-          f"{a.rel_l2:.3g} -> {'caught' if not a.ok else 'MISSED'}", flush=True)
-    if a.ok:
-        raise AssertionError(f"planted fault {tag} passes the check ({a})")
+          f"{a.rel_l2:.3g}, {a.excess:.3g}x the check -> "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    if not caught:
+        raise AssertionError(f"planted fault {tag} passes the check, or is refused by "
+                             f"less than {factor:g}x ({a})")
     return a
 
 
@@ -325,7 +398,8 @@ def tail_split_faults(tag: str, layer: int, x, self_out, blocks, k, v, beams: in
 
     N, D = x.shape[0], x.shape[-1]
     plans = dict(zip(("o", "cq", "co", "fc1", "fc2"),
-                     tail_plans(N, D, blocks["o_w"].dtype == torch.int8)))
+                     tail_plans(N, D, blocks["o_w"].dtype == torch.int8,
+                                x.dtype == torch.float32)))
     a = (layer, x, self_out, blocks, k, v, beams, ta_total, ks, vs)
 
     def split_proj(slip):
@@ -427,6 +501,101 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     reads."""
     i = x.float().contiguous().view(torch.int32)
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_inputs(*args):
+    """`args` with every f32 tensor among them (and every f32 tensor of a
+    dict among them) rounded to TF32: what a product in TF32 reads."""
+    def r(a):
+        if isinstance(a, dict):
+            return {key: r(t) for key, t in a.items()}
+        if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+            return tf32_round(a)
+        return a
+    return [r(a) for a in args]
+
+
+def split_attend(layer: int, q, k, v, ta_total, ks=None, vs=None) -> torch.Tensor:
+    """The cross attention in the kernels' order (`attn.cross_attn_split_plain`):
+    the tail's attention in the f32 check's reference for K6 `kvq`, whose K5
+    rounds p * vs to bf16 against its span's running max."""
+    from ..ops.attn import cross_attn_split_plain
+
+    return cross_attn_split_plain(layer, q, k, v, ta_total, ks=ks, vs=vs)
+
+
+def _bf16_products(name, h, w, b, col_scale):
+    """A tail product rounded to bf16, as the bf16 form rounds it."""
+    from ..ops.tail import _proj
+
+    y = _proj(h, w, b, col_scale)
+    return y.to(torch.bfloat16).to(y.dtype)
+
+
+def k1_f32_faults(layer: int, q, k, v, ta_total) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The f32 forms' two faults for K1 (`F32_REFUSAL`): the inputs in TF32,
+    and the bf16 form's rounding points (q * Dh^-0.5 and p to bf16)."""
+    from ..ops.attn import cross_attn_layer_plain as plain
+
+    yield "K1 TF32 inputs", plain(layer, *tf32_inputs(q, k, v), ta_total)
+    yield "K1 bf16 rounding points", plain(layer, q, k, v, ta_total, rounding=torch.bfloat16)
+
+
+def k2_f32_faults(xa, ck_w, cv_w, cv_b, n_heads: int
+                  ) -> Iterator[Tuple[str, int, torch.Tensor]]:
+    """(name, index of k / v it replaces, faulty tensor): the products in
+    TF32, and the output rounded to bf16 (K2's one rounding point)."""
+    from ..ops.attn import cross_kv_build_plain as plain
+
+    tk, tv = plain(*tf32_inputs(xa, ck_w, cv_w, cv_b), n_heads)
+    yield "K2 TF32 inputs (k)", 0, tk
+    yield "K2 TF32 inputs (v)", 1, tv
+    k, v = plain(xa, ck_w, cv_w, cv_b, n_heads)
+    yield "K2 bf16 rounding point (k)", 0, k.to(torch.bfloat16).float()
+    yield "K2 bf16 rounding point (v)", 1, v.to(torch.bfloat16).float()
+
+
+def k4_f32_faults(layer: int, q, pk, pv, dk, dv, anc_j, step: int, row_pad,
+                  prompt_len: int) -> Iterator[Tuple[str, torch.Tensor]]:
+    """As `k1_f32_faults`, for K4."""
+    from ..ops.attn import split_self_attn_layer_plain as plain
+
+    yield "K4 TF32 inputs", plain(layer, *tf32_inputs(q, pk, pv, dk, dv), anc_j, step,
+                                  row_pad, prompt_len)
+    yield "K4 bf16 rounding points", plain(layer, q, pk, pv, dk, dv, anc_j, step, row_pad,
+                                           prompt_len, rounding=torch.bfloat16)
+
+
+def k5_f32_faults(layer: int, q, k8, ks, v8, vs, ta_total
+                  ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """K5's f32 form keeps the TPU kernel's bf16 products; its faults, on
+    the split model (its f32 reference): q and the scales in TF32, and the
+    output rounded to bf16 (the bf16 form's last rounding point)."""
+    tq, tks, tvs = tf32_inputs(q, ks, vs)
+    yield "K5 TF32 inputs", split_attend(layer, tq, k8, v8, ta_total, tks, tvs)
+    yield "K5 bf16 rounding point (output)", split_attend(
+        layer, q, k8, v8, ta_total, ks, vs).to(torch.bfloat16).float()
+
+
+def tail_f32_faults(tag: str, layer: int, x, self_out, blocks, k, v, beams: int, ta_total,
+                    ks=None, vs=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The f32 forms' two faults for K3 / K6 (`tag`), on the tail's f32
+    reference (`split_attend` over the int8 cache): every input in TF32, and
+    the bf16 form's rounding points (each product's output rounded to bf16
+    and, over an f32 cache, the attention's q * Dh^-0.5 and p)."""
+    from ..ops.attn import cross_attn_layer_plain
+    from ..ops.tail import fused_tail_layer_plain as plain
+
+    attend = split_attend if ks is not None else None
+    t = tf32_inputs(x, self_out, blocks, k, v, ks, vs)
+    yield f"{tag} TF32 inputs", plain(layer, *t[:5], beams, ta_total, t[5], t[6],
+                                      attend=attend)
+    if ks is None:
+        def attend(layer, q, k, v, ta_total, ks, vs):
+            return cross_attn_layer_plain(layer, q, k, v, ta_total, rounding=torch.bfloat16)
+    yield f"{tag} bf16 rounding points", plain(layer, x, self_out, blocks, k, v, beams,
+                                               ta_total, ks, vs, proj=_bf16_products,
+                                               attend=attend)
 
 
 def k7_faults(audio: torch.Tensor, n_mels: int) -> Iterator[Tuple[str, torch.Tensor]]:

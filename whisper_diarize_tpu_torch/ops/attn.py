@@ -17,8 +17,15 @@ split.
 Dispatch: a wrapper runs the plain version only when its tensors lie on the
 CPU. On a CUDA tensor it launches the hand-written kernel
 (`csrc/cross_attn.cu` for K1 and K5, `csrc/cross_kv.cu`,
-`csrc/split_self.cu`) or raises; it never falls back. Each wrapper counts
-its kernel launches in `<wrapper>.launches`.
+`csrc/split_self.cu`) or raises; it never falls back. Each kernel has a
+bf16 and an f32 form: the float operands of a call share one dtype, bf16 or
+f32 (the int8 cache and its f32 scales stay as they are), and a mixed call
+raises TypeError. Each wrapper counts its kernel launches in
+`<wrapper>.launches` (both forms) and those of its f32 form in
+`<wrapper>.launches_f32`.
+
+The plain versions compute in f32, or in float64 where given float64
+inputs (`_acc`): the f32 check's reference on the CPU.
 """
 
 from __future__ import annotations
@@ -49,6 +56,28 @@ def _require_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
 
 
+FLOAT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in the plain versions' compute type: float64 stays float64 (a
+    reference for the f32 forms), anything else becomes f32."""
+    return x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+
+
+def _float_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """The dtype of a kernel call's float operands: bf16 or f32."""
+    if x.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{name}: kernels take bfloat16 or float32, got {x.dtype}")
+    return x.dtype
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    fn.launches += 1
+    if dtype == torch.float32:
+        fn.launches_f32 += 1
+
+
 def qk_scaled(x: torch.Tensor) -> torch.Tensor:
     """x * Dh^-0.25 in f32, rounded to x's dtype, as f32: how the self
     attentions of the encoder (K10) and of the greedy front (K8) scale q
@@ -68,9 +97,12 @@ ROW_CHUNK = 64  # queries a CTA at Q > 16 (each warp 16 of them, all keys)
 # bytes in flight. Each span costs a share of the cluster's combine, so at
 # B 8 two spans (320 CTAs) beat eight (1,280) for K1 and three for K5,
 # whose int8 tiles hold half the bytes; at B 1 every shape wants the full
-# cluster (`tools/bench_attn_kernel.py --plans` measures each split)
+# cluster (`tools/bench_attn_kernel.py --plans` measures each split). The
+# f32 cache's tiles hold twice the bf16 bytes: twice the CTAs keep each
+# CTA's span at the bf16 plan's bytes (four spans of 384 keys at B 8)
 CTA_TARGET = 320
 CTA_TARGET_INT8 = 480
+CTA_TARGET_F32 = 640
 
 
 class CrossAttnPlan(NamedTuple):
@@ -79,12 +111,13 @@ class CrossAttnPlan(NamedTuple):
 
 
 def cross_attn_plan(B: int, H: int, Q: int, ta_total: int,
-                    int8: bool = False) -> CrossAttnPlan:
+                    int8: bool = False, f32: bool = False) -> CrossAttnPlan:
     """How K1 / K5 split one layer's keys: one cluster of `n_span` CTAs per
     (b, h, chunk of QUERY_CHUNK queries, ROW_CHUNK where Q > QUERY_CHUNK),
     CTA r over keys [r * span_keys,
     (r + 1) * span_keys) of [0, ta_total). As many spans as bring the grid
-    near CTA_TARGET CTAs (CTA_TARGET_INT8 over the int8 cache, `int8`), at
+    near CTA_TARGET CTAs (CTA_TARGET_INT8 over the int8 cache, `int8`;
+    CTA_TARGET_F32 over the f32 cache, `f32`), at
     most CLUSTER_MAX and one 64-key tile each; the tiles are then dealt
     evenly, so every span holds an unmasked key. A pure function of the
     shape: the wrappers and the fused tail pass it to the kernel, which
@@ -93,7 +126,7 @@ def cross_attn_plan(B: int, H: int, Q: int, ta_total: int,
         raise ValueError(f"cross_attn_plan: B {B}, H {H}, Q {Q}, ta_total {ta_total}")
     tiles = -(-ta_total // KEYS_PER_TILE)
     ctas = B * H * -(-Q // (QUERY_CHUNK if Q <= QUERY_CHUNK else ROW_CHUNK))
-    target = CTA_TARGET_INT8 if int8 else CTA_TARGET
+    target = CTA_TARGET_INT8 if int8 else CTA_TARGET_F32 if f32 else CTA_TARGET
     n = max(1, min(CLUSTER_MAX, tiles, -(-target // ctas)))
     per = -(-tiles // n)
     return CrossAttnPlan(-(-tiles // per), per * KEYS_PER_TILE)
@@ -117,29 +150,32 @@ def split_plans(ta_total: int) -> List[CrossAttnPlan]:
 def _flash_tiles(qs: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor,
                  ksl: Optional[torch.Tensor], vsl: Optional[torch.Tensor],
                  t0: int, t1: int, tile: int):
-    """The flash recurrence over keys [t0, t1) in `tile`-key steps: f32
-    scores (times ksl, the int8 cache's key scales), the running max moving
-    once a step, the normalizer summing the unrounded p, and P.V on
-    bf16(p) (bf16(p * vsl) over the int8 cache). qs [B, Q, H, Dh] f32,
-    kl / vl [B, H, Ta, Dh], ksl / vsl [B, H, Ta] or None. Returns the
-    unnormalized state (acc [B, H, Q, Dh], m [B, H, Q], l [B, H, Q])."""
+    """The flash recurrence over keys [t0, t1) in `tile`-key steps: scores
+    in qs's dtype (times ksl, the int8 cache's key scales), the running max
+    moving once a step, the normalizer summing the unrounded p, and P.V on
+    p rounded to the V dtype (bf16(p * vsl) over the int8 cache). qs
+    [B, Q, H, Dh] f32 (float64 for a reference), kl / vl [B, H, Ta, Dh],
+    ksl / vsl [B, H, Ta] or None. Returns the unnormalized state
+    (acc [B, H, Q, Dh], m [B, H, Q], l [B, H, Q])."""
     B, Q, H, Dh = qs.shape
-    m = torch.full((B, H, Q), -1e30, device=qs.device)
-    l = torch.zeros((B, H, Q), device=qs.device)
-    acc = torch.zeros((B, H, Q, Dh), device=qs.device)
+    ct = qs.dtype
+    rd = torch.bfloat16 if vsl is not None else vl.dtype
+    m = torch.full((B, H, Q), -1e30, dtype=ct, device=qs.device)
+    l = torch.zeros((B, H, Q), dtype=ct, device=qs.device)
+    acc = torch.zeros((B, H, Q, Dh), dtype=ct, device=qs.device)
     for a in range(t0, t1, tile):
         t = slice(a, min(a + tile, t1))
-        s = torch.einsum("bqhd,bhtd->bhqt", qs, kl[:, :, t].float())
+        s = torch.einsum("bqhd,bhtd->bhqt", qs, kl[:, :, t].to(ct))
         if ksl is not None:
-            s = s * ksl[:, :, None, t].float()
+            s = s * ksl[:, :, None, t].to(ct)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
         if vsl is not None:
-            p = p * vsl[:, :, None, t].float()
+            p = p * vsl[:, :, None, t].to(ct)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bhqt,bhtd->bhqd", p.to(torch.bfloat16).float(), vl[:, :, t].float())
+            "bhqt,bhtd->bhqd", p.to(rd).to(ct), vl[:, :, t].to(ct))
         m = m_new
     return acc, m, l
 
@@ -153,11 +189,15 @@ def cross_attn_span_states(
     of `plan` (default `cross_attn_plan`), in order, the unnormalized state
     (acc, m, l) of the flash recurrence over the span's keys < ta_total in
     64-key tiles, p rounded to bf16 against the span's running max, as one
-    CTA of the cluster computes it."""
+    CTA of the cluster computes it; q * Dh^-0.5 and p round to the cache's
+    dtype (bf16 over the int8 cache), which is the identity at f32."""
     B, Q, H, Dh = q.shape
     ta = k.shape[3] if ta_total is None else int(ta_total)
-    n_span, span_keys = plan or cross_attn_plan(B, H, Q, ta, int8=ks is not None)
-    qs = (q.float() * Dh ** -0.5).to(torch.bfloat16).float()
+    int8 = ks is not None
+    n_span, span_keys = plan or cross_attn_plan(
+        B, H, Q, ta, int8=int8, f32=k.dtype == torch.float32)
+    qa = _acc(q)
+    qs = (qa * Dh ** -0.5).to(torch.bfloat16 if int8 else k.dtype).to(qa.dtype)
     ksl = None if ks is None else ks[layer]
     vsl = None if vs is None else vs[layer]
     return [_flash_tiles(qs, k[layer], v[layer], ksl, vsl, r * span_keys,
@@ -167,7 +207,7 @@ def cross_attn_span_states(
 
 def combine_span_states(states, dtype: torch.dtype) -> torch.Tensor:
     """The cluster's combine: each span's (acc, l) rescaled by exp(m - max m)
-    and summed in span order; bf16(acc / l) as [B, Q, H, Dh] of `dtype`."""
+    and summed in span order; acc / l as [B, Q, H, Dh] of `dtype`."""
     m_max = torch.stack([m for _, m, _ in states]).amax(dim=0)
     acc, l = 0.0, 0.0
     for a, m, s in states:
@@ -184,8 +224,9 @@ def cross_attn_split_plain(
 ) -> torch.Tensor:
     """K1's (K5's, with ks, vs) function in the kernel's order: the spans of
     `cross_attn_span_states` combined by `combine_span_states`. It differs
-    from `cross_attn_layer_plain` only by where p is rounded to bf16; the
-    tests hold it to the JAX kernel (`kernels.agreement`)."""
+    from `cross_attn_layer_plain` only by where p is rounded to bf16 (at f32
+    only by the order of its sums); the tests hold it to the JAX kernel
+    (`kernels.agreement`)."""
     return combine_span_states(
         cross_attn_span_states(layer, q, k, v, ta_total, plan, ks, vs), q.dtype)
 
@@ -196,21 +237,25 @@ def cross_attn_split_plain(
 
 def cross_attn_layer_plain(
     layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    ta_total: Optional[int] = None,
+    ta_total: Optional[int] = None, rounding: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """q [B, Q, H, Dh] against layer `layer` of k, v [L, B, H, Ta, Dh] ->
     [B, Q, H, Dh]; columns >= ta_total are masked. The numerics of the TPU
     kernel: q scaled by Dh^-0.5 in f32 then cast to the K/V dtype, f32
-    scores and normalizer, probabilities cast to the V dtype before P.V."""
+    scores and normalizer, probabilities cast to the V dtype before P.V.
+    `rounding` replaces the K/V dtype at those two casts (a planted fault:
+    the bf16 form's rounding points at f32)."""
     Dh = q.shape[-1]
     ta = k.shape[3] if ta_total is None else int(ta_total)
-    kl = k[layer, :, :, :ta].float()
+    qa = _acc(q)
+    ct = qa.dtype
+    kl = k[layer, :, :, :ta].to(ct)
     vl = v[layer, :, :, :ta]
-    qs = (q.float() * Dh ** -0.5).to(k.dtype).float()
+    qs = (qa * Dh ** -0.5).to(rounding or k.dtype).to(ct)
     s = torch.einsum("bqhd,bhtd->bhqt", qs, kl)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     denom = p.sum(dim=-1, keepdim=True)  # [B, H, Q, 1]
-    o = torch.einsum("bhqt,bhtd->bhqd", p.to(v.dtype).float(), vl.float())
+    o = torch.einsum("bhqt,bhtd->bhqd", p.to(rounding or v.dtype).to(ct), vl.to(ct))
     return (o / denom).permute(0, 2, 1, 3).to(q.dtype)
 
 
@@ -222,7 +267,8 @@ def cross_attn_layer(
     `cross_attn_plan`) is for probes that compare key splits."""
     if q.device.type == "cpu":
         return cross_attn_layer_plain(layer, q, k, v, ta_total)
-    _require_cuda("cross_attn_layer", q, k, v)
+    dt = _float_dtype("cross_attn_layer", q)
+    _require_cuda("cross_attn_layer", q, k, v, dtype=dt)
     B, Q, H, Dh = q.shape
     L, Bk, Hk, Ta, Dhk = k.shape
     if Dh != 64 or (Bk, Hk, Dhk) != (B, H, Dh) or v.shape != k.shape:
@@ -232,19 +278,22 @@ def cross_attn_layer(
     ta = Ta if ta_total is None else int(ta_total)
     if not (0 <= layer < L and 0 < ta <= Ta):
         raise ValueError(f"cross_attn_layer: layer {layer} / ta_total {ta}")
+    f32 = dt == torch.float32
     out = torch.empty_like(q)
     lib = kernels.library()
+    entry = lib.wdt_cross_attn_f32 if f32 else lib.wdt_cross_attn
     with torch.cuda.device(q.device):
-        kernels.check(lib.wdt_cross_attn(
+        kernels.check(entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Q, H, Ta, int(layer), ta, *(plan or cross_attn_plan(B, H, Q, ta)),
+            B, Q, H, Ta, int(layer), ta, *(plan or cross_attn_plan(B, H, Q, ta, f32=f32)),
             kernels.stream_ptr(q.device),
         ), "cross_attn_layer")
-    cross_attn_layer.launches += 1
+    _count(cross_attn_layer, dt)
     return out
 
 
 cross_attn_layer.launches = 0
+cross_attn_layer.launches_f32 = 0
 
 
 # --------------------------------------------------------------------------
@@ -301,7 +350,8 @@ def cross_attn_layer_q8_plain(
     normalizer at the end."""
     Dh = q.shape[-1]
     ta = k8.shape[3] if ta_total is None else int(ta_total)
-    qs = (q.float() * Dh ** -0.5).to(torch.bfloat16).float()
+    qa = _acc(q)
+    qs = (qa * Dh ** -0.5).to(torch.bfloat16).to(qa.dtype)
     acc, _, l = _flash_tiles(qs, k8[layer], v8[layer], ks[layer], vs[layer], 0, ta, KEY_TILE)
     return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
 
@@ -315,7 +365,8 @@ def cross_attn_layer_q8(
     if q.device.type == "cpu":
         return cross_attn_layer_q8_plain(layer, q, k8, ks, v8, vs, ta_total)
     name = "cross_attn_layer_q8"
-    _require_cuda(name, q)
+    dt = _float_dtype(name, q)
+    _require_cuda(name, q, dtype=dt)
     _require_cuda(name, k8, v8, dtype=torch.int8, device=q.device)
     _require_cuda(name, ks, vs, dtype=torch.float32, device=q.device)
     B, Q, H, Dh = q.shape
@@ -331,17 +382,19 @@ def cross_attn_layer_q8(
         raise ValueError(f"{name}: layer {layer} / ta_total {ta}")
     out = torch.empty_like(q)
     lib = kernels.library()
+    entry = lib.wdt_cross_attn_q8_f32 if dt == torch.float32 else lib.wdt_cross_attn_q8
     with torch.cuda.device(q.device):
-        kernels.check(lib.wdt_cross_attn_q8(
+        kernels.check(entry(
             q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
             vs.data_ptr(), out.data_ptr(), B, Q, H, Ta, int(layer), ta,
             *(plan or cross_attn_plan(B, H, Q, ta, int8=True)), kernels.stream_ptr(q.device),
         ), name)
-    cross_attn_layer_q8.launches += 1
+    _count(cross_attn_layer_q8, dt)
     return out
 
 
 cross_attn_layer_q8.launches = 0
+cross_attn_layer_q8.launches_f32 = 0
 
 
 # --------------------------------------------------------------------------
@@ -358,14 +411,15 @@ def cross_kv_build_plain(
     L, _, HD = ck_w.shape
     B, Ta, _ = xa.shape
     Dh = HD // n_heads
-    x = xa.float().unsqueeze(0)  # [1, B, Ta, D]
+    x = _acc(xa).unsqueeze(0)  # [1, B, Ta, D]
+    ct = x.dtype
 
     def heads(y: torch.Tensor) -> torch.Tensor:  # [L, B, Ta, HD]
         y = y.view(L, B, Ta, n_heads, Dh).permute(0, 1, 3, 2, 4)
         return y.contiguous().to(xa.dtype)
 
-    k = torch.matmul(x, ck_w.float().unsqueeze(1))
-    v = torch.matmul(x, cv_w.float().unsqueeze(1)) + cv_b.float()[:, None, None, :]
+    k = torch.matmul(x, ck_w.to(ct).unsqueeze(1))
+    v = torch.matmul(x, cv_w.to(ct).unsqueeze(1)) + cv_b.to(ct)[:, None, None, :]
     return heads(k), heads(v)
 
 
@@ -403,7 +457,8 @@ def cross_kv_build(
     """K2. Same contract as `cross_kv_build_plain`."""
     if xa.device.type == "cpu":
         return cross_kv_build_plain(xa, ck_w, cv_w, cv_b, n_heads)
-    _require_cuda("cross_kv_build", xa, ck_w, cv_w, cv_b)
+    dt = _float_dtype("cross_kv_build", xa)
+    _require_cuda("cross_kv_build", xa, ck_w, cv_w, cv_b, dtype=dt)
     B, Ta, D = xa.shape
     L, Dw, HD = ck_w.shape
     if (Dw != D or cv_w.shape != ck_w.shape or tuple(cv_b.shape) != (L, HD)
@@ -417,17 +472,19 @@ def cross_kv_build(
     k = torch.empty((L, B, n_heads, Ta, Dh), dtype=xa.dtype, device=xa.device)
     v = torch.empty_like(k)
     lib = kernels.library()
+    entry = lib.wdt_cross_kv_f32 if dt == torch.float32 else lib.wdt_cross_kv
     with torch.cuda.device(xa.device):
-        kernels.check(lib.wdt_cross_kv(
+        kernels.check(entry(
             xa.data_ptr(), ck_w.data_ptr(), cv_w.data_ptr(), cv_b.data_ptr(),
             k.data_ptr(), v.data_ptr(), L, B, Ta, D, n_heads, Dh,
             kernels.stream_ptr(xa.device),
         ), "cross_kv_build")
-    cross_kv_build.launches += 1
+    _count(cross_kv_build, dt)
     return k, v
 
 
 cross_kv_build.launches = 0
+cross_kv_build.launches_f32 = 0
 
 
 # --------------------------------------------------------------------------
@@ -437,7 +494,7 @@ cross_kv_build.launches = 0
 def split_self_attn_layer_plain(
     layer: int, q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: int,
-    row_pad: torch.Tensor, prompt_len: int,
+    row_pad: torch.Tensor, prompt_len: int, rounding: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """q [B, K, H, Dh] (the step's queries, beams folded) against layer
     `layer` of the beam-shared prompt K/V pk, pv [L, B, H, Tp, Dh] and the
@@ -447,27 +504,30 @@ def split_self_attn_layer_plain(
     < row_pad[b] or >= prompt_len. The numerics of the TPU kernel: q scaled
     by Dh^-0.5 in f32 then cast to the cache dtype, f32 scores, max and
     normalizer, probabilities cast to the V dtype before P.V, f32
-    accumulation divided by the normalizer at the end."""
+    accumulation divided by the normalizer at the end. `rounding` replaces
+    the cache dtype at those casts (a planted fault, as for K1)."""
     B, K, H, Dh = q.shape
     Tp, Td = pk.shape[3], dk.shape[3]
-    qs = (q.float() * Dh ** -0.5).to(pk.dtype).float()
+    qa = _acc(q)
+    ct = qa.dtype
+    qs = (qa * Dh ** -0.5).to(rounding or pk.dtype).to(ct)
     tp = torch.arange(Tp, device=q.device)
     pmask = (tp[None, :] >= row_pad.long()[:, None]) & (tp[None, :] < prompt_len)
-    sp = torch.einsum("bkhd,bhtd->bkht", qs, pk[layer].float())
+    sp = torch.einsum("bkhd,bhtd->bkht", qs, pk[layer].to(ct))
     sp = sp.masked_fill(~pmask[:, None, None, :], float("-inf"))
     # decode rows through the ancestry map: [B, K, H, Td, Dh]
     idx = anc_j.long()[:, :, None, :, None].expand(B, K, H, Td, Dh)
     gk = torch.gather(dk[layer].view(B, K, H, Td, Dh), 1, idx)
     gv = torch.gather(dv[layer].view(B, K, H, Td, Dh), 1, idx)
-    sd = torch.einsum("bkhd,bkhtd->bkht", qs, gk.float())
+    sd = torch.einsum("bkhd,bkhtd->bkht", qs, gk.to(ct))
     sd = sd.masked_fill(torch.arange(Td, device=q.device) > step, float("-inf"))
     s = torch.cat([sp, sd], dim=-1)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     denom = p.sum(dim=-1, keepdim=True)  # [B, K, H, 1]
-    wp = p[..., :Tp].to(pv.dtype).float()
-    wd = p[..., Tp:].to(dv.dtype).float()
-    o = (torch.einsum("bkht,bhtd->bkhd", wp, pv[layer].float())
-         + torch.einsum("bkht,bkhtd->bkhd", wd, gv.float()))
+    wp = p[..., :Tp].to(rounding or pv.dtype).to(ct)
+    wd = p[..., Tp:].to(rounding or dv.dtype).to(ct)
+    o = (torch.einsum("bkht,bhtd->bkhd", wp, pv[layer].to(ct))
+         + torch.einsum("bkht,bkhtd->bkhd", wd, gv.to(ct)))
     return (o / denom).to(q.dtype).contiguous()
 
 
@@ -491,7 +551,8 @@ def split_self_attn_layer(
         return split_self_attn_layer_plain(
             layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len)
     name = "split_self_attn_layer"
-    _require_cuda(name, q, pk, pv, dk, dv)
+    dt = _float_dtype(name, q)
+    _require_cuda(name, q, pk, pv, dk, dv, dtype=dt)
     anc_j = _int32_on(name, q.device, anc_j)
     row_pad = _int32_on(name, q.device, row_pad)
     B, K, H, Dh = q.shape
@@ -509,15 +570,17 @@ def split_self_attn_layer(
                          f"{prompt_len}, K * H * Td * Dh {K * H * Td * Dh}")
     out = torch.empty_like(q)
     lib = kernels.library()
+    entry = lib.wdt_split_self_attn_f32 if dt == torch.float32 else lib.wdt_split_self_attn
     with torch.cuda.device(q.device):
-        kernels.check(lib.wdt_split_self_attn(
+        kernels.check(entry(
             q.data_ptr(), pk.data_ptr(), pv.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), anc_j.data_ptr(), row_pad.data_ptr(), out.data_ptr(),
             B, K, H, Tp, Td, int(layer), int(step), int(prompt_len),
             kernels.stream_ptr(q.device),
         ), name)
-    split_self_attn_layer.launches += 1
+    _count(split_self_attn_layer, dt)
     return out
 
 
 split_self_attn_layer.launches = 0
+split_self_attn_layer.launches_f32 = 0

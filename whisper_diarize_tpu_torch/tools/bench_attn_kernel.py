@@ -63,8 +63,8 @@ KEYS, VALID = 1536, attn_probe.TA_TOTAL  # padded keys, unmasked keys
 LAYER = attn_probe.CONST_LAYER  # every row reads the layer K9c fixes
 SERVED = dict(batch=8, queries=3, layers=32, keys=VALID)  # K1 on the served paths
 # (label, mangled-name fragment) of the kernels whose staging `staging_loads` reads
-STAGING = (("K1 cross_attn_kernel<bf16, -1, false>",
-            "cross_attn_kernelI13__nv_bfloat16Lin1ELb0EE"),
+STAGING = (("K1 cross_attn_kernel<bf16, bf16, -1, false>",
+            "cross_attn_kernelI13__nv_bfloat16S1_Lin1ELb0EE"),
            ("K9b kv_stream_sum_kernel", "kv_stream_sum_kernel"))
 
 
