@@ -49,20 +49,29 @@ traceback) and no result line is printed:
    then each diagnostic tool's `main()` on the card, a path of its own
    (`phase_tool`): `whisper_diarize_tpu_torch.tools.bench_dma` once (its
    two array sizes) and `...tools.bench_attn_kernel` at its shapes and at
-   K1's served shape (B 8, Q 3, 32 layers); and the f32 forms of K1-K6
-   (`phase_f32_kernels`, "kernels f32": K1 at B 8, Q 1 / 3 / 15 / 64 and B 1,
-   K2 at L 4 and 32, K3 at N 8 and 40, K4 at steps 0, 31, 63, K5 at Q 3 and
-   15, K6 `kvq` and `wq+kvq` at N 40) against their f32 plain versions with
-   TF32 off by the f32 check (`agreement.F32`, `F32_Q8`), the TF32 and
-   bf16-rounding faults refused by 10x and more, timed beside SDPA (K1, K5)
-   and `torch.addmm` (K2) in f32;
+   K1's served shape (B 8, Q 3, 32 layers), then the port's counterparts of
+   the two JAX tools that launch K8 and K10, each a path of its own:
+   `...tools.bench_encoder_attn` (large-v3, B 16: the whole encoder with
+   full, no-attn and flash-custom (K10) attention) and
+   `...tools.bench_megakernel` (large-v3, B 16, its full budgets, each
+   variant in this process so that its launches count: greedy `tail` (K3)
+   and `tail+front` (K8 + K3), beam `tail` (K4 + K3)); and the f32 forms of
+   K1-K6, K8 and K10 (`phase_f32_kernels`, "kernels f32": K1 at B 8, Q 1 /
+   3 / 15 / 64 and B 1, K2 at L 4 and 32, K3 at N 8 and 40, K4 at steps 0,
+   31, 63, K5 at Q 3 and 15, K6 `kvq` and `wq+kvq` at N 40, K8 at N 8 and
+   40 at pos 3, 19, 34 with and without pads, K10 in both forms at [8, 20,
+   1500, 64]) against their f32 plain versions with TF32 off by the f32
+   check (`agreement.F32`, `F32_Q8`), the TF32 and bf16-rounding faults
+   refused by 10x and more, timed beside SDPA (K1, K5, K10) and
+   `torch.addmm` (K2) in f32;
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
    weights, beam 5 with the int8 cache) and the all-fused greedy path (K7,
-   K10, K8); a beam run with the ancestry map ignored, an int8 beam run
+   K10, K8), that path also at f32 on the card (K10-f32, K8-f32, K3-f32,
+   K1-f32); a beam run with the ancestry map ignored, an int8 beam run
    with the key scales ignored and a fused greedy run whose K8 leaves out
-   the step's own slot must fail the check;
+   the step's own slot (bf16 and f32) must fail the check;
 5. engine, greedy path: one `Engine` serves five requests (random
    `large-v3-turbo` weights, greedy, DTW word timestamps, the
    temperature-fallback ladder, batch 8, 32 tokens a window): a ~45 s
@@ -141,7 +150,16 @@ traceback) and no result line is printed:
    request's first decode's tokens are teacher-forced on the card and on
    the f32 CPU port (max|logit difference| <= 1e-4 x max|logit|), the bf16
    Engine's logits (a planted fault) must miss that bound, and the beam
-   request's encoder output must match the f32 CPU encoder;
+   request's encoder output must match the f32 CPU encoder; then, on that
+   request's f32 large-v3 weights, the all-fused greedy path at f32 (path
+   "f32-fused-greedy": `run_fused_greedy` through K7, K10-f32, K2-f32,
+   K8-f32 + K3-f32 a step and K1-f32 at the prompt pass, each required to
+   launch; `f32_fused_checks`: the encoder output against
+   `encode(flash=False)` within F32_LOGIT_GAP of its max, unmasked padded
+   keys refused; the greedy tokens by the margin check against the same
+   batch without the front, and stream 0's tokens teacher-forced with K8-f32
+   and with the plain front, within F32_LOGIT_GAP, K8's dropped self slot
+   refused);
 15. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
    request under torch.profiler (device busy time
@@ -154,6 +172,7 @@ Each phase prints its wall seconds (`[time]`).
 Then it prints one JSON line of per-kernel results (`launches` summed over
 the paths' runs; for K1 and K5 also `launches_in_tail`, the launches the
 fused tail K3 / K6 makes of them; the f32 forms as "K1-f32" .. "K6-f32",
+"K8-f32" and "K10-f32",
 whose wrappers' `launches` count in the bf16 rows too), the `nvidia-smi` name and power limit
 line, and last
 `{"ok": true, "device": {...}}`. It writes only under `build/` of the
@@ -178,7 +197,8 @@ from whisper_diarize_tpu_torch import kernels
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
 from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
-from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma, bench_speculative
+from whisper_diarize_tpu_torch.tools import (bench_attn_kernel, bench_dma, bench_encoder_attn,
+                                             bench_megakernel, bench_speculative)
 from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, attn_bound, bound,
                                                     device_ms, nvidia_smi_line, sum_bound,
                                                     time_ms)
@@ -229,13 +249,14 @@ KERNELS = {
                 source="whisper_diarize_tpu_torch/csrc/stream_sum.cu",
                 replaces="tools/bench_dma.py:58"),
 }
-# the f32 forms of K1 - K6, counted apart (each wrapper's `launches` counts
-# both of its forms)
+# the f32 forms of K1 - K6, K8 and K10, counted apart (each wrapper's
+# `launches` counts both of its forms)
 KERNELS.update({f"{key}-f32": dict(KERNELS[key], name=f"{KERNELS[key]['name']} [f32]",
                                    count=count)
                 for key, count in (("K1", "launches_f32"), ("K2", "launches_f32"),
                                    ("K3", "launches_f32"), ("K4", "launches_f32"),
-                                   ("K5", "launches_f32"), ("K6", "launches_int8_f32"))})
+                                   ("K5", "launches_f32"), ("K6", "launches_int8_f32"),
+                                   ("K8", "launches_f32"), ("K10", "launches_f32"))})
 # the numbers a kernel's timed row keeps for each shape it is timed at
 SHAPE_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
               "library_device_ms", "bound_ms", "bound_by")
@@ -248,7 +269,9 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "f32-beam": ("K1-f32", "K2-f32", "K3-f32", "K4-f32"),
          "f32-greedy": ("K1-f32", "K2-f32", "K3-f32"),
          "f32-int8-beam": ("K2-f32", "K4-f32", "K5-f32", "K6-f32"),
-         "f32-speculative": ("K1-f32", "K2-f32", "K3-f32")}
+         "f32-speculative": ("K1-f32", "K2-f32", "K3-f32"),
+         "f32-fused-greedy": ("K1-f32", "K2-f32", "K3-f32", "K7", "K8-f32", "K10-f32"),
+         "bench-encoder-attn": ("K10",), "bench-megakernel": ("K1", "K2", "K3", "K4", "K8")}
 # the margin check of a decode on the card: every emitted token within
 # TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
 # `spec_gap`)
@@ -610,15 +633,21 @@ def phase_f32_kernels() -> dict:
     kernel (K1 at Q 15, K2 at L 4, K3 / K6 at N 40, K4 at step 31, K5 at Q
     15) too. Times (`timed`): kernel, plain version and the library call
     (K1, K5: SDPA in f32; K2: `torch.addmm` in f32), each beside its f32
-    bound; K3, K4, K5 and K6 each call on the next layer. Returns the
-    results under "K1-f32" .. "K6-f32"."""
+    bound; K3, K4, K5 and K6 each call on the next layer. Then the f32
+    forms of K8 and K10 at `phase_fused_kernels`' shapes: K8 at N 8 and 40
+    with a 48-slot cache at pos 3, 19 and 34, with and without pads (its
+    faults at pos 19 with pads, judged on self_out; k_new and v_new by the
+    check), each timed call on the next layer; K10 in both forms at
+    [8, 20, 1500, 64], q and k at 0.5 (the faults) and 1.0 (timed, beside
+    SDPA in f32). Returns the results under "K1-f32" .. "K6-f32", "K8-f32"
+    and "K10-f32"."""
     cfg = wm.PRESETS["large-v3"]
     dev = torch.device("cuda")
     f32, tol, refuse = torch.float32, ag.F32, ag.F32_REFUSAL
     g = torch.Generator(device=dev).manual_seed(3)
     D, H, L, Ta = cfg.n_text_state, cfg.n_text_head, cfg.n_text_layer, cfg.n_audio_ctx
     lay = L - 1
-    errs = {f"K{i}-f32": 0.0 for i in range(1, 7)}
+    errs = {f"K{i}-f32": 0.0 for i in (1, 2, 3, 4, 5, 6, 8, 10)}
     res = {}
 
     def check(key, tag, got, ref, faults=(), base=None, tol=tol):
@@ -753,19 +782,77 @@ def phase_f32_kernels() -> dict:
         keep("K4-f32", f"step={step}", t)
         if step == 31:
             res["K4-f32"].update({k: t[k] for k in SHAPE_KEYS})
+    del q, pk, pv, dk, dv
+
+    fw = ag.random_front(L, D, g, dev, dtype=f32)  # K8 at phase_fused_kernels' shapes
+    Tc = 48
+    for N in (8, 40):
+        x = ag.randn(g, dev, N, 1, D, dtype=f32)
+        kc, vc = (ag.randn(g, dev, L, N, H, Tc, 64, dtype=f32) for _ in range(2))
+        pads = torch.randint(0, 17, (N,), generator=g, device=dev)
+        for pos in (3, 19, 34):
+            for row_pad in (torch.zeros_like(pads), pads.clamp(max=pos)):
+                a = (lay, pos, row_pad, x, fw)
+                got = front.fused_front_layer(*a, kc.clone(), vc.clone())
+                ref = front.fused_front_layer_plain(*a, kc.clone(), vc.clone())
+                tag = f"K8-f32 N={N} Tc={Tc} pos={pos} pads={bool(row_pad.any())}"
+                for what, x1, x2 in zip(("k_new", "v_new"), got[1:], ref[1:]):
+                    check("K8-f32", f"{tag} {what}", x1, x2)
+                faults = ()
+                if pos == 19 and row_pad.any():
+                    faults = itertools.chain(ag.k8_f32_faults(*a, kc, vc),
+                                             ag.k8_faults(*a, kc, vc))
+                check("K8-f32", f"{tag} self_out", got[0], ref[0], faults)
+        it, zeros, pos = itertools.count(), torch.zeros_like(pads), 19
+        t = timed(f"K8-f32 N={N} pos={pos}",
+                  lambda: front.fused_front_layer(next(it) % L, pos, zeros, x, fw, kc, vc),
+                  lambda: front.fused_front_layer_plain(next(it) % L, pos, zeros, x, fw, kc, vc),
+                  shape=f"N={N}", **front_bound(N, D, pos, zeros, es=4))
+        keep("K8-f32", f"N={N}", t)
+        if N == 8:
+            res["K8-f32"].update({k: t[k] for k in SHAPE_KEYS})
+        del kc, vc
+    del fw
+    torch.cuda.empty_cache()
+
+    shape = (8, H, Ta, 64)  # K10 at the encoder's shape
+    for scale in (0.5, 1.0):
+        q, k, v = (ag.randn(g, dev, *shape, scale=s, dtype=f32) for s in (scale, scale, 1.0))
+        for single_pass in (True, False):
+            form = "single pass" if single_pass else "two pass"
+            a = (q, k, v, Ta, single_pass)
+            faults = ()
+            if scale == 0.5:
+                faults = itertools.chain(ag.k10_f32_faults(*a), ag.k10_faults(*a))
+            check("K10-f32", f"K10-f32 {form} {list(shape)} q,k scale {scale}",
+                  encoder_attn.encoder_self_attention(*a),
+                  encoder_attn.encoder_self_attention_plain(*a), faults)
+            if scale == 0.5:
+                continue
+            t = timed(f"K10-f32 {form}", lambda: encoder_attn.encoder_self_attention(*a),
+                      lambda: encoder_attn.encoder_self_attention_plain(*a),
+                      library=lambda: F.scaled_dot_product_attention(q, k, v),
+                      shape=form, **bound(4 * q.numel() * 4, 4 * shape[0] * H * Ta * Ta * 64,
+                                          F32_FLOPS))
+            keep("K10-f32", form, t)
+            if single_pass:
+                res["K10-f32"].update({k: t[k] for k in SHAPE_KEYS})
+        del q, k, v
+        torch.cuda.empty_cache()
     for key in res:
         res[key]["max_abs_err"] = errs[key]
     torch.cuda.empty_cache()
     return res
 
 
-def front_bound(N: int, D: int, pos: int, row_pad) -> dict:
+def front_bound(N: int, D: int, pos: int, row_pad, es: int = 2) -> dict:
     """K8 for one layer: the packed [D, 3D] weights, biases and ln1, x and
     self_out, the new K/V written, the valid cache rows (row_pad[n] .. pos)
-    read as K and V."""
+    read as K and V; `es` bytes a value (4: the f32 form, its products at
+    the f32 rate)."""
     rows = int((pos + 1 - row_pad.clamp(max=pos)).sum()) * (D // 64)
-    return bound(3 * D * D * 2 + 5 * D * 2 + 4 * N * D * 2 + rows * 64 * 2 * 2,
-                 2 * N * D * 3 * D + 4 * rows * 64)
+    return bound((3 * D * D + 5 * D + 4 * N * D + rows * 64 * 2) * es,
+                 2 * N * D * 3 * D + 4 * rows * 64, BF16_FLOPS if es == 2 else F32_FLOPS)
 
 
 def mel_bound(B: int, T: int, n_mels: int) -> dict:
@@ -1027,18 +1114,18 @@ def phase_probe_kernels(res: dict) -> dict:
     return out
 
 
-def phase_tool(path: str, runs) -> dict:
-    """One diagnostic tool on the card (`runs`: (main, keyword arguments),
-    one a run); the launch counts are set to 0 just before and read just
-    after, and every kernel of the path (`PATHS`) must have launched. Every
-    row must carry a positive, finite time and device time. Returns the
-    path's counts."""
+def phase_tool(path: str, runs, keys=("ms", "device_ms", "bound_ms")) -> dict:
+    """One tool on the card (`runs`: (main, keyword arguments), one a run);
+    the launch counts are set to 0 just before and read just after, and
+    every kernel of the path (`PATHS`) must have launched. Every row must
+    carry a positive, finite value under each of `keys` (the diagnostic
+    tools: time, device time and bound). Returns the path's counts."""
     reset_counts()
     rows = [row for main, kw in runs for row in main(**kw)]
     torch.cuda.synchronize()
     added = counts()
-    bad = [r["name"] for r in rows if not all(
-        math.isfinite(r[key]) and r[key] > 0 for key in ("ms", "device_ms", "bound_ms"))]
+    bad = [r for r in rows if not all(
+        math.isfinite(r[key]) and r[key] > 0 for key in keys)]
     print(f"[tool {path}] {len(rows)} rows, launches {added}", flush=True)
     if bad:
         raise AssertionError(f"tool {path}: rows without a positive finite time: {bad}")
@@ -1144,8 +1231,11 @@ def phase_reference() -> None:
     `quantize_tail_weights`, beam 5 with `quantize_cross_kv`; the planted
     fault there is an int8 cache whose key scales are ignored (all 1). And
     the all-fused greedy path (`fused_reference`: K7, K10, K8) against the
-    plain f32 greedy path, with the greedy check; a run whose K8 leaves the
-    step's own slot out of its attention must fail it."""
+    plain f32 greedy path, with the greedy check, in bf16 and at f32 on the
+    card (the f32 forms of K10, K8, K3 and K1: its encoder output and its
+    tokens' logit gaps within F32_LOGIT_GAP, f32 on both sides); a run whose
+    K8 leaves the step's own slot out of its attention must fail the check,
+    in either dtype."""
     from whisper_diarize_tpu_torch.models import weights
     from whisper_diarize_tpu_torch.ops import decode as dec
     from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
@@ -1197,6 +1287,17 @@ def phase_reference() -> None:
         print(f"[reference] fused-greedy (K7, K10, K8): encoder rel err {rel_f:.4g} (tol "
               f"5e-2), worst card-token logit gap vs f32 CPU best, of max|logit| "
               f"{out['fused-greedy']:.4g} (tol {tol:g})", flush=True)
+        # the same path at f32 on the card (K7, K10-f32, K8-f32, K3-f32, K1-f32)
+        rel_32, out["fused-greedy f32"], fault_32 = fused_reference(
+            weights.params_from_jax(tree, "cuda", torch.float32), cfg, tk, base, audio,
+            steps["ref", "greedy"], ref, prompt)
+        tol32 = F32_LOGIT_GAP  # f32 on both sides: the card's tokens are the CPU's best
+        ok &= rel_32 <= tol32 and out["fused-greedy f32"] <= tol32 < fault_32
+        print(f"[reference] fused-greedy f32 (K7, K10-f32, K8-f32): encoder rel err "
+              f"{rel_32:.4g}, worst card-token logit gap vs f32 CPU best, of max|logit| "
+              f"{out['fused-greedy f32']:.4g} (tol {tol32:g} each); planted fault, K8-f32 self "
+              f"slot dropped: {fault_32:.4g} ({'refused' if fault_32 > tol32 else 'NOT refused'})",
+              flush=True)
         # speculative greedy (the draft's steps on K3, the verify pass on K1
         # at Q = 4) with a self-draft and an unrelated random draft, held to
         # the f32 CPU greedy decode by the greedy check
@@ -1493,15 +1594,16 @@ def run_fused_greedy(setup, fused_stages: bool = True):
     return frames, xa, res, rung, stages
 
 
-def phase_fused_greedy(eng) -> dict:
+def phase_fused_greedy(eng, path: str = "fused-greedy") -> dict:
     """The all-fused greedy path at large-v3 width on `eng`'s loaded
     weights (32 + 32 layers): one batch of 8 windows of 30 s, 32 tokens a
     window (`run_fused_greedy`). The counts are set to 0 just before and
-    read just after; K1, K2, K3, K7, K8 and K10 must have launched. The
-    frontend must equal the plain `log_mel_spectrogram` within
-    `agreement.F32_ATOL` / 4 (its scale after the (x + 4) / 4); every
-    output must be finite and of its shape. Prints wall seconds per stage.
-    Returns the path's counts."""
+    read just after; the kernels of `path` must have launched (K1, K2, K3,
+    K7, K8 and K10, or at f32 their f32 forms and K7). The frontend must
+    equal the plain `log_mel_spectrogram` within `agreement.F32_ATOL` / 4
+    (its scale after the (x + 4) / 4); every output must be finite and of
+    its shape. Prints wall seconds per stage. On f32 weights, then
+    `f32_fused_checks`. Returns the path's counts."""
     setup = fused_setup(eng)
     cfg, audio = setup[1], setup[-1]
     torch.cuda.synchronize()
@@ -1513,16 +1615,77 @@ def phase_fused_greedy(eng) -> dict:
         frames, xa, res.avg_logprob, res.token_probs, rung.avg_logprob, rung.token_probs))
     shapes = (tuple(frames.shape), tuple(xa.shape), tuple(res.tokens.shape),
               tuple(rung.tokens.shape))
-    print(f"[path fused-greedy] large-v3, 8 windows of 30 s: wall by stage {stages} s; "
+    print(f"[path {path}] large-v3, 8 windows of 30 s: wall by stage {stages} s; "
           f"shapes {shapes}; frontend vs plain max abs {mel_err:.3g}; greedy lengths "
           f"{res.lengths.tolist()}, rung lengths {rung.lengths.tolist()}; launches added "
           f"{added}", flush=True)
     want = ((8, cfg.n_mels, 3000), (8, cfg.n_audio_ctx, cfg.n_audio_state), (8, 32), (8, 32))
     if not finite or shapes != want or mel_err > ag.F32_ATOL / 4:
-        raise AssertionError(f"fused greedy path: finite {finite}, shapes {shapes} "
+        raise AssertionError(f"{path} path: finite {finite}, shapes {shapes} "
                              f"(want {want}), frontend vs plain {mel_err}")
-    _check_missing("fused greedy path", "fused-greedy", added)
+    _check_missing(f"{path} path", path, added)
+    if xa.dtype == torch.float32:
+        f32_fused_checks(setup, frames, xa, res)
     return added
+
+
+def f32_fused_checks(setup, frames, xa, res) -> None:
+    """The f32 fused greedy path's output, on the card with TF32 off,
+    against the same weights without its fused stages:
+    - the encoder output (K10-f32 in every layer) against
+      `encode(flash=False)` (the plain f32 attention) within F32_LOGIT_GAP
+      of its max; an encoder whose attention leaves the keys past T
+      unmasked (zero-padded to a multiple of 512, a planted fault) must
+      miss;
+    - the greedy tokens (K8-f32 and K3-f32 a step) by the margin check
+      (`spec_gap`) against the same batch decoded without the front,
+      within F32_LOGIT_GAP x max|logit| (TOKEN_GAP is bf16's: f32 on both
+      sides leaves only ties);
+    - stream 0's emitted tokens teacher-forced with the front and without
+      (`_teacher_logits`: K8-f32 against the plain f32 front at every
+      step), max|logit difference| within F32_LOGIT_GAP x max|logit|; the
+      same with K8's self slot dropped (a planted fault) must miss. At
+      random large-v3 weights that fault leaves the greedy tokens as they
+      were, so the margin check alone cannot see it."""
+    fused, cfg, tk, dc, suppress, prompt, _ = setup
+    plain = {**fused, "decoder": {k: v for k, v in fused["decoder"].items() if k != "front"}}
+    T = cfg.n_audio_ctx
+    TP = -(-T // 512) * 512
+
+    def unmasked(q, k, v):
+        pad = [F.pad(t, (0, 0, 0, TP - T)) for t in (q, k, v)]
+        return encoder_attn.encoder_self_attention_plain(*pad, TP)[..., :T, :]
+
+    with torch.inference_mode():
+        ref = wm.encode(plain, frames, cfg)
+        scale = float(ref.abs().max())
+        enc = float((xa - ref).abs().max()) / scale
+        enc_fault = float((wm.encode(plain, frames, cfg, attn=unmasked) - ref).abs().max()) / scale
+        del ref
+        gap = spec_gap(plain, cfg, dc, tk.specials, suppress, xa, prompt, res)
+        n = min(int(res.lengths[0]) + 1, res.tokens.shape[1])
+        args = (cfg, dc, xa[:1], prompt[:1], None, res.tokens[0, :n])
+        base = _teacher_logits(plain, *args)
+        lscale = float(base.abs().max())
+        logit = float((_teacher_logits(fused, *args) - base).abs().max()) / lscale
+        real = wm.fused_front_layer
+        wm.fused_front_layer = ag.front_self_slot_dropped
+        try:
+            bad = _teacher_logits(fused, *args)
+        finally:
+            wm.fused_front_layer = real
+        logit_fault = float((bad - base).abs().max()) / lscale
+    tol = F32_LOGIT_GAP
+    ok = enc <= tol < enc_fault and gap <= tol and logit <= tol < logit_fault
+    print(f"[path f32-fused-greedy] encoder (K10-f32) vs encode(flash=False) {enc:.3g} of its "
+          f"max (planted fault, padded keys unmasked: {enc_fault:.3g}); greedy tokens vs the "
+          f"batch without the front, worst logit gap {gap:.4g} of max|logit|; stream 0's "
+          f"{n} tokens teacher-forced with K8-f32 vs the plain front, max|logit difference| "
+          f"{logit:.3g} of max|logit| (planted fault, K8's self slot dropped: "
+          f"{logit_fault:.3g}); tol {tol:g} each -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"f32 fused greedy path: encoder {enc} (fault {enc_fault}), "
+                             f"margin {gap}, logits {logit} (fault {logit_fault})")
 
 
 def diarize_requests():
@@ -1930,6 +2093,9 @@ def phase_engine_f32() -> dict:
         if not (gap <= F32_LOGIT_GAP < fault and gaps.get("encoder", 0.0) <= F32_LOGIT_GAP):
             raise AssertionError(f"f32 Engine, {path}: logit gap {gap}, bf16 fault {fault}, "
                                  f"encoder {gaps.get('encoder')}")
+        if path == "f32-beam":  # the fused greedy path on the same f32 weights
+            by_path["f32-fused-greedy"] = timed_phase(
+                "path f32-fused-greedy", phase_fused_greedy, eng, "f32-fused-greedy")
         del eng, step, xa, res, params, card, bf16, ref
         calls.clear()
         torch.cuda.empty_cache()
@@ -2075,6 +2241,12 @@ def main() -> None:
     by_path["bench-attn"] = timed_phase("tool bench-attn", phase_tool, "bench-attn",
                                         [(bench_attn_kernel.main, {}),
                                          (bench_attn_kernel.main, bench_attn_kernel.SERVED)])
+    by_path["bench-encoder-attn"] = timed_phase(
+        "tool bench-encoder-attn", phase_tool, "bench-encoder-attn",
+        [(bench_encoder_attn.main, {})], ("ms",))
+    by_path["bench-megakernel"] = timed_phase(
+        "tool bench-megakernel", phase_tool, "bench-megakernel",
+        [(bench_megakernel.main, dict(inline=True, smoke=False))], ("ms_per_step", "t64_ms"))
     timed_phase("reference", phase_reference)
     # depth: 32 tokens a window on the greedy paths and the bf16 beam
     # Engine; the int8 beam Engine runs without the fallback ladder, whose

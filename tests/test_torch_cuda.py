@@ -592,7 +592,7 @@ def test_checkpoint_files_load_on_card(dev, tmp_path):
 
 
 # --------------------------------------------------------------------------
-# The f32 forms of K1 - K6 (`kernels.agreement.F32`; `F32_Q8` for K5 and K6
+# The f32 forms of K1 - K6, K8, K10 (`kernels.agreement.F32`; `F32_Q8` for K5 and K6
 # `kvq`, held to the split model, `agreement.split_attend`): each against
 # its f32 plain version with TF32 off, its two f32 faults refused by
 # `F32_REFUSAL` and its earlier faults refused; an f32 Engine request
@@ -688,7 +688,8 @@ def test_f32_forms_k5_k6_on_card(dev, form):
 
 
 def test_f32_wrappers_refuse_mixed_dtypes_and_k8_k10(dev):
-    """One float dtype a call; K8 and K10 have no f32 form (ROADMAP)."""
+    """One float dtype a call, K8 and K10 as every other wrapper: a mix of
+    bf16 and f32 raises TypeError, whichever operand carries which."""
     f32 = torch.float32
     q = torch.zeros(1, 1, 2, 64, dtype=f32, device=dev)
     k = torch.zeros(1, 1, 2, 64, 64, dtype=f32, device=dev)
@@ -698,14 +699,73 @@ def test_f32_wrappers_refuse_mixed_dtypes_and_k8_k10(dev):
         attn.cross_kv_build(q[0], k[0, 0].bfloat16(), k[0, 0].bfloat16(),
                             k[0, 0, 0].bfloat16(), 1)
     qe = torch.zeros(1, 2, 64, 64, dtype=f32, device=dev)
-    with pytest.raises(TypeError):
-        encoder_attn.encoder_self_attention(qe, qe, qe)
+    for mixed in ((qe, qe.bfloat16(), qe), (qe.bfloat16(), qe.bfloat16(), qe)):
+        with pytest.raises(TypeError):
+            encoder_attn.encoder_self_attention(*mixed)
     g = torch.Generator(device=dev).manual_seed(0)
     pack = ag.random_front(1, 128, g, dev, dtype=f32)
     cache = torch.zeros(1, 2, 2, 16, 64, dtype=f32, device=dev)
-    with pytest.raises(TypeError):
-        front.fused_front_layer(0, 0, None, torch.zeros(2, 1, 128, dtype=f32, device=dev),
-                                pack, cache, cache.clone())
+    x = torch.zeros(2, 1, 128, dtype=f32, device=dev)
+    for args in ((x.bfloat16(), pack, cache, cache.clone()),
+                 (x, pack, cache.bfloat16(), cache.bfloat16()),
+                 (x, dict(pack, w=pack["w"].bfloat16()), cache, cache.clone())):
+        with pytest.raises(TypeError):
+            front.fused_front_layer(0, 0, None, *args)
+
+
+@pytest.mark.parametrize("N,Tc,pos", [(3, 16, 0), (8, 48, 19), (40, 448, 300)])
+def test_f32_form_k8_on_card(dev, N, Tc, pos):
+    """K8's f32 form against its f32 plain version (self_out, k_new, v_new
+    and the caches), with row pads; where pos > 0 its f32 faults refused by
+    `F32_REFUSAL` and its earlier faults refused."""
+    g = torch.Generator(device=dev).manual_seed(N * 1000 + pos + 1)
+    L, H, f32 = 2, 20, torch.float32
+    D = 64 * H
+    fw = ag.random_front(L, D, g, dev, dtype=f32)
+    x = ag.randn(g, dev, N, 1, D, dtype=f32)
+    kc, vc = (ag.randn(g, dev, L, N, H, Tc, 64, dtype=f32) for _ in range(2))
+    row_pad = torch.randint(0, pos + 1, (N,), generator=g, device=dev)
+    for layer in range(L):
+        ck, cv, pk, pv = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        before = front.fused_front_layer.launches_f32
+        got = front.fused_front_layer(layer, pos, row_pad, x, fw, ck, cv)
+        assert front.fused_front_layer.launches_f32 == before + 1
+        ref = front.fused_front_layer_plain(layer, pos, row_pad, x, fw, pk, pv)
+        for name, a, b in zip(("self_out", "k_new", "v_new"), got, ref):
+            ag.compare(f"K8 f32 {name}", a, b, tol=ag.F32)
+        ag.compare("K8 f32 k cache", ck, pk, tol=ag.F32)
+        ag.compare("K8 f32 v cache", cv, pv, tol=ag.F32)
+        if pos:  # at pos 0 the one slot takes weight 1: every fault is the truth
+            _refuse(got[0], itertools.chain(ag.k8_f32_faults(layer, pos, row_pad, x, fw, kc, vc),
+                                            ag.k8_faults(layer, pos, row_pad, x, fw, kc, vc)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("single_pass", [True, False])
+@pytest.mark.parametrize("B,H,T,ta", [(1, 2, 200, 200), (2, 3, 600, 550), (1, 2, 1500, 1500)])
+def test_f32_form_k10_on_card(dev, B, H, T, ta, single_pass):
+    """K10's f32 form in both forms against their f32 plain versions, on
+    contiguous inputs and on the encoder's strided head views (the same
+    result bit for bit); its f32 faults refused by `F32_REFUSAL`, its
+    earlier faults where T is not a multiple of 512."""
+    g = torch.Generator(device=dev).manual_seed(T + int(single_pass) + 1)
+    for scale in (0.5, 1.0):
+        q, k, v = (ag.randn(g, dev, B, H, T, 64, scale=s, dtype=torch.float32)
+                   for s in (scale, scale, 1.0))
+        before = encoder_attn.encoder_self_attention.launches_f32
+        got = encoder_attn.encoder_self_attention(q, k, v, ta, single_pass)
+        assert encoder_attn.encoder_self_attention.launches_f32 == before + 1
+        assert got.dtype == torch.float32
+        ref = encoder_attn.encoder_self_attention_plain(q, k, v, ta, single_pass)
+        ag.compare(f"K10 f32 T={T} scale={scale}", got, ref, tol=ag.F32)
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+        torch.testing.assert_close(encoder_attn.encoder_self_attention(*views, ta, single_pass),
+                                   got, rtol=0, atol=0)
+        faults = ag.k10_f32_faults(q, k, v, ta, single_pass)
+        if scale == 0.5 and T % 512 and ta == T:
+            faults = itertools.chain(faults, ag.k10_faults(q, k, v, ta, single_pass))
+        _refuse(got, faults)
+    torch.cuda.synchronize()
 
 
 def test_f32_engine_request_on_card(tmp_path):

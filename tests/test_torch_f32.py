@@ -1,4 +1,4 @@
-"""The f32 forms of K1-K6 on the CPU: the f32 check of `kernels.agreement`
+"""The f32 forms of K1-K6, K8 and K10 on the CPU: the f32 check of `kernels.agreement`
 (`F32`, and `F32_Q8` for K5 and K6 `kvq`, whose products stay bf16) and the
 plain versions it holds the card's f32 kernels to.
 
@@ -8,7 +8,8 @@ plain versions it holds the card's f32 kernels to.
   inputs in TF32; the bf16 form's rounding points) and every earlier fault
   of the kernel, at each of K1-K6's shapes: K1 at Q 1, 3, 15 and 64 and at
   B 1; K2 and K3 / K6 `wq` at D 1280 (the longest dot products, D and 4D);
-  K4 at steps 0, mid and last; K5 and K6 `kvq` at 1500 keys.
+  K4 at steps 0, mid and last; K5 and K6 `kvq` at 1500 keys; K8 at N 8
+  and 40 (D 1280, a 48-slot cache); K10 in both forms at T 1500.
 - K1's split model (`cross_attn_split_plain`) at f32 against the JAX
   package's Pallas `cross_attn_layer` in interpret mode at f32, to 1e-5.
 - K4's plain version at f32 against the JAX `split_self_attn_layer` in
@@ -29,7 +30,7 @@ from whisper_diarize_tpu.ops.pallas_attn import cross_attn_layer as jax_cross_at
 from whisper_diarize_tpu.ops.pallas_attn import split_self_attn_layer as jax_split_self
 from whisper_diarize_tpu.ops.pallas_attn import tile_cross_kv
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, tail
+from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, tail
 
 torch.set_num_threads(2)
 F32 = torch.float32
@@ -114,6 +115,70 @@ def test_f32_check_k4(step):
     _check(f"K4 step={step}", attn.split_self_attn_layer_plain(*a),
            attn.split_self_attn_layer_plain(*_f64(*a)),
            itertools.chain(ag.k4_f32_faults(*a), ag.k4_faults(*a) if step else ()))
+
+
+@pytest.mark.parametrize("N", [8, 40])
+def test_f32_check_k8(N):
+    """K8 at the fused path's shapes (D 1280, H 20, a 48-slot cache, pos
+    19 with row pads; N 8 greedy, 40 the best_of 5 rung): self_out judged
+    with its faults, k_new and v_new by the check alone."""
+    g = torch.Generator().manual_seed(80 + N)
+    L, D, Tc, pos = 2, 1280, 48, 19
+    fw = ag.random_front(L, D, g, "cpu", dtype=F32)
+    x = ag.randn(g, "cpu", N, 1, D, dtype=F32)
+    kc, vc = (ag.randn(g, "cpu", L, N, D // 64, Tc, 64, dtype=F32) for _ in range(2))
+    row_pad = torch.randint(0, pos + 1, (N,), generator=g)
+    a = (1, pos, row_pad, x, fw)
+    got = front.fused_front_layer_plain(*a, kc.clone(), vc.clone())
+    ref = front.fused_front_layer_plain(*_f64(*a, kc, vc))
+    _check(f"K8 N={N}", got[0], ref[0],
+           itertools.chain(ag.k8_f32_faults(*a, kc, vc), ag.k8_faults(*a, kc, vc)))
+    for name, i in (("k_new", 1), ("v_new", 2)):
+        assert ag.compare(f"K8 N={N} {name}", got[i], ref[i], tol=ag.F32).ok
+
+
+@pytest.mark.parametrize("single_pass", [True, False], ids=["one-pass", "two-pass"])
+@pytest.mark.parametrize("ta", [1500, 1493])
+def test_f32_check_k10(single_pass, ta):
+    """K10 at the encoder's T 1500 (two heads of one stream), q and k at
+    0.5 as the card's check draws them (36 padded keys move the softmax)."""
+    g = torch.Generator().manual_seed(ta + int(single_pass))
+    q, k, v = (ag.randn(g, "cpu", 1, 2, 1500, 64, scale=s, dtype=F32) for s in (0.5, 0.5, 1))
+    a = (q, k, v, ta, single_pass)
+    faults = ag.k10_f32_faults(*a)
+    if ta == 1500:
+        faults = itertools.chain(faults, ag.k10_faults(*a))
+    _check(f"K10 ta={ta}", encoder_attn.encoder_self_attention_plain(*a),
+           encoder_attn.encoder_self_attention_plain(*_f64(*a)), faults)
+
+
+def test_k8_k10_wrappers_take_f32_on_the_cpu():
+    """On CPU tensors K8's and K10's wrappers run their plain versions at
+    f32 and launch nothing; K8's f32 split fits the card at every row count
+    of the fused path."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (ag.randn(g, "cpu", 1, 2, 100, 64, dtype=F32) for _ in range(3))
+    counts = (encoder_attn.encoder_self_attention.launches,
+              encoder_attn.encoder_self_attention.launches_f32,
+              front.fused_front_layer.launches, front.fused_front_layer.launches_f32)
+    got = encoder_attn.encoder_self_attention(q, k, v, 90, False)
+    assert got.dtype == F32
+    assert torch.equal(got, encoder_attn.encoder_self_attention_plain(q, k, v, 90, False))
+    fw = ag.random_front(1, 128, g, "cpu", dtype=F32)
+    x = ag.randn(g, "cpu", 3, 1, 128, dtype=F32)
+    kc = ag.randn(g, "cpu", 1, 3, 2, 16, 64, dtype=F32)
+    out = front.fused_front_layer(0, 5, None, x, fw, kc.clone(), kc.clone())
+    ref = front.fused_front_layer_plain(0, 5, torch.zeros(3, dtype=torch.long), x, fw,
+                                        kc.clone(), kc.clone())
+    assert all(torch.equal(a, b) and a.dtype == F32 for a, b in zip(out, ref))
+    assert counts == (encoder_attn.encoder_self_attention.launches,
+                      encoder_attn.encoder_self_attention.launches_f32,
+                      front.fused_front_layer.launches, front.fused_front_layer.launches_f32)
+    for N in (1, 8, 40, 80):
+        args = front.front_int_args(0, N, 1280, 20, 48, 19, f32=True)
+        plan = tail.SkinnyPlan(*args[6:])
+        assert plan == tail.skinny_plan(N, 1280, 3 * 1280, ln=True, f32=True)
+        assert tail.skinny_smem(min(N, 80), plan, False, True, True) <= tail.SKINNY_SMEM_MAX
 
 
 def _int8_cache(seed, B, H, Ta, D=1280):

@@ -5,7 +5,8 @@ request (the port's own Silero reader and audio code), then a diarized
 request (the port's segmentation net, CAM++ and kaldi fbank), then a
 greedy request with a draft model the port wrote (`save_params`:
 speculative decoding), a GGML file written and read back, the CLI's
-`models list`, then the diagnostic tools' `main` on the CPU at tiny shapes, and
+`models list`, then the diagnostic tools' `main` on the CPU at tiny shapes
+(and the encoder attention tool's `main` and a megakernel worker), and
 finds no `jax` and no `whisper_diarize_tpu`
 module loaded (a subprocess, because the test process imports JAX, see
 tests/conftest.py); and a static scan of every module of the port and of
@@ -81,6 +82,10 @@ SCRIPT = textwrap.dedent("""
     b = bench_speculative.main(device="cpu", preset="tiny", batch=1, steps=4,
                                rows=["greedy", "self-g4"], repeat=1)
     assert [r["row"] for r in b.rows] == ["greedy", "self-g4"] and b.rows[1]["rounds"] == 1
+    from whisper_diarize_tpu_torch.tools import bench_encoder_attn, bench_megakernel
+    assert len(bench_encoder_attn.main("tiny", device="cpu", batch=1, repeat=1)) == 3
+    row, _ = bench_megakernel.worker("tiny", 1, "tail+front", "greedy", device="cpu", smoke=True)
+    assert row["variant"] == "tail+front", row
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not leaked, leaked
     jax_pkg = sorted(m for m in sys.modules
@@ -122,7 +127,8 @@ def test_static_scan_finds_no_jax_package_import():
     assert {f"whisper_diarize_tpu_torch/ops/{m}.py" for m in (
         "front", "encoder_attn", "mel", "attn", "tail", "stream", "attn_probe")} <= scanned
     assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
-        "bench_dma", "bench_attn_kernel", "bench_speculative", "timing")} <= scanned
+        "bench_dma", "bench_attn_kernel", "bench_speculative", "timing", "bench_encoder_attn",
+        "bench_megakernel")} <= scanned
     assert {f"whisper_diarize_tpu_torch/{m}.py" for m in (
         "diarize", "models/segmentation", "models/campplus", "models/onnx_io",
         "models/convert", "models/net_check", "models/ggml", "ops/speculative",

@@ -525,3 +525,9 @@ struct SkinnyPlan {
 cudaError_t launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
                                const bf16* ln_g, const bf16* ln_b, bf16* out, int N,
                                int Din, int Dout, SkinnyPlan plan, cudaStream_t stream);
+
+// Its f32 form (K8's f32 product): every operand f32, FFMA on the CUDA
+// cores; the plan of ops/tail.py::skinny_plan with f32=True.
+cudaError_t launch_skinny_gemm(const float* A, const float* W, const float* bias,
+                               const float* ln_g, const float* ln_b, float* out, int N,
+                               int Din, int Dout, SkinnyPlan plan, cudaStream_t stream);

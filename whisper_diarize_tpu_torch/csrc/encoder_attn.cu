@@ -57,6 +57,26 @@
 //   p, l and P V. The single pass's rounding point, p = bf16(exp(s -
 //   m_final)), needs the row's final max before any P V, so the two sweeps
 //   are what it costs; the two-pass form runs on the same kernel.
+//
+// The f32 form (`wdt_encoder_attn_f32`, `enc_attn_f32_kernel`). Off a TPU the
+// JAX tool runs the TPU kernel at f32, where its roundings to the operand
+// dtype are the identity. Hopper has no f32 x f32 tensor-core product (only
+// TF32: 10 mantissa bits, not an f32 product), so this is a kernel of its
+// own on the CUDA cores (FFMA), in the same two-sweep schedule and both
+// forms, each in its plain version's order (single pass: the row's max
+// over every key before any p; two pass: the online recurrence over 512-key
+// spans). Bound at [8, 20, 1500, 64] by operations: 4 x 8 x 20 x 1500^2 x 64
+// = 9.2e10 FLOP, 1.37 ms at 67 TFLOP/s (0.073 ms of bytes, 246 MB); the
+// second sweep's Q K^T adds half again. Design: a 64-row Q tile of one
+// (b, h) a CTA of 128 threads (two CTAs an SM); K and V tiles of 64 keys in
+// shared memory through a cp.async double buffer, K scaled in place once it
+// lands; rows padded to 68 floats, so the float4 reads of eight rows fall
+// in distinct banks. Each thread owns a 4 x 8 block of the scores (rows
+// ty + 16 i, keys tx + 8 j: the eight threads of a row are eight adjacent
+// lanes, which reduce its max and normalizer by shuffles) and a 4 x 8 block
+// of the output (the same rows, columns 4 tx .. + 3 and 32 + 4 tx .. + 3);
+// p goes through shared memory between the two products. Every sum is an
+// f32 FMA chain; p = expf(s - m) and the output o / l in IEEE division.
 #include "common.cuh"  // TMA, wgmma, mbarrier and tensor-map helpers
 
 namespace {
@@ -306,6 +326,210 @@ enc_attn_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The f32 form: FFMA on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F_BQ = 64;            // query rows a CTA
+constexpr int F_THREADS = 128;      // 16 row groups x 8 key / column groups
+constexpr int F_ROW = DH + 4;       // a staged q / k / v row: 68 floats (272 bytes)
+constexpr int F_PROW = BK + 8;      // a row of the p tile: 72 floats
+constexpr int F_TILE = BK * F_ROW;  // floats of one K or V tile
+constexpr int F_SMEM = (F_BQ * F_ROW + 4 * F_TILE + F_BQ * F_PROW) * 4;  // Q, K x 2, V x 2, P
+
+// issue (not wait for) the cp.async copies of rows t0 .. t0 + 63 of one
+// (b, h) slab into a tile, 16 bytes a copy; rows >= T land as zeros
+__device__ __forceinline__ void f32_stage(float* dst, const float* src, long long st, int t0,
+                                          int T, int tid) {
+#pragma unroll
+  for (int i = tid; i < BK * (DH / 4); i += F_THREADS) {
+    const int r = i / (DH / 4), c = i % (DH / 4);
+    const bool ok = t0 + r < T;
+    cp_async<16>(dst + r * F_ROW + 4 * c, src + (ok ? (t0 + r) * st + 4 * c : 0), ok);
+  }
+}
+
+// max / sum over the eight lanes that share a row (lanes 8a .. 8a + 7)
+__device__ __forceinline__ float oct_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+
+__device__ __forceinline__ float oct_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <bool ONE_PASS>
+__global__ void __launch_bounds__(F_THREADS, 2)
+enc_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out, int T, int ta,
+                    long long sb, long long sh, long long st, long long ob, long long oh,
+                    long long ot, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                      // [F_BQ][F_ROW], scaled
+  float* ks = qs + F_BQ * F_ROW;        // [2][BK][F_ROW], scaled once landed
+  float* vs = ks + 2 * F_TILE;          // [2][BK][F_ROW]
+  float* ps = vs + 2 * F_TILE;          // [F_BQ][F_PROW]
+
+  const int q0 = blockIdx.x * F_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid / 8, tx = tid % 8;  // rows ty + 16 i; keys tx + 8 j; columns 4 tx, 32 + 4 tx
+  const long long slab = (long long)b * sb + (long long)h * sh;
+  const float* kb = k + slab;
+  const float* vb = v + slab;
+  const int tiles = (ta + BK - 1) / BK;
+  const int span_tiles = ONE_PASS ? tiles : TWO_PASS_SPAN / BK;
+  const int n_items = 2 * tiles;
+
+  // item 0's K in flight while Q is staged, scaled, from registers
+  f32_stage(ks, kb, st, 0, T, tid);
+  cp_async_commit();
+  for (int i = tid; i < F_BQ * (DH / 4); i += F_THREADS) {
+    const int r = i / (DH / 4), c = i % (DH / 4);
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < T) x = *reinterpret_cast<const float4*>(q + slab + (q0 + r) * st + 4 * c);
+    *reinterpret_cast<float4*>(qs + r * F_ROW + 4 * c) =
+        make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  }
+
+  float m[4], l[4], bm[4], o[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.0f;
+    bm[i] = WDT_NEG_INF;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int it = 0; it < n_items; ++it) {
+    const Item item = item_at(it, tiles, span_tiles, ta);
+    float* kt = ks + (it & 1) * F_TILE;
+    float* vt = vs + (it & 1) * F_TILE;
+    cp_async_wait<0>();
+    __syncthreads();  // item it landed everywhere; item it - 1's products are done
+    if (it + 1 < n_items) {  // the next item into the other buffer
+      const Item nx = item_at(it + 1, tiles, span_tiles, ta);
+      f32_stage(ks + ((it + 1) & 1) * F_TILE, kb, st, nx.tile * BK, T, tid);
+      if (nx.pass) f32_stage(vs + ((it + 1) & 1) * F_TILE, vb, st, nx.tile * BK, T, tid);
+      cp_async_commit();
+    }
+    for (int i = tid; i < BK * (DH / 4); i += F_THREADS) {  // k * Dh^-0.25, in place
+      float4* x = reinterpret_cast<float4*>(kt + (i / (DH / 4)) * F_ROW + 4 * (i % (DH / 4)));
+      const float4 y = *x;
+      *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+    }
+    __syncthreads();
+
+    // scores: s[i][j] = q'[row ty + 16 i] . k'[key tx + 8 j], an FMA chain over d
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * F_ROW + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(kt + (tx + 8 * j) * F_ROW + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[i][j] = fmaf(qv[i].w, kv.w, fmaf(qv[i].z, kv.z,
+                         fmaf(qv[i].y, kv.y, fmaf(qv[i].x, kv.x, s[i][j]))));
+      }
+    }
+    const int t0 = item.tile * BK;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (t0 + tx + 8 * j >= item.span_end)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] = WDT_NEG_INF;
+
+    if (item.pass == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bm[i] = fmaxf(bm[i], s[i][j]);
+      if (item.last) {  // the span's max: rescale the state once
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float mn = fmaxf(m[i], oct_max(bm[i]));
+          const float alpha = expf(m[i] - mn);
+          l[i] *= alpha;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
+          m[i] = mn;
+          bm[i] = WDT_NEG_INF;
+        }
+      }
+      continue;
+    }
+    // p = exp(s - m), this thread's part of the normalizer, the p tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - m[i]);
+        l[i] += p;
+        ps[(ty + 16 * i) * F_PROW + tx + 8 * j] = p;
+      }
+    __syncthreads();
+    // o[i] += p[row ty + 16 i, :] . V, an FMA chain over the keys
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * F_PROW + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = vt + (kk + e) * F_ROW + 4 * tx;
+        const float4 v0 = *reinterpret_cast<const float4*>(vr);
+        const float4 v1 = *reinterpret_cast<const float4*>(vr + 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = comp(pv[i], e);
+          o[i][0] = fmaf(p, v0.x, o[i][0]);
+          o[i][1] = fmaf(p, v0.y, o[i][1]);
+          o[i][2] = fmaf(p, v0.z, o[i][2]);
+          o[i][3] = fmaf(p, v0.w, o[i][3]);
+          o[i][4] = fmaf(p, v1.x, o[i][4]);
+          o[i][5] = fmaf(p, v1.y, o[i][5]);
+          o[i][6] = fmaf(p, v1.z, o[i][6]);
+          o[i][7] = fmaf(p, v1.w, o[i][7]);
+        }
+      }
+    }
+  }
+
+  float* ob_ = out + (long long)b * ob + (long long)h * oh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lt = oct_sum(l[i]);
+    const int row = q0 + ty + 16 * i;
+    if (row < T) {
+      float* dst = ob_ + (long long)row * ot + 4 * tx;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[i][0] / lt, o[i][1] / lt, o[i][2] / lt, o[i][3] / lt);
+      *reinterpret_cast<float4*>(dst + 32) =
+          make_float4(o[i][4] / lt, o[i][5] / lt, o[i][6] / lt, o[i][7] / lt);
+    }
+  }
+}
+
 // a [B, H, T, 64] bf16 tensor at element strides (sb, sh, st), its outer
 // dimensions in the order of `order` (innermost first after d), boxes of
 // 64 rows x 64 values with the 128-byte swizzle
@@ -369,5 +593,29 @@ WDT_EXPORT int wdt_encoder_attn(const void* q, const void* k, const void* v,
   if (a1 != cudaSuccess) return static_cast<int>(a1);
   if (a2 != cudaSuccess) return static_cast<int>(a2);
   kern<<<grid, THREADS, SMEM_BYTES, s>>>(mq, mk, mv, pos, O, T, ta_total, ob, oh, ot, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 form: q, k, v and out f32 under the same rules (16-byte aligned
+// rows and strides); FFMA on the CUDA cores.
+WDT_EXPORT int wdt_encoder_attn_f32(const void* q, const void* k, const void* v,
+                                    void* out, int B, int H, int T, int ta_total,
+                                    long long sb, long long sh, long long st,
+                                    long long ob, long long oh, long long ot,
+                                    int single_pass, void* stream) {
+  if (ta_total <= 0 || ta_total > T || B <= 0 || H <= 0 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      enc_attn_f32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      enc_attn_f32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (a1 != cudaSuccess) return static_cast<int>(a1);
+  if (a2 != cudaSuccess) return static_cast<int>(a2);
+  const dim3 grid((T + F_BQ - 1) / F_BQ, H, B);
+  auto kern = single_pass ? enc_attn_f32_kernel<true> : enc_attn_f32_kernel<false>;
+  kern<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), T, ta_total, sb, sh, st, ob, oh, ot,
+      0.35355339059327373f /* 64^-0.25 */);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,52 +30,65 @@
 // 16 rows a pass; the scores stay in shared memory (Tc <= 448); one warp
 // takes the softmax; P.V runs with per-thread f32 partials reduced in a
 // fixed order.
+//
+// The f32 form (`wdt_fused_front_f32`): the TPU kernel is written over the
+// operand dtype, and at f32 its astype(k.dtype) / astype(v.dtype) round
+// nothing; so here every bf16 rounding above becomes the identity. The
+// product runs on the f32 skinny GEMM of tail.cu (FFMA on the CUDA cores,
+// each weight read once for all N rows; no TF32), the attention on the same
+// kernel templated on the element type: a 16-byte chunk holds 4 floats, so
+// 16 threads read a 256-byte cache row and 8 rows go a pass. Bound at N 8 by
+// bytes: 19.7 MB of f32 [D, 3D] weights, ~6 us.
 #include "common.cuh"
 
 namespace {
 
 constexpr int DH = 64;                   // head dimension (every Whisper checkpoint)
 constexpr int THREADS = 128;
-constexpr int CHUNKS = DH / 8;           // 16-byte chunks of a bf16 row
-constexpr int SLOTS = THREADS / CHUNKS;  // cache rows read per pass
 constexpr int MAX_TC = 448;              // n_text_ctx of every checkpoint
 
-// q' . k' over one 16-byte chunk: k scaled and rounded to bf16 first
-__device__ __forceinline__ float dot8_scaled(const uint4 raw, const float* q,
-                                             float scale) {
-  const bf162* x = reinterpret_cast<const bf162*>(&raw);
+// q' . k' over one 16-byte chunk (8 bf16 or 4 f32 values): k scaled and
+// rounded to T first (the identity at f32)
+template <typename T>
+__device__ __forceinline__ float dot_scaled(const uint4 raw, const float* q, float scale) {
+  constexpr int EPC = 16 / sizeof(T);
+  const T* tag = nullptr;
+  float f[EPC];
+  chunk_floats(raw, f, tag);
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(x[j]);
-    s = fmaf(q[2 * j], bf16_round(f.x * scale), fmaf(q[2 * j + 1], bf16_round(f.y * scale), s));
-  }
+  for (int j = 0; j < EPC; j += 2)
+    s = fmaf(q[j], round_to(f[j] * scale, tag), fmaf(q[j + 1], round_to(f[j + 1] * scale, tag), s));
   return s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-front_attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
-                  bf16* __restrict__ vc, const int* __restrict__ row_pad,
-                  bf16* __restrict__ out, int N, int H, int Tc, int layer,
-                  int pos, float scale) {
+front_attn_kernel(const T* __restrict__ qkv, T* __restrict__ kc, T* __restrict__ vc,
+                  const int* __restrict__ row_pad, T* __restrict__ out, int N, int H, int Tc,
+                  int layer, int pos, float scale) {
+  constexpr int EPC = 16 / sizeof(T);        // values a 16-byte chunk
+  constexpr int CHUNKS = DH / EPC;           // chunks of a cache row
+  constexpr int SLOTS = THREADS / CHUNKS;    // cache rows read per pass
   __shared__ __align__(16) float qs[DH];
   __shared__ float sc[MAX_TC];
   __shared__ __align__(16) float red[SLOTS][DH];
+  const T* tag = nullptr;
 
   const int h = blockIdx.x;
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
   const int D = H * DH;
-  const bf16* qr = qkv + (size_t)n * 3 * D + h * DH;
+  const T* qr = qkv + (size_t)n * 3 * D + h * DH;
   const size_t base = (((size_t)layer * N + n) * H + h) * (size_t)Tc * DH;
-  bf16* kr = kc + base;
-  bf16* vr = vc + base;
+  T* kr = kc + base;
+  T* vr = vc + base;
 
   // this step's K/V into slot pos; the scaled query
   if (tid < DH) {
     kr[(size_t)pos * DH + tid] = qr[D + tid];
     vr[(size_t)pos * DH + tid] = qr[2 * D + tid];
-    qs[tid] = bf16_round(__bfloat162float(qr[tid]) * scale);
+    qs[tid] = round_to(load_f(qr + tid) * scale, tag);
   }
   __syncthreads();  // the slot-pos writes are visible to the whole block
 
@@ -88,15 +101,14 @@ front_attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
     const bool valid = t < n_slots && (t >= rp || t == pos);
     uint4 raw = zero4;
     if (valid) raw = reinterpret_cast<const uint4*>(kr + (size_t)t * DH)[c];
-    float s = dot8_scaled(raw, qs + c * 8, scale);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    float s = dot_scaled<T>(raw, qs + c * EPC, scale);
+#pragma unroll
+    for (int o = 1; o < CHUNKS; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (c == 0 && t < n_slots) sc[t] = valid ? s : WDT_NEG_INF;
   }
   __syncthreads();
 
-  // softmax (one warp): f32 max and sum, weights bf16(p / l)
+  // softmax (one warp): f32 max and sum, weights round(p / l)
   if (tid < 32) {
     float m = WDT_NEG_INF;
     for (int t = tid; t < n_slots; t += 32) m = fmaxf(m, sc[t]);
@@ -108,36 +120,52 @@ front_attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
       l += p;
     }
     l = warp_sum(l);
-    for (int t = tid; t < n_slots; t += 32) sc[t] = bf16_round(sc[t] / l);
+    for (int t = tid; t < n_slots; t += 32) sc[t] = round_to(sc[t] / l, tag);
   }
   __syncthreads();
 
   // P.V: per-thread f32 partials over its slots, reduced over the SLOTS rows
-  float acc[8];
+  float acc[EPC];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < EPC; ++j) acc[j] = 0.0f;
   for (int t0 = 0; t0 < n_slots; t0 += SLOTS) {
     const int t = t0 + slot;
     if (t < n_slots && (t >= rp || t == pos)) {
       const float p = sc[t];
-      const uint4 raw = reinterpret_cast<const uint4*>(vr + (size_t)t * DH)[c];
-      const bf162* x = reinterpret_cast<const bf162*>(&raw);
+      float f[EPC];
+      chunk_floats(reinterpret_cast<const uint4*>(vr + (size_t)t * DH)[c], f, tag);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(x[j]);
-        acc[2 * j] = fmaf(p, f.x, acc[2 * j]);
-        acc[2 * j + 1] = fmaf(p, f.y, acc[2 * j + 1]);
-      }
+      for (int j = 0; j < EPC; ++j) acc[j] = fmaf(p, f[j], acc[j]);
     }
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) red[slot][c * 8 + j] = acc[j];
+  for (int j = 0; j < EPC; ++j) red[slot][c * EPC + j] = acc[j];
   __syncthreads();
   if (tid < DH) {
     float s = 0.0f;
     for (int r = 0; r < SLOTS; ++r) s += red[r][tid];
-    out[((size_t)n * H + h) * DH + tid] = __float2bfloat16(s);
+    store_f(out + ((size_t)n * H + h) * DH + tid, s);
   }
+}
+
+// wdt_fused_front(_f32)'s body for the element type T
+template <typename T>
+int fused_front(const void* x, const void* w, const void* b, const void* ln_g,
+                const void* ln_b, void* qkv, void* kc, void* vc, const void* row_pad,
+                void* out, int layer, int N, int D, int H, int Tc, int pos, SkinnyPlan plan,
+                cudaStream_t stream) {
+  const size_t l = static_cast<size_t>(layer), d = static_cast<size_t>(D);
+  auto P = [](const void* p) { return static_cast<const T*>(p); };
+  cudaError_t err = launch_skinny_gemm(P(x), P(w) + l * d * 3 * d, P(b) + l * 3 * d,
+                                       P(ln_g) + l * d, P(ln_b) + l * d, static_cast<T*>(qkv),
+                                       N, D, 3 * D, plan, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, N);
+  front_attn_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(kc), static_cast<T*>(vc),
+      static_cast<const int*>(row_pad), static_cast<T*>(out), N, H, Tc, layer, pos,
+      0.35355339059327373f /* 64^-0.25 */);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -152,19 +180,20 @@ WDT_EXPORT int wdt_fused_front(const void* x, const void* w, const void* b,
                                const void* ln_g, const void* ln_b, void* qkv,
                                void* kc, void* vc, const void* row_pad, void* out,
                                int layer, int N, int D, int H, int Tc, int pos, int bn,
-                               int n_split, int span_k, int stages, void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const size_t l = static_cast<size_t>(layer), d = static_cast<size_t>(D);
-  cudaError_t err = launch_skinny_gemm(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w) + l * d * 3 * d,
-      static_cast<const bf16*>(b) + l * 3 * d, static_cast<const bf16*>(ln_g) + l * d,
-      static_cast<const bf16*>(ln_b) + l * d, static_cast<bf16*>(qkv), N, D, 3 * D,
-      SkinnyPlan{bn, n_split, span_k, stages}, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(H, N);
-  front_attn_kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(kc), static_cast<bf16*>(vc),
-      static_cast<const int*>(row_pad), static_cast<bf16*>(out), N, H, Tc, layer, pos,
-      0.35355339059327373f /* 64^-0.25 */);
-  return static_cast<int>(cudaGetLastError());
+                               int n_split, int span_k, int stages, void* stream) {
+  return fused_front<bf16>(x, w, b, ln_g, ln_b, qkv, kc, vc, row_pad, out, layer, N, D, H, Tc,
+                           pos, SkinnyPlan{bn, n_split, span_k, stages},
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The f32 form: every bf16 operand above in f32; the split of
+// ops/tail.py::skinny_plan with f32=True.
+WDT_EXPORT int wdt_fused_front_f32(const void* x, const void* w, const void* b,
+                                   const void* ln_g, const void* ln_b, void* qkv,
+                                   void* kc, void* vc, const void* row_pad, void* out,
+                                   int layer, int N, int D, int H, int Tc, int pos, int bn,
+                                   int n_split, int span_k, int stages, void* stream) {
+  return fused_front<float>(x, w, b, ln_g, ln_b, qkv, kc, vc, row_pad, out, layer, N, D, H,
+                            Tc, pos, SkinnyPlan{bn, n_split, span_k, stages},
+                            static_cast<cudaStream_t>(stream));
 }

@@ -756,6 +756,13 @@ cudaError_t launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
                      ln_b, out, N, Din, Dout, 0, plan, stream);
 }
 
+cudaError_t launch_skinny_gemm(const float* A, const float* W, const float* bias,
+                               const float* ln_g, const float* ln_b, float* out, int N,
+                               int Din, int Dout, SkinnyPlan plan, cudaStream_t stream) {
+  return skinny_gemm(A, W, nullptr, nullptr, bias, static_cast<const float*>(nullptr), ln_g,
+                     ln_b, out, N, Din, Dout, 0, plan, stream);
+}
+
 #define WDT_FUSED_TAIL_ARGS                                                                   \
   const void *x, const void *self_out, const void *o_w, const void *o_b, const void *ln2_g,   \
       const void *ln2_b, const void *cq_w, const void *cq_b, const void *co_w,                \

@@ -47,10 +47,10 @@ _SIGNATURES = {
     "wdt_stream_sum": [_P, _L, _F, _P, _I, _P, _P],
     "wdt_stream_sum_pipelined": [_P, _L, _F, _I, _I, _P, _I, _P, _P],
 }
-# the f32 forms of K1 - K6 take the arguments of their bf16 forms
+# the f32 forms of K1 - K6, K8 and K10 take the arguments of their bf16 forms
 _SIGNATURES.update({f"{name}_f32": _SIGNATURES[name] for name in (
-    "wdt_cross_attn", "wdt_cross_attn_q8", "wdt_cross_kv", "wdt_fused_tail",
-    "wdt_split_self_attn")})
+    "wdt_cross_attn", "wdt_cross_attn_q8", "wdt_cross_kv", "wdt_encoder_attn",
+    "wdt_fused_front", "wdt_fused_tail", "wdt_split_self_attn")})
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -25,7 +25,7 @@ plain versions, and `reject` fails unless the check refuses each of them.
 K5 and K6 take int8 inputs: `quantize_cross_kv` and `quantize_tail_weights`
 of such random tensors.
 
-The f32 forms of K1-K6 (`F32`, `F32_Q8`) are held the same way with f32
+The f32 forms of K1-K6, K8 and K10 (`F32`, `F32_Q8`) are held the same way with f32
 constants: the elementwise bound is ULPS_F32 f32 ulps at the element's (or
 its residual's) magnitude plus ATOL_RMS_F32 of the update's rms, and the
 whole tensor's relative L2 must stay under REL_L2_F32. The constants come
@@ -635,7 +635,7 @@ def k8_faults(layer: int, pos: int, row_pad, x, front, kc, vc
     of the caches. Planted at pos > 0 with some row_pad[n] > 0 (each fault
     is the truth where those are trivial)."""
     from ..ops import front as fr
-    from ..ops.attn import qk_scaled
+    from ..ops.attn import _acc, qk_scaled
 
     def plain(rp=row_pad, weights=front, keep=None):
         return fr.fused_front_layer_plain(layer, pos, rp, x, weights, kc.clone(),
@@ -654,7 +654,7 @@ def k8_faults(layer: int, pos: int, row_pad, x, front, kc, vc
     fr.fused_front_layer_plain(layer, pos, row_pad, x, front, kl, vl)
     q = fr.front_qkv_plain(layer, x, front, kc.shape[2])[0]
     yield "K8 k not scaled by Dh^-0.25", fr.attend(
-        qk_scaled(q), kl[layer].float(), vl[layer], fr.valid_slots(pos, row_pad, kc.shape[3]))
+        qk_scaled(q), _acc(kl[layer]), vl[layer], fr.valid_slots(pos, row_pad, kc.shape[3]))
 
 
 def k10_faults(q, k, v, ta_total: int, single_pass: bool
@@ -680,6 +680,33 @@ def k10_faults(q, k, v, ta_total: int, single_pass: bool
     v_prev = torch.nn.functional.pad(v, (0, 0, 64, 0))[..., :T, :]
     yield "K10 V of the previous ring stage", encoder_self_attention_plain(
         q, k, v_prev, ta_total, single_pass)
+
+
+def k8_f32_faults(layer: int, pos: int, row_pad, x, front, kc, vc
+                  ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The f32 form's two faults for K8 (`F32_REFUSAL`), judged on self_out
+    and built on clones of the caches: every input in TF32, and the bf16
+    form's rounding points (q and k each scaled by Dh^-0.25 and rounded to
+    bf16, the weights bf16(p / l)). Planted at pos > 0: at pos 0 the one
+    slot takes weight 1 and the bf16 fault is the truth."""
+    from ..ops.front import fused_front_layer_plain as plain
+
+    tx, tf, tk, tv = tf32_inputs(x, front, kc, vc)
+    yield "K8 TF32 inputs", plain(layer, pos, row_pad, tx, tf, tk, tv)[0]
+    yield "K8 bf16 rounding points", plain(layer, pos, row_pad, x, front, kc.clone(),
+                                           vc.clone(), rounding=torch.bfloat16)[0]
+
+
+def k10_f32_faults(q, k, v, ta_total: int, single_pass: bool
+                   ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The f32 form's two faults for K10 (`F32_REFUSAL`): q, k, v in TF32,
+    and the bf16 form's rounding points (the scaled q and k rounded to
+    bf16, p rounded before P V)."""
+    from ..ops.encoder_attn import encoder_self_attention_plain as plain
+
+    yield "K10 TF32 inputs", plain(*tf32_inputs(q, k, v), ta_total, single_pass)
+    yield "K10 bf16 rounding points", plain(q, k, v, ta_total, single_pass,
+                                            rounding=torch.bfloat16)
 
 
 def k11a_faults(x: torch.Tensor, s: float, ctas: int) -> Iterator[Tuple[str, torch.Tensor]]:

@@ -33,14 +33,15 @@ self-attention on K10 (`ops/encoder_attn.py::encoder_self_attention`, single
 pass, as the JAX `make_encode(cfg, "flash-custom")` does), and a "front"
 pack on the decoder params (`ops/front.py::pack_front_weights`) runs every
 single-token step of `decode_step` through K8 (ln1, q/k/v, self-attention
-and the cache write); beam steps (`decode_step_split`) never take it.
+and the cache write); beam steps (`decode_step_split`) never take it. On
+f32 params both run the kernels' f32 forms.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -315,10 +316,11 @@ def _layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
 # --------------------------------------------------------------------------
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
-           flash: bool = False) -> torch.Tensor:
+           flash: bool = False, attn: Optional[Callable] = None) -> torch.Tensor:
     """mel [B, n_mels, 3000] -> audio states [B, 1500, d]. Every layer's
     self-attention is the plain `_attn` (compact probabilities in low
-    precision), or with `flash` K10 in its single-pass form."""
+    precision), or with `flash` K10 in its single-pass form, or `attn(q, k,
+    v)` where given (the encoder attention tool's modes)."""
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)
@@ -334,8 +336,12 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
         q = _heads(h @ blk["q_w"] + blk["q_b"], H)
         k = _heads(h @ blk["k_w"], H)
         v = _heads(h @ blk["v_w"] + blk["v_b"], H)
-        a = (encoder_attn.encoder_self_attention(q, k, v) if flash
-             else _attn(q, k, v, compact_probs=compact))
+        if attn is not None:
+            a = attn(q, k, v)
+        elif flash:
+            a = encoder_attn.encoder_self_attention(q, k, v)
+        else:
+            a = _attn(q, k, v, compact_probs=compact)
         x = x + _unheads(a) @ blk["o_w"] + blk["o_b"]
         h = _ln(x, blk["ln2_s"], blk["ln2_b"])
         h = _gelu(h @ blk["fc1_w"] + blk["fc1_b"])

@@ -78,11 +78,12 @@ def _count(fn, dtype: torch.dtype) -> None:
         fn.launches_f32 += 1
 
 
-def qk_scaled(x: torch.Tensor) -> torch.Tensor:
-    """x * Dh^-0.25 in f32, rounded to x's dtype, as f32: how the self
-    attentions of the encoder (K10) and of the greedy front (K8) scale q
-    and k each."""
-    return (x.float() * x.shape[-1] ** -0.25).to(x.dtype).float()
+def qk_scaled(x: torch.Tensor, rounding: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x * Dh^-0.25 in f32 (float64 for float64 x), rounded to x's dtype
+    (or `rounding`), in the compute type: how the self attentions of the
+    encoder (K10) and of the greedy front (K8) scale q and k each."""
+    xa = _acc(x)
+    return (xa * x.shape[-1] ** -0.25).to(rounding or x.dtype).to(xa.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -14,11 +14,15 @@ dtype; keys at or beyond `ta_total` are masked.
   block; `cdiv(T, 128) * 128` keys, i.e. the whole row, below 512): f32 p,
   running max and normalizer, p rounded to the value dtype for P.V.
 
-On a CUDA tensor the wrapper launches `csrc/encoder_attn.cu` (bf16, Dh 64,
-q / k / v read through their strides, so the encoder's head views need no
-copy; the output is laid out [B, T, H, Dh] and returned as its [B, H, T, Dh]
-view) or raises; the plain versions run only for CPU tensors.
-`encoder_self_attention.launches` counts the kernel's launches.
+The TPU kernel is written over the operand dtype; off a TPU the JAX tool
+runs it at f32, where every rounding above is the identity. On a CUDA
+tensor the wrapper launches `csrc/encoder_attn.cu` (bf16: TMA + wgmma; f32:
+FFMA on the CUDA cores; Dh 64, q / k / v of one dtype, read through their
+strides, so the encoder's head views need no copy; the output is laid out
+[B, T, H, Dh] and returned as its [B, H, T, Dh] view) or raises; a mix of
+dtypes raises TypeError; the plain versions run only for CPU tensors.
+`encoder_self_attention.launches` counts the kernel's launches (both
+dtypes), `.launches_f32` those of the f32 form.
 """
 
 from __future__ import annotations
@@ -28,15 +32,15 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .attn import qk_scaled
+from .attn import _count, _float_dtype, qk_scaled
 
 TWO_PASS_BLOCK = 512  # the TPU kernel's key block
 
 
 def _masked_scores(qs: torch.Tensor, ks: torch.Tensor, k0: int,
                    ta_total: int) -> torch.Tensor:
-    """f32 scores of the scaled q against keys k0 .. k0 + len(ks) - 1;
-    keys >= ta_total at -inf."""
+    """Scores of the scaled q against keys k0 .. k0 + len(ks) - 1, in the
+    compute type; keys >= ta_total at -inf."""
     s = torch.matmul(qs, ks.transpose(-1, -2))
     cols = torch.arange(k0, k0 + ks.shape[-2], device=s.device)
     return s.masked_fill(cols >= ta_total, float("-inf"))
@@ -45,29 +49,34 @@ def _masked_scores(qs: torch.Tensor, ks: torch.Tensor, k0: int,
 def encoder_self_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ta_total: Optional[int] = None, single_pass: bool = True,
+    rounding: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """q, k, v [B, H, T, Dh] -> [B, H, T, Dh] with each form's rounding
-    points (module docstring)."""
+    points (module docstring), computed in f32 (float64 for float64
+    inputs: the f32 check's reference). `rounding` replaces the input
+    dtype at those points (a planted fault: the bf16 form's rounding at
+    f32)."""
     T = q.shape[-2]
     ta = T if ta_total is None else int(ta_total)
-    qs, ks = qk_scaled(q), qk_scaled(k)
+    qs, ks = qk_scaled(q, rounding), qk_scaled(k, rounding)
+    ct, pt = qs.dtype, rounding or v.dtype
+    va = v.to(ct)
     if single_pass:
         s = _masked_scores(qs, ks, 0, ta)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(v.dtype)
-        out = torch.matmul(p.float(), v.float()) / p.float().sum(dim=-1, keepdim=True)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(pt).to(ct)
+        out = torch.matmul(p, va) / p.sum(dim=-1, keepdim=True)
         return out.to(q.dtype)
     blk = TWO_PASS_BLOCK if T >= TWO_PASS_BLOCK else T
-    m = torch.full(q.shape[:-1], -1e30, device=q.device)
-    l = torch.zeros(q.shape[:-1], device=q.device)
-    acc = torch.zeros(q.shape, device=q.device)
+    m = torch.full(q.shape[:-1], -1e30, dtype=ct, device=q.device)
+    l = torch.zeros(q.shape[:-1], dtype=ct, device=q.device)
+    acc = torch.zeros(q.shape, dtype=ct, device=q.device)
     for k0 in range(0, T, blk):
         s = _masked_scores(qs, ks[..., k0:k0 + blk, :], k0, ta)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.matmul(
-            p.to(v.dtype).float(), v[..., k0:k0 + blk, :].float())
+        acc = acc * alpha[..., None] + torch.matmul(p.to(pt).to(ct), va[..., k0:k0 + blk, :])
         m = m_new
     return (acc / l[..., None]).to(q.dtype)
 
@@ -79,7 +88,8 @@ def _row_strides(name: str, *tensors: torch.Tensor):
     if len(strides) != 1:
         raise ValueError(f"{name}: q, k, v with different strides {strides}")
     sb, sh, st, sd = strides.pop()
-    if sd != 1 or sb % 8 or sh % 8 or st % 8:
+    per16 = 16 // tensors[0].element_size()  # elements of 16 bytes
+    if sd != 1 or sb % per16 or sh % per16 or st % per16:
         raise ValueError(f"{name}: kernel reads rows of 64 contiguous values at "
                          f"16-byte aligned strides, got {(sb, sh, st, sd)}")
     return sb, sh, st
@@ -96,11 +106,12 @@ def encoder_self_attention(
     dev = q.device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {dev}")
+    dt = _float_dtype(name, q)
     for t in (q, k, v):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: kernel takes torch.bfloat16, got {t.dtype}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: kernel takes one dtype for q, k, v: {dt}, got {t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
     B, H, T, Dh = q.shape
@@ -114,13 +125,15 @@ def encoder_self_attention(
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=dev).transpose(1, 2)
     ob, oh, ot, _ = out.stride()
     lib = kernels.library()
+    entry = lib.wdt_encoder_attn_f32 if dt == torch.float32 else lib.wdt_encoder_attn
     with torch.cuda.device(dev):
-        kernels.check(lib.wdt_encoder_attn(
+        kernels.check(entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, ta,
             sb, sh, st, ob, oh, ot, int(bool(single_pass)), kernels.stream_ptr(dev),
         ), name)
-    encoder_self_attention.launches += 1
+    _count(encoder_self_attention, dt)
     return out
 
 
 encoder_self_attention.launches = 0
+encoder_self_attention.launches_f32 = 0

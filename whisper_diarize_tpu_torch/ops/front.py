@@ -12,6 +12,11 @@ is attached to the decoder params. Everything before the layer tail:
              (and always the self slot t == pos): q and k each scaled by
              Dh^-0.25 and rounded, f32 scores and softmax, bf16(p / l) . V
 
+The TPU kernel is written over the operand dtype: at f32 (what the JAX
+tool `tools/bench_megakernel.py` runs off a TPU) every rounding above is
+the identity. So is the port's: the float operands of a call share one
+dtype, bf16 or f32, and a mixed call raises TypeError.
+
 The TPU kernel reads the cache before the update and attends the new K/V
 as an extra "self column"; the port's decode step writes the cache in
 place, so both versions here write this step's K/V into slot `pos` of
@@ -20,7 +25,8 @@ to `pos`: the same function. On CUDA the wrapper launches `csrc/front.cu`
 (K3's skinny GEMM over the packed weights on the split
 `tail.skinny_plan(N, D, 3D, ln=True)`, then one CTA per (row, head)) or
 raises; the plain version runs only for CPU tensors.
-`fused_front_layer.launches` counts the wrapper's launches.
+`fused_front_layer.launches` counts the wrapper's launches (both dtypes),
+`fused_front_layer.launches_f32` those of the f32 form.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .attn import _int32_on, _require_cuda, qk_scaled
+from .attn import _acc, _count, _float_dtype, _int32_on, _require_cuda, qk_scaled
 from .tail import skinny_plan
 
 _FRONT_KEYS = ("w", "b", "ln1_s", "ln1_b")
@@ -57,13 +63,16 @@ def pack_front_weights(params, cfg) -> Dict[str, torch.Tensor]:
 
 def front_qkv_plain(layer: int, x: torch.Tensor, front: Dict[str, torch.Tensor],
                     n_heads: int) -> Tuple[torch.Tensor, ...]:
-    """x [N, 1, D] -> (q, k_new, v_new) [N, H, 1, Dh] in x's dtype: f32 layer
-    norm rounded to x's dtype, f32 product plus bias rounded once."""
+    """x [N, 1, D] -> (q, k_new, v_new) [N, H, 1, Dh] in x's dtype: f32
+    (float64 for float64 x) layer norm rounded to x's dtype, product plus
+    bias in the same type, rounded once."""
     N, _, D = x.shape
-    h = F.layer_norm(x.float(), (D,), front["ln1_s"][layer].float(),
-                     front["ln1_b"][layer].float(), 1e-5).to(x.dtype)
-    y = (torch.matmul(h.float(), front["w"][layer].float())
-         + front["b"][layer].float()).to(x.dtype)
+    xa = _acc(x)
+    ct = xa.dtype
+    h = F.layer_norm(xa, (D,), front["ln1_s"][layer].to(ct),
+                     front["ln1_b"][layer].to(ct), 1e-5).to(x.dtype)
+    y = (torch.matmul(h.to(ct), front["w"][layer].to(ct))
+         + front["b"][layer].to(ct)).to(x.dtype)
     return tuple(t.reshape(N, n_heads, 1, D // n_heads) for t in y.split(D, dim=-1))
 
 
@@ -74,27 +83,31 @@ def valid_slots(pos: int, row_pad: torch.Tensor, Tc: int) -> torch.Tensor:
 
 
 def attend(qs: torch.Tensor, ks: torch.Tensor, v: torch.Tensor,
-           valid: torch.Tensor) -> torch.Tensor:
-    """qs [N, H, 1, Dh] and ks [N, H, Tc, Dh] scaled (f32), v [N, H, Tc, Dh],
-    valid [N, Tc] -> [N, H, 1, Dh] in v's dtype: f32 scores and softmax,
-    weights rounded to v's dtype, f32 P.V."""
+           valid: torch.Tensor, rounding: Optional[torch.dtype] = None) -> torch.Tensor:
+    """qs [N, H, 1, Dh] and ks [N, H, Tc, Dh] scaled (in the compute type:
+    f32, or float64), v [N, H, Tc, Dh], valid [N, Tc] -> [N, H, 1, Dh] in
+    v's dtype: scores and softmax in the compute type, weights rounded to
+    v's dtype (or `rounding`), P.V in the compute type."""
     s = torch.matmul(qs, ks.transpose(-1, -2))
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    w = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(w.float(), v.float()).to(v.dtype)
+    w = torch.softmax(s, dim=-1).to(rounding or v.dtype).to(qs.dtype)
+    return torch.matmul(w, v.to(qs.dtype)).to(v.dtype)
 
 
 def fused_front_layer_plain(
     layer: int, pos: int, row_pad: torch.Tensor, x: torch.Tensor,
     front: Dict[str, torch.Tensor], kc: torch.Tensor, vc: torch.Tensor,
-    keep: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None, rounding: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [N, 1, D], the packed front weights `front` (`pack_front_weights`),
     the self cache kc, vc [L, N, H, Tc, Dh] (slot `pos` of layer `layer`
     written in place), row_pad [N] -> (self_out, k_new, v_new)
-    [N, H, 1, Dh]. `keep` ([Tc] bool), where given, also masks the slots
-    it is False at: how the planted faults of `kernels/agreement.py` drop
-    a slot."""
+    [N, H, 1, Dh]. Computes in f32, or in float64 for float64 inputs (the
+    f32 check's reference). `keep` ([Tc] bool), where given, also masks
+    the slots it is False at: how the planted faults of
+    `kernels/agreement.py` drop a slot; `rounding` replaces the cache
+    dtype at the attention's rounding points (scaled q and k, the weights:
+    a planted fault, the bf16 form's rounding at f32)."""
     H = kc.shape[2]
     q, k_new, v_new = front_qkv_plain(layer, x, front, H)
     kc[layer, :, :, pos] = k_new[:, :, 0]
@@ -102,15 +115,18 @@ def fused_front_layer_plain(
     valid = valid_slots(pos, row_pad, kc.shape[3])
     if keep is not None:
         valid = valid & keep
-    out = attend(qk_scaled(q), qk_scaled(kc[layer]), vc[layer], valid)
+    out = attend(qk_scaled(q, rounding), qk_scaled(kc[layer], rounding), vc[layer], valid,
+                 rounding)
     return out, k_new, v_new
 
 
 def front_int_args(layer: int, N: int, D: int, H: int, Tc: int,
-                   pos: int) -> Tuple[int, ...]:
-    """The int arguments of `wdt_fused_front`, in order: the shape, the step
-    and the [D, 3D] product's split (`tail.skinny_plan`)."""
-    return (int(layer), N, D, H, Tc, int(pos), *skinny_plan(N, D, 3 * D, ln=True))
+                   pos: int, f32: bool = False) -> Tuple[int, ...]:
+    """The int arguments of `wdt_fused_front` (`wdt_fused_front_f32` with
+    `f32`), in order: the shape, the step and the [D, 3D] product's split
+    (`tail.skinny_plan`)."""
+    return (int(layer), N, D, H, Tc, int(pos),
+            *skinny_plan(N, D, 3 * D, ln=True, f32=f32))
 
 
 def fused_front_layer(
@@ -125,7 +141,8 @@ def fused_front_layer(
     if x.device.type == "cpu":
         return fused_front_layer_plain(layer, pos, row_pad, x, front, kc, vc)
     name = "fused_front_layer"
-    _require_cuda(name, x, kc, vc, *[front[key] for key in _FRONT_KEYS])
+    dt = _float_dtype(name, x)
+    _require_cuda(name, x, kc, vc, *[front[key] for key in _FRONT_KEYS], dtype=dt)
     row_pad = _int32_on(name, x.device, row_pad)
     L, Nc, H, Tc, Dh = kc.shape
     want = {"w": (L, D, 3 * D), "b": (L, 3 * D), "ln1_s": (L, D), "ln1_b": (L, D)}
@@ -140,16 +157,19 @@ def fused_front_layer(
         raise ValueError(f"{name}: layer {layer} / pos {pos} outside {L} / {Tc}")
     qkv = torch.empty((N, 3 * D), dtype=x.dtype, device=x.device)
     out = torch.empty((N, H, 1, Dh), dtype=x.dtype, device=x.device)
+    f32 = dt == torch.float32
     lib = kernels.library()
+    entry = lib.wdt_fused_front_f32 if f32 else lib.wdt_fused_front
     with torch.cuda.device(x.device):
-        kernels.check(lib.wdt_fused_front(
+        kernels.check(entry(
             x.data_ptr(), *[front[key].data_ptr() for key in _FRONT_KEYS],
             qkv.data_ptr(), kc.data_ptr(), vc.data_ptr(), row_pad.data_ptr(),
-            out.data_ptr(), *front_int_args(layer, N, D, H, Tc, pos),
+            out.data_ptr(), *front_int_args(layer, N, D, H, Tc, pos, f32),
             kernels.stream_ptr(x.device)), name)
-    fused_front_layer.launches += 1
+    _count(fused_front_layer, dt)
     heads = qkv.view(N, 3, H, 1, Dh)
     return out, heads[:, 1], heads[:, 2]
 
 
 fused_front_layer.launches = 0
+fused_front_layer.launches_f32 = 0

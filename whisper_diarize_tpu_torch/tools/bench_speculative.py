@@ -32,7 +32,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,25 +75,6 @@ class Bench:
     results: Dict[str, dec.DecodeResult] = dataclasses.field(default_factory=dict)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def best_ms(fn, dev: torch.device, repeat: int):
-    """(best host-clock ms of `repeat` calls after one warm-up, the last
-    call's result)."""
-    out = fn()
-    _sync(dev)
-    best = float("inf")
-    for _ in range(repeat):
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(dev)
-        best = min(best, (time.perf_counter() - t0) * 1e3)
-    return best, out
-
-
 def setup(dev: torch.device, preset: str, batch: int, steps: int, repeat: int) -> Bench:
     cfg = wm.PRESETS[preset]
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
@@ -107,7 +87,7 @@ def setup(dev: torch.device, preset: str, batch: int, steps: int, repeat: int) -
         (batch, N_SAMPLES)) * 0.1).astype(np.float32)).to(dev)
     prompt = torch.tensor([tk.sot_sequence(language="en")] * batch, device=dev)
     with torch.inference_mode():
-        front_ms, xa = best_ms(lambda: wm.encode(
+        front_ms, xa = timing.best_ms(lambda: wm.encode(
             params, log_mel_spectrogram(audio, n_mels=cfg.n_mels), cfg), dev, repeat)
     return Bench(params, cfg, dec.DecodeConfig(max_tokens=steps, with_timestamps=True), sp,
                  suppress, prompt, xa, front_ms, drafts={})
@@ -121,7 +101,7 @@ def run_row(b: Bench, name: str, repeat: int) -> Tuple[dict, dec.DecodeResult]:
     rounds = None
     with torch.inference_mode():
         if row_cfg is None:
-            ms, res = best_ms(lambda: dec.greedy_decode(
+            ms, res = timing.best_ms(lambda: dec.greedy_decode(
                 b.params, b.cfg, b.dc, b.sp, b.xa, b.prompt, P, suppress_mask=b.suppress),
                 dev, repeat)
         else:
@@ -133,7 +113,7 @@ def run_row(b: Bench, name: str, repeat: int) -> Tuple[dict, dec.DecodeResult]:
                     cfg_k = wm.PRESETS[key]
                     b.drafts[key] = (weights.init_params_fast(cfg_k, dev, b.xa.dtype), cfg_k)
                 params_d, cfg_d = b.drafts[key]
-            ms, (res, r) = best_ms(lambda: spec.speculative_greedy_run(
+            ms, (res, r) = timing.best_ms(lambda: spec.speculative_greedy_run(
                 b.params, b.cfg, params_d, cfg_d, b.dc, b.sp, b.xa, b.xa, b.prompt, P,
                 b.suppress, gamma=row_cfg["gamma"], sim_accept=row_cfg["sim"]), dev, repeat)
             rounds = int(r)

@@ -2,6 +2,8 @@
 could take for it: shared by `chip_smoke.py` and the tools of this package.
 
 - `time_ms`: CUDA-event time of back-to-back calls over their count;
+- `best_ms`: the best host-clock time of a few calls, each ended by a
+  synchronisation: the time of a whole decode or encode (the tools);
 - `slope_ms`: the slope of CUDA-event times over two repetition counts
   (best of a few runs each), which cancels a run's fixed cost: the TPU
   tools' method;
@@ -61,6 +63,25 @@ def time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def best_ms(fn: Callable[[], object], device: torch.device, repeat: int):
+    """(best host-clock ms of `repeat` calls after one warm-up, each ended
+    by a synchronisation on the card, the last call's result): the TPU
+    tools' `best_of`."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = fn()
+    sync()
+    best = float("inf")
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best, out
 
 
 def slope_ms(fn: Callable[[], object], device: torch.device,
