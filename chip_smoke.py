@@ -57,13 +57,15 @@ traceback) and no result line is printed:
    variant in this process so that its launches count: greedy `tail` (K3)
    and `tail+front` (K8 + K3), beam `tail` (K4 + K3)); and the f32 forms of
    K1-K6, K8 and K10 (`phase_f32_kernels`, "kernels f32": K1 at B 8, Q 1 /
-   3 / 15 / 64 and B 1, K2 at L 4 and 32, K3 at N 8 and 40, K4 at steps 0,
+   3 / 15 / 64 / 227 and B 1, K2 at L 4 and 32, K3 at N 8 and 40, K4 at steps 0,
    31, 63, K5 at Q 3 and 15, K6 `kvq` and `wq+kvq` at N 40, K8 at N 8 and
    40 at pos 3, 19, 34 with and without pads, K10 in both forms at [8, 20,
    1500, 64]) against their f32 plain versions with TF32 off by the f32
    check (`agreement.F32`, `F32_Q8`), the TF32 and bf16-rounding faults
    refused by 10x and more, timed beside SDPA (K1, K5, K10) and
-   `torch.addmm` (K2) in f32;
+   `torch.addmm` (K2) in f32, bound at the 3xTF32 rate (`TF32X3_FLOPS`);
+   K1-f32 and K10-f32, which compute in 3xTF32 on the tensor cores, also
+   print their distance to their CPU order's model (`model_distance`);
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
@@ -199,9 +201,9 @@ from whisper_diarize_tpu_torch.models import whisper as wm
 from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
 from whisper_diarize_tpu_torch.tools import (bench_attn_kernel, bench_dma, bench_encoder_attn,
                                              bench_megakernel, bench_speculative)
-from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, attn_bound, bound,
-                                                    device_ms, nvidia_smi_line, sum_bound,
-                                                    time_ms)
+from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, TF32X3_FLOPS,
+                                                    attn_bound, bound, device_ms,
+                                                    nvidia_smi_line, sum_bound, time_ms)
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -308,7 +310,8 @@ def tail_bound(N: int, beams: int, D: int, Ta: int, wq: bool, kvq: bool,
     f32 scales), biases and layer norms (12 D), x, self_out and the output
     (N x D), the stream's cross K / V rows; `es` bytes an activation (2, or
     4 for the f32 forms, whose float weights and cache are f32 too and whose
-    products run at the f32 rate but for K5's bf16 ones)."""
+    products run at the 3xTF32 rate, `TF32X3_FLOPS`, but for K5's bf16
+    ones)."""
     H, Bc = D // 64, N // beams
     weights = 11 * D * D * (1 if wq else es) + (11 * D * 4 if wq else 0)
     cache = 2 * Bc * H * Ta * (64 + 4 if kvq else 64 * es)
@@ -316,15 +319,26 @@ def tail_bound(N: int, beams: int, D: int, Ta: int, wq: bool, kvq: bool,
     if es == 2:
         return bound(nbytes, 2 * N * 11 * D * D + 4 * N * H * Ta * 64)
     attn = 4 * N * H * Ta * 64  # at the bf16 rate over the int8 cache (K5)
-    return bound(nbytes, 2 * N * 11 * D * D + (0 if kvq else attn), F32_FLOPS)
+    return bound(nbytes, 2 * N * 11 * D * D + (0 if kvq else attn), TF32X3_FLOPS)
 
 
 def f32_attn_bound(B: int, Q: int, H: int, Ta: int, kv_row_bytes: int) -> dict:
     """K1 / K5's f32 forms: q in and out [B, Q, H, 64] f32, one layer's Ta
     K and V rows (`kv_row_bytes` a row: 256 f32, 64 + 4 int8 with its
-    scale); the products at the f32 rate (K1) or K5's bf16 rate."""
+    scale); the products at the 3xTF32 rate (K1) or K5's bf16 rate."""
     return bound(2 * B * Q * H * 64 * 4 + 2 * B * H * Ta * kv_row_bytes,
-                 4 * B * H * Q * Ta * 64, F32_FLOPS if kv_row_bytes == 256 else BF16_FLOPS)
+                 4 * B * H * Q * Ta * 64, TF32X3_FLOPS if kv_row_bytes == 256 else BF16_FLOPS)
+
+
+def model_distance(tag: str, got: torch.Tensor, model: torch.Tensor) -> None:
+    """Print how far an f32 kernel's result lies from its 3xTF32 model (the
+    same products and order on the card's f32 units, `agreement.
+    k1_tf32x3_model` / `k10_tf32x3_model`): what the tensor cores' own
+    accumulation adds. Read, not checked: the plain version is the
+    reference."""
+    a = ag.agreement(got, model, tol=ag.F32)
+    print(f"[kernels] {tag} vs its 3xTF32 model: rel_l2 {a.rel_l2:.3g}, worst "
+          f"{a.worst:.3g} of the f32 bound", flush=True)
 
 
 def timed(tag: str, fn, plain, library=None, **extra) -> dict:
@@ -624,7 +638,7 @@ def phase_f32_kernels() -> dict:
     (TF32 off, `phase_device`) at large-v3 widths by the f32 check
     (`agreement.F32`; `F32_Q8` for K5 and K6 `kvq`, whose products stay
     bf16 and whose plain version is the kernels' split model,
-    `agreement.split_attend`): K1 at B 8 with Q 1, 3, 15, 64 and at B 1
+    `agreement.split_attend`): K1 at B 8 with Q 1, 3, 15, 64, 227 and at B 1
     (Q 3), each also at ta 1493; K2 at L 4 and 32 (B 8); K3 at N 8 and 40;
     K4 at B 8, K 5, prompt 3, 64 decode slots, steps 0, 31, 63; K5 at Q 3
     and 15; K6 `kvq` and `wq+kvq` at N 40. At each shape the two f32 faults
@@ -679,7 +693,8 @@ def phase_f32_kernels() -> dict:
                   lambda: attn.cross_kv_build_plain(*a),
                   library=lambda: torch.addmm(bias_row, x2, wkv), shape=f"L={Lk}",
                   **bound(8 * Ta * D * 4 + 2 * Lk * D * D * 4 + Lk * D * 4
-                          + 2 * Lk * 8 * Ta * D * 4, 4 * Lk * 8 * Ta * D * D, F32_FLOPS))
+                          + 2 * Lk * 8 * Ta * D * 4, 4 * Lk * 8 * Ta * D * D,
+                          TF32X3_FLOPS))
         keep("K2-f32", f"L={Lk}", t)
         if Lk == L:
             res["K2-f32"].update({k: t[k] for k in SHAPE_KEYS})
@@ -688,15 +703,17 @@ def phase_f32_kernels() -> dict:
 
     for B in (8, 1):  # K1 on the L 32 cache (B 1: stream 0's slab)
         kb, vb = (k, v) if B == 8 else (k[:, :1].contiguous(), v[:, :1].contiguous())
-        for Q in ((1, 3, 15, 64) if B == 8 else (3,)):
+        for Q in ((1, 3, 15, 64, 227) if B == 8 else (3,)):
             q = ag.randn(g, dev, B, Q, H, 64, scale=2.0, dtype=f32)
             for ta in (Ta, Ta - 7):
                 a = (lay, q, kb, vb, ta)
                 faults = ag.k1_f32_faults(*a) if ta == Ta else ()
                 if ta == Ta and B == 8 and Q == 15:
                     faults = itertools.chain(faults, ag.k1_faults(*a))
-                check("K1-f32", f"K1-f32 B={B} Q={Q} ta={ta}", attn.cross_attn_layer(*a),
+                got = attn.cross_attn_layer(*a)
+                check("K1-f32", f"K1-f32 B={B} Q={Q} ta={ta}", got,
                       attn.cross_attn_layer_plain(*a), faults)
+                model_distance(f"K1-f32 B={B} Q={Q} ta={ta}", got, ag.k1_tf32x3_model(*a))
             a = (lay, q, kb, vb, Ta)
             qt, kl, vl = q.transpose(1, 2), kb[lay], vb[lay]
             t = timed(f"K1-f32 B={B} Q={Q}", lambda: attn.cross_attn_layer(*a),
@@ -778,7 +795,7 @@ def phase_f32_kernels() -> dict:
                   lambda: attn.split_self_attn_layer_plain(next(it) % L, *rest),
                   shape=f"step={step}",
                   **bound(2 * B * K * H * 64 * 4 + rows * 64 * 4 * 2 + B * K * Td * 4 + B * 4,
-                          4 * B * K * H * (Tp + step + 1) * 64, F32_FLOPS))
+                          4 * B * K * H * (Tp + step + 1) * 64, TF32X3_FLOPS))
         keep("K4-f32", f"step={step}", t)
         if step == 31:
             res["K4-f32"].update({k: t[k] for k in SHAPE_KEYS})
@@ -824,16 +841,18 @@ def phase_f32_kernels() -> dict:
             faults = ()
             if scale == 0.5:
                 faults = itertools.chain(ag.k10_f32_faults(*a), ag.k10_faults(*a))
-            check("K10-f32", f"K10-f32 {form} {list(shape)} q,k scale {scale}",
-                  encoder_attn.encoder_self_attention(*a),
+            got = encoder_attn.encoder_self_attention(*a)
+            check("K10-f32", f"K10-f32 {form} {list(shape)} q,k scale {scale}", got,
                   encoder_attn.encoder_self_attention_plain(*a), faults)
+            model_distance(f"K10-f32 {form} q,k scale {scale}", got,
+                           ag.k10_tf32x3_model(q, k, v, Ta))
             if scale == 0.5:
                 continue
             t = timed(f"K10-f32 {form}", lambda: encoder_attn.encoder_self_attention(*a),
                       lambda: encoder_attn.encoder_self_attention_plain(*a),
                       library=lambda: F.scaled_dot_product_attention(q, k, v),
                       shape=form, **bound(4 * q.numel() * 4, 4 * shape[0] * H * Ta * Ta * 64,
-                                          F32_FLOPS))
+                                          TF32X3_FLOPS))
             keep("K10-f32", form, t)
             if single_pass:
                 res["K10-f32"].update({k: t[k] for k in SHAPE_KEYS})
@@ -849,10 +868,10 @@ def front_bound(N: int, D: int, pos: int, row_pad, es: int = 2) -> dict:
     """K8 for one layer: the packed [D, 3D] weights, biases and ln1, x and
     self_out, the new K/V written, the valid cache rows (row_pad[n] .. pos)
     read as K and V; `es` bytes a value (4: the f32 form, its products at
-    the f32 rate)."""
+    the 3xTF32 rate)."""
     rows = int((pos + 1 - row_pad.clamp(max=pos)).sum()) * (D // 64)
     return bound((3 * D * D + 5 * D + 4 * N * D + rows * 64 * 2) * es,
-                 2 * N * D * 3 * D + 4 * rows * 64, BF16_FLOPS if es == 2 else F32_FLOPS)
+                 2 * N * D * 3 * D + 4 * rows * 64, BF16_FLOPS if es == 2 else TF32X3_FLOPS)
 
 
 def mel_bound(B: int, T: int, n_mels: int) -> dict:

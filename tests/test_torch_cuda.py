@@ -604,7 +604,8 @@ def _refuse(got, faults, tol=ag.F32, base=None):
         ag.reject(name, got, bad, base=base, tol=tol, factor=factor)
 
 
-@pytest.mark.parametrize("B,Ta,Q", [(2, 100, 3), (3, 1500, 17), (8, 1500, 1)])
+@pytest.mark.parametrize("B,Ta,Q", [(2, 100, 3), (3, 1500, 17), (8, 1500, 1), (2, 1500, 64),
+                                   (2, 1500, 227)])
 def test_f32_forms_k1_k2_k3_on_card(dev, B, Ta, Q):
     g = torch.Generator(device=dev).manual_seed(B + 50)
     L, H = 2, 4

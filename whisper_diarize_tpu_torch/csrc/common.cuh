@@ -171,6 +171,27 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// ---------------------------------------------------------------------------
+// 3xTF32 products on the tensor cores (the f32 forms of K1, cross_attn.cu:
+// mma.sync, and K10, encoder_attn.cu: wgmma). Each f32 operand x splits
+// into hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in f32); a
+// product is lo hi' + hi lo' + hi hi', summed into one f32 accumulator, and
+// lo lo' (~2^-22 of it) is dropped: about f32's accuracy at TF32's rate
+// (`kernels/agreement.py::tf32x3_split` is the same split on the CPU).
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 (10 explicit mantissa bits, ties away from zero, as
+// cvt.rna.tf32.f32 and agreement.tf32_round round): the bits a TF32
+// product reads
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
 // cp.async: `bytes` (4, 8 or 16) from global to shared memory, bypassing the
 // registers; `src_bytes` 0 fills the destination with zeros (src must still
 // be a valid address)
@@ -342,6 +363,44 @@ __device__ __forceinline__ void wgmma_ss_n128_tb(float* d, uint64_t da, uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (+)= A B, one warpgroup: m64n64k8, TF32 in, f32 accumulate (K10-f32's
+// 3xTF32 products); A and B from shared memory through their descriptors,
+// both K-major (TF32 has no transposed form); d laid out as wgmma_ss's.
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (+)= A B with A from registers (a warp's rows 16w .. 16w + 15 of the
+// m64k8 tile, as the m16n8k8 TF32 A fragment: a[0] row g, k tg; a[1] row
+// g + 8, k tg; a[2] row g, k tg + 4; a[3] row g + 8, k tg + 4) and B from
+// shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // one 64-row box of a [B, H, T, 64] tensor into shared memory; the map's

@@ -70,18 +70,25 @@
 // dtype, so at f32 every product is f32): K5's keeps its bf16 products
 // (the TPU kernel casts q * scale and p * vs to bf16 whatever the
 // activation dtype); only its q load and out store take f32 (the template's
-// AT). K1's (`cross_attn_f32_kernel`) keeps the plan, the cluster key split,
-// the copy ring and the combine in distributed shared memory, and computes
-// on the CUDA cores in f32: its tiles are f32 rows padded to 68 floats
-// (272 bytes: a quarter warp's 16-byte reads of eight consecutive rows fall
-// in distinct banks), three stages of K and V 104 KB. Warp w takes the
-// chunk's rows w, w + 4, ...; for a tile, lane l scores keys l and l + 32
-// (K rows as float4, q broadcast from shared memory), the row's tile max
-// and sum are warp reductions, p goes through shared memory, and lane l
-// accumulates output dims 2l and 2l + 1 of P.V (V rows as float2). At f32
-// the cache moves twice the bytes: `cross_attn_plan(f32=True)` aims at
-// twice the CTAs (four spans of 384 keys at B 8, Q <= 16), the bytes a CTA
-// streams as the bf16 plan's.
+// AT). K1's (`cross_attn_f32_kernel`) is the bf16 kernel's design with
+// 3xTF32 products: the plan, the cluster key split, the copy ring, the
+// combine in distributed shared memory and the warps' layouts (Q <= 16: the
+// warps split each tile's keys; Q > 16: 64 rows a CTA, 16 a warp) are the
+// bf16 kernel's, and S = Q K^T and O += P V are mma.sync m16n8k8 in TF32,
+// three a product (hi / lo of each f32 operand split in registers as its
+// fragment loads, common.cuh's tf32_split; lo hi' + hi lo' + hi hi' into
+// one f32 accumulator; the tf32x3_* helpers below). q is scaled by Dh^-0.5 and split once; the running max
+// moves once a 64-key tile, so `cross_attn_split_plain` still describes the
+// order (`agreement.k1_tf32x3_model` is that order with the split
+// products). The k index of each product is permuted so that P's A
+// fragment is the S accumulator as it lies (no shuffle, no shared memory)
+// and every fragment read is one conflict-free float2 or float4: K rows
+// padded to 72 floats, V rows to 68. The ring of three K + V stages is 105
+// KB, so two CTAs fit an SM. What bounds it: bytes at Q <= 16 (the f32
+// cache: 123 MB a layer at B 8), the products at the 3xTF32 rate (495 / 3
+// TFLOP/s) from Q ~ 100. At f32 the cache moves twice the bytes:
+// `cross_attn_plan(f32=True)` aims at twice the CTAs (four spans of 384
+// keys at B 8, Q <= 16), the bytes a CTA streams as the bf16 plan's.
 //
 // K9a, K9c and K9d: the same kernel in the three forms that
 // tools/bench_attn_kernel.py measured beside K1 (_attn_4d, _attn_6d_const,
@@ -477,49 +484,185 @@ cross_attn_kernel(const AT* __restrict__ q, const KV* __restrict__ k,
   cluster.sync();  // no CTA leaves while another may still read its state
 }
 
-// K1's f32 form: the kernel above with f32 tiles and FFMA products (see the
-// head of this file). Rows of the chunk: QCH (16, or 64 where kRows); warp
-// w takes rows w + 4i, i < RW.
-constexpr int FROW = DH + 4;                      // f32 row in shared memory (68 floats)
-constexpr int F32_STAGE = 2 * TK * FROW;          // K and V tiles, floats
-
-template <bool kRows>
-__host__ __device__ constexpr int f32_smem_bytes() {
-  // the ring, the chunk's scaled queries [QCH][DH], its p [QCH][TK]
-  return (K1_STAGES * F32_STAGE + (kRows ? 4 : 1) * QC * (DH + TK)) * 4;
+// c += a * b on the tensor cores: m16n8k8, TF32 in, f32 accumulate.
+// a: rows g (a[0], a[2]) / g + 8 (a[1], a[3]), k tg (a[0], a[1]) / tg + 4
+// (a[2], a[3]); b0: k tg, b1: k tg + 4, column g; c as mma_bf16's
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Issue one f32 tile's copies (keys >= t_end land as 0): 16 of K and 16 of V
+// c += a * b in 3xTF32: the two small terms first, then hi hi'
+__device__ __forceinline__ void mma_tf32x3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(c, a_lo, bh0, bh1);
+  mma_tf32(c, a_hi, bl0, bl1);
+  mma_tf32(c, a_hi, bh0, bh1);
+}
+
+// The attention of one warp's 16 query rows against a 64-key tile in
+// shared memory (K10-f32 runs the same products as wgmma, encoder_attn.cu,
+// with the same k order for P V). K rows lie TF32_KROW floats apart, V
+// rows TF32_VROW. The k index of each product is permuted inside every
+// 8-wide step, the same way in both operands, which leaves the sums as
+// they are:
+// - S = Q K^T, step s: slot tg <-> dim 8s + 2tg, slot tg + 4 <-> dim
+//   8s + 2tg + 1, so a thread reads one float2 of its q rows and of its K
+//   row a step (eight K rows a quad at 72 floats: distinct banks);
+// - O += P V, step j (keys 8j .. 8j + 7): slot tg <-> key 8j + 2tg, slot
+//   tg + 4 <-> key 8j + 2tg + 1, so the S accumulator of those keys is
+//   already P's A fragment (p[0], p[2] / p[1], p[3]): no shuffle, no shared
+//   memory;
+// - P V's columns: n8 block nb, column c <-> dim (nb & 3) + 4c + 32 (nb >> 2),
+//   so a thread reads its V rows as float4 (rows 2tg, 2tg + 1 at 68 floats:
+//   distinct banks) and holds output dims 8tg .. 8tg + 7 and 32 + 8tg ..
+//   32 + 8tg + 7 of rows g and g + 8 (`tf32x3_out_dims`).
+constexpr int TF32_KROW = 72;  // floats a K row in shared memory (64 + 8)
+constexpr int TF32_VROW = 68;  // floats a V row (64 + 4)
+
+// The A fragments of 16 query rows (row0: row g, row8: row g + 8, nullptr
+// for a row past the queries: zeros) times `scale`, split for 3xTF32
+__device__ __forceinline__ void tf32x3_q_frags(uint32_t (*qh)[4], uint32_t (*ql)[4],
+                                               const float* row0, const float* row8, int tg,
+                                               float scale) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float2 zero = make_float2(0.0f, 0.0f);
+    const float2 a = row0 ? *reinterpret_cast<const float2*>(row0 + 8 * s + 2 * tg) : zero;
+    const float2 b = row8 ? *reinterpret_cast<const float2*>(row8 + 8 * s + 2 * tg) : zero;
+    tf32_split(a.x * scale, qh[s][0], ql[s][0]);
+    tf32_split(b.x * scale, qh[s][1], ql[s][1]);
+    tf32_split(a.y * scale, qh[s][2], ql[s][2]);
+    tf32_split(b.y * scale, qh[s][3], ql[s][3]);
+  }
+}
+
+// s[nt] = Q K^T for keys 8nt .. 8nt + 7 of `kt` (row 8nt + g of this
+// thread's B fragment), nt < NT; each K value times `kscale` first where
+// kScaleK
+template <int NT, bool kScaleK>
+__device__ __forceinline__ void tf32x3_scores(float (*s)[4], const uint32_t (*qh)[4],
+                                              const uint32_t (*ql)[4], const float* kt, int g,
+                                              int tg, float kscale) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+    const float* kr = kt + (8 * nt + g) * TF32_KROW + 2 * tg;
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      float2 kv = *reinterpret_cast<const float2*>(kr + 8 * st);
+      if (kScaleK) {
+        kv.x *= kscale;
+        kv.y *= kscale;
+      }
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_split(kv.x, bh0, bl0);
+      tf32_split(kv.y, bh1, bl1);
+      mma_tf32x3(s[nt], qh[st], ql[st], bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// o += P V for keys 8j .. 8j + 7 of `vt`, j < NJ; p[j] the probabilities of
+// those keys in the S accumulator's layout. The tensor cores add into their
+// accumulator truncating (toward zero), so a chain of products biases it:
+// over a row's 188 key steps that left K10-f32 (whose first form ran on
+// these helpers) 1.05e-5 from its plain version (H100), past the f32 check.
+// The tile's products therefore start from zero, and the tile's sum joins o
+// in an f32 add on the CUDA cores.
+template <int NJ>
+__device__ __forceinline__ void tf32x3_pv(float (*o)[4], const float (*p)[4], const float* vt,
+                                          int g, int tg) {
+  float t[8][4];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) t[nb][0] = t[nb][1] = t[nb][2] = t[nb][3] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t ah[4], al[4];
+    tf32_split(p[j][0], ah[0], al[0]);  // row g, key 2tg
+    tf32_split(p[j][2], ah[1], al[1]);  // row g + 8, key 2tg
+    tf32_split(p[j][1], ah[2], al[2]);  // row g, key 2tg + 1
+    tf32_split(p[j][3], ah[3], al[3]);  // row g + 8, key 2tg + 1
+    const float* v0 = vt + (8 * j + 2 * tg) * TF32_VROW + 4 * g;
+    const float* v1 = v0 + TF32_VROW;
+    const float4 x0 = *reinterpret_cast<const float4*>(v0);
+    const float4 x1 = *reinterpret_cast<const float4*>(v0 + 32);
+    const float4 y0 = *reinterpret_cast<const float4*>(v1);
+    const float4 y1 = *reinterpret_cast<const float4*>(v1 + 32);
+    const float b0[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float b1[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_split(b0[nb], bh0, bl0);
+      tf32_split(b1[nb], bh1, bl1);
+      mma_tf32x3(t[nb], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nb][e] += t[nb][e];
+  }
+}
+
+// The output accumulator's dims of row g (half 0) or g + 8 (half 1),
+// divided by `l`, as four float4: `dst(d, value)` stores dims d .. d + 3
+// for d = 8tg, 8tg + 4, 32 + 8tg, 32 + 8tg + 4
+template <typename Store>
+__device__ __forceinline__ void tf32x3_out_dims(const float (*o)[4], int half, int tg, float l,
+                                                Store dst) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = 2 * half + (i & 1), nb = 4 * (i >> 1);
+    dst(8 * tg + 4 * (i & 1) + 32 * (i >> 1),
+        make_float4(o[nb][e] / l, o[nb + 1][e] / l, o[nb + 2][e] / l, o[nb + 3][e] / l));
+  }
+}
+
+// K1's f32 form: the kernel above with f32 tiles and 3xTF32 products (see
+// the head of this file and the tf32x3_* helpers above). Rows of the
+// chunk: QCH (16, or 64 where kRows); the warps split them as the bf16
+// kernel's do.
+constexpr int F32_STAGE = TK * (TF32_KROW + TF32_VROW);  // K and V tiles, floats
+
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return K1_STAGES * F32_STAGE * 4;  // the ring; the combine's state reuses it
+}
+static_assert(f32_smem_bytes() >= part_bytes(), "the combine's state fits the ring");
+
+// Issue one f32 tile's copies (keys >= t_end land as 0): 8 of K and 8 of V
 // a thread, 16 bytes each
 __device__ __forceinline__ void stage_tile_f32(const float* kb, const float* vb, float* kt,
                                                int t0, int t_end, int tid) {
-  float* vt = kt + TK * FROW;
+  float* vt = kt + TK * TF32_KROW;
 #pragma unroll
   for (int i = tid; i < TK * (DH / 4); i += K1_THREADS) {
     const int row = i / (DH / 4), c = i % (DH / 4);
     const int key = t0 + row;
     const bool ok = key < t_end;
     const size_t off = ok ? (size_t)key * DH + c * 4 : 0;
-    cp_async<16>(kt + row * FROW + c * 4, kb + off, ok);
-    cp_async<16>(vt + row * FROW + c * 4, vb + off, ok);
+    cp_async<16>(kt + row * TF32_KROW + c * 4, kb + off, ok);
+    cp_async<16>(vt + row * TF32_VROW + c * 4, vb + off, ok);
   }
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float s) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
-}
-
 template <bool kRows>
-__global__ void __launch_bounds__(K1_THREADS)
+__global__ void __launch_bounds__(K1_THREADS, 2)
 cross_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out, int B, int Q,
                       int H, int Ta, int layer, int ta_total, int span_keys, float scale) {
   constexpr int QCH = kRows ? 4 * QC : QC;  // queries a CTA
-  constexpr int RW = QCH / WARPS;           // rows a warp
+  constexpr int NT = kRows ? TK / 8 : 2;     // n8 key blocks a warp a tile
   constexpr int NS = K1_STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float lst[4 * QC];  // the span's normalizer, by row
-  __shared__ float mst[4 * QC];  // the span's running max, by row
+  __shared__ float red[WARPS][QC];  // a tile's row max, by warp (key split)
+  __shared__ float lst[4 * QC];     // a span's normalizer: by warp and row, then by row
+  __shared__ float mst[4 * QC];     // the span's running max, by row
 
   cg::cluster_group cluster = cg::this_cluster();
   const int n_span = gridDim.x;
@@ -529,6 +672,9 @@ cross_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int kw = kRows ? 0 : warp * 16;  // this warp's first key of a tile
+  const int qr = kRows ? warp * 16 : 0;  // this warp's first row of the chunk
   const int t_begin = rank * span_keys;
   const int t_end = min(t_begin + span_keys, ta_total);
   const int n_tiles = (t_end - t_begin + TK - 1) / TK;
@@ -536,113 +682,140 @@ cross_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + row0 * DH;
   const float* vb = v + row0 * DH;
   float* ring = reinterpret_cast<float*>(smem);
-  float* qs = ring + NS * F32_STAGE;  // [QCH][DH]
-  float* ps = qs + QCH * DH;          // [QCH][TK]
 
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n_tiles) stage_tile_f32(kb, vb, ring + s * F32_STAGE, t_begin + s * TK, t_end, tid);
     cp_async_commit();
   }
-  // the chunk's queries times Dh^-0.5 (f32: cast to the cache dtype is
-  // the identity); rows past Q are zeros and never attended
-  for (int i = tid; i < QCH * DH; i += K1_THREADS) {
-    const int r = i / DH;
-    qs[i] = q0 + r < Q ? q[(((size_t)b * Q + q0 + r) * H + h) * DH + i % DH] * scale : 0.0f;
+
+  // the chunk's queries times Dh^-0.5 (f32: the cast to the cache dtype is
+  // the identity), split once; rows past Q are zeros and never stored
+  uint32_t qh[DH / 8][4], ql[DH / 8][4];
+  {
+    const int r = q0 + qr + g;
+    const float* base = q + (((size_t)b * Q + r) * H + h) * DH;
+    tf32x3_q_frags(qh, ql, r < Q ? base : nullptr, r + 8 < Q ? base + (size_t)8 * H * DH : nullptr,
+                   tg, scale);
   }
 
-  float m[RW], l[RW], o[RW][2];  // running max, this lane's normalizer, its dims
+  float m_lo = -1e30f, m_hi = -1e30f;  // running max of rows g, g + 8
+  float l_lo = 0.0f, l_hi = 0.0f;      // this thread's part of the normalizers
+  float o[DH / 8][4];
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.0f;
-    o[i][0] = o[i][1] = 0.0f;
-  }
-  // live rows of this warp: w + 4i < QCH and q0 + w + 4i < Q
-  const int live = min(RW, max(0, (Q - q0 - warp + WARPS - 1) / WARPS));
+  for (int nt = 0; nt < DH / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.0f;
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait<NS - 2>();  // this thread's copies of tile j landed
     __syncthreads();          // everyone's landed; tile j - 1 consumed
     {
-      const int nj = j + NS - 1;
+      const int nj = j + NS - 1;  // refill the stage tile j - 1 used
       if (nj < n_tiles)
         stage_tile_f32(kb, vb, ring + (nj % NS) * F32_STAGE, t_begin + nj * TK, t_end, tid);
       cp_async_commit();
     }
     const float* kt = ring + (j % NS) * F32_STAGE;
-    const float* vt = kt + TK * FROW;
+    const float* vt = kt + TK * TF32_KROW;
     const int t0 = t_begin + j * TK;
 
-    // S = q K^T: lane's keys lane and lane + 32
-    float s[RW][2];
+    // S = Q K^T for this warp's rows and keys: s[nt][e] row g + 8 (e >> 1),
+    // key kw + 8 nt + 2 tg + (e & 1)
+    float s[NT][4];
+    tf32x3_scores<NT, false>(s, qh, ql, kt + kw * TF32_KROW, g, tg, 1.0f);
+    float mx_lo = WDT_NEG_INF, mx_hi = WDT_NEG_INF;
 #pragma unroll
-    for (int i = 0; i < RW; ++i) s[i][0] = s[i][1] = 0.0f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 k0 = *reinterpret_cast<const float4*>(kt + lane * FROW + 4 * d4);
-      const float4 k1 = *reinterpret_cast<const float4*>(kt + (lane + 32) * FROW + 4 * d4);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        if (i < live) {
-          const float4 qv = *reinterpret_cast<const float4*>(qs + (warp + WARPS * i) * DH + 4 * d4);
-          s[i][0] = dot4(qv, k0, s[i][0]);
-          s[i][1] = dot4(qv, k1, s[i][1]);
-        }
-      }
-    }
-    const bool ok0 = t0 + lane < t_end, ok1 = t0 + lane + 32 < t_end;
-    // the tile's max of each row over its 64 keys moves the running max;
-    // p against it, its unrounded sum into the normalizer
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      if (i < live) {
-        const float x0 = ok0 ? s[i][0] : WDT_NEG_INF, x1 = ok1 ? s[i][1] : WDT_NEG_INF;
-        const float mn = fmaxf(m[i], warp_max(fmaxf(x0, x1)));
-        const float a = expf(m[i] - mn);
-        m[i] = mn;
-        const float p0 = expf(x0 - mn), p1 = expf(x1 - mn);
-        l[i] = l[i] * a + (p0 + p1);
-        o[i][0] *= a;
-        o[i][1] *= a;
-        float* pr = ps + (warp + WARPS * i) * TK;
-        pr[lane] = p0;
-        pr[lane + 32] = p1;
-      }
-    }
-    __syncwarp();  // the warp's p are in
-    // O += P V: lane's dims 2 lane, 2 lane + 1, four keys a step
-#pragma unroll 2
-    for (int k4 = 0; k4 < TK / 4; ++k4) {
-      float2 vv[4];
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        vv[e] = *reinterpret_cast<const float2*>(vt + (4 * k4 + e) * FROW + 2 * lane);
+        if (t0 + kw + nt * 8 + tg * 2 + (e & 1) >= t_end) s[nt][e] = WDT_NEG_INF;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    // the tile's max of each row over all its 64 keys: in the key split,
+    // from every warp's part
+    if constexpr (!kRows) {
+      if (tg == 0) {
+        red[warp][g] = mx_lo;
+        red[warp][g + 8] = mx_hi;
+      }
+      __syncthreads();
+      mx_lo = red[0][g];
+      mx_hi = red[0][g + 8];
 #pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        if (i < live) {
-          const float4 p4 = *reinterpret_cast<const float4*>(ps + (warp + WARPS * i) * TK + 4 * k4);
-          o[i][0] = fmaf(p4.w, vv[3].x, fmaf(p4.z, vv[2].x, fmaf(p4.y, vv[1].x, fmaf(p4.x, vv[0].x, o[i][0]))));
-          o[i][1] = fmaf(p4.w, vv[3].y, fmaf(p4.z, vv[2].y, fmaf(p4.y, vv[1].y, fmaf(p4.x, vv[0].y, o[i][1]))));
-        }
+      for (int w = 1; w < WARPS; ++w) {
+        mx_lo = fmaxf(mx_lo, red[w][g]);
+        mx_hi = fmaxf(mx_hi, red[w][g + 8]);
       }
     }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float ps_lo = 0.0f, ps_hi = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = expf(s[nt][e] - ((e >> 1) ? mn_hi : mn_lo));
+      ps_lo += s[nt][0] + s[nt][1];
+      ps_hi += s[nt][2] + s[nt][3];
+    }
+    l_lo = l_lo * a_lo + ps_lo;
+    l_hi = l_hi * a_hi + ps_hi;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      o[nt][0] *= a_lo;
+      o[nt][1] *= a_lo;
+      o[nt][2] *= a_hi;
+      o[nt][3] *= a_hi;
+    }
+    tf32x3_pv<NT>(o, s, vt + kw * TF32_VROW, g, tg);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the span's state
 
-  float* part = ring;  // [QCH][SROW]
+  // state [QCH][SROW] (acc), lst (l), mst (m) by row of the chunk, as the
+  // bf16 kernel keeps it: the key split's (acc, l) [WARPS][16] summed in
+  // warp order, the row split's rows each a warp's own
+  float* part = reinterpret_cast<float*>(smem);
+  {
+    float* pw = part + warp * QC * SROW;
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    if (i < live) {
-      const int r = warp + WARPS * i;
-      *reinterpret_cast<float2*>(part + r * SROW + 2 * lane) = make_float2(o[i][0], o[i][1]);
-      const float lt = warp_sum(l[i]);
-      if (lane == 0) {
-        lst[r] = lt;
-        mst[r] = m[i];
+    for (int half = 0; half < 2; ++half) {
+      float* pr = pw + (g + 8 * half) * SROW;
+      tf32x3_out_dims(o, half, tg, 1.0f, [&](int d, float4 x) {
+        *reinterpret_cast<float4*>(pr + d) = x;
+      });
+    }
+    l_lo = quad_sum(l_lo);
+    l_hi = quad_sum(l_hi);
+    if (tg == 0) {
+      lst[warp * QC + g] = l_lo;
+      lst[warp * QC + g + 8] = l_hi;
+      if (kRows || warp == 0) {
+        mst[qr + g] = m_lo;
+        mst[qr + g + 8] = m_hi;
       }
     }
+  }
+  __syncthreads();
+  if constexpr (!kRows) {
+    for (int i = tid; i < QC * DH; i += K1_THREADS) {
+      const int r = i / DH, d = i % DH;
+      float a = part[r * SROW + d];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) a += part[(w * QC + r) * SROW + d];
+      part[r * SROW + d] = a;
+    }
+    float a = 0.0f;
+    if (tid < QC) {
+      a = lst[tid];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) a += lst[w * QC + tid];
+    }
+    __syncthreads();  // every warp's l read before row tid's is written
+    if (tid < QC) lst[tid] = a;
   }
   cluster.sync();  // every span's state is in its CTA's shared memory
   combine_spans(cluster, part, lst, mst, out, QCH, q0, Q, b, h, H, n_span, rank, tid);
@@ -712,7 +885,7 @@ cudaError_t launch_f32_split(const float* q, const float* k, const float* v, flo
                              int B, int Q, int H, int Ta, int layer, int ta_total,
                              int n_span, int span_keys, cudaStream_t stream) {
   auto kern = cross_attn_f32_kernel<kRows>;
-  constexpr int smem = f32_smem_bytes<kRows>();
+  constexpr int smem = f32_smem_bytes();
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;

@@ -60,23 +60,37 @@
 //
 // The f32 form (`wdt_encoder_attn_f32`, `enc_attn_f32_kernel`). Off a TPU the
 // JAX tool runs the TPU kernel at f32, where its roundings to the operand
-// dtype are the identity. Hopper has no f32 x f32 tensor-core product (only
-// TF32: 10 mantissa bits, not an f32 product), so this is a kernel of its
-// own on the CUDA cores (FFMA), in the same two-sweep schedule and both
-// forms, each in its plain version's order (single pass: the row's max
-// over every key before any p; two pass: the online recurrence over 512-key
-// spans). Bound at [8, 20, 1500, 64] by operations: 4 x 8 x 20 x 1500^2 x 64
-// = 9.2e10 FLOP, 1.37 ms at 67 TFLOP/s (0.073 ms of bytes, 246 MB); the
-// second sweep's Q K^T adds half again. Design: a 64-row Q tile of one
-// (b, h) a CTA of 128 threads (two CTAs an SM); K and V tiles of 64 keys in
-// shared memory through a cp.async double buffer, K scaled in place once it
-// lands; rows padded to 68 floats, so the float4 reads of eight rows fall
-// in distinct banks. Each thread owns a 4 x 8 block of the scores (rows
-// ty + 16 i, keys tx + 8 j: the eight threads of a row are eight adjacent
-// lanes, which reduce its max and normalizer by shuffles) and a 4 x 8 block
-// of the output (the same rows, columns 4 tx .. + 3 and 32 + 4 tx .. + 3);
-// p goes through shared memory between the two products. Every sum is an
-// f32 FMA chain; p = expf(s - m) and the output o / l in IEEE division.
+// dtype are the identity: the two forms are then one function, and one
+// recurrence serves both entry points. Its plain versions keep their own
+// orders (single pass: the row's final max; two pass: 512-key blocks) and
+// stay the reference. Hopper has no f32 x f32 tensor-core product, but a
+// 3xTF32 split has f32's accuracy (common.cuh's tf32_split: hi / lo of
+// each operand, lo hi' + hi lo' + hi hi' into one f32 accumulator).
+// Bound at [8, 20, 1500, 64] by operations: 4 x 8 x 20 x 1500^2 x 64 = 9.2e10
+// FLOP, 0.56 ms at the 3xTF32 rate (495 / 3 TFLOP/s; 0.073 ms of bytes,
+// 246 MB). Design: one sweep, on the bf16 kernel's skeleton. A CTA of three
+// warpgroups takes 128 query rows of one (b, h):
+// - Producer (warpgroup 2). For each 64-key tile it reads K (scaled by
+//   Dh^-0.25) and V from device memory into registers, splits them and
+//   stores K hi / lo and V^T hi / lo into a ring slot (two slots of 64 KB),
+//   K-major with the 128-byte swizzle (`sw128`), then fences the stores
+//   into the async proxy and arrives on the slot's `full` mbarrier; the next
+//   tile's reads are in flight while it waits for the slot to drain
+//   (`empty`). TF32 wgmma reads B only K-major, so V lands transposed, and
+//   its k index runs over each 8-key step's keys in the order 0, 2, 4, 6,
+//   1, 3, 5, 7: the order in which P's A fragment holds them (as in K1-f32,
+//   cross_attn.cu's tf32x3_* helpers).
+// - Consumers (warpgroups 0 and 1), 64 rows each, their q scaled and split
+//   once into swizzled Q hi / lo tiles. Per tile: S = Q K^T as 24 wgmma
+//   m64n64k8 in TF32 from shared memory (lo hi', hi lo', hi hi' a k-step),
+//   the running max moved once (the tile's max), p = expf(s - m) in f32 and
+//   its sum into the normalizer, P split into A fragments in registers (the
+//   S accumulator as it lies), the tile's P V as 24 wgmma from zero, added to
+//   the rescaled o on the CUDA cores: the tensor cores' accumulation
+//   truncates, and a chain over a row's 188 key steps biased o by 1.05e-5
+//   (cross_attn.cu, tf32x3_pv). Then the slot's `empty`.
+// `agreement.k10_tf32x3_model` is this order on the CPU. The output is o / l
+// in IEEE division. 192 KB of shared memory: one CTA an SM.
 #include "common.cuh"  // TMA, wgmma, mbarrier and tensor-map helpers
 
 namespace {
@@ -327,205 +341,229 @@ enc_attn_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// The f32 form: FFMA on the CUDA cores
+// The f32 form: one sweep, 3xTF32 wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 64;            // query rows a CTA
-constexpr int F_THREADS = 128;      // 16 row groups x 8 key / column groups
-constexpr int F_ROW = DH + 4;       // a staged q / k / v row: 68 floats (272 bytes)
-constexpr int F_PROW = BK + 8;      // a row of the p tile: 72 floats
-constexpr int F_TILE = BK * F_ROW;  // floats of one K or V tile
-constexpr int F_SMEM = (F_BQ * F_ROW + 4 * F_TILE + F_BQ * F_PROW) * 4;  // Q, K x 2, V x 2, P
+constexpr int F_CONSUMERS = 2;                     // warpgroups of 64 query rows
+constexpr int F_BQ = 64 * F_CONSUMERS;             // query rows a CTA
+constexpr int F_THREADS = (F_CONSUMERS + 1) * 128;  // and the producer warpgroup
+constexpr int F_STAGES = 2;                        // ring slots (K hi / lo, V^T hi / lo)
+constexpr int F_ATOM = 64 * 128;   // bytes: 64 rows of 32 floats, 128-byte swizzled
+constexpr int F_TILE = 2 * F_ATOM;  // a 64 x 64 f32 tile: two atoms along k (16 KB)
+// Q hi / lo of each consumer, then each slot's K hi, K lo, V^T hi, V^T lo;
+// 1024-byte aligned (the swizzle's period), plus the slack to align the base
+constexpr int F_SMEM = (2 * F_CONSUMERS + 4 * F_STAGES) * F_TILE + 1024;
 
-// issue (not wait for) the cp.async copies of rows t0 .. t0 + 63 of one
-// (b, h) slab into a tile, 16 bytes a copy; rows >= T land as zeros
-__device__ __forceinline__ void f32_stage(float* dst, const float* src, long long st, int t0,
-                                          int T, int tid) {
-#pragma unroll
-  for (int i = tid; i < BK * (DH / 4); i += F_THREADS) {
-    const int r = i / (DH / 4), c = i % (DH / 4);
-    const bool ok = t0 + r < T;
-    cp_async<16>(dst + r * F_ROW + 4 * c, src + (ok ? (t0 + r) * st + 4 * c : 0), ok);
-  }
+// byte offset of (row r, column c) of a 64 x 64 f32 tile stored K-major with
+// the 128-byte swizzle: columns 0 - 31 in the first atom, 32 - 63 in the
+// second; the 16-byte chunk c / 4 of row r lands at chunk (c / 4) ^ (r % 8)
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c >> 5) * F_ATOM + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
 }
 
-// max / sum over the eight lanes that share a row (lanes 8a .. 8a + 7)
-__device__ __forceinline__ float oct_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+// x split for 3xTF32 into the hi and lo tiles at byte offset `off`
+__device__ __forceinline__ void store_split4(unsigned char* hi, unsigned char* lo, int off,
+                                             float4 x) {
+  uint4 h, l;
+  tf32_split(x.x, h.x, l.x);
+  tf32_split(x.y, h.y, l.y);
+  tf32_split(x.z, h.z, l.z);
+  tf32_split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
 }
 
-__device__ __forceinline__ float oct_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+__device__ __forceinline__ float4 scale4(float4 x, float s) {
+  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+// the descriptor of k-step ks (8 columns, 32 bytes) of a K-major tile
+__device__ __forceinline__ uint64_t tile_desc(const unsigned char* tile, int ks) {
+  return smem_desc(tile + (ks >> 2) * F_ATOM + (ks & 3) * 32);
 }
 
-template <bool ONE_PASS>
-__global__ void __launch_bounds__(F_THREADS, 2)
+__global__ void __launch_bounds__(F_THREADS, 1)
 enc_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out, int T, int ta,
                     long long sb, long long sh, long long st, long long ob, long long oh,
                     long long ot, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                      // [F_BQ][F_ROW], scaled
-  float* ks = qs + F_BQ * F_ROW;        // [2][BK][F_ROW], scaled once landed
-  float* vs = ks + 2 * F_TILE;          // [2][BK][F_ROW]
-  float* ps = vs + 2 * F_TILE;          // [F_BQ][F_PROW]
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[F_STAGES], empty[F_STAGES];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* ring = base + 2 * F_CONSUMERS * F_TILE;  // slot s: ring + 4 F_TILE s
 
   const int q0 = blockIdx.x * F_BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int ty = tid / 8, tx = tid % 8;  // rows ty + 16 i; keys tx + 8 j; columns 4 tx, 32 + 4 tx
+  const int wg = tid / 128;
   const long long slab = (long long)b * sb + (long long)h * sh;
-  const float* kb = k + slab;
-  const float* vb = v + slab;
   const int tiles = (ta + BK - 1) / BK;
-  const int span_tiles = ONE_PASS ? tiles : TWO_PASS_SPAN / BK;
-  const int n_items = 2 * tiles;
 
-  // item 0's K in flight while Q is staged, scaled, from registers
-  f32_stage(ks, kb, st, 0, T, tid);
-  cp_async_commit();
-  for (int i = tid; i < F_BQ * (DH / 4); i += F_THREADS) {
-    const int r = i / (DH / 4), c = i % (DH / 4);
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (q0 + r < T) x = *reinterpret_cast<const float4*>(q + slab + (q0 + r) * st + 4 * c);
-    *reinterpret_cast<float4*>(qs + r * F_ROW + 4 * c) =
-        make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  if (tid == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], F_CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float m[4], l[4], bm[4], o[4][8];
+  if (wg == F_CONSUMERS) {
+    // ---------------- producer warpgroup ----------------
+    // Each tile: K rows scaled by Dh^-0.25 and V rows read from device
+    // memory into registers (the next tile's reads in flight while the
+    // slot drains), split, and stored as K hi / lo and V^T hi / lo. V^T's
+    // k index runs over each 8-key step's keys in the order 0, 2, 4, 6,
+    // 1, 3, 5, 7: the order P's A fragment holds them in (cross_attn.cu, tf32x3_pv).
+    const int pt = tid - F_CONSUMERS * 128;
+    const float* kb = k + slab;
+    const float* vb = v + slab;
+    float4 kx[8], vx[8];
+    auto load = [&](int j) {
+      const int t0 = j * BK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.0f;
-    bm[i] = WDT_NEG_INF;
+      for (int m = 0; m < 8; ++m) {
+        const int i = pt + 128 * m, r = i >> 4, c = (i & 15) * 4;  // K: row r, cols c ..
+        kx[m] = t0 + r < T ? *reinterpret_cast<const float4*>(kb + (t0 + r) * st + c)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const int d = i & 63, kq = i >> 6;  // V^T: row d, k slots 4 kq ..
+        const int key = t0 + 8 * (kq >> 1) + (kq & 1);
+        float e[4];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.0f;
-  }
-
-  for (int it = 0; it < n_items; ++it) {
-    const Item item = item_at(it, tiles, span_tiles, ta);
-    float* kt = ks + (it & 1) * F_TILE;
-    float* vt = vs + (it & 1) * F_TILE;
-    cp_async_wait<0>();
-    __syncthreads();  // item it landed everywhere; item it - 1's products are done
-    if (it + 1 < n_items) {  // the next item into the other buffer
-      const Item nx = item_at(it + 1, tiles, span_tiles, ta);
-      f32_stage(ks + ((it + 1) & 1) * F_TILE, kb, st, nx.tile * BK, T, tid);
-      if (nx.pass) f32_stage(vs + ((it + 1) & 1) * F_TILE, vb, st, nx.tile * BK, T, tid);
-      cp_async_commit();
+        for (int u = 0; u < 4; ++u)
+          e[u] = key + 2 * u < T ? vb[(key + 2 * u) * st + d] : 0.0f;
+        vx[m] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    };
+    if (tiles > 0) load(0);
+    for (int j = 0; j < tiles; ++j) {
+      const int slot = j % F_STAGES;
+      unsigned char* kh = ring + slot * 4 * F_TILE;
+      if (j >= F_STAGES) mbar_wait(&empty[slot], ((j / F_STAGES) - 1) & 1);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int i = pt + 128 * m;
+        store_split4(kh, kh + F_TILE, sw128(i >> 4, (i & 15) * 4), scale4(kx[m], scale));
+        store_split4(kh + 2 * F_TILE, kh + 3 * F_TILE, sw128(i & 63, (i >> 6) * 4), vx[m]);
+      }
+      fence_view_async();  // the stores, visible to the tensor cores
+      mbar_arrive(&full[slot]);
+      if (j + 1 < tiles) load(j + 1);
     }
-    for (int i = tid; i < BK * (DH / 4); i += F_THREADS) {  // k * Dh^-0.25, in place
-      float4* x = reinterpret_cast<float4*>(kt + (i / (DH / 4)) * F_ROW + 4 * (i % (DH / 4)));
-      const float4 y = *x;
-      *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    const int ct = tid % 128;
+    const int warp = ct / 32, lane = tid & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    unsigned char* qh = base + wg * 2 * F_TILE;
+    unsigned char* ql = qh + F_TILE;
+    {  // this warpgroup's 64 rows times Dh^-0.25, split; rows >= T are zeros
+      const float* qb = q + slab;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int i = ct + 128 * m, r = i >> 4, c = (i & 15) * 4;
+        const int row = q0 + 64 * wg + r;
+        const float4 x = row < T ? *reinterpret_cast<const float4*>(qb + row * st + c)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        store_split4(qh, ql, sw128(r, c), scale4(x, scale));
+      }
+      fence_view_async();
+      named_barrier(1 + wg, 128);
     }
-    __syncthreads();
 
-    // scores: s[i][j] = q'[row ty + 16 i] . k'[key tx + 8 j], an FMA chain over d
-    float s[4][8];
+    float m_lo = -1e30f, m_hi = -1e30f;  // running max of rows g, g + 8
+    float l_lo = 0.0f, l_hi = 0.0f;      // this thread's part of the normalizers
+    float o[32], s[32], t[32];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 32; ++e) o[e] = s[e] = t[e] = 0.0f;
+
+    for (int j = 0; j < tiles; ++j) {
+      const int slot = j % F_STAGES;
+      const unsigned char* kh = ring + slot * 4 * F_TILE;
+      const unsigned char* kl = kh + F_TILE;
+      const unsigned char* vh = kh + 2 * F_TILE;
+      const unsigned char* vl = kh + 3 * F_TILE;
+      mbar_wait(&full[slot], (j / F_STAGES) & 1);
+      // S = Q K^T: lo hi', hi lo', hi hi' a k-step, the tile from zero
+      fence_acc(s);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[4];
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        wgmma_tf32_ss(s, tile_desc(ql, ks), tile_desc(kh, ks), ks);
+        wgmma_tf32_ss(s, tile_desc(qh, ks), tile_desc(kl, ks), 1);
+        wgmma_tf32_ss(s, tile_desc(qh, ks), tile_desc(kh, ks), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      const int t0 = j * BK;
+      float mx_lo = WDT_NEG_INF, mx_hi = WDT_NEG_INF;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * F_ROW + d);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int key = t0 + 8 * jj + 2 * tg;
+        if (key >= ta) s[4 * jj] = s[4 * jj + 2] = WDT_NEG_INF;
+        if (key + 1 >= ta) s[4 * jj + 1] = s[4 * jj + 3] = WDT_NEG_INF;
+        mx_lo = fmaxf(mx_lo, fmaxf(s[4 * jj], s[4 * jj + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+      }
+      // the tile's max moves the running max once; p against it, its sum
+      // into the normalizer, the state rescaled
+      const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+      const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      uint32_t ph[8][4], pl[8][4];  // P's A fragments: keys 8jj + 2tg (k tg), + 1 (k tg + 4)
+      float ps_lo = 0.0f, ps_hi = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(kt + (tx + 8 * j) * F_ROW + d);
+      for (int jj = 0; jj < 8; ++jj) {
+        const float p0 = expf(s[4 * jj] - mn_lo), p1 = expf(s[4 * jj + 1] - mn_lo);
+        const float p2 = expf(s[4 * jj + 2] - mn_hi), p3 = expf(s[4 * jj + 3] - mn_hi);
+        ps_lo += p0 + p1;
+        ps_hi += p2 + p3;
+        tf32_split(p0, ph[jj][0], pl[jj][0]);
+        tf32_split(p2, ph[jj][1], pl[jj][1]);
+        tf32_split(p1, ph[jj][2], pl[jj][2]);
+        tf32_split(p3, ph[jj][3], pl[jj][3]);
+      }
+      l_lo = l_lo * a_lo + ps_lo;
+      l_hi = l_hi * a_hi + ps_hi;
+      // the tile's P V from zero (the tensor cores' accumulation truncates:
+      // cross_attn.cu, tf32x3_pv), added to the rescaled o on the CUDA cores
+      fence_acc(t);
+      wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          s[i][j] = fmaf(qv[i].w, kv.w, fmaf(qv[i].z, kv.z,
-                         fmaf(qv[i].y, kv.y, fmaf(qv[i].x, kv.x, s[i][j]))));
+      for (int jj = 0; jj < 8; ++jj) {
+        wgmma_tf32_rs(t, pl[jj], tile_desc(vh, jj), jj);
+        wgmma_tf32_rs(t, ph[jj], tile_desc(vl, jj), 1);
+        wgmma_tf32_rs(t, ph[jj], tile_desc(vh, jj), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(t);
+      mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        o[4 * jj] = o[4 * jj] * a_lo + t[4 * jj];
+        o[4 * jj + 1] = o[4 * jj + 1] * a_lo + t[4 * jj + 1];
+        o[4 * jj + 2] = o[4 * jj + 2] * a_hi + t[4 * jj + 2];
+        o[4 * jj + 3] = o[4 * jj + 3] * a_hi + t[4 * jj + 3];
       }
     }
-    const int t0 = item.tile * BK;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (t0 + tx + 8 * j >= item.span_end)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = WDT_NEG_INF;
 
-    if (item.pass == 0) {
+    const float lt_lo = quad_sum(l_lo), lt_hi = quad_sum(l_hi);
+    const int row_lo = q0 + 64 * wg + 16 * warp + g, row_hi = row_lo + 8;
+    float* ob_ = out + (long long)b * ob + (long long)h * oh;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bm[i] = fmaxf(bm[i], s[i][j]);
-      if (item.last) {  // the span's max: rescale the state once
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float mn = fmaxf(m[i], oct_max(bm[i]));
-          const float alpha = expf(m[i] - mn);
-          l[i] *= alpha;
-#pragma unroll
-          for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
-          m[i] = mn;
-          bm[i] = WDT_NEG_INF;
-        }
-      }
-      continue;
-    }
-    // p = exp(s - m), this thread's part of the normalizer, the p tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] - m[i]);
-        l[i] += p;
-        ps[(ty + 16 * i) * F_PROW + tx + 8 * j] = p;
-      }
-    __syncthreads();
-    // o[i] += p[row ty + 16 i, :] . V, an FMA chain over the keys
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * F_PROW + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* vr = vt + (kk + e) * F_ROW + 4 * tx;
-        const float4 v0 = *reinterpret_cast<const float4*>(vr);
-        const float4 v1 = *reinterpret_cast<const float4*>(vr + 32);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = comp(pv[i], e);
-          o[i][0] = fmaf(p, v0.x, o[i][0]);
-          o[i][1] = fmaf(p, v0.y, o[i][1]);
-          o[i][2] = fmaf(p, v0.z, o[i][2]);
-          o[i][3] = fmaf(p, v0.w, o[i][3]);
-          o[i][4] = fmaf(p, v1.x, o[i][4]);
-          o[i][5] = fmaf(p, v1.y, o[i][5]);
-          o[i][6] = fmaf(p, v1.z, o[i][6]);
-          o[i][7] = fmaf(p, v1.w, o[i][7]);
-        }
-      }
-    }
-  }
-
-  float* ob_ = out + (long long)b * ob + (long long)h * oh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lt = oct_sum(l[i]);
-    const int row = q0 + ty + 16 * i;
-    if (row < T) {
-      float* dst = ob_ + (long long)row * ot + 4 * tx;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(o[i][0] / lt, o[i][1] / lt, o[i][2] / lt, o[i][3] / lt);
-      *reinterpret_cast<float4*>(dst + 32) =
-          make_float4(o[i][4] / lt, o[i][5] / lt, o[i][6] / lt, o[i][7] / lt);
+    for (int jj = 0; jj < 8; ++jj) {
+      const int d = 8 * jj + 2 * tg;
+      if (row_lo < T)
+        *reinterpret_cast<float2*>(ob_ + (long long)row_lo * ot + d) =
+            make_float2(o[4 * jj] / lt_lo, o[4 * jj + 1] / lt_lo);
+      if (row_hi < T)
+        *reinterpret_cast<float2*>(ob_ + (long long)row_hi * ot + d) =
+            make_float2(o[4 * jj + 2] / lt_hi, o[4 * jj + 3] / lt_hi);
     }
   }
 }
@@ -597,23 +635,20 @@ WDT_EXPORT int wdt_encoder_attn(const void* q, const void* k, const void* v,
 }
 
 // The f32 form: q, k, v and out f32 under the same rules (16-byte aligned
-// rows and strides); FFMA on the CUDA cores.
+// rows and strides); 3xTF32 on the tensor cores, one sweep whichever form
+// single_pass names (at f32 the two forms' roundings are the identity).
 WDT_EXPORT int wdt_encoder_attn_f32(const void* q, const void* k, const void* v,
                                     void* out, int B, int H, int T, int ta_total,
                                     long long sb, long long sh, long long st,
                                     long long ob, long long oh, long long ot,
-                                    int single_pass, void* stream) {
+                                    int /*single_pass*/, void* stream) {
   if (ta_total <= 0 || ta_total > T || B <= 0 || H <= 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t a1 = cudaFuncSetAttribute(
-      enc_attn_f32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  static const cudaError_t a2 = cudaFuncSetAttribute(
-      enc_attn_f32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  if (a1 != cudaSuccess) return static_cast<int>(a1);
-  if (a2 != cudaSuccess) return static_cast<int>(a2);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      enc_attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((T + F_BQ - 1) / F_BQ, H, B);
-  auto kern = single_pass ? enc_attn_f32_kernel<true> : enc_attn_f32_kernel<false>;
-  kern<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  enc_attn_f32_kernel<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), T, ta_total, sb, sh, st, ob, oh, ot,
       0.35355339059327373f /* 64^-0.25 */);

@@ -515,6 +515,75 @@ def tf32_inputs(*args):
     return [r(a) for a in args]
 
 
+def tf32x3_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in
+    f32): how the f32 forms of K1 and K10 split each operand of their
+    tensor-core products (`csrc/common.cuh::tf32_split`)."""
+    x = x.float()
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 kernels' 3xTF32 product: lo_a hi_b + hi_a lo_b +
+    hi_a hi_b summed in f32, lo_a lo_b dropped (a product of two TF32
+    values is exact in f32; the sums run in the CPU's order, not the tensor
+    core's)."""
+    ah, al = tf32x3_split(a)
+    bh, bl = tf32x3_split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32x3_tiles(qs, kl, vl, t0: int, t1: int, tile: int = 64):
+    """The f32 kernels' flash recurrence over keys [t0, t1) in `tile`-key
+    steps with 3xTF32 products: qs [B, H, Q, Dh] (already scaled), kl / vl
+    [B, H, T, Dh]; the running max moves once a step, p = exp(s - m) in
+    f32, the normalizer sums p. Returns (acc, m, l)."""
+    m = torch.full(qs.shape[:-1], -1e30, dtype=torch.float32, device=qs.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    for a in range(t0, t1, tile):
+        t = slice(a, min(a + tile, t1))
+        s = tf32x3_matmul(qs, kl[..., t, :].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + tf32x3_matmul(p, vl[..., t, :])
+        m = m_new
+    return acc, m, l
+
+
+def k1_tf32x3_model(layer: int, q, k, v, ta_total=None) -> torch.Tensor:
+    """K1-f32 on the CPU in the card's order: the key split of
+    `attn.cross_attn_plan(f32=True)`, 64-key tiles with the running max
+    moving once a tile, the cluster's combine (`attn.combine_span_states`),
+    and both products in 3xTF32 (q * Dh^-0.5 split once). For the tests and
+    `chip_smoke.py` only: the plain version stays the reference."""
+    from ..ops.attn import combine_span_states, cross_attn_plan
+
+    B, Q, H, Dh = q.shape
+    ta = k.shape[3] if ta_total is None else int(ta_total)
+    n_span, span_keys = cross_attn_plan(B, H, Q, ta, f32=True)
+    qs = q.float().permute(0, 2, 1, 3) * Dh ** -0.5
+    kl, vl = k[layer].float(), v[layer].float()
+    return combine_span_states(
+        [_tf32x3_tiles(qs, kl, vl, r * span_keys, min((r + 1) * span_keys, ta))
+         for r in range(n_span)], q.dtype)
+
+
+def k10_tf32x3_model(q, k, v, ta_total=None) -> torch.Tensor:
+    """K10-f32 on the CPU in the card's order, both forms: q and k each
+    times Dh^-0.25 in f32, one sweep of 64-key tiles with the running max
+    moving once a tile, both products in 3xTF32, o / l. For the tests and
+    `chip_smoke.py` only: the plain versions stay the reference."""
+    from ..ops.attn import qk_scaled
+
+    ta = q.shape[-2] if ta_total is None else int(ta_total)
+    acc, _, l = _tf32x3_tiles(qk_scaled(q.float()), qk_scaled(k.float()), v.float(), 0, ta)
+    return acc / l[..., None]
+
+
 def split_attend(layer: int, q, k, v, ta_total, ks=None, vs=None) -> torch.Tensor:
     """The cross attention in the kernels' order (`attn.cross_attn_split_plain`):
     the tail's attention in the f32 check's reference for K6 `kvq`, whose K5

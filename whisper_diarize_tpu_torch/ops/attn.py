@@ -20,9 +20,11 @@ CPU. On a CUDA tensor it launches the hand-written kernel
 `csrc/split_self.cu`) or raises; it never falls back. Each kernel has a
 bf16 and an f32 form: the float operands of a call share one dtype, bf16 or
 f32 (the int8 cache and its f32 scales stay as they are), and a mixed call
-raises TypeError. Each wrapper counts its kernel launches in
-`<wrapper>.launches` (both forms) and those of its f32 form in
-`<wrapper>.launches_f32`.
+raises TypeError. K1's f32 form computes its products in 3xTF32 on the
+tensor cores (`kernels.agreement.k1_tf32x3_model` is its order on the
+CPU), held to the f32 check against `cross_attn_layer_plain`. Each wrapper
+counts its kernel launches in `<wrapper>.launches` (both forms) and those
+of its f32 form in `<wrapper>.launches_f32`.
 
 The plain versions compute in f32, or in float64 where given float64
 inputs (`_acc`): the f32 check's reference on the CPU.

@@ -15,10 +15,13 @@ dtype; keys at or beyond `ta_total` are masked.
   running max and normalizer, p rounded to the value dtype for P.V.
 
 The TPU kernel is written over the operand dtype; off a TPU the JAX tool
-runs it at f32, where every rounding above is the identity. On a CUDA
-tensor the wrapper launches `csrc/encoder_attn.cu` (bf16: TMA + wgmma; f32:
-FFMA on the CUDA cores; Dh 64, q / k / v of one dtype, read through their
-strides, so the encoder's head views need no copy; the output is laid out
+runs it at f32, where every rounding above is the identity and the two
+forms are one function. On a CUDA tensor the wrapper launches
+`csrc/encoder_attn.cu` (bf16: TMA + wgmma, each form its own schedule; f32:
+one sweep for both forms, 3xTF32 wgmma on the tensor cores, held to the
+f32 check against each form's plain version, `kernels.agreement.F32`;
+Dh 64, q / k / v of one dtype, read through their strides, so the
+encoder's head views need no copy; the output is laid out
 [B, T, H, Dh] and returned as its [B, H, T, Dh] view) or raises; a mix of
 dtypes raises TypeError; the plain versions run only for CPU tensors.
 `encoder_self_attention.launches` counts the kernel's launches (both

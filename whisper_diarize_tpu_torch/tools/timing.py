@@ -32,6 +32,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+# The least time for an f32 product held to the f32 check: the card has no
+# f32 x f32 tensor-core product, and TF32's 10-bit mantissas miss the check
+# (`kernels/agreement.py`), but a 3xTF32 split (hi = tf32(x), lo = tf32(x -
+# hi); lo hi' + hi lo' + hi hi') passes it at three TF32 products a
+# product: the dense TF32 rate (495 TFLOP/s) over three, 2.5x the CUDA
+# cores' f32 rate. The f32 forms' bounds by operations use it.
+TF32X3_FLOPS = 495e12 / 3
 
 
 def nvidia_smi_line() -> str:
