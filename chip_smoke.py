@@ -64,8 +64,9 @@ traceback) and no result line is printed:
    check (`agreement.F32`, `F32_Q8`), the TF32 and bf16-rounding faults
    refused by 10x and more, timed beside SDPA (K1, K5, K10) and
    `torch.addmm` (K2) in f32, bound at the 3xTF32 rate (`TF32X3_FLOPS`);
-   K1-f32 and K10-f32, which compute in 3xTF32 on the tensor cores, also
-   print their distance to their CPU order's model (`model_distance`);
+   K1-f32, K2-f32 (L 4), K3-f32 and K10-f32, which compute in 3xTF32 on
+   the tensor cores, also print their distance to their CPU order's model
+   (`model_distance`);
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
@@ -333,7 +334,8 @@ def f32_attn_bound(B: int, Q: int, H: int, Ta: int, kv_row_bytes: int) -> dict:
 def model_distance(tag: str, got: torch.Tensor, model: torch.Tensor) -> None:
     """Print how far an f32 kernel's result lies from its 3xTF32 model (the
     same products and order on the card's f32 units, `agreement.
-    k1_tf32x3_model` / `k10_tf32x3_model`): what the tensor cores' own
+    k1_tf32x3_model` / `k2_tf32x3_model` / `k10_tf32x3_model`, the tail's
+    products by `skinny_tf32x3_proj`): what the tensor cores' own
     accumulation adds. Read, not checked: the plain version is the
     reference."""
     a = ag.agreement(got, model, tol=ag.F32)
@@ -685,6 +687,9 @@ def phase_f32_kernels() -> dict:
         for i, (got, ref) in enumerate(((k, pk), (v, pv))):
             check("K2-f32", f"K2-f32 {'kv'[i]} B=8 L={Lk}", got, ref,
                   [(n, bad) for n, j, bad in faults if j == i])
+        if Lk < L:
+            for i, m in enumerate(ag.k2_tf32x3_model(*a)):
+                model_distance(f"K2-f32 {'kv'[i]} B=8 L={Lk}", (k, v)[i], m)
         del pk, pv, faults
         wkv = torch.cat([a[1], a[2]], dim=2).permute(1, 0, 2).reshape(D, Lk * 2 * D).contiguous()
         bias_row = torch.cat([torch.zeros_like(a[3]), a[3]], dim=1).reshape(-1)
@@ -761,9 +766,14 @@ def phase_f32_kernels() -> dict:
                 old = ag.k6_faults(*a) if kvq else ag.k3_faults(*a[:8])
                 faults = itertools.chain(faults, old, ag.tail_split_faults(key[:2], *a))
             attend = ag.split_attend if kvq else None
-            check(key, f"{key} {form} N={N}".replace("  ", " "), tail.fused_tail_layer(*a),
+            got = tail.fused_tail_layer(*a)
+            check(key, f"{key} {form} N={N}".replace("  ", " "), got,
                   tail.fused_tail_layer_plain(*a, attend=attend), faults, base=x,
                   tol=ag.F32_Q8 if kvq else tol)
+            if not form:
+                model_distance(f"K3-f32 N={N}", got, tail.fused_tail_layer_plain(
+                    *a, proj=ag.skinny_tf32x3_proj(N, D),
+                    attend=lambda l, q, k_, v_, ta, ks_, vs_: ag.k1_tf32x3_model(l, q, k_, v_, ta)))
             it, rest = itertools.count(), a[1:]
             t = timed(f"{key} {form} N={N}".replace("  ", " "),
                       lambda: tail.fused_tail_layer(next(it) % L, *rest),

@@ -26,7 +26,11 @@ exceeds 1e-3, embeddings cosine >= 0.9999; its planted faults refused),
 and a diarized Engine request at the tiny preset through K1 - K3.
 Speculative greedy decoding at the tiny preset on the card (K1 - K3) held
 to the margin check of `chip_smoke.spec_gap`, its planted fault refused;
-the checkpoint-file loaders onto the card.
+the checkpoint-file loaders onto the card. The f32 forms: each against its
+f32 plain version by `agreement.F32` (`F32_Q8` over the int8 cache), with
+the TF32 and bf16-rounding faults refused by `F32_REFUSAL`; the f32 skinny
+GEMM at N 1 - 80 and K2-f32 at every preset width, bit for bit across two
+calls too.
 """
 
 import itertools
@@ -686,6 +690,77 @@ def test_f32_forms_k5_k6_on_card(dev, form):
         *a, attend=ag.split_attend if "kvq" in form else None), base=x, tol=tol)
     _refuse(got, itertools.chain(ag.tail_f32_faults("K6", *a), ag.k6_faults(*a)), tol=tol,
             base=x)
+
+
+@pytest.mark.parametrize("N", [1, 5, 8, 40, 80])
+def test_f32_skinny_gemm_family_at_every_row_count(dev, N):
+    """The f32 skinny GEMM (3xTF32 mma.sync) in K3-f32, K6-f32 (its three
+    forms) and K8-f32 at large-v3 width (D 1280, its f32 split
+    `tail.skinny_plan(..., f32=True)`, 32- and 64-column strips, ragged m16
+    row tiles), N rows, two layers, 1500 keys (where a bf16 flip of K5's
+    query weighs little): against their f32 plain versions (`F32`;
+    `F32_Q8` over the int8 cache), the split's planted faults refused and,
+    over the f32 cache, the f32 faults; two calls give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(N + 70)
+    L, D, H, Ta, f32 = 2, 1280, 20, 1500, torch.float32
+    blocks = ag.random_blocks(L, D, g, dev, dtype=f32)
+    q8w = tail.quantize_tail_weights(blocks)
+    beams = 5 if N % 5 == 0 else 1
+    k, v = (ag.randn(g, dev, L, N // beams, H, Ta, 64, dtype=f32) for _ in range(2))
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    x = ag.randn(g, dev, N, 1, D, dtype=f32)
+    so = ag.randn(g, dev, N, H, 1, 64, scale=0.3, dtype=f32)
+    for wts, cache in ((blocks, (k, v, None, None)), (q8w, (k, v, None, None)),
+                       (blocks, (k8, v8, ks, vs)), (q8w, (k8, v8, ks, vs))):
+        a = (1, x, so, wts, cache[0], cache[1], beams, Ta, cache[2], cache[3])
+        kvq = cache[2] is not None
+        got = tail.fused_tail_layer(*a)
+        assert torch.equal(got, tail.fused_tail_layer(*a))
+        tol = ag.F32_Q8 if kvq else ag.F32
+        tag = "K6" if wts is q8w or kvq else "K3"
+        ag.compare(f"{tag} f32 N={N}", got, tail.fused_tail_layer_plain(
+            *a, attend=ag.split_attend if kvq else None), base=x, tol=tol)
+        names = [name for name, bad in ag.tail_split_faults(tag, *a)
+                 if not ag.reject(name, got, bad, base=x, tol=tol).ok]
+        assert len(names) == 3
+        if not kvq:
+            _refuse(got, ag.tail_f32_faults(tag, *a), base=x)
+    fw = ag.random_front(L, D, g, dev, dtype=f32)
+    kc, vc = (ag.randn(g, dev, L, N, H, 16, 64, dtype=f32) for _ in range(2))
+    row_pad = torch.randint(0, 4, (N,), generator=g, device=dev)
+    got = front.fused_front_layer(1, 5, row_pad, x, fw, kc.clone(), vc.clone())
+    again = front.fused_front_layer(1, 5, row_pad, x, fw, kc.clone(), vc.clone())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = front.fused_front_layer_plain(1, 5, row_pad, x, fw, kc.clone(), vc.clone())
+    for name, a, b in zip(("self_out", "k_new", "v_new"), got, ref):
+        ag.compare(f"K8 f32 {name} N={N}", a, b, tol=ag.F32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("preset", sorted(_WIDTHS))
+@pytest.mark.parametrize("B,Ta", [(1, 1500), (3, 1493)])
+def test_f32_k2_ragged_at_every_width(dev, preset, B, Ta):
+    """K2-f32 (3xTF32 wgmma tiles of 128 rows of one stream) at each
+    preset's width, two layers, ragged streams: against its f32 plain
+    version, its f32 faults and earlier faults (a tile stored to the wrong
+    stream among them, B > 1) refused; two calls give the same bits."""
+    D, H = _WIDTHS[preset]
+    g = torch.Generator(device=dev).manual_seed(B * 7 + D + 1)
+    blocks = {key: t for key, t in ag.random_blocks(2, D, g, dev, dtype=torch.float32).items()
+              if key in ("ck_w", "cv_w", "cv_b")}
+    xa = ag.randn(g, dev, B, Ta, D, dtype=torch.float32)
+    a = (xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
+    k, v = attn.cross_kv_build(*a)
+    k2, v2 = attn.cross_kv_build(*a)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    pk, pv = attn.cross_kv_build_plain(*a)
+    ag.compare(f"K2 f32 k {preset} B={B} Ta={Ta}", k, pk, tol=ag.F32)
+    ag.compare(f"K2 f32 v {preset} B={B} Ta={Ta}", v, pv, tol=ag.F32)
+    _refuse(k, [(n, bad) for n, i, bad in ag.k2_f32_faults(*a) if i == 0])
+    names = [name for name, i, bad in ag.k2_faults(*a)
+             if not ag.reject(name, (k, v)[i], bad, tol=ag.F32).ok]
+    assert ("K2 a tile written to the wrong stream" in names) == (B > 1)
+    torch.cuda.synchronize()
 
 
 def test_f32_wrappers_refuse_mixed_dtypes_and_k8_k10(dev):

@@ -181,6 +181,54 @@ def test_cross_kv_tiles_cover_every_output_once(preset, Ta):
         attn.cross_kv_tile(i, L, B, Ta, HD).layer for i in range(n))  # the layer outermost
 
 
+# The f32 plans that held one CTA an SM before the f32 products moved to the
+# tensor cores (f32 activation rows of 68 floats then, 72 now): (product,
+# int8 weights) -> the row counts N.
+_ONE_CTA_AN_SM_BEFORE = {("qkv", False): range(38, 52), ("qkv", True): range(61, 63),
+                         ("cq", False): range(72, 81)}
+
+
+@pytest.mark.parametrize("preset", ["large-v3", "large-v3-turbo"])
+def test_f32_skinny_plans_fit_and_keep_two_ctas_an_sm(preset):
+    """Every f32 plan of the five tail products and K8's (`skinny_plan(...,
+    f32=True)`, both weight types) at N 1 - 80: it covers the product, its
+    shared memory (`skinny_smem`, the mirror of `csrc/tail.cu::smem_bytes`,
+    with the 3xTF32 products' padded activation rows) fits SKINNY_SMEM_MAX
+    and the CTA's partial fits the ring, and it keeps two CTAs an SM
+    wherever the plans did before."""
+    D = wm.PRESETS[preset].n_text_state
+    for N in range(1, tail.SKINNY_MAX_ROWS + 1):
+        for name, din, dout, ln in _products(D):
+            for int8 in (False, True):
+                plan = tail.skinny_plan(N, din, dout, int8, ln, f32=True)
+                _check_cover(plan, N, din, dout, int8, ln)
+                smem = tail.skinny_smem(N, plan, int8, ln, f32=True)
+                assert smem <= tail.SKINNY_SMEM_MAX, (N, name, int8, plan)
+                assert plan.stages * tail._ring_tile(N, plan.bn, int8, ln, True) >= N * plan.bn * 4
+                per_sm = tail.SM_SHARED // (smem + tail.SKINNY_CTA_RESERVE)
+                if N not in _ONE_CTA_AN_SM_BEFORE.get((name, int8), ()):
+                    assert per_sm >= 2, (N, name, int8, plan, smem)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+@pytest.mark.parametrize("Ta", [1500, 1493])
+def test_cross_kv_tiles_cover_every_output_once_at_f32(preset, Ta):
+    """K2-f32's walk (tiles of `CROSS_KV_ROWS_F32` rows) covers
+    [L, B * Ta, 2 * H * Dh] once, the layer outermost, as the bf16 walk."""
+    L, B = 2, 3
+    HD = wm.PRESETS[preset].n_text_state
+    rows = attn.CROSS_KV_ROWS_F32
+    n = attn.cross_kv_tiles(L, B, Ta, HD, f32=True)
+    assert n == L * B * -(-Ta // rows) * (2 * HD // attn.CROSS_KV_COLS)
+    seen = torch.zeros((L, B, Ta, 2 * HD // attn.CROSS_KV_COLS), dtype=torch.int32)
+    tiles = [attn.cross_kv_tile(i, L, B, Ta, HD, f32=True) for i in range(n)]
+    for t in tiles:
+        assert t.t0 < Ta and t.t0 % rows == 0 and t.n0 % attn.CROSS_KV_COLS == 0
+        seen[t.layer, t.stream, t.t0:t.t0 + rows, t.n0 // attn.CROSS_KV_COLS] += 1
+    assert bool((seen == 1).all())
+    assert [t.layer for t in tiles] == sorted(t.layer for t in tiles)
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_split_faults_refused_and_split_sum_taken(int8):
     """Summed span by span on the plans' spans, the plain tail stays within

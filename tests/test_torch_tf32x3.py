@@ -1,5 +1,6 @@
-"""The numerics plan of the f32 forms of K1 and K10 on the CPU: 3xTF32
-products on the tensor cores, in each kernel's order.
+"""The numerics plan of the f32 forms of K1, K2, K3 (with K6 `wq` and K8,
+which share its skinny GEMM) and K10 on the CPU: 3xTF32 products on the
+tensor cores, in each kernel's order.
 
 Each f32 operand splits into hi = tf32(x) and lo = tf32(x - hi); a product
 is lo hi' + hi lo' + hi hi' in f32 (`agreement.tf32x3_split`,
@@ -9,19 +10,30 @@ is lo hi' + hi lo' + hi hi' in f32 (`agreement.tf32x3_split`,
   `cross_attn_plan(f32=True)`, the running max moving once a 64-key tile,
   the cluster's combine;
 - K10 (`agreement.k10_tf32x3_model`): one sweep of 64-key tiles for both
-  forms.
+  forms;
+- K2 (`agreement.k2_tf32x3_model`): each 32-k ring slot's products from
+  zero, the slots' sums added in f32 in slot order;
+- the skinny GEMM (`agreement.skinny_tf32x3_model`, the tail's products
+  through `skinny_tf32x3_proj`): each 16-row group from zero, the warps'
+  and the spans' partials in order; int8 weights in two products.
+
+The tensor cores add into their accumulator truncating. `rz=True` models
+that accumulator (each k8 step's products added and rounded toward zero):
+with it, the kernels' slot-from-zero order passes the check where one
+running accumulator over K2's 1280 k rows does not.
 
 Each model must pass the unchanged f32 check (`agreement.F32`) against the
 unchanged plain versions, and the check must still refuse the TF32-inputs
 fault by `F32_REFUSAL` or more: the split keeps f32's accuracy, plain TF32
-does not. At most 4 heads, so the file runs in a few seconds.
+does not. The attention models take at most 4 heads; K2 and the tail run at
+large-v3 widths (D 1280) on a few hundred rows.
 """
 
 import pytest
 import torch
 
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, encoder_attn
+from whisper_diarize_tpu_torch.ops import attn, encoder_attn, tail
 
 torch.set_num_threads(2)
 F32 = torch.float32
@@ -100,19 +112,163 @@ def test_plain_tf32_products_miss_the_check():
     assert ag.agreement(ag.k1_tf32x3_model(0, q, k, v), ref, tol=ag.F32).ok
 
 
+F64 = torch.float64
+D_LV3, H_LV3 = 1280, 20  # large-v3's decoder width and heads
+
+
+def _double(*args):
+    """args with every float tensor (and those of a dict) in float64: the
+    plain versions' exact reference."""
+    def d(a):
+        if isinstance(a, dict):
+            return {key: d(t) for key, t in a.items()}
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a.double()
+        return a
+    return [d(a) for a in args]
+
+
+def _k2_inputs(seed: int, Ta: int = 200):
+    g = torch.Generator().manual_seed(seed)
+    blocks = ag.random_blocks(1, D_LV3, g, "cpu", dtype=F32)
+    xa = ag.randn(g, "cpu", 1, Ta, D_LV3, dtype=F32)
+    return (xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H_LV3)
+
+
+def test_k2_model_passes_the_f32_check():
+    """K2-f32's order (32-k slots from zero) at large-v3 width, one layer,
+    against the float64 plain version; its f32 faults refused by
+    `F32_REFUSAL`."""
+    a = _k2_inputs(7)
+    got = ag.k2_tf32x3_model(*a)
+    ref = attn.cross_kv_build_plain(*_double(*a))
+    for i in range(2):
+        assert got[i].shape == ref[i].shape and got[i].dtype == F32
+        assert ag.compare(f"K2 3xTF32 model {'kv'[i]}", got[i], ref[i], tol=ag.F32).ok
+    for name, i, bad in ag.k2_f32_faults(*a):
+        ag.reject(name, got[i], bad, tol=ag.F32, factor=ag.F32_REFUSAL)
+
+
+def _tail_inputs(N: int, beams: int, seed: int, Ta: int = 300):
+    g = torch.Generator().manual_seed(seed)
+    blocks = ag.random_blocks(1, D_LV3, g, "cpu", dtype=F32)
+    k, v = (ag.randn(g, "cpu", 1, N // beams, H_LV3, Ta, 64, dtype=F32) for _ in range(2))
+    x = ag.randn(g, "cpu", N, 1, D_LV3, dtype=F32)
+    so = ag.randn(g, "cpu", N, H_LV3, 1, 64, scale=0.3, dtype=F32)
+    return (0, x, so, blocks, k, v, beams, Ta)
+
+
+def _k1_attend(layer, q, k, v, ta_total, ks, vs):
+    return ag.k1_tf32x3_model(layer, q, k, v, ta_total)
+
+
+@pytest.mark.parametrize("N,beams", [(8, 1), (40, 5)])
+def test_k3_model_passes_the_f32_check(N, beams):
+    """K3-f32's products in the skinny GEMM's order (`skinny_tf32x3_proj`
+    on `tail_plans(N, D, f32=True)`) and its K1-f32 in K1's, at large-v3
+    width, against the float64 plain tail; its f32 faults refused."""
+    a = _tail_inputs(N, beams, N)
+    got = tail.fused_tail_layer_plain(*a, proj=ag.skinny_tf32x3_proj(N, D_LV3),
+                                      attend=_k1_attend)
+    ref = tail.fused_tail_layer_plain(*_double(*a))
+    x = a[1]
+    assert ag.compare(f"K3 3xTF32 model N={N}", got, ref, base=x, tol=ag.F32).ok
+    for name, bad in ag.tail_f32_faults("K3", *a):
+        ag.reject(name, got, bad, base=x, tol=ag.F32, factor=ag.F32_REFUSAL)
+
+
+@pytest.mark.parametrize("name,ln", [("o", False), ("fc1", True), ("fc2", False)])
+def test_skinny_model_with_int8_weights_passes_the_f32_check(name, ln):
+    """K6-f32 `wq`'s two products (int8 weights exact in TF32: a_lo w +
+    a_hi w) on each strip width its plans take, against float64."""
+    g = torch.Generator().manual_seed(len(name))
+    Din, Dout = {"o": (D_LV3, D_LV3), "fc1": (D_LV3, 4 * D_LV3), "fc2": (4 * D_LV3, D_LV3)}[name]
+    h = ag.randn(g, "cpu", 40, Din, dtype=F32)
+    w = torch.randint(-127, 128, (Din, Dout), generator=g, dtype=torch.int8)
+    plan = tail.skinny_plan(40, Din, Dout, int8=True, ln=ln, f32=True)
+    got = ag.skinny_tf32x3_model(h, w, plan)
+    ref = h.double() @ w.double()
+    assert ag.compare(f"K6 wq {name} model, {plan}", got, ref, tol=ag.F32).ok
+    assert not ag.agreement(ag.tf32_round(h) @ w.float(), ref, tol=ag.F32).ok  # TF32 a
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_plain_tf32_products_miss_the_check_in_k2_and_k3(kernel):
+    """K2's and the skinny GEMM's order with one TF32 product each (hi hi')
+    miss the f32 check; the 3xTF32 split of the same order passes."""
+    if kernel == "K2":
+        a = _k2_inputs(11, Ta=64)
+        ref = attn.cross_kv_build_plain(*_double(*a))[1]
+        one, three = (ag.k2_tf32x3_model(*a, products=p)[1] for p in (1, 3))
+        base = None
+    else:
+        a = _tail_inputs(8, 1, 12, Ta=64)
+        ref = tail.fused_tail_layer_plain(*_double(*a))
+        one, three = (tail.fused_tail_layer_plain(
+            *a, proj=ag.skinny_tf32x3_proj(8, D_LV3, products=p), attend=_k1_attend)
+            for p in (1, 3))
+        base = a[1]
+    assert not ag.agreement(one, ref, base=base, tol=ag.F32).ok
+    assert ag.agreement(three, ref, base=base, tol=ag.F32).ok
+
+
+def test_truncating_accumulator_model():
+    """A model of the tensor cores' truncating accumulation (`rz`: each k8
+    step's products added, rounded toward zero). The kernels' order, each
+    32-k slot (K2, D 1280) or 16-row group (fc2's spans at N 40) from zero
+    and the sums added on the CUDA cores, passes `REL_L2_F32`; one running
+    accumulator over K2's D lands past it (the card's finding on K10-f32's
+    188-step chain, 1.05e-5), over a warp's rows of an fc2 span short of it.
+    The distances are printed (`pytest -s`)."""
+    a = _k2_inputs(13)
+    ref = attn.cross_kv_build_plain(*_double(*a))[0]
+    slot = ag.agreement(ag.k2_tf32x3_model(*a, rz=True)[0], ref, tol=ag.F32)
+    running = ag.agreement(ag.k2_tf32x3_model(*a, rz=True, chain=D_LV3)[0], ref, tol=ag.F32)
+    print(f"K2 D {D_LV3}, truncating accumulator: slots from zero rel_l2 {slot.rel_l2:.3g}, "
+          f"one running accumulator {running.rel_l2:.3g} "
+          f"({running.rel_l2 / ag.REL_L2_F32:.3g}x REL_L2_F32)")
+    assert slot.ok and slot.rel_l2 <= ag.REL_L2_F32
+    assert running.rel_l2 > ag.REL_L2_F32
+    g = torch.Generator().manual_seed(14)
+    N, Din = 40, 4 * D_LV3
+    h = ag.randn(g, "cpu", N, Din, scale=0.5, dtype=F32)
+    w = ag.randn(g, "cpu", Din, D_LV3, scale=Din ** -0.5, dtype=F32)
+    plan = tail.skinny_plan(N, Din, D_LV3, f32=True)
+    ref = h.double() @ w.double()
+    group = ag.agreement(ag.skinny_tf32x3_model(h, w, plan, rz=True), ref, tol=ag.F32)
+    run = ag.agreement(ag.skinny_tf32x3_model(h, w, plan, rz=True, running=True), ref,
+                       tol=ag.F32)
+    print(f"fc2 N {N} {plan}, truncating accumulator: groups from zero rel_l2 "
+          f"{group.rel_l2:.3g}, one running accumulator a warp {run.rel_l2:.3g} "
+          f"({run.rel_l2 / ag.REL_L2_F32:.3g}x REL_L2_F32)")
+    assert group.ok and group.rel_l2 <= ag.REL_L2_F32
+    assert run.rel_l2 > group.rel_l2
+
+
 def test_bench_f32_attn_builds_its_rows_on_the_cpu():
-    """`tools/bench_f32_attn.py` (the card's timing of K1-f32, K3-f32 and
-    K10-f32, also over an older checkout's package): its rows at a small
-    size on the CPU, where the wrappers run their plain versions; without a
-    card `main` refuses to time."""
+    """`tools/bench_f32_attn.py` (the card's timing of K2-f32, K1-f32,
+    K3-f32, K6-f32, K8-f32 and K10-f32, also over an older checkout's
+    package): its rows at a small size on the CPU, where the wrappers run
+    their plain versions; without a card `main` refuses to time."""
     from whisper_diarize_tpu_torch.tools import bench_f32_attn
 
-    rows = bench_f32_attn.cases(torch.device("cpu"), L=2, B=2, H=2, Ta=130, queries=(3, 20))
+    rows = bench_f32_attn.cases(torch.device("cpu"), L=2, B=2, H=2, Ta=130, queries=(3, 20),
+                                k2_layers=(2, 1), Tc=24)
     names = [name for name, _, _ in rows]
-    assert names == ["K1-f32 B=2 Q=3", "K1-f32 B=2 Q=20", "K1-f32 B=1 Q=3", "K3-f32 N=2",
-                     "K3-f32 N=10", "K10-f32 single pass", "K10-f32 two pass"]
+    assert names == ["K2-f32 L=2", "K2-f32 L=1", "K1-f32 B=2 Q=3", "K1-f32 B=2 Q=20",
+                     "K1-f32 B=1 Q=3", "K3-f32 N=2", "K3-f32 N=10", "K6-f32 kvq N=10",
+                     "K6-f32 wq+kvq N=10", "K8-f32 N=2", "K8-f32 N=10", "K10-f32 single pass",
+                     "K10-f32 two pass"]
     for name, fn, library in rows:
         out = fn()
+        if name.startswith("K2"):  # (k, v) [L, B, H, Ta, 64]; the library: [B Ta, L 2 H 64]
+            L = int(name.split("=")[1])
+            assert all(t.dtype == F32 and t.shape == (L, 2, 2, 130, 64) for t in out), name
+            lib = library()
+            assert lib.shape == (2 * 130, L * 2 * 128), name
+            k_lib = lib.view(2, 130, L, 2, 2, 64)[:, :, :, 0].permute(2, 0, 3, 1, 4)
+            assert torch.allclose(k_lib, out[0], atol=1e-4), name
+            continue
         assert out.dtype == F32 and bool(torch.isfinite(out).all()), name
         if library is not None:
             assert library().shape[-1] == 64, name

@@ -192,6 +192,27 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_bits(x - __uint_as_float(hi));
 }
 
+// c += a * b on the tensor cores: m16n8k8, TF32 in, f32 accumulate (K1-f32,
+// the skinny GEMM of tail.cu at f32).
+// a: rows g (a[0], a[2]) / g + 8 (a[1], a[3]), k tg (a[0], a[1]) / tg + 4
+// (a[2], a[3]); b0: k tg, b1: k tg + 4, column g; c as mma_bf16's
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32: the two small terms first, then hi hi'
+__device__ __forceinline__ void mma_tf32x3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(c, a_lo, bh0, bh1);
+  mma_tf32(c, a_hi, bl0, bl1);
+  mma_tf32(c, a_hi, bh0, bh1);
+}
+
 // cp.async: `bytes` (4, 8 or 16) from global to shared memory, bypassing the
 // registers; `src_bytes` 0 fills the destination with zeros (src must still
 // be a valid address)
@@ -403,6 +424,42 @@ __device__ __forceinline__ void wgmma_tf32_rs(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (+)= A B with A from registers (as wgmma_tf32_rs's) and B from shared
+// memory, K-major: m64n128k8, TF32 in, f32 accumulate (K2-f32's 3xTF32
+// products); d laid out as wgmma_ss_n128_tb's.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float* d, const uint32_t* a, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// keep N registers (an A operand of wgmma ..._rs) live up to this point: the
+// asynchronous product reads them after its asm statement has issued, so
+// their registers must not be reused before the wgmma_wait that retires it
+template <int N>
+__device__ __forceinline__ void keep_regs(const uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" :: "r"(r[i]));
+}
+
 // one 64-row box of a [B, H, T, 64] tensor into shared memory; the map's
 // dimensions are (d, then T / H / B in the order `pos` gives)
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, int4 pos,
@@ -488,15 +545,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 3-d bf16 tensor map: dims (innermost first), the byte strides of dims 1
-// and 2, a box of box[0] x box[1] x 1 elements with the 128-byte swizzle
-// (box[0] = 64: one 128-byte row); out-of-bounds elements read as zeros
+// a 3-d bf16 (or `type`) tensor map: dims (innermost first), the byte
+// strides of dims 1 and 2, a box of box[0] x box[1] x 1 elements with the
+// 128-byte swizzle (box[0] x the element size = 128: one 128-byte row);
+// out-of-bounds elements read as zeros
 inline bool make_map_3d(CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
-                        const cuuint64_t* strides, const cuuint32_t* box) {
+                        const cuuint64_t* strides, const cuuint32_t* box,
+                        CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -554,7 +613,7 @@ cudaError_t launch_cross_attn_q8(const bf16* q, const int8_t* k8, const float* k
                                  cudaStream_t stream);
 
 // K1's and K5's f32 forms (cross_attn.cu), for the fused tail at f32: q,
-// out f32; k / v f32 (K1: FFMA products) or int8 with f32 scales (K5: its
+// out f32; k / v f32 (K1: 3xTF32 products) or int8 with f32 scales (K5: its
 // bf16 products, q and out in f32); the plan as above.
 cudaError_t launch_cross_attn_f32(const float* q, const float* k, const float* v,
                                   float* out, int B, int Q, int H, int Ta, int layer,
@@ -585,8 +644,8 @@ cudaError_t launch_skinny_gemm(const bf16* A, const bf16* W, const bf16* bias,
                                const bf16* ln_g, const bf16* ln_b, bf16* out, int N,
                                int Din, int Dout, SkinnyPlan plan, cudaStream_t stream);
 
-// Its f32 form (K8's f32 product): every operand f32, FFMA on the CUDA
-// cores; the plan of ops/tail.py::skinny_plan with f32=True.
+// Its f32 form (K8's f32 product): every operand f32, 3xTF32 products on
+// the tensor cores; the plan of ops/tail.py::skinny_plan with f32=True.
 cudaError_t launch_skinny_gemm(const float* A, const float* W, const float* bias,
                                const float* ln_g, const float* ln_b, float* out, int N,
                                int Din, int Dout, SkinnyPlan plan, cudaStream_t stream);

@@ -484,26 +484,6 @@ cross_attn_kernel(const AT* __restrict__ q, const KV* __restrict__ k,
   cluster.sync();  // no CTA leaves while another may still read its state
 }
 
-// c += a * b on the tensor cores: m16n8k8, TF32 in, f32 accumulate.
-// a: rows g (a[0], a[2]) / g + 8 (a[1], a[3]), k tg (a[0], a[1]) / tg + 4
-// (a[2], a[3]); b0: k tg, b1: k tg + 4, column g; c as mma_bf16's
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b in 3xTF32: the two small terms first, then hi hi'
-__device__ __forceinline__ void mma_tf32x3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
-                                           uint32_t bl1) {
-  mma_tf32(c, a_lo, bh0, bh1);
-  mma_tf32(c, a_hi, bl0, bl1);
-  mma_tf32(c, a_hi, bh0, bh1);
-}
-
 // The attention of one warp's 16 query rows against a 64-key tile in
 // shared memory (K10-f32 runs the same products as wgmma, encoder_attn.cu,
 // with the same k order for P V). K rows lie TF32_KROW floats apart, V

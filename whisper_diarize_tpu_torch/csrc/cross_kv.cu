@@ -42,19 +42,44 @@
 //   warpgroup, one a head: [64 rows, 64] contiguous runs of one (l, b, h).
 //
 // The f32 form (`cross_kv_f32_kernel`): the same function in f32, the TPU
-// kernel's one rounding being the identity. Hopper's wgmma has no f32 x f32
-// product (only TF32, 10 mantissa bits: not an f32 product), so it is a
-// CUDA-core SGEMM: a 128 x 128 output tile a CTA of 256 threads, 8 x 8 a
-// thread (rows 4 ty .. + 3 and 64 + 4 ty .., columns likewise: the float4
-// reads of a warp fall on few addresses), k steps of 8 double-buffered in
-// shared memory (xa stored transposed from registers, the weights by
-// cp.async), each output a sequential f32 FMA chain over D, the bias added
-// in f32 and the head split written from registers as float4. Rows run
-// over all B x Ta positions (a tile may cross a stream), columns over
-// [K | V] (each tile in one of them). Bound at large-v3 (L 32, B 8, Ta
-// 1500) by operations: 4 x 12000 x 1280^2 x 32 = 2.5e12 FLOP, 37.6 ms at
-// 67 TFLOP/s; grid (2 H Dh / 128, row tiles, L), the layer outermost so a
-// layer's weights (13 MB) stay in L2.
+// kernel's one rounding being the identity. Hopper has no f32 x f32 tensor
+// product, but a 3xTF32 split keeps f32's accuracy (common.cuh's
+// tf32_split: hi = tf32(x), lo = tf32(x - hi); a product lo hi' + hi lo' +
+// hi hi', summed in f32). Bound at large-v3 (L 32, B 8, Ta 1500) by
+// operations: 2.5e12 FLOP of f32 products, 15.25 ms at the 3xTF32 rate
+// (495 / 3 TFLOP/s; 37.6 ms at the CUDA cores' 67). It keeps the bf16
+// kernel's skeleton: persistent CTAs, one an SM, walking the tiles with the
+// layer outermost (a layer's f32 weights, 13 MB, and all of xa, 61 MB at B
+// 8, mostly in L2); a ring of STAGES slots on mbarriers with a producer
+// warpgroup and consumer warpgroups; rows past Ta are zeros and not stored.
+// Where f32 differs:
+// - TF32 wgmma reads B from shared memory only K-major, and the weights
+//   [D, H*Dh] are MN-major. So the operands trade places: each consumer
+//   warpgroup computes one head's K^T (or V^T) = W^T xa^T, a wgmma
+//   m64n128k8 with M = the head's 64 weight columns and N = the tile's 128
+//   rows of xa. A, the weights, comes from registers: TMA lands the raw
+//   tile (32 k rows x 128 columns, four 32-column boxes, 128-byte swizzle)
+//   and each thread reads its fragment's eight values and splits them as it
+//   reads. B, xa, is K-major as it lies: the producer warpgroup loads each
+//   slot's 128 rows x 32 k from device memory (16-byte loads, the next
+//   slot's in flight while it waits for a free one), splits them once, and
+//   stores hi and lo planes with the 128-byte swizzle the descriptors read.
+//   Neither operand is copied or transposed outside the kernel.
+// - The slot: at f32 a 128-byte swizzle row holds 32 k values; 16 KB of
+//   raw weights and 32 KB of xa hi / lo make 48 KB, four slots 192 KB.
+// - The tensor cores' accumulation truncates (cross_attn.cu, tf32x3_pv):
+//   each slot's 12 products (four k8 steps, three each) start
+//   from zero (scale_d 0) and their sum joins the tile's f32 running sum on
+//   the CUDA cores, slot by slot (`agreement.k2_tf32x3_model`). The two
+//   accumulator sets cost 128 registers a thread: two consumer warpgroups
+//   of 64 weight columns (128-row tiles, one stream each), not three.
+// - A's registers are read by the asynchronous product after its issue:
+//   two sets alternate over the k8 steps, each kept live (`keep_regs`) up
+//   to the wgmma_wait that retires the product reading it.
+// - Epilogue: V's bias in f32, then the head split written from registers,
+//   a quad's four rows of one head's eight columns a store (32-byte
+//   sectors): an f32 staging tile of 128 x 128 would not fit beside the
+//   ring.
 #include "common.cuh"
 
 namespace {
@@ -78,14 +103,16 @@ struct Tile {
   int l, b, t0, n0;  // layer, stream, first row, first column of [0, 2 HD)
 };
 
-// tile i: the layer outermost, then (stream, row tile), the column innermost
-__device__ __forceinline__ Tile tile_at(int i, int B, int row_tiles, int col_tiles) {
+// tile i: the layer outermost, then (stream, row tile), the column innermost;
+// tiles of bm rows (BM, or F_BM for the f32 form) and BN columns
+__device__ __forceinline__ Tile tile_at(int i, int B, int row_tiles, int col_tiles,
+                                        int bm = BM) {
   Tile t;
   t.n0 = (i % col_tiles) * BN;
   const int r = (i / col_tiles) % (B * row_tiles);
   t.l = i / (col_tiles * B * row_tiles);
   t.b = r / row_tiles;
-  t.t0 = (r % row_tiles) * BM;
+  t.t0 = (r % row_tiles) * bm;
   return t;
 }
 
@@ -212,101 +239,188 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
   if (ct == 0) bulk_wait<0>();
 }
 
-constexpr int SG_BM = 128, SG_BN = 128, SG_BK = 8, SG_THREADS = 256;
+// ---------------------------------------------------------------------------
+// The f32 form: 3xTF32 wgmma, the operands traded (see the head of the file)
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(SG_THREADS)
-cross_kv_f32_kernel(const float* __restrict__ xa, const float* __restrict__ kw,
-                    const float* __restrict__ vw, const float* __restrict__ vb,
-                    float* __restrict__ ko, float* __restrict__ vo, int B, int Ta, int D,
-                    int HD) {
-  __shared__ __align__(16) float As[2][SG_BK][SG_BM];  // xa's tile, k-major
-  __shared__ __align__(16) float Bs[2][SG_BK][SG_BN];  // the weights' tile
-  const int M = B * Ta;
-  const int l = blockIdx.z;
-  const int n0 = blockIdx.x * SG_BN;  // of [0, 2 HD): K's columns, then V's
-  const int m0 = blockIdx.y * SG_BM;
-  const bool is_v = n0 >= HD;
-  const int c0 = n0 - (is_v ? HD : 0);
-  const float* W = (is_v ? vw : kw) + (size_t)l * D * HD + c0;
+constexpr int F_CONSUMERS = 2;                     // warpgroups: one head each
+constexpr int F_BM = 128;                          // rows of one stream a tile (wgmma N)
+constexpr int F_BK = 32;                           // k a slot: one 128-byte row of f32
+constexpr int F_THREADS = (F_CONSUMERS + 1) * 128;  // and the producer warpgroup
+constexpr int F_STAGES = 4;                        // ring slots
+constexpr int F_WBOX = F_BK * 128;                 // a 32-column box of the weights (4 KB)
+constexpr int F_W_BYTES = (BN / 32) * F_WBOX;      // the slot's raw weights (16 KB)
+constexpr int F_PLANE = F_BM * 128;                // xa hi or lo, K-major (16 KB)
+constexpr int F_STAGE_BYTES = F_W_BYTES + 2 * F_PLANE;
+// 1024-byte aligned (the swizzle's period), plus the slack to align the base
+constexpr int F_SMEM = F_STAGES * F_STAGE_BYTES + 1024;
+static_assert(F_CONSUMERS * 64 == BN, "a consumer warpgroup a head of the tile");
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+cross_kv_f32_kernel(const __grid_constant__ CUtensorMap map_kw,
+                    const __grid_constant__ CUtensorMap map_vw, const float* __restrict__ xa,
+                    const float* __restrict__ vb, float* __restrict__ ko,
+                    float* __restrict__ vo, int L, int B, int Ta, int D, int HD) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[F_STAGES], empty[F_STAGES];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // [F_STAGES][48 KB]
+
   const int tid = threadIdx.x;
-  // copies: xa row tid / 2, k (tid % 2) * 4 .. + 3; weights k row tid / 32,
-  // columns (tid % 32) * 4 .. + 3
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_row = tid >> 5, b_col = (tid & 31) * 4;
-  const bool a_ok = m0 + a_row < M;
-  const float* a_src = xa + (size_t)(a_ok ? m0 + a_row : 0) * D + a_k;
-  const float* b_src = W + (size_t)b_row * HD + b_col;
-  const int ty = tid >> 4, tx = tid & 15;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const int wg = tid / 128;
+  const int row_tiles = (Ta + F_BM - 1) / F_BM;
+  const int col_tiles = 2 * HD / BN;
+  const int n_tiles = L * B * row_tiles * col_tiles;
+  const int kb_n = D / F_BK;
 
-  const int nk = D / SG_BK;
-  float4 ar = a_ok ? *reinterpret_cast<const float4*>(a_src) : zero;
-  cp_async<16>(&Bs[0][b_row][b_col], b_src, true);
-  cp_async_commit();
-  As[0][a_k + 0][a_row] = ar.x;
-  As[0][a_k + 1][a_row] = ar.y;
-  As[0][a_k + 2][a_row] = ar.z;
-  As[0][a_k + 3][a_row] = ar.w;
-  cp_async_wait<0>();
+  if (tid == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], 128 + 1);  // the producer's threads and its TMA bytes
+      mbar_init(&empty[s], F_CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1, nxt = cur ^ 1;
-    const bool more = kt + 1 < nk;
-    if (more) {  // the next tile in flight while this one is computed
-      ar = a_ok ? *reinterpret_cast<const float4*>(a_src + (kt + 1) * SG_BK) : zero;
-      cp_async<16>(&Bs[nxt][b_row][b_col], b_src + (size_t)(kt + 1) * SG_BK * HD, true);
-      cp_async_commit();
-    }
+
+  if (wg == F_CONSUMERS) {
+    // ---------------- producer warpgroup ----------------
+    // Thread pt stages rows pt / 8 + 16q (q < 8) of the slot, k values
+    // 4 (pt % 8) .. + 3: eight threads read a row's 128 bytes, and the
+    // swizzled 16-byte stores of a quarter-warp fall in distinct banks.
+    const int pt = tid - F_CONSUMERS * 128;
+    const int c4 = pt & 7, r0 = pt >> 3;
+    float4 x[8];
+    auto load = [&](int i, int kb) {
+      const Tile t = tile_at(i, B, row_tiles, col_tiles, F_BM);
+      const float* src = xa + (size_t)t.b * Ta * D + kb * F_BK + 4 * c4;
 #pragma unroll
-    for (int kk = 0; kk < SG_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int q = 0; q < 8; ++q) {
+        const int row = t.t0 + r0 + 16 * q;
+        x[q] = row < Ta ? *reinterpret_cast<const float4*>(src + (size_t)row * D)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    };
+    if (blockIdx.x < n_tiles) load(blockIdx.x, 0);
+    int it = 0;  // slots filled, over all tiles
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+      const Tile t = tile_at(i, B, row_tiles, col_tiles, F_BM);
+      const bool is_v = t.n0 >= HD;
+      const CUtensorMap* wmap = is_v ? &map_vw : &map_kw;
+      const int col = t.n0 - (is_v ? HD : 0);
+      for (int kb = 0; kb < kb_n; ++kb, ++it) {
+        const int slot = it % F_STAGES;
+        if (it >= F_STAGES) mbar_wait(&empty[slot], ((it / F_STAGES) - 1) & 1);
+        unsigned char* st = ring + slot * F_STAGE_BYTES;
+        if (pt == 0) {
+          mbar_expect_tx(&full[slot], F_W_BYTES);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+          for (int j = 0; j < BN / 32; ++j)
+            tma_load_3d(st + j * F_WBOX, wmap, col + 32 * j, kb * F_BK, t.l, &full[slot]);
+        }
+        unsigned char* xh = st + F_W_BYTES;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int q = 0; q < 8; ++q) {
+          const int row = r0 + 16 * q;
+          const int off = row * 128 + ((c4 ^ (row & 7)) << 4);
+          uint4 h, l;
+          tf32_split(x[q].x, h.x, l.x);
+          tf32_split(x[q].y, h.y, l.y);
+          tf32_split(x[q].z, h.z, l.z);
+          tf32_split(x[q].w, h.w, l.w);
+          *reinterpret_cast<uint4*>(xh + off) = h;
+          *reinterpret_cast<uint4*>(xh + F_PLANE + off) = l;
+        }
+        fence_view_async();  // the planes, visible to the tensor cores
+        mbar_arrive(&full[slot]);
+        if (kb + 1 < kb_n)  // the next slot's rows in flight
+          load(i, kb + 1);
+        else if (i + (int)gridDim.x < n_tiles)
+          load(i + gridDim.x, 0);
+      }
     }
-    if (more) {  // buffer nxt was last read before the previous barrier
-      As[nxt][a_k + 0][a_row] = ar.x;
-      As[nxt][a_k + 1][a_row] = ar.y;
-      As[nxt][a_k + 2][a_row] = ar.z;
-      As[nxt][a_k + 3][a_row] = ar.w;
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    return;
   }
 
-  // epilogue: V's bias in f32, the head split [L, B, H, Ta, 64], float4 stores
+  // ---------------- consumer warpgroups: one head each ----------------
+  const int ct = tid % 128;
+  const int warp = ct / 32, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
   const int H = HD / DH;
-  float* out = is_v ? vo : ko;
+  // this warp's weight columns 64 wg + 16 warp + g (+ 8): box 2 wg + warp / 2,
+  // its columns nn and nn + 8
+  const int box = 2 * wg + (warp >> 1), nn = 16 * (warp & 1) + g;
+  float acc[64], part[64];
+  uint32_t ah[2][4], al[2][4];  // A (W^T) fragments of two k8 steps
+  int it = 0;  // slots consumed, over all tiles
+  for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+    const Tile t = tile_at(i, B, row_tiles, col_tiles, F_BM);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= M) continue;
-    const int b = r / Ta, t = r % Ta;
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+    for (int kb = 0; kb < kb_n; ++kb, ++it) {
+      const int slot = it % F_STAGES;
+      mbar_wait(&full[slot], (it / F_STAGES) & 1);
+      const unsigned char* st = ring + slot * F_STAGE_BYTES;
+      const unsigned char* wt = st + box * F_WBOX;
+      const unsigned char* xh = st + F_W_BYTES;
+      fence_acc<64>(part);
 #pragma unroll
-    for (int gj = 0; gj < 2; ++gj) {
-      const int c = c0 + gj * 64 + tx * 4;  // a column of [0, HD)
-      float4 y = make_float4(acc[i][4 * gj], acc[i][4 * gj + 1], acc[i][4 * gj + 2],
-                             acc[i][4 * gj + 3]);
-      if (is_v) {
-        const float4 bias = *reinterpret_cast<const float4*>(vb + (size_t)l * HD + c);
-        y.x += bias.x;
-        y.y += bias.y;
-        y.z += bias.z;
-        y.w += bias.w;
+      for (int s = 0; s < F_BK / 8; ++s) {
+        uint32_t* h = ah[s & 1];
+        uint32_t* l = al[s & 1];
+        if (s >= 2) {  // the product of step s - 2 has read this set
+          wgmma_wait<1>();
+          keep_regs<4>(h);
+          keep_regs<4>(l);
+        }
+        // a[0] (nn, k tg), a[1] (nn + 8, k tg), a[2] (nn, k tg + 4), a[3]
+        // (nn + 8, k tg + 4) of W^T: the raw box is [k][32 columns], swizzled
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 8 * s + tg + 4 * (e >> 1), n = nn + 8 * (e & 1);
+          const float w =
+              *reinterpret_cast<const float*>(wt + k * 128 + (((n >> 2) ^ (k & 7)) << 4) + (n & 3) * 4);
+          tf32_split(w, h[e], l[e]);
+        }
+        wgmma_fence();
+        wgmma_tf32_rs_n128(part, l, smem_desc(xh + 32 * s), s);  // the slot's sum from zero
+        wgmma_tf32_rs_n128(part, h, smem_desc(xh + F_PLANE + 32 * s), 1);
+        wgmma_tf32_rs_n128(part, h, smem_desc(xh + 32 * s), 1);
+        wgmma_commit();
       }
-      *reinterpret_cast<float4*>(
-          out + ((((size_t)l * B + b) * H + c / DH) * Ta + t) * DH + c % DH) = y;
+      wgmma_wait<0>();
+      keep_regs<4>(ah[0]);
+      keep_regs<4>(al[0]);
+      keep_regs<4>(ah[1]);
+      keep_regs<4>(al[1]);
+      fence_acc<64>(part);
+      mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] += part[e];
+    }
+
+    // epilogue: V's bias in f32, the head split [L, B, H, Ta, 64] from
+    // registers: acc[4j + e] is weight column d0 (e < 2) or d0 + 8, row
+    // t0 + 8j + 2tg (+ 1 for odd e)
+    const bool is_v = t.n0 >= HD;
+    const int col0 = t.n0 - (is_v ? HD : 0) + 64 * wg;  // the head's first column
+    const int d0 = 16 * warp + g;
+    float b0 = 0.0f, b1 = 0.0f;
+    if (is_v) {
+      b0 = vb[(size_t)t.l * HD + col0 + d0];
+      b1 = vb[(size_t)t.l * HD + col0 + d0 + 8];
+    }
+    float* out = (is_v ? vo : ko) + (((size_t)t.l * B + t.b) * H + col0 / DH) * Ta * DH;
+#pragma unroll
+    for (int j = 0; j < F_BM / 8; ++j) {
+      const int r = t.t0 + 8 * j + 2 * tg;
+      if (r < Ta) {
+        out[(size_t)r * DH + d0] = acc[4 * j] + b0;
+        out[(size_t)r * DH + d0 + 8] = acc[4 * j + 2] + b1;
+      }
+      if (r + 1 < Ta) {
+        out[(size_t)(r + 1) * DH + d0] = acc[4 * j + 1] + b0;
+        out[(size_t)(r + 1) * DH + d0 + 8] = acc[4 * j + 3] + b1;
+      }
     }
   }
 }
@@ -357,19 +471,27 @@ WDT_EXPORT int wdt_cross_kv(const void* xa, const void* kw, const void* vw,
 }
 
 // The f32 form: the same arguments in f32, 16-byte aligned; the same shape
-// rules (the f32 SGEMM's k step is 8 rows, its column tile 128).
+// rules.
 WDT_EXPORT int wdt_cross_kv_f32(const void* xa, const void* kw, const void* vw,
                                 const void* vb, void* k, void* v, int L, int B,
                                 int Ta, int D, int H, int Dh, void* stream) {
   const int HD = H * Dh;
-  const long long row_tiles = ((long long)B * Ta + SG_BM - 1) / SG_BM;
-  if (Dh != DH || D % SG_BK != 0 || HD % SG_BN != 0 || L <= 0 || L > 65535 || B <= 0 ||
-      Ta <= 0 || row_tiles > 65535)
+  if (Dh != DH || D % BK != 0 || HD % BN != 0 || L <= 0 || B <= 0 || Ta <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(2 * HD / SG_BN, static_cast<unsigned>(row_tiles), L);
-  cross_kv_f32_kernel<<<grid, SG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xa), static_cast<const float*>(kw),
-      static_cast<const float*>(vw), static_cast<const float*>(vb), static_cast<float*>(k),
-      static_cast<float*>(v), B, Ta, D, HD);
+  const cuuint32_t box[3] = {32, F_BK, 1};  // 32 columns (128 bytes) x 32 k rows
+  const cuuint64_t w_dims[3] = {(cuuint64_t)HD, (cuuint64_t)D, (cuuint64_t)L};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)HD * 4, (cuuint64_t)D * HD * 4};
+  CUtensorMap mkw, mvw;
+  if (!make_map_3d(&mkw, kw, w_dims, w_strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !make_map_3d(&mvw, vw, w_dims, w_strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      cross_kv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long n_tiles = (long long)L * B * ((Ta + F_BM - 1) / F_BM) * (2 * HD / BN);
+  const int grid = static_cast<int>(n_tiles < sm_count() ? n_tiles : sm_count());
+  cross_kv_f32_kernel<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      mkw, mvw, static_cast<const float*>(xa), static_cast<const float*>(vb),
+      static_cast<float*>(k), static_cast<float*>(v), L, B, Ta, D, HD);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,8 +34,8 @@
 // The f32 form (`wdt_fused_front_f32`): the TPU kernel is written over the
 // operand dtype, and at f32 its astype(k.dtype) / astype(v.dtype) round
 // nothing; so here every bf16 rounding above becomes the identity. The
-// product runs on the f32 skinny GEMM of tail.cu (FFMA on the CUDA cores,
-// each weight read once for all N rows; no TF32), the attention on the same
+// product runs on the f32 skinny GEMM of tail.cu (3xTF32 mma.sync, each
+// weight read and split once for all N rows), the attention on the same
 // kernel templated on the element type: a 16-byte chunk holds 4 floats, so
 // 16 threads read a 256-byte cache row and 8 rows go a pass. Bound at N 8 by
 // bytes: 19.7 MB of f32 [D, 3D] weights, ~6 us.

@@ -79,18 +79,39 @@
 // The f32 forms (`wdt_fused_tail_f32`: f32 activations, biases, layer
 // norms and cache; weights f32, or int8 widened to f32, exact, then scaled
 // as above): the TPU kernel rounds every update to the activation dtype, so
-// at f32 nothing is rounded, and every product runs in f32 on the CUDA
-// cores (no TF32). The same split, ring, layer-norm exchange and combine
-// over f32 rows (16-byte padded, as the bf16 ones); the products: thread t
-// owns column t % bn of the strip and the k-quads t / bn, t / bn + 128 / bn,
-// .. of each tile, reads each weight of them once from shared memory into a
-// register and applies it to all N rows (up to 80 accumulators a thread),
-// the rows' activations read as float4 broadcasts; the k-groups' partials
-// add in group order. The attention is K1's f32 form (K5's with `kvq`). At
-// N 40 the f32 tail is near the card's balance point: a layer's weights are
-// 11 D^2 = 18.0 M floats (72 MB) plus 123 MB of f32 cross cache at B 8,
-// 0.058 ms at 3.35 TB/s; the products 2 N 11 D^2 = 1.4 GFLOP, 0.022 ms at
-// 67 TFLOP/s.
+// at f32 nothing is rounded. The same split, ring, layer-norm exchange and
+// combine over f32 rows; the products in 3xTF32 on the tensor cores
+// (mma.sync m16n8k8: common.cuh's tf32_split, hi = tf32(x), lo =
+// tf32(x - hi); a product lo hi' + hi lo' + hi hi'; int8 weights are exact
+// in TF32, lo = 0, so two: a_lo w + a_hi w). What held the FFMA form back
+// (0.31 ms of K3-f32's 0.37 at N 40, 14x its bytes' time): one column a
+// thread, a branch a row, dependent FMA chains and two warps a scheduler.
+// Design:
+// - A warp takes 32 columns of the strip (four n8 blocks) and a share of
+//   every ring tile's rows: rows 16w .. 16w + 15 (two k8 steps) of a 32-column
+//   strip, or 32 of them (two such 16-row groups) of a 64-column one. Each
+//   weight is read and split once a CTA, by one warp, in registers as its
+//   fragment loads, and then serves every m16 row tile (up to five); each
+//   activation is split by the one warp (32 columns) or two (64) that read
+//   it, with no copy of the tile in shared memory.
+// - The k index of each 8-wide step is permuted in both operands (slot tg
+//   <-> k 2tg, slot tg + 4 <-> k 2tg + 1) and the n8 blocks interleaved
+//   (block 2p + h, lane g <-> column 16p + 2g + h), so every fragment read
+//   is one float2 (int8: two bytes) and a thread's outputs of a row are
+//   four adjacent columns. A tile's activation rows are padded to 72
+//   floats, so the float2 reads of eight rows fall in distinct banks (a
+//   layer norm's span rows, span_k + 4, two to a bank); weight rows to 36
+//   floats (48 int8 bytes), distinct banks.
+// - The tensor cores' accumulation truncates (K1-f32, cross_attn.cu,
+//   tf32x3_pv): each 16-row group's products start from zero and are added
+//   to the warp's f32 partial on the CUDA cores, tile by tile in order; the
+//   warps sharing a chunk add their partials in warp order, the spans in
+//   the cluster's span order (`agreement.skinny_tf32x3_model` is this order
+//   on the CPU).
+// The attention is K1's f32 form (K5's with `kvq`). At N 40 the f32 tail
+// moves a layer's weights, 11 D^2 = 18.0 M floats (72 MB, 0.0215 ms at
+// 3.35 TB/s), plus 123 MB of f32 cross cache at B 8; the products are
+// 3 x 2 N 11 D^2 = 4.3 GFLOP at the TF32 rate.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -116,11 +137,15 @@ __host__ __device__ constexpr bool is_q8() { return std::is_same<WT, int8_t>::va
 template <typename WT, int BN>
 __host__ __device__ constexpr int wrow_bytes() { return BN * static_cast<int>(sizeof(WT)) + 16; }
 
-// One activation row of a streamed tile: 64 values padded by 16 bytes (72
-// bf16, 144 bytes: the ldmatrix reads of eight rows fall in distinct banks;
-// or 68 f32).
+// One activation row of a streamed tile: 64 values padded by 8 (72 bf16,
+// 144 bytes: the ldmatrix reads of eight rows fall in distinct banks; 72
+// f32, 288 bytes: so do the float2 fragment reads). A row of a layer
+// norm's staged span keeps its 16 bytes (span_k + 4 f32: the f32 float2
+// reads of a half-warp's four rows meet two to a bank; 32 bytes would cost
+// the f32 plans their second CTA an SM at some row counts).
+constexpr int ROW_PAD = 8;
 template <typename AT>
-__host__ __device__ constexpr int at_row() { return BK + 16 / static_cast<int>(sizeof(AT)); }
+__host__ __device__ constexpr int at_row() { return BK + ROW_PAD; }
 constexpr int AT_ROW = at_row<bf16>();  // the bf16 rows the mma reads (and its zero row)
 
 // Dynamic shared memory of one CTA, in order: with a layer norm (LN), the
@@ -241,7 +266,8 @@ __device__ __forceinline__ void cluster_row_sums(cg::cluster_group& cluster, con
 //        row_scale != nullptr -> round(f32(a) * row_scale[k]) (per input row)
 //   epi: y = acc (* col_scale[col]) + bias; gelu -> gelu_tanh(y); o = round(y);
 //        residual != nullptr -> o = round(residual + o)
-// (round: to AT; the identity at f32). bf16: mma.sync products; f32: FFMA.
+// (round: to AT; the identity at f32). bf16: mma.sync products; f32:
+// 3xTF32 mma.sync.
 // Grid (n_split, Dout / BN), cluster (n_split, 1, 1): blockIdx.x is the
 // CTA's span of the input dimension, blockIdx.y its column strip.
 template <typename AT, typename WT, int BN, bool LN>
@@ -260,9 +286,10 @@ skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
   constexpr int EPC = 16 / ES;           // values a 16-byte chunk
   constexpr int ATR = at_row<AT>();
   constexpr int WROW = wrow_bytes<WT, BN>();
-  constexpr int NCH = BN / 16;      // 16-column chunks: one a warp
-  constexpr int KSPLIT = 4 / NCH;   // warps sharing a chunk, over the tile's k16 steps
-  constexpr int KG = THREADS / BN;  // f32: threads sharing a column, over the tile's k-quads
+  // bf16: 16-column chunks, one a warp; f32: 32-column chunks
+  constexpr int NCH = kF32 ? BN / 32 : BN / 16;
+  constexpr int KSPLIT = 4 / NCH;  // warps sharing a chunk, over the tile's rows
+  constexpr int KG = 4 / KSPLIT;   // f32: 16-row groups of a tile a warp takes
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[THREADS], psum[MAX_ROWS], psq[MAX_ROWS], mean_s[MAX_ROWS],
       var_s[MAX_ROWS];
@@ -361,13 +388,14 @@ skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
 
   // bf16: warp w takes the 16 columns of chunk w % NCH and the k16 steps
   // kq, kq + KSPLIT, .. of every tile (kq = w / NCH); acc[mt][nb] is m16
-  // tile mt, n8 block nb of its chunk. f32: thread t takes column t % BN
-  // and the k-quads kq, kq + KG, .. of every tile (kq = t / BN); fa[r] is
-  // row r of its column.
-  const int chunk = warp % NCH, kq = kF32 ? tid / BN : warp / NCH;
+  // tile mt, n8 block nb of its chunk. f32: warp w takes the 32 columns of
+  // chunk w % NCH and the KG 16-row groups (two k8 steps each) of every
+  // tile from row 16 KG kq; facc[mt][nb] is its f32 partial of m16 tile mt,
+  // n8 block nb (block 2p + h, lane g: column 32 chunk + 16p + 2g + h).
+  const int chunk = warp % NCH, kq = warp / NCH;
   const int MT = (N + 15) / 16;
   float acc[kF32 ? 1 : MAX_ROWS / 16][2][4];
-  float fa[kF32 ? MAX_ROWS : 1];
+  float facc[kF32 ? MAX_ROWS / 16 : 1][4][4];
 #pragma unroll
   for (int mt = 0; mt < (kF32 ? 1 : MAX_ROWS / 16); ++mt)
 #pragma unroll
@@ -375,7 +403,11 @@ skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.0f;
 #pragma unroll
-  for (int r = 0; r < (kF32 ? MAX_ROWS : 1); ++r) fa[r] = 0.0f;
+  for (int mt = 0; mt < (kF32 ? MAX_ROWS / 16 : 1); ++mt)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) facc[mt][nb][e] = 0.0f;
 
   for (int j = 0; j < n_tiles; ++j) {
     // wait for tile j: its group is the (n_stages - 2)-th newest; without a
@@ -405,22 +437,82 @@ skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
       __syncthreads();
     }
     if constexpr (kF32) {
-      const int col = tid % BN;
-#pragma unroll 2
-      for (int q4 = kq; q4 < BK / 4; q4 += KG) {
-        float w[4];
+      const float* a_src = reinterpret_cast<const float*>(LN ? as + j * BK : at);
+      const int a_stride = LN ? AROW : ATR;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          w[e] = static_cast<float>(reinterpret_cast<const WT*>(st + (4 * q4 + e) * WROW)[col]);
-        const AT* src = LN ? as + j * BK + 4 * q4 : at + 4 * q4;
-        const int stride = LN ? AROW : ATR;
+      for (int gi = 0; gi < KG; ++gi) {
+        const int k16 = 16 * (KG * kq + gi);  // the group's first row of the tile
+        // its two k8 steps of the weights, split once: bh / bl[s][nb] {k
+        // slot tg, k slot tg + 4} (int8: exact in TF32, no lo)
+        uint32_t bh[2][4][2], bl[2][4][2];
 #pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r) {
-          if (r < N) {
-            const float4 a = *reinterpret_cast<const float4*>(
-                reinterpret_cast<const float*>(src) + r * stride);
-            fa[r] = fmaf(a.w, w[3], fmaf(a.z, w[2], fmaf(a.y, w[1], fmaf(a.x, w[0], fa[r]))));
+        for (int s = 0; s < 2; ++s) {
+          const int kr = k16 + 8 * s + 2 * tg;  // rows kr, kr + 1 of the tile
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            float w[2][2];  // [row][column 32 chunk + 16p + 2g + h]
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const unsigned char* src =
+                  st + (kr + rr) * WROW + (32 * chunk + 16 * p + 2 * g) * sizeof(WT);
+              if constexpr (kQ8) {
+                const char2 c2 = *reinterpret_cast<const char2*>(src);
+                w[rr][0] = static_cast<float>(c2.x);
+                w[rr][1] = static_cast<float>(c2.y);
+              } else {
+                const float2 f2 = *reinterpret_cast<const float2*>(src);
+                w[rr][0] = f2.x;
+                w[rr][1] = f2.y;
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int rr = 0; rr < 2; ++rr) {
+                if constexpr (kQ8) {
+                  bh[s][2 * p + h][rr] = __float_as_uint(w[rr][h]);
+                  bl[s][2 * p + h][rr] = 0u;
+                } else {
+                  tf32_split(w[rr][h], bh[s][2 * p + h][rr], bl[s][2 * p + h][rr]);
+                }
+              }
           }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
+          if (mt >= MT) continue;
+          const int r0 = 16 * mt + g, r1 = r0 + 8;
+          float t[4][4];  // the group's products, from zero
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) t[nb][0] = t[nb][1] = t[nb][2] = t[nb][3] = 0.0f;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const int kc2 = k16 + 8 * s + 2 * tg;
+            const float2 zero = make_float2(0.0f, 0.0f);
+            const float2 x0 =
+                r0 < N ? *reinterpret_cast<const float2*>(a_src + r0 * a_stride + kc2) : zero;
+            const float2 x1 =
+                r1 < N ? *reinterpret_cast<const float2*>(a_src + r1 * a_stride + kc2) : zero;
+            uint32_t ah[4], al[4];  // rows g / g + 8, k slots tg / tg + 4
+            tf32_split(x0.x, ah[0], al[0]);
+            tf32_split(x1.x, ah[1], al[1]);
+            tf32_split(x0.y, ah[2], al[2]);
+            tf32_split(x1.y, ah[3], al[3]);
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) {
+              if constexpr (kQ8) {  // w exact in TF32: a_lo w + a_hi w
+                mma_tf32(t[nb], al, bh[s][nb][0], bh[s][nb][1]);
+                mma_tf32(t[nb], ah, bh[s][nb][0], bh[s][nb][1]);
+              } else {
+                mma_tf32x3(t[nb], ah, al, bh[s][nb][0], bh[s][nb][1], bl[s][nb][0],
+                           bl[s][nb][1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) facc[mt][nb][e] += t[nb][e];
         }
       }
     } else {
@@ -467,31 +559,36 @@ skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
   __syncthreads();  // the ring is free: it holds the CTA's partial [N, BN]
 
   float* part = reinterpret_cast<float*>(ring);
-  if constexpr (kF32) {
 #pragma unroll
-    for (int q = 0; q < KG; ++q) {  // the k-groups' sums, in group order
-      if (kq == q) {
-        const int col = tid % BN;
+  for (int q = 0; q < KSPLIT; ++q) {  // the k-split warps' sums, in warp order
+    if (kq == q) {
 #pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r)
-          if (r < N) part[r * BN + col] = q > 0 ? part[r * BN + col] + fa[r] : fa[r];
-      }
-      __syncthreads();
-    }
-  } else {
+      for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
+        if (mt >= MT) continue;
 #pragma unroll
-    for (int q = 0; q < KSPLIT; ++q) {  // the k-split warps' sums, in warp order
-      if (kq == q) {
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g + 8 * h;
+          if (r >= N) continue;
+          if constexpr (kF32) {  // columns 32 chunk + 16p + 4tg .. + 3 (interleaved n8 blocks)
 #pragma unroll
-        for (int mt = 0; mt < MAX_ROWS / 16; ++mt) {
-          if (mt >= MT) continue;
+            for (int p = 0; p < 2; ++p) {
+              float4* dst =
+                  reinterpret_cast<float4*>(part + r * BN + 32 * chunk + 16 * p + 4 * tg);
+              float4 v = make_float4(facc[mt][2 * p][2 * h], facc[mt][2 * p + 1][2 * h],
+                                     facc[mt][2 * p][2 * h + 1], facc[mt][2 * p + 1][2 * h + 1]);
+              if (q > 0) {
+                const float4 o = *dst;
+                v.x += o.x;
+                v.y += o.y;
+                v.z += o.z;
+                v.w += o.w;
+              }
+              *dst = v;
+            }
+          } else {
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            const int c = chunk * 16 + nb * 8 + 2 * tg;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = mt * 16 + g + 8 * h;
-              if (r >= N) continue;
+            for (int nb = 0; nb < 2; ++nb) {
+              const int c = chunk * 16 + nb * 8 + 2 * tg;
               float2* p = reinterpret_cast<float2*>(part + r * BN + c);
               float2 v = make_float2(acc[mt][nb][2 * h], acc[mt][nb][2 * h + 1]);
               if (q > 0) {
@@ -503,8 +600,8 @@ skinny_gemm_kernel(const AT* __restrict__ A, const WT* __restrict__ W,
           }
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
 
   // the combine: pair p of (row, 2 columns) belongs to the CTA of rank

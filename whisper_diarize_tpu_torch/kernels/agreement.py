@@ -314,15 +314,16 @@ def k2_faults(xa, ck_w, cv_w, cv_b, n_heads: int
     """(name, index of k / v it replaces, faulty tensor): the V bias dropped,
     K of the previous layer, and (B >= 2) one tile of the kernel's walk
     (`attn.cross_kv_tile`: the first rows and first two heads of stream 1's
-    K, layer 0) holding stream 0's values: a tile stored to the wrong
-    stream."""
-    from ..ops.attn import CROSS_KV_COLS, CROSS_KV_ROWS, cross_kv_build_plain
+    K, layer 0; the f32 form's tile rows for f32 xa) holding stream 0's
+    values: a tile stored to the wrong stream."""
+    from ..ops.attn import CROSS_KV_COLS, cross_kv_build_plain, cross_kv_rows
 
     k, v = cross_kv_build_plain(xa, ck_w, cv_w, torch.zeros_like(cv_b), n_heads)
     yield "K2 V bias dropped", 1, v
     yield "K2 K of the previous layer", 0, k.roll(1, dims=0)
     if xa.shape[0] >= 2:
-        heads, rows = CROSS_KV_COLS // 64, min(CROSS_KV_ROWS, xa.shape[1])
+        heads = CROSS_KV_COLS // 64
+        rows = min(cross_kv_rows(xa.dtype == torch.float32), xa.shape[1])
         bad = k.clone()
         bad[0, 1, :heads, :rows] = k[0, 0, :heads, :rows]
         yield "K2 a tile written to the wrong stream", 0, bad
@@ -517,8 +518,8 @@ def tf32_inputs(*args):
 
 def tf32x3_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in
-    f32): how the f32 forms of K1 and K10 split each operand of their
-    tensor-core products (`csrc/common.cuh::tf32_split`)."""
+    f32): how the f32 forms of K1, K2, K3 (with K6, K8) and K10 split each
+    operand of their tensor-core products (`csrc/common.cuh::tf32_split`)."""
     x = x.float()
     hi = tf32_round(x)
     return hi, tf32_round(x - hi)
@@ -532,6 +533,118 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ah, al = tf32x3_split(a)
     bh, bl = tf32x3_split(b)
     return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 x rounded to f32 toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _tc_chain(a: torch.Tensor, b: torch.Tensor, products: int, rz: bool) -> torch.Tensor:
+    """a [..., k] @ b [k, n] as one chain of tensor-core products from zero:
+    3xTF32 (`products` 3) or TF32 alone (hi hi', `products` 1). `rz`: a
+    model of the accumulator, each k8 step's products (8-term dot products,
+    taken exactly) added to it in turn and the sum rounded to f32 toward
+    zero, as the tensor cores truncate; else the sums in the CPU's f32
+    order."""
+    if not rz:
+        return tf32_round(a) @ tf32_round(b) if products == 1 else tf32x3_matmul(a, b)
+    ah, al = tf32x3_split(a)
+    bh, bl = tf32x3_split(b)
+    terms = [(ah, bh)] if products == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    acc = torch.zeros(a.shape[:-1] + b.shape[1:], dtype=torch.float64, device=a.device)
+    for s in range(0, b.shape[0], 8):
+        for x, y in terms:
+            acc = _f32_toward_zero(acc + x[..., s:s + 8].double() @ y[s:s + 8].double()).double()
+    return acc.float()
+
+
+def tf32x3_chains(a: torch.Tensor, b: torch.Tensor, chain: int, products: int = 3,
+                  rz: bool = False) -> torch.Tensor:
+    """a [..., K] @ b [K, n] in f32 as the f32 kernels' tensor cores take
+    it: every `chain` k rows one chain of products from zero (`_tc_chain`),
+    the chains' sums added in f32 in k order (on the CUDA cores)."""
+    out = None
+    for k0 in range(0, b.shape[0], chain):
+        part = _tc_chain(a[..., k0:k0 + chain], b[k0:k0 + chain], products, rz)
+        out = part if out is None else out + part
+    return out
+
+
+K2_SLOT = 32  # k rows a K2-f32 ring slot: one 128-byte swizzle row of f32
+
+
+def k2_tf32x3_model(xa, ck_w, cv_w, cv_b, n_heads: int, chain: int = K2_SLOT,
+                    products: int = 3, rz: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-f32 on the CPU in the card's order: per layer, xa @ ck_w and
+    xa @ cv_w with each ring slot's (`chain`, 32 k rows) 3xTF32 products
+    from zero, the slots' sums added in f32 in slot order, V's bias in f32,
+    then the head split [L, B, H, Ta, Dh]. `chain` D is one running
+    accumulator; `products` 1 plain TF32; `rz` the truncating accumulator
+    (`tf32x3_chains`). For the tests and `chip_smoke.py` only: the plain
+    version stays the reference."""
+    L, D, HD = ck_w.shape
+    B, Ta, _ = xa.shape
+    x = xa.float().reshape(B * Ta, D)
+
+    def heads(y):  # [B * Ta, HD] -> [B, H, Ta, Dh]
+        return y.view(B, Ta, n_heads, HD // n_heads).permute(0, 2, 1, 3)
+
+    k = torch.stack([heads(tf32x3_chains(x, ck_w[l].float(), chain, products, rz))
+                     for l in range(L)])
+    v = torch.stack([heads(tf32x3_chains(x, cv_w[l].float(), chain, products, rz)
+                           + cv_b[l].float()) for l in range(L)])
+    return k.contiguous(), v.contiguous()
+
+
+def skinny_tf32x3_model(h: torch.Tensor, w: torch.Tensor, plan, products: int = 3,
+                        rz: bool = False, running: bool = False) -> torch.Tensor:
+    """One product of the f32 skinny GEMM (`csrc/tail.cu`) on the CPU in the
+    card's order: h [..., Din] f32 @ w [Din, Dout] (f32, or int8: exact in
+    TF32, its lo zero, so its third product adds nothing: a_lo w + a_hi w)
+    on the split `plan` (`ops/tail.py::skinny_plan`). A span's rows go to
+    the 4 // (bn // 32) warps that share a 32-column chunk, each taking
+    4 // that many 16-row groups of every 64-row tile; each group's 3xTF32
+    products start from zero and add to its warp's f32 partial tile by
+    tile, the warps' partials add in warp order and the spans' in span
+    order. `running`: each warp's partial one chain of products over its
+    rows (no group from zero); `products`, `rz` as `tf32x3_chains`."""
+    hf, wf = h.float(), w.float()
+    ksplit = 4 // (plan.bn // 32)
+    kg = 4 // ksplit
+    Din = w.shape[0]
+    total = None
+    for k0 in range(0, Din, plan.span_k):
+        tiles = min(plan.span_k, Din - k0) // 64
+        span = None
+        for q in range(ksplit):
+            rows = torch.cat([torch.arange(16) + k0 + 64 * j + 16 * (kg * q + gi)
+                              for j in range(tiles) for gi in range(kg)])
+            part = tf32x3_chains(hf[..., rows], wf[rows], rows.numel() if running else 16,
+                                 products, rz)
+            span = part if span is None else span + part
+        total = span if total is None else total + span
+    return total
+
+
+def skinny_tf32x3_proj(N: int, D: int, int8: bool = False, **kw) -> Callable:
+    """`proj` for `ops/tail.py::fused_tail_layer_plain`: the tail's five
+    products as `skinny_tf32x3_model` on their f32 plans
+    (`tail_plans(N, D, int8, f32=True)`), then the column scale and the
+    bias in f32: K3-f32's (K6-f32 `wq`'s) products in the card's order."""
+    from ..ops.tail import tail_plans
+
+    plans = dict(zip(("o", "cq", "co", "fc1", "fc2"), tail_plans(N, D, int8, f32=True)))
+
+    def proj(name, h, w, b, col_scale):
+        y = skinny_tf32x3_model(h, w, plans[name], **kw)
+        if col_scale is not None:
+            y = y * col_scale.float()
+        return y + b.float()
+
+    return proj
 
 
 def _tf32x3_tiles(qs, kl, vl, t0: int, t1: int, tile: int = 64):

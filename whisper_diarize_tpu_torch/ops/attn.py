@@ -20,9 +20,10 @@ CPU. On a CUDA tensor it launches the hand-written kernel
 `csrc/split_self.cu`) or raises; it never falls back. Each kernel has a
 bf16 and an f32 form: the float operands of a call share one dtype, bf16 or
 f32 (the int8 cache and its f32 scales stay as they are), and a mixed call
-raises TypeError. K1's f32 form computes its products in 3xTF32 on the
-tensor cores (`kernels.agreement.k1_tf32x3_model` is its order on the
-CPU), held to the f32 check against `cross_attn_layer_plain`. Each wrapper
+raises TypeError. The f32 forms of K1 and K2 compute their products in
+3xTF32 on the tensor cores (`kernels.agreement.k1_tf32x3_model` and
+`k2_tf32x3_model` are their orders on the CPU), held to the f32 check
+against `cross_attn_layer_plain` and `cross_kv_build_plain`. Each wrapper
 counts its kernel launches in `<wrapper>.launches` (both forms) and those
 of its f32 form in `<wrapper>.launches_f32`.
 
@@ -427,6 +428,7 @@ def cross_kv_build_plain(
 
 
 CROSS_KV_ROWS = 192  # rows of one stream a K2 tile (three 64-row warpgroups)
+CROSS_KV_ROWS_F32 = 128  # K2-f32's tile rows (the N of its 3xTF32 wgmma)
 CROSS_KV_COLS = 128  # output columns a K2 tile (two heads), of K's or of V's half
 
 
@@ -437,20 +439,27 @@ class CrossKVTile(NamedTuple):
     n0: int  # first column of [0, 2 H Dh): K's columns, then V's
 
 
-def cross_kv_tiles(L: int, B: int, Ta: int, HD: int) -> int:
+def cross_kv_rows(f32: bool = False) -> int:
+    """Rows of one stream a K2 tile: CROSS_KV_ROWS, or CROSS_KV_ROWS_F32 for
+    the f32 form."""
+    return CROSS_KV_ROWS_F32 if f32 else CROSS_KV_ROWS
+
+
+def cross_kv_tiles(L: int, B: int, Ta: int, HD: int, f32: bool = False) -> int:
     """How many tiles K2's persistent CTAs walk (`cross_kv_tile`)."""
-    return L * B * -(-Ta // CROSS_KV_ROWS) * (2 * HD // CROSS_KV_COLS)
+    return L * B * -(-Ta // cross_kv_rows(f32)) * (2 * HD // CROSS_KV_COLS)
 
 
-def cross_kv_tile(i: int, L: int, B: int, Ta: int, HD: int) -> CrossKVTile:
-    """Tile i of K2's walk (`csrc/cross_kv.cu::tile_at`): the layer
-    outermost, then the stream and its row tile, the column innermost. A
-    tile's rows stay inside one stream; rows past Ta are the kernel's zero
-    fill and are not stored."""
-    row_tiles, col_tiles = -(-Ta // CROSS_KV_ROWS), 2 * HD // CROSS_KV_COLS
+def cross_kv_tile(i: int, L: int, B: int, Ta: int, HD: int, f32: bool = False) -> CrossKVTile:
+    """Tile i of K2's walk (`csrc/cross_kv.cu::tile_at`; `f32`: the f32
+    form's tiles): the layer outermost, then the stream and its row tile,
+    the column innermost. A tile's rows stay inside one stream; rows past Ta
+    are the kernel's zero fill and are not stored."""
+    rows = cross_kv_rows(f32)
+    row_tiles, col_tiles = -(-Ta // rows), 2 * HD // CROSS_KV_COLS
     r = i // col_tiles % (B * row_tiles)
     return CrossKVTile(i // (col_tiles * B * row_tiles), r // row_tiles,
-                       r % row_tiles * CROSS_KV_ROWS, i % col_tiles * CROSS_KV_COLS)
+                       r % row_tiles * rows, i % col_tiles * CROSS_KV_COLS)
 
 
 def cross_kv_build(

@@ -12,11 +12,10 @@ Everything after self-attention for one layer:
 
 K3 is the form over bf16 or f32 weights and cache (the TPU kernel's over
 the operand dtype: at f32 every rounding above is the identity and each
-product runs in f32 on the CUDA cores). K6 takes the TPU kernel's int8
-forms, each
-independent of the other: `wq`, int8 weights (`quantize_tail_weights`:
-o / cq / co / fc1 with one f32 scale per output column, folded into the
-product's output; fc2 with one per input row, folded into the activations as
+product runs in 3xTF32 on the tensor cores, an f32 product's accuracy).
+K6 takes the TPU kernel's int8 forms, each independent of the other: `wq`,
+int8 weights (`quantize_tail_weights`: o / cq / co / fc1 with one f32 scale
+per output column, folded into the product's output; fc2 with one per input row, folded into the activations as
 bf16(f32(h) * ws), rounded to the activation dtype); and `kvq`, the int8
 cross cache of `attn.quantize_cross_kv`, attended with K5's numerics.
 
@@ -59,6 +58,7 @@ _SCALES = tuple(f"{m}s" for m in _MATRICES)  # "o_ws", ..., "fc2_ws"
 # --------------------------------------------------------------------------
 
 SKINNY_K_TILE = 64  # weight rows a ring tile; spans are whole tiles
+SKINNY_ROW_PAD = 8  # values an activation row of a ring tile is padded by
 SKINNY_MAX_ROWS = 80  # rows a launch (five m16 tiles); more go in launches of 80
 SKINNY_CLUSTER_MAX = 8  # spans a strip, one CTA of a cluster each: the portable size
 SKINNY_CTA_TARGET = 264  # two CTAs on each of the H100's 132 SMs
@@ -79,11 +79,11 @@ class SkinnyPlan(NamedTuple):
 
 def _ring_tile(rows: int, bn: int, int8: bool, ln: bool, f32: bool = False) -> int:
     """Bytes of one ring tile: 64 weight rows padded by 16 bytes and, without
-    a layer norm, 64 columns of the activation rows padded by 16 bytes (bf16,
+    a layer norm, 64 columns of the activation rows padded by 8 values (bf16,
     or f32 with `f32`; f32 weights too unless int8)."""
     es = 4 if f32 else 2
     tile = SKINNY_K_TILE * ((bn if int8 else es * bn) + 16)
-    return tile + (0 if ln else rows * (SKINNY_K_TILE * es + 16))
+    return tile + (0 if ln else rows * (SKINNY_K_TILE + SKINNY_ROW_PAD) * es)
 
 
 def skinny_smem(rows: int, plan: SkinnyPlan, int8: bool, ln: bool = False,

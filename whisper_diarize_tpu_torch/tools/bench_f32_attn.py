@@ -1,21 +1,28 @@
-"""The f32 forms of the attention kernels timed at large-v3 widths on the
-card: K1-f32 (cross attention of one layer) at B 8 with Q 1, 3, 15, 64 and
-227 and at B 1 with Q 3, K3-f32 (the decoder tail, which runs K1-f32 inside)
-at N 8 and 40, each call on the next layer, and K10-f32 (encoder
-self-attention) in both forms at [8, 20, 1500, 64]; K1-f32 and K10-f32
-beside `F.scaled_dot_product_attention` in f32 on the same inputs. TF32 is
-off, so the library call and the plain products run in f32.
+"""The f32 forms of the attention kernels and of the GEMMs timed at
+large-v3 widths on the card: K2-f32 (the cross K/V build, a GEMM of
+every layer) at B 8 and L 32 and 4, beside `torch.addmm` in f32; K1-f32
+(cross attention of one layer) at B 8 with Q 1, 3, 15, 64 and 227 and at B
+1 with Q 3; K3-f32 (the decoder tail: five skinny GEMMs and K1-f32) at N 8
+and 40, K6-f32 `kvq` and `wq+kvq` at N 40 and K8-f32 (the greedy front: a
+skinny GEMM and its self-attention) at N 8 and 40, each call on the next
+layer; and K10-f32 (encoder self-attention) in both forms at
+[8, 20, 1500, 64]; K1-f32 and K10-f32 beside
+`F.scaled_dot_product_attention` in f32 on the same inputs. TF32 is off,
+so the library calls and the plain products run in f32.
 
     python -m whisper_diarize_tpu_torch.tools.bench_f32_attn
 
 It prints the card's name and power limit, one line a row and last one
 JSON object: the package it timed and, by row, the CUDA-event ms of
 back-to-back calls and the profiled device ms (`timing.time_ms`,
-`timing.device_ms`; "library" rows for SDPA). The tool imports the package
-by its absolute name and reads only entry points every version of the port
-since the f32 forms has (the wrappers, `agreement.randn` / `random_blocks`,
-`timing`), so the same file times an older checkout's kernels beside this
-one's in one run on one card:
+`timing.device_ms`; "library" rows for the library call); for the rows
+that run the skinny GEMM (K3, K6, K8) also its share of the device ms,
+`skinny_device_ms` (`timing.device_ms_by_kernel`). The tool imports the
+package by its absolute name and reads only entry points every version of
+the port since the f32 forms has (the wrappers, `attn.quantize_cross_kv`,
+`tail.quantize_tail_weights`, `agreement.randn` / `random_blocks` /
+`random_front`, `timing`), so the same file times an older checkout's
+kernels beside this one's in one run on one card:
 
     PYTHONPATH=<older checkout> python whisper_diarize_tpu_torch/tools/bench_f32_attn.py
 
@@ -35,24 +42,33 @@ import torch.nn.functional as F
 
 import whisper_diarize_tpu_torch
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, encoder_attn, tail
+from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, tail
 from whisper_diarize_tpu_torch.tools import timing
 
 Case = Tuple[str, Callable[[], torch.Tensor], Optional[Callable[[], torch.Tensor]]]
 
 
 def cases(dev: torch.device, L: int = 32, B: int = 8, H: int = 20, Ta: int = 1500,
-          queries: Sequence[int] = (1, 3, 15, 64, 227), seed: int = 3) -> List[Case]:
+          queries: Sequence[int] = (1, 3, 15, 64, 227), seed: int = 3,
+          k2_layers: Sequence[int] = (32, 4), Tc: int = 48) -> List[Case]:
     """(row name, the kernel's call, the library call or None) of every row,
     on inputs drawn from `seed`: a random f32 decoder stack of L layers at
-    D = 64 H and its cross cache of B streams (K2-f32), queries at scale 2."""
+    D = 64 H and its cross cache of B streams (K2-f32 over the first
+    `k2_layers` layers), queries at scale 2; K8's cache of Tc slots at
+    position 19."""
     f32, D = torch.float32, 64 * H
     g = torch.Generator(device=dev).manual_seed(seed)
     blocks = ag.random_blocks(L, D, g, dev, dtype=f32)
     xa = ag.randn(g, dev, B, Ta, D, dtype=f32)
+    out = []
+    for Lk in k2_layers:
+        a = (xa, blocks["ck_w"][:Lk], blocks["cv_w"][:Lk], blocks["cv_b"][:Lk], H)
+        wkv = torch.cat([a[1], a[2]], dim=2).permute(1, 0, 2).reshape(D, Lk * 2 * D).contiguous()
+        bias = torch.cat([torch.zeros_like(a[3]), a[3]], dim=1).reshape(-1)
+        out.append((f"K2-f32 L={Lk}", lambda a=a: attn.cross_kv_build(*a),
+                    lambda bias=bias, wkv=wkv: torch.addmm(bias, xa.view(-1, D), wkv)))
     k, v = attn.cross_kv_build(xa, blocks["ck_w"], blocks["cv_w"], blocks["cv_b"], H)
-    del xa
-    lay, out = L - 1, []
+    lay = L - 1
     for b, Q in [(B, Q) for Q in queries] + [(1, 3)]:
         kb, vb = (k, v) if b == B else (k[:, :1].contiguous(), v[:, :1].contiguous())
         q = ag.randn(g, dev, b, Q, H, 64, scale=2.0, dtype=f32)
@@ -60,14 +76,31 @@ def cases(dev: torch.device, L: int = 32, B: int = 8, H: int = 20, Ta: int = 150
         out.append((f"K1-f32 B={b} Q={Q}",
                     lambda q=q, kb=kb, vb=vb: attn.cross_attn_layer(lay, q, kb, vb, Ta),
                     lambda qt=qt, kl=kl, vl=vl: F.scaled_dot_product_attention(qt, kl, vl)))
+    k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+    q8w = tail.quantize_tail_weights(blocks)
     for beams in (1, 5):
         N = B * beams
         x = ag.randn(g, dev, N, 1, D, dtype=f32)
         so = ag.randn(g, dev, N, H, 1, 64, scale=0.3, dtype=f32)
+        forms = [("K3-f32", blocks, (k, v, None, None))]
+        if beams == 5:
+            forms += [("K6-f32 kvq", blocks, (k8, v8, ks, vs)),
+                      ("K6-f32 wq+kvq", q8w, (k8, v8, ks, vs))]
+        for name, w, c in forms:
+            it = itertools.count()
+            out.append((f"{name} N={N}",
+                        lambda x=x, so=so, w=w, c=c, beams=beams, it=it: tail.fused_tail_layer(
+                            next(it) % L, x, so, w, c[0], c[1], beams, Ta, c[2], c[3]), None))
+    del k8, ks, v8, vs, q8w
+    fw = ag.random_front(L, D, g, dev, dtype=f32)
+    for N in (B, 5 * B):
+        x = ag.randn(g, dev, N, 1, D, dtype=f32)
+        kc, vc = (ag.randn(g, dev, L, N, H, Tc, 64, dtype=f32) for _ in range(2))
+        pads = torch.zeros((N,), dtype=torch.long, device=dev)
         it = itertools.count()
-        out.append((f"K3-f32 N={N}",
-                    lambda x=x, so=so, beams=beams, it=it: tail.fused_tail_layer(
-                        next(it) % L, x, so, blocks, k, v, beams, Ta), None))
+        out.append((f"K8-f32 N={N}",
+                    lambda x=x, kc=kc, vc=vc, pads=pads, it=it: front.fused_front_layer(
+                        next(it) % L, 19, pads, x, fw, kc, vc)[0], None))
     qe, ke, ve = (ag.randn(g, dev, B, H, Ta, 64, dtype=f32) for _ in range(3))
     for single_pass in (True, False):
         out.append((f"K10-f32 {'single pass' if single_pass else 'two pass'}",
@@ -88,6 +121,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     res = {"package": whisper_diarize_tpu_torch.__file__, "rows": {}}
     for name, fn, library in cases(dev):
         row = {"ms": timing.time_ms(fn), "device_ms": timing.device_ms(fn)}
+        if name.startswith(("K3", "K6", "K8")):  # the skinny GEMM's share
+            row["skinny_device_ms"] = sum(ms for kernel, ms in timing.device_ms_by_kernel(
+                fn).items() if "skinny" in kernel)
         if library is not None:
             row.update(library_ms=timing.time_ms(library),
                        library_device_ms=timing.device_ms(library))
