@@ -184,6 +184,7 @@ checkout.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import math
@@ -498,10 +499,18 @@ def phase_k4() -> dict:
     `agreement.k4_faults` must fail the check at B 8, the 19-slot prompt and
     mid step. Times (`timed`) at the main path's shape (B 8, prompt 3,
     Td 64) at steps 0, 31 and 63, each call on the next layer so the caches
-    come from device memory as in a decode step, not from L2."""
+    come from device memory as in a decode step, not from L2. First the
+    kernel's staging plan (`wdt_split_self_plan`) must equal its mirror
+    `attn.split_self_plan` at every prompt and step run here, both dtypes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     L, H, K, lay = 32, 20, 5, 17
+    lib, plan = kernels.library(), (ctypes.c_int * 4)()
+    for f32, P, step in itertools.product((0, 1), (3, 19), range(224)):
+        mirror = attn.split_self_plan(K, P, P, step, bool(f32))
+        if lib.wdt_split_self_plan(K, P, step, f32, plan) != 0 or tuple(plan) != mirror:
+            raise AssertionError(f"K4 plan at prompt {P}, step {step}, f32 {f32}: C "
+                                 f"{tuple(plan)}, mirror {mirror}")
     err, res = 0.0, {}
     for B in (8, 1):
         for Tp in (3, 19):

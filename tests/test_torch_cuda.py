@@ -6,7 +6,9 @@ torch sees no CUDA device). Run on a machine with an H100:
 Each kernel against its plain version in bf16 on the same device, at small
 shapes with Dh = 64, a ragged audio length (K1-K3, K5, K6 in its three int8
 forms) and ragged prompt and decode lengths with row pads and a random
-ancestry (K4), the fused greedy path's kernels (K7 log-mel, K8 decoder
+ancestry (K4, at K 1 - 8, through its ring at long steps, bit for bit
+across two calls, NaN for a beam with a bad ancestor only, its plan equal
+to `attn.split_self_plan`), the fused greedy path's kernels (K7 log-mel, K8 decoder
 front, K10 encoder attention in both forms), the diagnostic kernels (K9a /
 K9c / K9d, K1's forms; the stream sums K9b and K11a / K11b, held to their
 float64 value by `agreement.compare_sum`), with the tolerance of
@@ -184,26 +186,78 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         attn.cross_attn_layer_q8(0, q1, k8, s8[..., :3], k8, s8[..., :3])
 
 
-@pytest.mark.parametrize("B,K,Tp,Td", [(2, 3, 11, 32), (1, 5, 3, 64), (3, 5, 19, 224)])
+@pytest.mark.parametrize("B,K,Tp,Td", [(2, 3, 11, 32), (1, 5, 3, 64), (3, 5, 19, 224),
+                                     (2, 1, 11, 32), (2, 8, 11, 32), (1, 1, 19, 224),
+                                     (2, 8, 19, 224)])
 def test_k4_matches_plain_on_card(dev, B, K, Tp, Td):
-    g = torch.Generator(device=dev).manual_seed(B * 100 + Td)
+    """At Td 224 the middle and last steps run K4's ring
+    (`attn.split_self_plan`), at K 1 and 8 too."""
+    g = torch.Generator(device=dev).manual_seed(B * 100 + Td + K)
     L, H = 2, 3
     q = ag.randn(g, dev, B, K, H, 64, scale=2.0)
     pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64) for _ in range(2))
     dk, dv = (ag.randn(g, dev, L, B * K, H, Td, 64) for _ in range(2))
     anc_j = torch.randint(0, K, (B, K, Td), generator=g, device=dev)  # int64: converted
     row_pad = torch.randint(0, Tp - 2, (B,), generator=g, device=dev)
-    for step in (0, Td // 2, Td - 1):
+    for step in sorted({0, Td // 2 - 1, Td // 2, Td - 1}):
         for layer in range(L):
             a = (layer, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp - 1)
             before = attn.split_self_attn_layer.launches
             got = attn.split_self_attn_layer(*a)
             assert attn.split_self_attn_layer.launches == before + 1
             ag.compare(f"K4 B={B} K={K} step={step}", got, attn.split_self_attn_layer_plain(*a))
-            if step and Tp > 3:
+            if step and Tp > 3 and K > 1:  # the faults are the truth at K 1
                 for name, bad in ag.k4_faults(*a):
                     ag.reject(name, got, bad)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Td,step", [(64, 31), (224, 111), (224, 223)])
+def test_k4_same_bits_and_bad_ancestor_on_card(dev, dtype, Td, step):
+    """Two calls give the same bits (one load phase at step 31, the ring at
+    Td 224); an ancestor set to K in one beam makes that beam's output NaN,
+    and the other beams still match the plain version."""
+    g = torch.Generator(device=dev).manual_seed(Td + step)
+    L, B, K, H, Tp = 2, 3, 5, 4, 19
+    q = ag.randn(g, dev, B, K, H, 64, scale=2.0, dtype=dtype)
+    pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64, dtype=dtype) for _ in range(2))
+    dk, dv = (ag.randn(g, dev, L, B * K, H, Td, 64, dtype=dtype) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, device=dev, dtype=torch.int32)
+    row_pad = torch.tensor([2, 0, 16], dtype=torch.int32, device=dev)
+    a = (1, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp)
+    got = attn.split_self_attn_layer(*a)
+    assert torch.equal(got, attn.split_self_attn_layer(*a))
+    bad = anc_j.clone()
+    bad[1, 2, step // 2] = K
+    nan = attn.split_self_attn_layer(1, q, pk, pv, dk, dv, bad, step, row_pad, Tp)
+    assert bool(nan[1, 2].isnan().all())
+    keep = torch.ones(B, K, dtype=torch.bool, device=dev)
+    keep[1, 2] = False
+    assert not bool(nan[keep].isnan().any())
+    tol = ag.F32 if dtype == torch.float32 else ag.BF16
+    ag.compare(f"K4 {dtype} bad ancestor, other beams", nan[keep],
+               attn.split_self_attn_layer_plain(*a)[keep], tol=tol)
+    torch.cuda.synchronize()
+
+
+def test_k4_plan_matches_its_mirror_on_card(dev):
+    """`csrc/split_self.cu::make_plan` (the C entry `wdt_split_self_plan`)
+    gives the plan `attn.split_self_plan` mirrors, over K 1 - 8, prompts
+    of 1, 3, 19 and 227 slots and every step of 224, both dtypes."""
+    import ctypes
+
+    from whisper_diarize_tpu_torch import kernels
+
+    lib = kernels.library()
+    out = (ctypes.c_int * 4)()
+    for f32 in (False, True):
+        for K in range(1, 9):
+            for P in (1, 3, 19, 227):
+                for step in range(224):
+                    assert lib.wdt_split_self_plan(K, P, step, int(f32), out) == 0
+                    assert tuple(out) == attn.split_self_plan(K, P, P, step, f32), (K, P, step)
+    assert lib.wdt_split_self_plan(200, 227, 223, 0, out) != 0
 
 
 def test_top_k_tie_order_on_card(dev):
@@ -644,10 +698,13 @@ def test_f32_forms_k1_k2_k3_on_card(dev, B, Ta, Q):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("step", [0, 31, 63])
-def test_f32_form_k4_on_card(dev, step):
-    g = torch.Generator(device=dev).manual_seed(step + 7)
-    L, B, K, H, Tp, Td = 2, 3, 5, 4, 19, 64
+@pytest.mark.parametrize("K,Td,step", [(5, 64, 0), (5, 64, 31), (5, 64, 63), (1, 64, 31),
+                                      (8, 64, 63), (5, 224, 0), (5, 224, 111), (5, 224, 223),
+                                      (1, 224, 223), (8, 224, 111)])
+def test_f32_form_k4_on_card(dev, K, Td, step):
+    """K 1 - 8; past step 40 (K 5) the f32 rows run through K4's ring."""
+    g = torch.Generator(device=dev).manual_seed(step + 7 + K * Td)
+    L, B, H, Tp = 2, 3, 4, 19
     f32 = torch.float32
     q = ag.randn(g, dev, B, K, H, 64, scale=2.0, dtype=f32)
     pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64, dtype=f32) for _ in range(2))
@@ -657,7 +714,7 @@ def test_f32_form_k4_on_card(dev, step):
     a = (1, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp)
     got = attn.split_self_attn_layer(*a)
     ag.compare("K4 f32", got, attn.split_self_attn_layer_plain(*a), tol=ag.F32)
-    _refuse(got, itertools.chain(ag.k4_f32_faults(*a), ag.k4_faults(*a) if step else ()))
+    _refuse(got, itertools.chain(ag.k4_f32_faults(*a), ag.k4_faults(*a) if step and K > 1 else ()))
 
 
 @pytest.mark.parametrize("form", ["wq", "kvq", "wq+kvq"])

@@ -1,8 +1,10 @@
 """The split of K3's skinny GEMM (`ops/tail.py::skinny_plan`, also K6's
-and K8's product) and K2's tile walk (`ops/attn.py::cross_kv_tile`), on the
-CPU: both are pure functions of the shape that the wrappers pass to (or
-mirror in) the CUDA kernels, so their cover of the work is checked here,
-with no card. Also: the wrappers pass the split through unchanged (a fake
+and K8's product), K2's tile walk (`ops/attn.py::cross_kv_tile`) and K4's
+staging plan (`ops/attn.py::split_self_plan`), on the CPU: each is a pure
+function of the shape that the wrappers pass to (or mirror in) the CUDA
+kernels, so their cover of the work is checked here, with no card; K4's
+walk through its plan is also run in plain PyTorch against its plain
+version. Also: the wrappers pass the split through unchanged (a fake
 library records the C call's arguments), and the planted faults of the
 split (`kernels.agreement.tail_split_faults`) are refused by the card's
 check while the split itself, summed span by span, is not."""
@@ -261,3 +263,191 @@ def test_split_faults_refused_and_split_sum_taken(int8):
     assert len(faults) == 3
     for name, bad in faults:
         assert not ag.agreement(ref, bad, base=x).ok, name
+
+
+# --------------------------------------------------------------------------
+# K4's staging plan (`ops/attn.py::split_self_plan`, the mirror of
+# `csrc/split_self.cu::make_plan`) and the kernel's walk through it
+# --------------------------------------------------------------------------
+
+def _k4_chunks(plan, K, prompt_len, step):
+    return [attn.split_self_chunk(c, plan.cap, K, prompt_len, step) for c in range(plan.chunks)]
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Td", [64, 224])
+@pytest.mark.parametrize("Tp", [3, 19, 227])
+@pytest.mark.parametrize("B", [1, 8])
+def test_split_self_plan_covers_every_slot_once_and_fits(B, Tp, Td, f32):
+    """Every plan at K 1 - 8 and every step of a Td-slot decode half: it
+    fits 113 KB, so the B x 20 CTAs of large-v3 run two an SM in one wave;
+    its chunks cover the prompt's rows and the decode slots once each, in
+    order, each within a stage; every bulk copy (the prompt's span, each
+    physical row's span) is a multiple of 16 bytes and lands 16-byte
+    aligned; one chunk is one load phase (K's stage and V's)."""
+    rb = 256 if f32 else 128
+    for K in range(1, 9):
+        for step in range(Td):
+            plan = attn.split_self_plan(K, Tp, Tp, step, f32)
+            key = (K, step, plan)
+            assert plan.smem <= attn.SPLIT_SELF_SMEM_TWO, key
+            assert B * 20 <= 132 * (tail.SM_SHARED // (plan.smem + 1024)), key
+            assert plan.stages == attn.SPLIT_SELF_STAGES == 2 and plan.cap >= K, key
+            assert (plan.chunks == 1) == (plan.cap == Tp + K * (step + 1)), key
+            prompt, decode = [], []
+            for ch in _k4_chunks(plan, K, Tp, step):
+                assert ch.np + ch.nd > 0 and ch.np + K * ch.nd <= plan.cap, (key, ch)
+                prompt.extend(range(ch.p0, ch.p0 + ch.np))
+                decode.extend(range(ch.d0, ch.d0 + ch.nd))
+                starts = ([0] * (ch.np > 0)
+                          + [(ch.np + j * ch.nd) * rb for j in range(K)] * (ch.nd > 0))
+                sizes = [ch.np * rb] * (ch.np > 0) + [ch.nd * rb] * K * (ch.nd > 0)
+                assert all(n % 16 == 0 and n > 0 for n in sizes), (key, ch)
+                assert all((128 + s * plan.cap * rb + o) % 16 == 0
+                           for s in range(plan.stages) for o in starts), (key, ch)
+            assert prompt == list(range(Tp)), key
+            assert decode == list(range(step + 1)), key
+
+
+def _k4_beam_by_beam_smem(K: int, t_all: int, f32: bool) -> int:
+    """Dynamic shared memory of the beam-by-beam K4 this design replaced
+    (q, scores and row offsets [K][t_all], a P.V reduction of 16 or 32 rows
+    of 64 floats): it launched wherever this fit 227 KB."""
+    a4 = lambda n: (n + 3) & ~3  # noqa: E731
+    return 4 * (a4(K * 64) + 2 * a4(K * t_all) + (16 if f32 else 32) * 64 + a4(K))
+
+
+def test_split_self_plan_shrinks_the_chunk_never_k():
+    """Past 113 KB the plan takes one CTA an SM (227 KB); it plans every K
+    the beam-by-beam kernel before it launched; where even a stage of one
+    decode slot of all K rows does not fit it raises, and so does a shape
+    the kernel does not take."""
+    big = attn.split_self_plan(40, 227, 227, 223)
+    assert attn.SPLIT_SELF_SMEM_TWO < big.smem <= attn.SPLIT_SELF_SMEM_ONE and big.cap >= 40
+    for f32 in (False, True):
+        for Tp in (3, 19, 227):
+            for step in (0, 63, 223):
+                for K in range(1, 80):
+                    if _k4_beam_by_beam_smem(K, Tp + step + 1, f32) <= attn.SPLIT_SELF_SMEM_ONE:
+                        plan = attn.split_self_plan(K, Tp, Tp, step, f32)
+                        assert plan.cap >= K and plan.smem <= attn.SPLIT_SELF_SMEM_ONE
+    with pytest.raises(ValueError, match="do not fit"):
+        attn.split_self_plan(200, 227, 227, 223)
+    for bad in ((0, 3, 3, 0), (5, 3, 4, 0), (5, 3, 0, 0), (5, 3, 3, -1)):
+        with pytest.raises(ValueError):
+            attn.split_self_plan(*bad)
+
+
+def _k4_staged(layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len):
+    """K4's walk in plain PyTorch (f32): per (stream, head) each chunk of the
+    plan staged as the bulk copies land it (its prompt rows, then K spans of
+    its decode slots, one for each physical row); scores read through the
+    staged rows, each (beam, slot) written once; the softmax over the joint
+    row of staged slots (its max over the scores that are not NaN, as
+    fmaxf); P.V over each chunk's slots in lane groups (4 of a beam's warp,
+    2 at f32), group g the slots s = g mod the groups, the groups added at
+    the chunk's end, the chunks summed in order."""
+    B, K, H, _ = q.shape
+    Tp = pk.shape[3]
+    f32 = q.dtype == torch.float32
+    plan = attn.split_self_plan(K, Tp, prompt_len, step, f32)
+    chunks = _k4_chunks(plan, K, prompt_len, step)
+    P, S = prompt_len, step + 1
+    qs = (q.float() * 0.125).to(q.dtype).float()
+    out = torch.empty(B, K, H, 64)
+    for b in range(B):
+        rp = int(row_pad[b])
+        for h in range(H):
+            def stage(ch, pc, dc):
+                return torch.cat([pc[layer, b, h, ch.p0:ch.p0 + ch.np]] + [
+                    dc[layer, b * K + j, h, ch.d0:ch.d0 + ch.nd] for j in range(K)]).float()
+
+            def rows_of(ch):  # (beam, staged row or code, joint slot) of the chunk's pairs
+                for k in range(K):
+                    for s in range(ch.np + ch.nd):
+                        if s < ch.np:
+                            t = ch.p0 + s
+                            yield k, (s if t >= rp else -1), t
+                        else:
+                            d = ch.d0 + s - ch.np
+                            a = int(anc_j[b, k, d])
+                            yield k, (ch.np + a * ch.nd + s - ch.np if 0 <= a < K else -2), P + d
+
+            sc = torch.zeros(K, P + S)
+            seen = torch.zeros(K, P + S, dtype=torch.int32)
+            for ch in chunks:
+                rows = stage(ch, pk, dk)
+                for k, row, slot in rows_of(ch):
+                    seen[k, slot] += 1
+                    sc[k, slot] = (rows[row] @ qs[b, k, h] if row >= 0
+                                   else float("-inf") if row == -1 else float("nan"))
+            assert bool((seen == 1).all())
+            m = torch.where(sc.isnan(), float("-inf"), sc).amax(dim=1, keepdim=True)
+            p = torch.exp(sc - m)
+            lsum = p.sum(dim=1)
+            p = p.to(q.dtype).float()
+            total = torch.zeros(K, 64)
+            groups = 2 if f32 else 4
+            for ch in chunks:
+                rows = stage(ch, pv, dv)
+                part = torch.zeros(K, groups, 64)
+                for i, (k, row, slot) in enumerate(rows_of(ch)):
+                    s = i - k * (ch.np + ch.nd)
+                    if row >= 0:
+                        part[k, s % groups] += p[k, slot] * rows[row]
+                total += part.sum(dim=1)
+            out[b, :, h] = total / lsum[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K,Tp,Td,step", [(5, 3, 64, 31), (5, 19, 224, 111), (8, 19, 224, 223),
+                                          (1, 227, 224, 223), (3, 227, 64, 0)])
+def test_k4_staged_walk_matches_plain(dtype, K, Tp, Td, step):
+    """The kernel's walk through its plan (`_k4_staged`: one load phase, or
+    the ring where the rows do not fit 113 KB) equals the plain version
+    within the card's check, row pads and a random ancestry included; an
+    ancestor outside [0, K) makes that beam's output NaN and no other."""
+    g = torch.Generator().manual_seed(K * 1000 + step)
+    L, B, H = 2, 2, 2
+    q = ag.randn(g, "cpu", B, K, H, 64, scale=2.0, dtype=dtype)
+    pk, pv = (ag.randn(g, "cpu", L, B, H, Tp, 64, dtype=dtype) for _ in range(2))
+    dk, dv = (ag.randn(g, "cpu", L, B * K, H, Td, 64, dtype=dtype) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, dtype=torch.int32)
+    row_pad = torch.tensor([0, min(16, Tp - 2)], dtype=torch.int32)
+    a = (1, q, pk, pv, dk, dv, anc_j, step, row_pad, Tp - 1)
+    ref = attn.split_self_attn_layer_plain(*a)
+    tol = ag.F32 if dtype == torch.float32 else ag.BF16
+    assert ag.agreement(_k4_staged(*a), ref, tol=tol).ok
+    bad = anc_j.clone()
+    bad[1, K - 1, step // 2] = K
+    got = _k4_staged(1, q, pk, pv, dk, dv, bad, step, row_pad, Tp - 1)
+    assert bool(got[1, K - 1].isnan().all()) and not bool(got[:1].isnan().any())
+    assert bool((got[1, :K - 1] == _k4_staged(*a)[1, :K - 1]).all())
+
+
+def test_split_self_wrapper_checks_its_plan(fake_card, monkeypatch):
+    """The wrapper asks `split_self_plan` before the C call: a shape with
+    no plan raises ValueError and launches nothing; a shape with one is
+    passed to the C entry point unchanged (the C side plans it again)."""
+    monkeypatch.setattr(attn, "_require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(attn, "_int32_on", lambda name, device, t: t)
+    meta = torch.device("meta")
+
+    def call(K, Tp, Td, step):
+        L, B, H = 2, 8, 20
+        q = torch.empty((B, K, H, 64), dtype=torch.bfloat16, device=meta)
+        pk = torch.empty((L, B, H, Tp, 64), dtype=torch.bfloat16, device=meta)
+        dk = torch.empty((L, B * K, H, Td, 64), dtype=torch.bfloat16, device=meta)
+        anc = torch.empty((B, K, Td), dtype=torch.int32, device=meta)
+        rp = torch.empty((B,), dtype=torch.int32, device=meta)
+        return attn.split_self_attn_layer(1, q, pk, pk, dk, dk, anc, step, rp, Tp)
+
+    before = attn.split_self_attn_layer.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        call(200, 227, 224, 223)
+    assert fake_card.calls == [] and attn.split_self_attn_layer.launches == before
+    call(5, 3, 64, 31)
+    (name, args), = fake_card.calls
+    assert name == "wdt_split_self_attn" and len(args) == len(kernels._SIGNATURES[name])
+    assert args[8:-1] == (8, 5, 20, 3, 64, 1, 31, 3)

@@ -247,7 +247,7 @@ def test_truncating_accumulator_model():
 
 def test_bench_f32_attn_builds_its_rows_on_the_cpu():
     """`tools/bench_f32_attn.py` (the card's timing of K2-f32, K1-f32,
-    K3-f32, K6-f32, K8-f32 and K10-f32, also over an older checkout's
+    K3-f32, K6-f32, K8-f32, K10-f32, K4 and K4-f32, also over an older checkout's
     package): its rows at a small size on the CPU, where the wrappers run
     their plain versions; without a card `main` refuses to time."""
     from whisper_diarize_tpu_torch.tools import bench_f32_attn
@@ -258,7 +258,9 @@ def test_bench_f32_attn_builds_its_rows_on_the_cpu():
     assert names == ["K2-f32 L=2", "K2-f32 L=1", "K1-f32 B=2 Q=3", "K1-f32 B=2 Q=20",
                      "K1-f32 B=1 Q=3", "K3-f32 N=2", "K3-f32 N=10", "K6-f32 kvq N=10",
                      "K6-f32 wq+kvq N=10", "K8-f32 N=2", "K8-f32 N=10", "K10-f32 single pass",
-                     "K10-f32 two pass"]
+                     "K10-f32 two pass"] + [f"{tag} Td={Td} step={step}" for tag in ("K4", "K4-f32")
+                                            for Td, step in ((64, 0), (64, 31), (64, 63),
+                                                             (224, 223))]
     for name, fn, library in rows:
         out = fn()
         if name.startswith("K2"):  # (k, v) [L, B, H, Ta, 64]; the library: [B Ta, L 2 H 64]
@@ -268,6 +270,10 @@ def test_bench_f32_attn_builds_its_rows_on_the_cpu():
             assert lib.shape == (2 * 130, L * 2 * 128), name
             k_lib = lib.view(2, 130, L, 2, 2, 64)[:, :, :, 0].permute(2, 0, 3, 1, 4)
             assert torch.allclose(k_lib, out[0], atol=1e-4), name
+            continue
+        if name.startswith("K4 "):  # the bf16 form: [B, K, H, 64]
+            assert out.dtype == torch.bfloat16 and out.shape == (2, 5, 2, 64), name
+            assert bool(torch.isfinite(out.float()).all()), name
             continue
         assert out.dtype == F32 and bool(torch.isfinite(out).all()), name
         if library is not None:

@@ -12,7 +12,9 @@ K1 and K5 split a layer's keys across the CTAs of a thread-block cluster;
 `cross_attn_plan` picks the split from the shape and the wrappers (and the
 fused tail, `ops/tail.py`) pass it to the kernel. `cross_attn_split_plain`
 is the kernels' order of rounding in plain PyTorch, the tests' model of the
-split.
+split. K4 lands the rows a CTA needs by bulk copies in stages that
+`split_self_plan` mirrors (`csrc/split_self.cu::make_plan`; one load phase,
+or slot chunks through a ring where they do not fit).
 
 Dispatch: a wrapper runs the plain version only when its tensors lie on the
 CPU. On a CUDA tensor it launches the hand-written kernel
@@ -33,6 +35,7 @@ inputs (`_acc`): the f32 check's reference on the CPU.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -543,6 +546,82 @@ def split_self_attn_layer_plain(
     return (o / denom).to(q.dtype).contiguous()
 
 
+# K4's staging plan (csrc/split_self.cu::make_plan, mirrored): the rows a
+# CTA needs land by bulk copies in stages of `cap` rows; everything in two
+# stages (K, then V) where it fits, else slot chunks through a ring
+SPLIT_SELF_STAGES = 2  # K's stage and V's, or the ring's two
+SPLIT_SELF_SMEM_TWO = 233472 // 2 - 1024  # two CTAs an SM (113 KB each)
+SPLIT_SELF_SMEM_ONE = 232448  # one CTA an SM (227 KB)
+_SPLIT_SELF_BARS = 128  # the stages' mbarriers, padded
+
+
+class SplitSelfPlan(NamedTuple):
+    cap: int  # rows (64 values each) a stage holds
+    stages: int  # SPLIT_SELF_STAGES; `chunks` 1: one load phase
+    smem: int  # a CTA's dynamic shared memory, bytes
+    chunks: int  # slot chunks, each staged for K and then for V
+
+
+class SplitSelfChunk(NamedTuple):
+    p0: int  # prompt rows [p0, p0 + np)
+    np: int
+    d0: int  # decode slots [d0, d0 + nd) of each of the K physical rows
+    nd: int
+
+
+def _a16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def split_self_chunk(c: int, cap: int, K: int, prompt_len: int, step: int) -> SplitSelfChunk:
+    """Chunk `c` of K4's plan: chunks of `cap` prompt rows first, then the
+    prompt's rest with as many decode slots (K rows each) as fit, then
+    cap // K decode slots a chunk. Staged as its prompt rows, then K spans
+    of nd rows."""
+    P, S = prompt_len, step + 1
+    full = P // cap
+    if c < full:
+        return SplitSelfChunk(c * cap, cap, 0, 0)
+    pr = P - full * cap
+    dm = min(S, (cap - pr) // K)
+    if c == full:
+        return SplitSelfChunk(full * cap, pr, 0, dm)
+    d0 = dm + (c - full - 1) * (cap // K)
+    return SplitSelfChunk(0, 0, d0, min(cap // K, S - d0))
+
+
+@lru_cache(maxsize=None)  # a pure function, asked at every launch
+def split_self_plan(K: int, Tp: int, prompt_len: int, step: int,
+                    f32: bool = False) -> SplitSelfPlan:
+    """The staging plan K4 launches with for K beams, a prompt of
+    `prompt_len` live slots (of Tp) and decode slots [0, step]: one load
+    phase (two stages, K's and V's, 1 chunk) where the prompt_len + K (step +
+    1) rows (128 bytes, 256 at `f32`) twice and the fixed shared memory (q,
+    the scores, the staged-row codes, the P.V sums) fit 113 KB, two CTAs an
+    SM; else the largest two stages that do, a ring of slot chunks, if a
+    stage holds one decode slot of all K rows; then the same at 227 KB.
+    Raises ValueError where nothing fits (the kernel refuses that launch)."""
+    if not (K >= 1 and 0 < prompt_len <= Tp and step >= 0):
+        raise ValueError(f"split_self_plan: K {K}, Tp {Tp}, prompt_len {prompt_len}, "
+                         f"step {step}")
+    rb = 128 if not f32 else 256
+    P, S = prompt_len, step + 1
+    # q in f32, the scores, the staged-row codes (int16), the P.V sums
+    # carried across chunks, the normalizers
+    fixed = (_SPLIT_SELF_BARS + 4 * K * 64 + _a16(4 * K * (P + S)) + _a16(2 * K * (P + S))
+             + 4 * K * 64 + _a16(4 * K))
+    for budget in (SPLIT_SELF_SMEM_TWO, SPLIT_SELF_SMEM_ONE):
+        cap = min((budget - fixed) // (SPLIT_SELF_STAGES * rb), P + K * S)
+        if cap >= K:
+            full = P // cap
+            dm = min(S, (cap - (P - full * cap)) // K)
+            chunks = full + 1 + -(-(S - dm) // (cap // K))
+            return SplitSelfPlan(cap, SPLIT_SELF_STAGES, fixed + SPLIT_SELF_STAGES * cap * rb,
+                                 chunks)
+    raise ValueError(f"split_self_plan: K {K}, prompt_len {prompt_len}, step {step} "
+                     f"do not fit a CTA's shared memory")
+
+
 def _int32_on(name: str, device: torch.device, t: torch.Tensor) -> torch.Tensor:
     """An index tensor as the kernel's C interface takes it: int32,
     contiguous, on `device` (the port keeps indices int64: converted)."""
@@ -580,6 +659,7 @@ def split_self_attn_layer(
             and K * H * Td * Dh < 2 ** 31):
         raise ValueError(f"{name}: layer {layer}, step {step}, prompt_len "
                          f"{prompt_len}, K * H * Td * Dh {K * H * Td * Dh}")
+    split_self_plan(K, Tp, prompt_len, step, dt == torch.float32)  # raises where none fits
     out = torch.empty_like(q)
     lib = kernels.library()
     entry = lib.wdt_split_self_attn_f32 if dt == torch.float32 else lib.wdt_split_self_attn
