@@ -34,7 +34,9 @@ traceback) and no result line is printed:
    windows that lost no kernel events (`timed`, `device_ms`); each beside
    its bound (`bound`); K1 and K3 are timed on the 32-layer stack only
    (their per-layer shapes are the same on both), K3, K6 and K8 each call
-   on the next layer; then K7 (fused log-mel, f32, held to an absolute bound),
+   on the next layer; then K7 (fused log-mel, f32, held to an absolute bound,
+   one kernel a call, the same bits from two calls; library: the cuFFT
+   route, several calls, `bench_f32_attn.cufft_log_mel`),
    K8 (greedy decoder front) and K10 (encoder self-attention, both forms;
    library call `F.scaled_dot_product_attention`) at the fused greedy
    path's shapes (`phase_fused_kernels`); then the diagnostic kernels, K11
@@ -202,10 +204,11 @@ from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
 from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
 from whisper_diarize_tpu_torch.tools import (bench_attn_kernel, bench_dma, bench_encoder_attn,
-                                             bench_megakernel, bench_speculative)
+                                             bench_f32_attn, bench_megakernel, bench_speculative)
 from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, TF32X3_FLOPS,
                                                     attn_bound, bound, device_ms,
-                                                    nvidia_smi_line, sum_bound, time_ms)
+                                                    device_ms_by_kernel, nvidia_smi_line,
+                                                    sum_bound, time_ms)
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -895,10 +898,11 @@ def front_bound(N: int, D: int, pos: int, row_pad, es: int = 2) -> dict:
 
 def mel_bound(B: int, T: int, n_mels: int) -> dict:
     """K7: the audio read and the raw log-mel written (f32), and the
-    operations log-mel needs a frame, not the dense DFT that K7 runs: the
-    Hann window (400), a real 400-point FFT (2.5 N log2 N), the power (3 a
-    bin), the filterbank's nonzero weights (2 each) and a log a mel, at the
-    f32 rate."""
+    operations log-mel needs a frame: the Hann window (400), a real
+    400-point FFT (2.5 N log2 N), the power (3 a bin), the filterbank's
+    nonzero weights (2 each) and a log a mel, at the f32 rate. (K7 runs the
+    FFT and the power in float64: at the data sheet's 34 TFLOP/s those take
+    7.1 us at B 8 x 30 s, still under the bytes' 8.3 us.)"""
     frames = B * (T // 160)
     nnz = int(np.count_nonzero(mel.mel_filterbank(n_mels)))
     per_frame = 400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz + n_mels
@@ -909,10 +913,13 @@ def phase_fused_kernels() -> dict:
     """K7, K8 and K10 against their plain versions at the fused greedy
     path's shapes (large-v3: 128 mels, D 1280, H 20, 32 layers), their
     planted faults refused. K7 on B 8 x 30 s of audio (f32, held to
-    `agreement.F32_ATOL`). K8 at N 8 (greedy) and 40 (the best_of 5 rung)
-    with a 48-slot cache (32 tokens after a 3-token prompt) at pos 3, 19
-    and 34, without pads and with random pads (the faults at pos 19, with
-    pads); each call on the next layer (a layer's weights are 9.8 MB), the
+    `agreement.F32_ATOL`; one kernel a call, two calls the same bits; its
+    distance to the float64 log-mel printed beside the plain f32 version's
+    and the cuFFT route's; library: the cuFFT route, several calls). K8 at
+    N 8 (greedy) and 40 (the best_of 5 rung) with a 48-slot cache (32
+    tokens after a 3-token prompt) at pos 3, 19 and 34, without pads and
+    with random pads (the faults at pos 19, with pads); each call on the
+    next layer (a layer's weights are 9.8 MB), the
     caches cloned per call so kernel and plain version start alike. K10 in
     both forms at [8, 20, 1500, 64] with q, k at 0.5 (the faults: 36 padded
     keys must move the softmax) and 1.0; the library yardstick is
@@ -932,14 +939,27 @@ def phase_fused_kernels() -> dict:
     errs["K7"] = ag.compare(f"K7 log_mel_fused B={B} T={T} mels={cfg.n_mels}", got, plain,
                             atol=ag.F32_ATOL).max_abs_err
     exact = mel.log_mel_fused_plain(audio.double(), cfg.n_mels)
+    window = torch.hann_window(400, device=dev)
+    fb = torch.from_numpy(mel.mel_filterbank(cfg.n_mels)).to(dev)
+    route = bench_f32_attn.cufft_log_mel(audio, window, fb).transpose(-1, -2)
     print(f"[kernels] K7 max abs distance to the float64 log-mel: kernel "
           f"{float((got - exact).abs().max()):.4g}, plain f32 "
-          f"{float((plain - exact).abs().max()):.4g} (F32_ATOL {ag.F32_ATOL:g})", flush=True)
-    del plain, exact
+          f"{float((plain - exact).abs().max()):.4g}, cuFFT route "
+          f"{float((route - exact).abs().max()):.4g} (F32_ATOL {ag.F32_ATOL:g})", flush=True)
+    del plain, exact, route
     for name, bad in ag.k7_faults(audio, cfg.n_mels):
         ag.reject(name, got, bad, atol=ag.F32_ATOL)
+    if not torch.equal(got, mel.log_mel_fused(audio, cfg.n_mels)):
+        raise AssertionError("K7: two calls gave different bits")
+    launched = device_ms_by_kernel(lambda: mel.log_mel_fused(audio, cfg.n_mels))
+    print(f"[kernels] K7 kernels a call: {sorted(launched)}", flush=True)
+    if len(launched) != 1:
+        raise AssertionError(f"K7: a call launched {sorted(launched)}, not one kernel")
     res["K7"] = timed(f"K7 B={B} T={T}", lambda: mel.log_mel_fused(audio, cfg.n_mels),
                       lambda: mel.log_mel_fused_plain(audio, cfg.n_mels),
+                      library=lambda: bench_f32_attn.cufft_log_mel(audio, window, fb),
+                      library_calls="several: the cuFFT route (torch.stft, |.|^2, the "
+                                    "filterbank product, log10)",
                       shape=f"B={B} T={T} n_mels={cfg.n_mels}",
                       **mel_bound(B, T, cfg.n_mels))
     del audio, got

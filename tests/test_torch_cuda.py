@@ -272,10 +272,13 @@ def test_top_k_tie_order_on_card(dev):
     assert i[1].tolist() == list(range(100, 110)) and i[2].tolist() == list(range(10))
 
 
-@pytest.mark.parametrize("B,T,n_mels", [(2, 16000 * 3 + 4800, 80), (3, 480000, 128)])
+@pytest.mark.parametrize("B,T,n_mels", [(2, 16000 * 3 + 4800, 80), (3, 480000, 128),
+                                         (2, 333, 80), (3, 337 * 160 + 3, 128)])
 def test_k7_matches_plain_on_card(dev, B, T, n_mels):
     """K7 (f32 on the CUDA cores) against its plain version, within
-    `agreement.F32_ATOL`; its planted faults refused."""
+    `agreement.F32_ATOL`; its planted faults refused. T 333: two frames, one
+    CTA whose span passes both ends of the audio; T 337 x 160 + 3: rows not
+    16-byte aligned, so every CTA stages its span sample by sample."""
     g = torch.Generator(device=dev).manual_seed(T)
     audio = torch.randn(B, T, generator=g, device=dev) * 0.3
     audio[:, : T // 4] *= 0.01  # a quiet stretch: small powers
@@ -288,6 +291,19 @@ def test_k7_matches_plain_on_card(dev, B, T, n_mels):
     torch.testing.assert_close(mel.frontend(audio, n_mels),
                                mel.log_mel_spectrogram(audio, n_mels), rtol=0, atol=5e-5)
     torch.cuda.synchronize()
+
+
+def test_k7_one_kernel_and_the_same_bits_on_card(dev):
+    """A `log_mel_fused` call at the fused path's shape (B 8 x 30 s, 128
+    mels) launches one kernel (no padded copy of the audio), and two calls
+    give the same bits."""
+    from whisper_diarize_tpu_torch.tools import timing
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    audio = torch.randn(8, 480000, generator=g, device=dev) * 0.1
+    launched = timing.device_ms_by_kernel(lambda: mel.log_mel_fused(audio, 128))
+    assert list(launched) == ["log_mel_kernel"], launched
+    assert torch.equal(mel.log_mel_fused(audio, 128), mel.log_mel_fused(audio, 128))
 
 
 @pytest.mark.parametrize("N,Tc,pos", [(3, 16, 0), (6, 48, 9), (40, 448, 300)])

@@ -16,6 +16,17 @@ plain versions it holds the card's f32 kernels to.
   interpret mode at f32, by the f32 check.
 
 Inputs are drawn from seeded generators (numpy for what JAX sees too).
+
+The plain versions run their f32 products on the CPU in IEEE f32 whatever
+the process-wide precision flags say (`utils.ieee_f32_products`): K1's
+check holds in every such state (`torch.set_float32_matmul_precision`, the
+generic, oneDNN and cuBLAS fp32 precisions, 1 or 6 threads) and leaves the
+flags as it found them. A module fixture makes one plain K1 call before the
+checks: in a fresh pytest-xdist worker whose first file this is, the
+worker's first f32 batched product has come out about 50x farther from
+float64 than every later one (relative L2 2.4e-5 and 2.87e-5 where 5.2e-7
+is the rule), with every precision flag at its default, and the same call
+repeated in that process agreed again.
 """
 
 import itertools
@@ -57,6 +68,15 @@ def _check(tag, got, ref, faults, tol=ag.F32, base=None):
     assert any("TF32" in n for n in names) and any("bf16" in n for n in names)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _first_f32_products():
+    """The worker's first f32 batched products, before any check reads one."""
+    g = torch.Generator().manual_seed(0)
+    q = ag.randn(g, "cpu", 2, 1, 4, 64, scale=2.0, dtype=F32)
+    k = ag.randn(g, "cpu", 2, 2, 4, 700, 64, dtype=F32)
+    attn.cross_attn_layer_plain(1, q, k, k, 693)
+
+
 @pytest.mark.parametrize("B,Q", [(2, 1), (2, 3), (2, 15), (2, 64), (1, 3)])
 def test_f32_check_k1(B, Q):
     g = torch.Generator().manual_seed(10 * B + Q)
@@ -67,6 +87,77 @@ def test_f32_check_k1(B, Q):
     _check(f"K1 B={B} Q={Q}", attn.cross_attn_layer_plain(*a),
            attn.cross_attn_layer_plain(*_f64(*a)),
            itertools.chain(ag.k1_f32_faults(*a), ag.k1_faults(*a)))
+
+
+def _new_api(backend, value):
+    """(set, restore) of one fp32_precision flag of the new API."""
+    saved = []
+
+    def put():
+        saved.append(backend.fp32_precision)
+        backend.fp32_precision = value
+
+    return put, lambda: setattr(backend, "fp32_precision", saved.pop())
+
+
+def _legacy(value):
+    """(set, restore) of `torch.set_float32_matmul_precision` (restored the
+    same way: PyTorch refuses to read `allow_tf32` after a legacy setting
+    was undone through the new API)."""
+    saved = []
+
+    def put():
+        saved.append(torch.get_float32_matmul_precision())
+        torch.set_float32_matmul_precision(value)
+
+    return put, lambda: torch.set_float32_matmul_precision(saved.pop())
+
+
+def _threads(n):
+    saved = []
+
+    def put():
+        saved.append(torch.get_num_threads())
+        torch.set_num_threads(n)
+
+    return put, lambda: torch.set_num_threads(saved.pop())
+
+
+PRECISION_STATES = {
+    "matmul precision medium": _legacy("medium"),
+    "matmul precision high": _legacy("high"),
+    "fp32 precision bf16": _new_api(torch.backends, "bf16"),
+    "fp32 precision tf32": _new_api(torch.backends, "tf32"),
+    "mkldnn matmul bf16": _new_api(torch.backends.mkldnn.matmul, "bf16"),
+    "mkldnn matmul tf32": _new_api(torch.backends.mkldnn.matmul, "tf32"),
+    "cuda matmul tf32": _new_api(torch.backends.cuda.matmul, "tf32"),
+    "1 thread": _threads(1),
+    "6 threads": _threads(6),
+}
+
+
+def _precision_state():
+    return (torch.backends.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision,
+            torch.backends.cuda.matmul.fp32_precision, torch.get_num_threads())
+
+
+@pytest.mark.parametrize("state", list(PRECISION_STATES))
+def test_f32_check_k1_holds_in_any_precision_state(state):
+    """K1's f32 check at B 2, Q 1 with a process-wide precision flag set (the
+    bf16 ones sent the plain version's products through oneDNN in bf16,
+    5.7e-3 relative L2); the plain calls leave the flags as they found them."""
+    found = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+             torch.get_num_threads())
+    put, restore = PRECISION_STATES[state]
+    put()
+    try:
+        inside = _precision_state()
+        test_f32_check_k1(2, 1)
+        assert _precision_state() == inside
+    finally:
+        restore()
+    assert (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+            torch.get_num_threads()) == found
 
 
 def test_f32_check_k2():

@@ -310,7 +310,7 @@ def test_fused_kernel_check_refuses_planted_faults():
     assert exact.dtype == torch.float64
     assert ag.agreement(ref, exact, atol=ag.F32_ATOL).ok
     faults = dict(ag.k7_faults(audio, 128))
-    assert len(faults) == 3
+    assert len(faults) == 4  # and the FFT's split twiddle conjugated
     for name, bad in faults.items():
         assert not ag.agreement(ref, bad, atol=ag.F32_ATOL).ok, name
     # TF32's products, not its sums, are what the bound refuses

@@ -247,22 +247,29 @@ def test_truncating_accumulator_model():
 
 def test_bench_f32_attn_builds_its_rows_on_the_cpu():
     """`tools/bench_f32_attn.py` (the card's timing of K2-f32, K1-f32,
-    K3-f32, K6-f32, K8-f32, K10-f32, K4 and K4-f32, also over an older checkout's
+    K3-f32, K6-f32, K8-f32, K10-f32, K4, K4-f32 and K7, also over an older checkout's
     package): its rows at a small size on the CPU, where the wrappers run
-    their plain versions; without a card `main` refuses to time."""
+    their plain versions; K7's library row (the cuFFT route) computes K7's
+    function; without a card `main` refuses to time."""
     from whisper_diarize_tpu_torch.tools import bench_f32_attn
 
     rows = bench_f32_attn.cases(torch.device("cpu"), L=2, B=2, H=2, Ta=130, queries=(3, 20),
-                                k2_layers=(2, 1), Tc=24)
+                                k2_layers=(2, 1), Tc=24, mel_T=4000)
     names = [name for name, _, _ in rows]
     assert names == ["K2-f32 L=2", "K2-f32 L=1", "K1-f32 B=2 Q=3", "K1-f32 B=2 Q=20",
                      "K1-f32 B=1 Q=3", "K3-f32 N=2", "K3-f32 N=10", "K6-f32 kvq N=10",
                      "K6-f32 wq+kvq N=10", "K8-f32 N=2", "K8-f32 N=10", "K10-f32 single pass",
                      "K10-f32 two pass"] + [f"{tag} Td={Td} step={step}" for tag in ("K4", "K4-f32")
                                             for Td, step in ((64, 0), (64, 31), (64, 63),
-                                                             (224, 223))]
+                                                             (224, 223))] + [
+                     "K7 mels=128", "K7 mels=80"]
     for name, fn, library in rows:
         out = fn()
+        if name.startswith("K7"):  # [B, F, n_mels]; the library [B, n_mels, F]
+            n_mels = int(name.split("=")[1])
+            assert out.dtype == F32 and out.shape == (2, 25, n_mels), name
+            assert ag.agreement(library().transpose(-1, -2), out, atol=ag.F32_ATOL).ok, name
+            continue
         if name.startswith("K2"):  # (k, v) [L, B, H, Ta, 64]; the library: [B Ta, L 2 H 64]
             L = int(name.split("=")[1])
             assert all(t.dtype == F32 and t.shape == (L, 2, 2, 130, 64) for t in out), name

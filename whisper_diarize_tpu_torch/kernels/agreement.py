@@ -784,8 +784,15 @@ def k7_faults(audio: torch.Tensor, n_mels: int) -> Iterator[Tuple[str, torch.Ten
     """Slips of the fused log-mel, on the plain version's pieces: the third
     DFT basis span (window samples 320..399) dropped, |re| + |im| taken for
     the power, and the DFT in TF32 (audio and bases rounded to TF32, f32
-    sums: the precision K7 must not take)."""
+    sums: the precision K7 must not take); and one of the FFT's, on its walk
+    (`mel.log_mel_fft_walk`): the real split's twiddle conjugated,
+    e^(+2 pi i k / 400)."""
     from ..ops import mel
+
+    tab, itab = (torch.from_numpy(t) for t in mel.fft_tables(n_mels))
+    tab = tab.clone()
+    tab[mel.T_W400 + 1:mel.T_W400 + 2 * (mel.FFT_N + 1):2] *= -1.0
+    yield "K7 split twiddle conjugated", mel.log_mel_fft_walk(audio.float(), n_mels, tab, itab)
 
     a, b, c = mel._frame_rows(audio.float())
     c0, c1, c2, s0, s1, s2 = mel._bases(a.device)

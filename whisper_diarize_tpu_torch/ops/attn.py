@@ -41,6 +41,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils import ieee_f32_products
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor,
@@ -224,6 +225,7 @@ def combine_span_states(states, dtype: torch.dtype) -> torch.Tensor:
     return (acc / l[..., None]).permute(0, 2, 1, 3).to(dtype)
 
 
+@ieee_f32_products
 def cross_attn_split_plain(
     layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ta_total: Optional[int] = None, plan: Optional[CrossAttnPlan] = None,
@@ -242,6 +244,7 @@ def cross_attn_split_plain(
 # K1: cross-attention of one decoder layer
 # --------------------------------------------------------------------------
 
+@ieee_f32_products
 def cross_attn_layer_plain(
     layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ta_total: Optional[int] = None, rounding: Optional[torch.dtype] = None,
@@ -342,6 +345,7 @@ def quantize_cross_kv(
 KEY_TILE = 512
 
 
+@ieee_f32_products
 def cross_attn_layer_q8_plain(
     layer: int, q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
     v8: torch.Tensor, vs: torch.Tensor, ta_total: Optional[int] = None,
@@ -408,6 +412,7 @@ cross_attn_layer_q8.launches_f32 = 0
 # K2: cross K/V of every decoder layer, built at prefill
 # --------------------------------------------------------------------------
 
+@ieee_f32_products
 def cross_kv_build_plain(
     xa: torch.Tensor, ck_w: torch.Tensor, cv_w: torch.Tensor,
     cv_b: torch.Tensor, n_heads: int,
@@ -506,6 +511,7 @@ cross_kv_build.launches_f32 = 0
 # K4: split-cache self-attention of one decoder layer (beam step)
 # --------------------------------------------------------------------------
 
+@ieee_f32_products
 def split_self_attn_layer_plain(
     layer: int, q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: int,

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
+from ..utils import ieee_f32_products
 from .attn import _count, _float_dtype, qk_scaled
 
 TWO_PASS_BLOCK = 512  # the TPU kernel's key block
@@ -49,6 +50,7 @@ def _masked_scores(qs: torch.Tensor, ks: torch.Tensor, k0: int,
     return s.masked_fill(cols >= ta_total, float("-inf"))
 
 
+@ieee_f32_products
 def encoder_self_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ta_total: Optional[int] = None, single_pass: bool = True,

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils import ieee_f32_products
 from .attn import _acc, _count, _float_dtype, _int32_on, _require_cuda, qk_scaled
 from .tail import skinny_plan
 
@@ -94,6 +95,7 @@ def attend(qs: torch.Tensor, ks: torch.Tensor, v: torch.Tensor,
     return torch.matmul(w, v.to(qs.dtype)).to(v.dtype)
 
 
+@ieee_f32_products
 def fused_front_layer_plain(
     layer: int, pos: int, row_pad: torch.Tensor, x: torch.Tensor,
     front: Dict[str, torch.Tensor], kc: torch.Tensor, vc: torch.Tensor,

@@ -10,8 +10,10 @@ Hann-windowed real DFT is split into three 160-row thirds so the hop-160
 framing is three accumulated matmuls over contiguous row views, in f32.
 
 `log_mel_fused` computes the raw log10 mel energies [B, F, n_mels] that the
-TPU kernel writes: on a CUDA tensor K7 (`csrc/mel.cu`, f32 on the CUDA
-cores, never TF32), on a CPU tensor its plain version `log_mel_fused_plain`
+TPU kernel writes: on a CUDA tensor K7 (`csrc/mel.cu`: one launch, a real
+FFT a frame in float64 on the CUDA cores, never TF32; its tables
+`fft_tables`, its stages walked in plain PyTorch by `log_mel_fft_walk`), on
+a CPU tensor its plain version `log_mel_fused_plain`
 (the matmuls above). `frontend` adds the clamp and the scaling outside the
 kernel, as the TPU version leaves them to XLA. `log_mel_spectrogram` is the
 plain path on every device. `log_mel_fused.launches` counts K7's launches.
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..utils import exact_f32
+from ..utils import exact_f32, ieee_f32_products
 from .attn import _require_cuda
 
 SAMPLE_RATE = 16_000
@@ -147,6 +149,7 @@ def _batched(audio: torch.Tensor):
     return audio.ndim == 1, audio[None] if audio.ndim == 1 else audio
 
 
+@ieee_f32_products
 def log_mel_fused_plain(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     """audio [B, T] f32 -> raw log10 mel energies [B, T // 160, n_mels]:
     the function K7 computes, in f32 matmuls over the split bases (float64
@@ -158,26 +161,168 @@ def log_mel_fused_plain(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     return _mel_log10(re * re + im * im, n_mels)
 
 
+# K7's tables (`csrc/mel.cu`): every twiddle and the window computed in
+# float64 and rounded once to f32, in one f32 vector at these offsets (in
+# floats; complex values as (re, im) pairs), and the sparse filterbank.
+FFT_N = N_FFT // 2  # the 200-point complex FFT of a frame's packed samples
+T_WIN = 0  # [400] periodic Hann window
+T_W5 = 400  # cos(2pi/5), sin(2pi/5), cos(4pi/5), sin(4pi/5): the 5-point DFTs
+T_R8 = 404  # sqrt(1/2): the 8-point DFTs
+T_W25 = 408  # [25] W25^m (W_N = e^(-2 pi i / N)): the 25-point DFT's inner twiddles
+T_W200 = 458  # [8][25] W200^(j k2): the four-step twiddles
+T_W400 = 858  # [201] W400^k: the real split
+T_MELW = 1260  # the filterbank's nonzero weights, mel by mel
+
+
+def _unit_roots(n: int, count: int) -> np.ndarray:
+    """(re, im) of W_n^m = exp(-2 pi i m / n), m = 0 .. count - 1, float64."""
+    ang = -2.0 * np.pi * np.arange(count) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).reshape(-1)
+
+
+@functools.lru_cache(maxsize=8)
+def fft_tables(n_mels: int):
+    """K7's tables for `n_mels` filters, as numpy arrays: the f32 vector
+    laid out at the `T_*` offsets (the filterbank's nonzero weights from
+    `T_MELW` on, each mel's run of bins in order) and int32 [3, n_mels]:
+    each mel's first bin, its bin count and the offset of its weights after
+    `T_MELW`. A filter's nonzero weights are one run of bins (a triangle),
+    at most 2 filters share a bin."""
+    fb = mel_filterbank(n_mels)
+    first, count, off, weights = [], [], [], []
+    for row in fb:
+        nz = np.nonzero(row)[0]
+        lo = int(nz[0]) if nz.size else 0
+        n = int(nz[-1]) - lo + 1 if nz.size else 0
+        first.append(lo)
+        count.append(n)
+        off.append(len(weights))
+        weights.extend(row[lo:lo + n])
+    c5, s5 = np.cos(2 * np.pi / 5), np.sin(2 * np.pi / 5)
+    c25, s25 = np.cos(4 * np.pi / 5), np.sin(4 * np.pi / 5)
+    head = np.concatenate([
+        0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(N_FFT) / N_FFT)),  # periodic
+        [c5, s5, c25, s25, np.sqrt(0.5), 0.0, 0.0, 0.0],
+        _unit_roots(25, 25),
+        _unit_roots(FFT_N, FFT_N).reshape(FFT_N, 2)[np.outer(np.arange(8), np.arange(25))]
+        .reshape(-1),
+        _unit_roots(N_FFT, FFT_N + 1)])
+    assert head.size == T_MELW
+    tab = np.concatenate([head.astype(np.float32), np.asarray(weights, np.float32)])
+    return tab, np.asarray([first, count, off], np.int32)
+
+
 @functools.lru_cache(maxsize=8)
 def _kernel_tables(device: torch.device, n_mels: int):
-    """K7's zero-padded f32 tables on `device`: the windowed DFT bases
-    [400, 256] (the split bases stacked, their zero rows dropped) and the
-    filterbank [256, 128]."""
-    bases = _split_hann_bases()
-    n_bins = N_FFT // 2 + 1
+    """`fft_tables` on `device`."""
+    tab, itab = fft_tables(n_mels)
+    return torch.from_numpy(tab).to(device), torch.from_numpy(itab).to(device)
 
-    def stacked(thirds):
-        out = np.zeros((N_FFT, 256), np.float32)
-        out[:, :n_bins] = np.concatenate(thirds)[:N_FFT]
-        return torch.from_numpy(out).to(device)
 
-    fb = np.zeros((256, 128), np.float32)
-    fb[:n_bins, :n_mels] = mel_filterbank(n_mels).T
-    return stacked(bases[:3]), stacked(bases[3:]), torch.from_numpy(fb).to(device)
+def _dft5(x, c1, s1, c2, s2):
+    """5-point DFTs along dim -2 of complex pairs x [..., 5, 2] as K7
+    computes them (the symmetric form, constants from the table)."""
+    x0, x1, x2, x3, x4 = x.unbind(-2)
+    t1, t2, d1, d2 = x1 + x4, x2 + x3, x1 - x4, x2 - x3
+    a1, a2 = x0 + c1 * t1 + c2 * t2, x0 + c2 * t1 + c1 * t2
+    b1, b2 = s1 * d1 + s2 * d2, s2 * d1 - s1 * d2  # X1 = a1 - i b1, X2 = a2 - i b2
+
+    def mi(a, b, sign):  # a + sign * (-i) b
+        return torch.stack([a[..., 0] + sign * b[..., 1], a[..., 1] - sign * b[..., 0]], -1)
+
+    return torch.stack([x0 + t1 + t2, mi(a1, b1, 1), mi(a2, b2, 1), mi(a2, b2, -1),
+                        mi(a1, b1, -1)], -2)
+
+
+def _cmul(x, w):
+    """Complex pairs x [..., 2] times w [..., 2]."""
+    return torch.stack([x[..., 0] * w[..., 0] - x[..., 1] * w[..., 1],
+                        x[..., 0] * w[..., 1] + x[..., 1] * w[..., 0]], -1)
+
+
+def _dft8(y, r):
+    """8-point DFTs along dim -2 of complex pairs y [..., 8, 2] as K7
+    computes them: two 4-point DFTs (even, odd inputs) joined by W8^k,
+    with r = sqrt(1/2) from the table."""
+    def dft4(a0, a1, a2, a3):
+        t0, t1, t2, t3 = a0 + a2, a0 - a2, a1 + a3, a1 - a3
+        mi_t3 = torch.stack([t3[..., 1], -t3[..., 0]], -1)  # -i t3
+        return t0 + t2, t1 + mi_t3, t0 - t2, t1 - mi_t3
+
+    e = dft4(*y[..., 0::2, :].unbind(-2))
+    o = list(dft4(*y[..., 1::2, :].unbind(-2)))
+    x, z = o[1][..., 0], o[1][..., 1]
+    o[1] = torch.stack([r * (x + z), r * (z - x)], -1)  # W8^1 o1
+    o[2] = torch.stack([o[2][..., 1], -o[2][..., 0]], -1)  # W8^2 o2 = -i o2
+    x, z = o[3][..., 0], o[3][..., 1]
+    o[3] = torch.stack([r * (z - x), -r * (x + z)], -1)  # W8^3 o3
+    return torch.stack([e[k] + o[k] for k in range(4)] + [e[k] - o[k] for k in range(4)], -2)
+
+
+def reflect_index(T: int, n_frames: int, device=None) -> torch.Tensor:
+    """[n_frames, 400] source sample of each frame's samples in audio of
+    length T: frame f reads j = 160 f - 200 + t, j < 0 reflected to -j and
+    j >= T to 2 (T - 1) - j (the center reflect padding, as K7 indexes)."""
+    j = (torch.arange(n_frames, device=device)[:, None] * HOP_LENGTH - N_FFT // 2
+         + torch.arange(N_FFT, device=device))
+    j = torch.where(j < 0, -j, j)
+    return torch.where(j >= T, 2 * (T - 1) - j, j)
+
+
+def log_mel_fft_walk(audio: torch.Tensor, n_mels: int, tab=None, itab=None) -> torch.Tensor:
+    """K7's stages in plain PyTorch on the tables the wrapper hands it
+    (`fft_tables`, or `tab` / `itab` given): audio [B, T] -> raw log10 mel
+    [B, T // 160, n_mels] in audio's float dtype. Reflect-indexed frames,
+    the window, 200 packed complex samples z[n] = x[2n] + i x[2n+1]; the
+    200-point FFT as 8 x 25 (n = j + 8 n2, k = k2 + 25 k1): a 25-point DFT
+    over n2 (5 x 5, the inner twiddles W25^(p s)) for each j, times
+    W200^(j k2), then an 8-point DFT over j; the real split X[k] = (Z[k] +
+    Z*[200-k]) / 2 - i W400^k (Z[k] - Z*[200-k]) / 2; the power; each mel
+    the sum of its run of bins in order; log10 of its max with 1e-10. The
+    kernel computes through the power in float64 and the rest in f32. Only
+    the tests and `agreement.k7_faults` call it: it shows the kernel's
+    stage order and tables, not its rounding."""
+    if tab is None:
+        tab, itab = (torch.from_numpy(t) for t in fft_tables(n_mels))
+    dt, dev = audio.dtype, audio.device
+    tab = tab.to(dev, dt)
+    B, T = audio.shape
+    n_frames = T // HOP_LENGTH
+    x = audio[:, reflect_index(T, n_frames, dev)] * tab[T_WIN:T_WIN + N_FFT]
+    z = x.reshape(B, n_frames, FFT_N, 2)  # packed: (x[2n], x[2n+1])
+    c1, s1, c2, s2 = tab[T_W5:T_W5 + 4]
+    # n = j + 8 (p + 5 q) -> [B, F, j, p, q, 2]
+    a = z.reshape(B, n_frames, 5, 5, 8, 2).permute(0, 1, 4, 3, 2, 5)
+    w25 = tab[T_W25:T_W25 + 50].reshape(25, 2)
+    ps = torch.arange(5, device=dev)[:, None] * torch.arange(5, device=dev)[None, :]
+    b = _cmul(_dft5(a, c1, s1, c2, s2), w25[ps])  # [B, F, j, p, s, 2]: W25^(p s)
+    a = _dft5(b.transpose(-3, -2), c1, s1, c2, s2)  # [B, F, j, s, r, 2]
+    a = a.transpose(-3, -2).reshape(B, n_frames, 8, 25, 2)  # k2 = s + 5 r
+    y = _cmul(a, tab[T_W200:T_W200 + 2 * FFT_N].reshape(8, 25, 2))  # W200^(j k2)
+    zf = _dft8(y.transpose(-3, -2), tab[T_R8])  # [B, F, k2, k1, 2]
+    zf = zf.transpose(-3, -2).reshape(B, n_frames, FFT_N, 2)  # k = k2 + 25 k1
+    k = torch.arange(FFT_N + 1, device=dev)
+    zk, zr = zf[..., k % FFT_N, :], zf[..., (FFT_N - k) % FFT_N, :]
+    w400 = tab[T_W400:T_W400 + 2 * (FFT_N + 1)].reshape(FFT_N + 1, 2)
+    sr, si = zk[..., 0] + zr[..., 0], zk[..., 1] - zr[..., 1]  # Z[k] + Z*[200-k]
+    d = torch.stack([zk[..., 0] - zr[..., 0], zk[..., 1] + zr[..., 1]], -1)
+    wd = _cmul(d, w400)
+    xr, xi = 0.5 * sr + 0.5 * wd[..., 1], 0.5 * si - 0.5 * wd[..., 0]
+    power = xr * xr + xi * xi  # [B, F, 201]
+    first, count, off = (torch.as_tensor(t, dtype=torch.long, device=dev) for t in itab)
+    weights = tab[T_MELW:]
+    acc = torch.zeros(B, n_frames, n_mels, dtype=dt, device=dev)
+    for c in range(int(count.max())):
+        live = c < count
+        bins = torch.where(live, first + c, 0)
+        w = torch.where(live, weights[torch.where(live, off + c, 0)], 0.0)
+        acc = acc + w * power[..., bins]
+    return torch.log10(torch.clamp(acc, min=1e-10))
 
 
 def log_mel_fused(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
-    """K7. Same contract as `log_mel_fused_plain`; audio [B, T] f32."""
+    """K7. Same contract as `log_mel_fused_plain`; audio [B, T] f32, read
+    unpadded (the kernel reflects at both edges itself): one launch."""
     if audio.device.type == "cpu":
         return log_mel_fused_plain(audio, n_mels)
     name = "log_mel_fused"
@@ -185,18 +330,16 @@ def log_mel_fused(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     if audio.ndim != 2 or not 0 < n_mels <= 128 or audio.shape[1] <= N_FFT // 2:
         raise ValueError(f"{name}: audio {tuple(audio.shape)}, n_mels {n_mels} "
                          "(kernel takes [B, T > 200] and n_mels <= 128)")
+    audio = audio.contiguous()
     B, T = audio.shape
     n_frames = T // HOP_LENGTH
-    pad = N_FFT // 2
-    xpad = F.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0].contiguous()
-    cosb, sinb, fb = _kernel_tables(audio.device, n_mels)
+    tab, itab = _kernel_tables(audio.device, n_mels)
     out = torch.empty((B, n_frames, n_mels), dtype=torch.float32, device=audio.device)
     lib = kernels.library()
     with torch.cuda.device(audio.device):
         kernels.check(lib.wdt_log_mel(
-            xpad.data_ptr(), cosb.data_ptr(), sinb.data_ptr(), fb.data_ptr(),
-            out.data_ptr(), B, T + 2 * pad, n_frames, n_mels,
-            kernels.stream_ptr(audio.device)), name)
+            audio.data_ptr(), tab.data_ptr(), itab.data_ptr(), out.data_ptr(), B, T,
+            n_frames, n_mels, tab.numel(), kernels.stream_ptr(audio.device)), name)
     log_mel_fused.launches += 1
     return out
 
@@ -214,11 +357,12 @@ def _normalize(raw: torch.Tensor) -> torch.Tensor:
 def frontend(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     """The fused frontend: audio f32 [T] or [B, T] -> [n_mels, T // 160]
     (or batched), equal to `log_mel_spectrogram`; K7 on a CUDA tensor, its
-    plain version on a CPU tensor. It exists to hold the TPU kernel's
-    counterpart, not for speed: on the H100 K7 is slower than the plain
-    `log_mel_spectrogram` (PERF.md)."""
+    plain version on a CPU tensor. On the H100 ("NVIDIA H100 80GB HBM3,
+    700.00 W"), B 8 x 30 s at 128 mels, K7 takes 0.043 ms of device time,
+    openai-whisper's cuFFT route 0.22 ms (`tools/bench_f32_attn.py --only
+    K7`) and the plain version 0.55 ms (`chip_smoke.py`; PERF.md)."""
     squeeze, x = _batched(audio)
-    out = _normalize(log_mel_fused(x.contiguous(), n_mels))
+    out = _normalize(log_mel_fused(x, n_mels))
     return out[0] if squeeze else out
 
 

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils import ieee_f32_products
 from .attn import (_acc, _float_dtype, _require_cuda, cross_attn_layer_plain,
                    cross_attn_layer_q8_plain, cross_attn_plan)
 
@@ -228,6 +229,7 @@ def _check_cache(k: torch.Tensor, ks, vs) -> bool:
     return kvq
 
 
+@ieee_f32_products
 def fused_tail_layer_plain(
     layer: int, x: torch.Tensor, self_out: torch.Tensor,
     blocks: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,

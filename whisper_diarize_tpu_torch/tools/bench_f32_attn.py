@@ -10,8 +10,12 @@ layer; K10-f32 (encoder self-attention) in both forms at
 `F.scaled_dot_product_attention` in f32 on the same inputs; and K4 and
 K4-f32 (the beam step's split-cache self-attention) at B 8, K 5, H 20, a
 3-slot prompt, a 64-slot decode half at steps 0, 31 and 63 and a 224-slot
-one at step 223, each call on the next layer. TF32 is off, so the library
-calls and the plain products run in f32.
+one at step 223, each call on the next layer; and K7 (the fused log-mel,
+f32) on B 8 x 30 s of audio at 128 and 80 mels, beside the cuFFT route
+openai-whisper takes (`torch.stft` with the periodic Hann window and the
+center reflect padding, `|.|^2`, the filterbank product and `log10`:
+several calls, not one). TF32 is off, so the library calls and the plain
+products run in f32.
 
     python -m whisper_diarize_tpu_torch.tools.bench_f32_attn [--only K4 ...]
 
@@ -27,7 +31,9 @@ package by its absolute name and reads only entry points every version of
 the port since the f32 forms has (the wrappers, `attn.quantize_cross_kv`,
 `tail.quantize_tail_weights`, `agreement.randn` / `random_blocks` /
 `random_front`, `timing`; the K4 rows only `attn.split_self_attn_layer`,
-which every version since the beam slice has), so the same file times an older checkout's
+which every version since the beam slice has; the K7 rows only
+`mel.log_mel_fused` and `mel.mel_filterbank`, which every version since
+the fused slice has), so the same file times an older checkout's
 kernels beside this one's in one run on one card:
 
     PYTHONPATH=<older checkout> python whisper_diarize_tpu_torch/tools/bench_f32_attn.py
@@ -49,7 +55,7 @@ import torch.nn.functional as F
 
 import whisper_diarize_tpu_torch
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, tail
+from whisper_diarize_tpu_torch.ops import attn, encoder_attn, front, mel, tail
 from whisper_diarize_tpu_torch.tools import timing
 
 Case = Tuple[str, Callable[[], torch.Tensor], Optional[Callable[[], torch.Tensor]]]
@@ -59,13 +65,14 @@ def cases(dev: torch.device, L: int = 32, B: int = 8, H: int = 20, Ta: int = 150
           queries: Sequence[int] = (1, 3, 15, 64, 227), seed: int = 3,
           k2_layers: Sequence[int] = (32, 4), Tc: int = 48,
           k4_steps: Sequence[Tuple[int, int]] = ((64, 0), (64, 31), (64, 63), (224, 223)),
-          ) -> List[Case]:
+          mel_T: int = 480000) -> List[Case]:
     """(row name, the kernel's call, the library call or None) of every row,
     on inputs drawn from `seed`: a random f32 decoder stack of L layers at
     D = 64 H and its cross cache of B streams (K2-f32 over the first
     `k2_layers` layers), queries at scale 2; K8's cache of Tc slots at
     position 19; K4's caches of K 5 beams, a 3-slot prompt and (Td, step)
-    of `k4_steps`, in bf16 and f32, with a random ancestry and row pads."""
+    of `k4_steps`, in bf16 and f32, with a random ancestry and row pads;
+    K7's audio [B, mel_T] at scale 0.1 with a quiet last third."""
     f32, D = torch.float32, 64 * H
     g = torch.Generator(device=dev).manual_seed(seed)
     blocks = ag.random_blocks(L, D, g, dev, dtype=f32)
@@ -131,7 +138,24 @@ def cases(dev: torch.device, L: int = 32, B: int = 8, H: int = 20, Ta: int = 150
                             lambda q=q, pk=pk, pv=pv, dk=dk, dv=dv, anc=anc, rp=row_pad, step=step,
                             it=it: attn.split_self_attn_layer(next(it) % L, q, pk, pv, dk, dv,
                                                               anc, step, rp, Tp), None))
+    audio = ag.randn(g, dev, B, mel_T, scale=0.1, dtype=f32)
+    audio[:, 2 * mel_T // 3:] *= 0.01
+    window = torch.hann_window(400, device=dev, dtype=f32)
+    for n_mels in (128, 80):
+        fb = torch.from_numpy(mel.mel_filterbank(n_mels)).to(dev)
+        out.append((f"K7 mels={n_mels}", lambda n=n_mels: mel.log_mel_fused(audio, n),
+                    lambda fb=fb: cufft_log_mel(audio, window, fb)))
     return out
+
+
+def cufft_log_mel(audio: torch.Tensor, window: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """openai-whisper's log-mel before its clamp and scaling, [B, n_mels, F]:
+    `torch.stft` (400 points, hop 160, the center reflect padding; cuFFT on
+    the card), the last frame dropped, `|.|^2`, the filterbank fb [n_mels,
+    201] and log10: K7's function in several PyTorch calls."""
+    spec = torch.stft(audio, 400, 160, window=window, center=True, pad_mode="reflect",
+                      return_complex=True)
+    return torch.log10(torch.clamp(fb @ spec[..., :-1].abs() ** 2, min=1e-10))
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

@@ -8,12 +8,15 @@ Mirrors the reference's `src/utils.rs`: `calculate_dtw_mem_size`
 (`utils.rs:57-59`), `get_translate_languages` (`utils.rs:62-72`) and
 `get_whisper_languages` (`utils.rs:75-87`). `default_device` is the port's
 rule for public entry points that take a device; `exact_f32` holds f32
-products in f32 on the card whatever the process-wide TF32 flags say.
+products in f32 on the card whatever the process-wide TF32 flags say, and
+`ieee_f32_products` holds a kernel's plain version's f32 products on the
+CPU in IEEE f32 whatever the process-wide precision flags say.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List
 
 __all__ = [
@@ -24,6 +27,7 @@ __all__ = [
     "get_whisper_languages",
     "default_device",
     "exact_f32",
+    "ieee_f32_products",
 ]
 
 
@@ -56,6 +60,29 @@ def exact_f32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def ieee_f32_products(fn):
+    """`fn` with its f32 products on the CPU in IEEE f32 whatever the
+    process-wide precision flags say (`torch.set_float32_matmul_precision(
+    "medium")`, or a bf16 `fp32_precision`, sends them through oneDNN in
+    bf16): oneDNN's matmul precision pinned for the call and restored after
+    it, so nested calls each restore what they found. The kernels' plain
+    versions, the yardsticks the f32 kernels are held to, run under it. The
+    card's cuBLAS flag is left alone: PyTorch refuses to read its legacy
+    `allow_tf32` once the two APIs have been mixed, and `exact_f32` sets
+    that one."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        import torch
+
+        prev = torch.backends.mkldnn.matmul.fp32_precision
+        torch.backends.mkldnn.matmul.fp32_precision = "ieee"
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.mkldnn.matmul.fp32_precision = prev
+    return run
 
 
 def calculate_dtw_mem_size(num_samples: int) -> int:
