@@ -119,7 +119,7 @@ traceback) and no result line is printed:
    cosine >= 0.9999), and the planted faults (fbank without pre-emphasis,
    the BiLSTM's backward direction run forward, CAM++'s frame mask
    ignored) must fail that check.
-   In 5-14 each request prints wall time, windows decoded and the launches
+   In 5-14, 16 and 17 each request prints wall time, windows decoded and the launches
    it added; a request that decoded a window must have raised the count of
    every kernel of its path (`PATHS`; the tools of phase 3 are paths too).
    The counts are set to 0 just before each path and read just after;
@@ -165,7 +165,33 @@ traceback) and no result line is printed:
    batch without the front, and stream 0's tokens teacher-forced with K8-f32
    and with the plain front, within F32_LOGIT_GAP, K8's dropped self slot
    refused);
-15. with `--profile` only: the 45 s greedy request, the 30 s beam request,
+15. train (`phase_train`, after the tool phases): `training.
+   make_train_step` at large-v3-turbo width in f32 (TF32 at PyTorch's
+   defaults), B 4 (B 2 if 4 runs out of memory), 64 target tokens, 5 AdamW
+   steps on one random batch: the loss finite and falling from step 1 to
+   step 5, ms a step and peak memory beside the card's name and power
+   limit; then a 2 + 2 layer model at turbo widths, one step on the card
+   (IEEE f32 products) against the same step on the CPU (loss and global
+   gradient norm within TRAIN_REL, each leaf's update within TRAIN_UPDATE
+   relative L2);
+16. mesh 1 x 1 (`phase_mesh_one_rank`, after the beam Engine): a one-rank
+   NCCL mesh Engine serves the beam-5 large-v3 30 s request and the greedy
+   turbo 45 s request; its cues and every decode's tokens and
+   log-probabilities equal the no-mesh Engine's bit for bit; K1-K4's
+   launches printed (paths "mesh-1x1-beam", "mesh-1x1-greedy");
+17. two ranks (`phase_two_ranks`, last): one spawn of two gloo ranks
+   sharing the card serves a short beam-5 large-v3 request (two 10 s files,
+   weights of the JAX init's distribution) on mesh (1, 2) (10 heads a rank
+   for K1, K2 and K4) and on (2, 1), in bf16 and in f32; each rank's
+   tokens equal the no-mesh run's, avg_logprob within MESH_LOGPROB (bf16)
+   or MESH_LOGPROB_F32 (paths "mesh-1x2", "mesh-2x1", "mesh-1x2-f32",
+   "mesh-2x1-f32": the ranks' launches); the bf16 (1, 2) request once
+   more with its collectives timed (count, seconds, the device's wait
+   before them, against its wall), and 500 all-reduces of its [10, 1280]
+   f32 activation back to back, on the card and on the host; then
+   `dryrun_multigpu(2, "cuda")`
+   (path "dryrun-1x2": K5-f32 under the head split among them);
+18. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
    request under torch.profiler (device busy time
    and kernel time by kind, also written to build/chip_smoke/profile.txt),
@@ -187,6 +213,7 @@ checkout.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import itertools
 import json
 import math
@@ -278,7 +305,12 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "f32-int8-beam": ("K2-f32", "K4-f32", "K5-f32", "K6-f32"),
          "f32-speculative": ("K1-f32", "K2-f32", "K3-f32"),
          "f32-fused-greedy": ("K1-f32", "K2-f32", "K3-f32", "K7", "K8-f32", "K10-f32"),
-         "bench-encoder-attn": ("K10",), "bench-megakernel": ("K1", "K2", "K3", "K4", "K8")}
+         "bench-encoder-attn": ("K10",), "bench-megakernel": ("K1", "K2", "K3", "K4", "K8"),
+         "mesh-1x1-greedy": ("K1", "K2", "K3"), "mesh-1x1-beam": ("K1", "K2", "K3", "K4"),
+         "mesh-1x2": ("K1", "K2", "K4"), "mesh-2x1": ("K1", "K2", "K3", "K4"),
+         "mesh-1x2-f32": ("K1-f32", "K2-f32", "K4-f32"),
+         "mesh-2x1-f32": ("K1-f32", "K2-f32", "K3-f32", "K4-f32"),
+         "dryrun-1x2": ("K1-f32", "K2-f32", "K4-f32", "K5-f32")}
 # the margin check of a decode on the card: every emitted token within
 # TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
 # `spec_gap`)
@@ -1378,10 +1410,10 @@ def phase_reference() -> None:
         # planted faults: each must fail its check
         real_step = wm.decode_step_split
 
-        def ancestry_ignored(*a):
+        def ancestry_ignored(*a, **k):
             anc = a[-1]
             own = torch.arange(anc.shape[0], device=anc.device)[:, None].expand_as(anc)
-            return real_step(*a[:-1], own)
+            return real_step(*a[:-1], own, **k)
 
         wm.decode_step_split = ancestry_ignored
         try:
@@ -2276,6 +2308,290 @@ def phase_profile(label: str, run) -> list:
     return lines
 
 
+# --------------------------------------------------------------------------
+# meshes and training
+# --------------------------------------------------------------------------
+
+# the two ranks' decodes against the no-mesh one on the same card: tokens
+# equal; avg_logprob within MESH_LOGPROB in bf16 (the head split sums o /
+# co / fc2 partials of each rank in f32 and runs the un-fused tail, where
+# one device runs K3; the data split runs B 1 a rank, other plans and GEMM
+# tiles) and MESH_LOGPROB_F32 in f32 (IEEE torch products against K3-f32's
+# 3xTF32)
+MESH_LOGPROB = 2e-2
+COLLECTIVE_LOOP = 500  # all-reduces a loop of `phase_two_ranks`
+MESH_LOGPROB_F32 = 1e-4
+# the 2 + 2 layer training step, card (IEEE f32 products, `exact_f32`) vs CPU
+# f32: loss and global gradient norm within TRAIN_REL relative; each leaf's
+# update p - p0 within TRAIN_UPDATE relative L2 of the CPU's and every
+# element within 2 lr of it (Adam's update of a ~0 gradient is the sign of
+# rounding noise, as in tests/test_torch_training.py)
+TRAIN_REL = 1e-4
+TRAIN_UPDATE = 1e-2
+
+
+def _same_decodes(got: dict, ref: dict) -> bool:
+    """Every decode's tokens, lengths and log-probabilities bit for bit."""
+    return len(got["decodes"]) == len(ref["decodes"]) > 0 and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(got["decodes"], ref["decodes"]) for k in a)
+
+
+def phase_mesh_one_rank(requests) -> dict:
+    """`EngineConfig(mesh_shape=(1, 1))` (a one-rank NCCL group): each
+    (path, model, greedy, wavs) request is served by an Engine with no mesh
+    and then by a mesh Engine of the same config (batch 8, 32 tokens, DTW and
+    the fallback ladder on; `parallel/dryrun.py::_job_engine`). The same
+    kernels on the same rows: the cues and every decode's tokens and
+    log-probabilities must be equal bit for bit. The counts are set to 0 just
+    before the mesh request and read just after; the path's kernels must have
+    launched. Returns each path's counts."""
+    import torch.distributed as dist
+
+    from whisper_diarize_tpu_torch.parallel import dryrun
+
+    out = {}
+    try:
+        for path, model, greedy, wavs in requests:
+            kw = dict(wavs=wavs, cache=str(WORK / "cache"), greedy=greedy, use_gpu=True,
+                      snapshot=f"__random__:{model}", batch_size=8, max_decode_tokens=32,
+                      enable_dtw=True, temperature_fallback=True)
+            ref = dryrun.mesh_rank(0, 1, [("ref", "engine", None, kw)])["ref"]
+            reset_counts()
+            got = dryrun.mesh_rank(0, 1, [("mesh", "engine", (1, 1), kw)])["mesh"]
+            out[path] = counts()
+            same = got["cues"] == ref["cues"] and _same_decodes(got, ref)
+            print(f"[mesh 1x1] {path} ({model}, {'greedy' if greedy else 'beam 5'}, "
+                  f"{len(wavs)} file(s)): {dist.get_backend()} world {dist.get_world_size()}, "
+                  f"wall {got['wall']:.3f} s (no mesh {ref['wall']:.3f} s), decodes "
+                  f"{len(got['decodes'])}, cues {sum(map(len, got['cues']))}, launches "
+                  f"{ {k: out[path][k] for k in ('K1', 'K2', 'K3', 'K4')} }, cues and "
+                  f"decodes equal to the no-mesh Engine's bit for bit: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"mesh 1x1 {path}: differs from the no-mesh Engine")
+            _check_missing(f"mesh 1x1 {path}", path, out[path])
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def _mesh_counts(launches: dict, f32: bool) -> dict:
+    """A rank's launches (kernel id -> count, `dryrun._kernel_wrappers`) as
+    a path's counts: the f32 forms' keys where the run was f32."""
+    out = {k: 0 for k in counts()}
+    for k, n in launches.items():
+        if k == "K1 in K3":
+            k = "K1-f32 in K3-f32 / K6-f32" if f32 else "K1 in K3 / K6"
+        elif f32:
+            k = f"{k}-f32"
+        out[k] = n
+    return out
+
+
+def phase_two_ranks() -> dict:
+    """Two ranks on the one card (gloo over CUDA tensors: NCCL refuses two
+    ranks on one device). One spawn runs a large-v3 beam-5 request (two 10
+    s files in one batch of 2, 32 tokens, DTW on, ladder off) on mesh
+    (1, 2) (10 heads a rank for K1, K2 and K4) and on (2, 1) (one row a
+    rank), in bf16 and in f32, on weights of the JAX init's distribution
+    ("__random__:large-v3:0": the pattern of "__random__:large-v3" makes
+    logits tie exactly, so tie-breaks, not faults, decide its tokens); this
+    process serves each with no mesh first. Each rank's decode must give the
+    no-mesh tokens and avg_logprob within MESH_LOGPROB (bf16) or
+    MESH_LOGPROB_F32, and both ranks the same cues. The bf16 (1, 2) request
+    is served once more with its collectives timed
+    (`parallel/mesh.py::timed_collectives`): their count, seconds and the
+    device's wait before them against that request's wall. Then
+    `dryrun_multigpu(2, "cuda")` (mesh (1, 2), f32 at the dry run's small
+    model): a TP AdamW step, a greedy decode over the int8 cross cache (K5
+    under the head split) and a beam-3 decode on the card. Returns the
+    rank 0 launches as paths "mesh-1x2", "mesh-2x1", "mesh-1x2-f32",
+    "mesh-2x1-f32" and "dryrun-1x2"."""
+    from whisper_diarize_tpu_torch.parallel import dryrun
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    wavs = [_write_wav(WORK / f"m{i}.wav", 10.0, 40 + i) for i in range(2)]
+    refs, jobs = {}, []
+    for dtype in ("bfloat16", "float32"):
+        kw = dict(wavs=wavs, cache=str(WORK / "cache"), greedy=False, use_gpu=True,
+                  snapshot="__random__:large-v3:0", batch_size=2, max_decode_tokens=32,
+                  temperature_fallback=False, enable_dtw=True, dtype=dtype)
+        refs[dtype] = ref = dryrun.mesh_rank(0, 1, [("ref", "engine", None, kw)])["ref"]
+        print(f"[two ranks] {dtype} no mesh: wall {ref['wall']:.3f} s, launches "
+              f"{ref['launches']}", flush=True)
+        if not ref["decodes"]:
+            raise AssertionError("two ranks: the no-mesh request decoded nothing")
+        jobs += [((dtype, shape, False), "engine", shape, kw) for shape in ((1, 2), (2, 1))]
+        if dtype == "bfloat16":
+            jobs.append(((dtype, (1, 2), True), "engine", (1, 2),
+                         dict(kw, time_collectives=True)))
+    # the head split's all-reduce alone, back to back: a [10, 1280] f32
+    # tensor (beam 5 x 2 rows of large-v3) on the card and on the host
+    cfg = wm.PRESETS["large-v3"]
+    loops = [(f"all-reduces {device}", "collectives", (1, 2),
+              dict(cfg=cfg, n=COLLECTIVE_LOOP, rows=10, device=device))
+             for device in ("cuda", "cpu")]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = dryrun.run_ranks(dryrun.mesh_rank, 2, jobs + loops, backend="gloo", timeout=600)
+    print(f"[two ranks] spawn of 2 gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, _, _, kw in loops:
+        for r, o in enumerate(outs):
+            c = o[name]
+            print(f"[two ranks] {name} (mesh (1, 2), [{kw['rows']}, {cfg.n_text_state}] f32, "
+                  f"{c['calls']} back to back) rank {r}: {c['seconds'] / c['calls'] * 1e3:.4f} "
+                  f"ms each", flush=True)
+    by_path = {}
+    for name, _, _, _ in jobs:
+        dtype, shape, timed = name
+        ref, tol = refs[dtype], MESH_LOGPROB if dtype == "bfloat16" else MESH_LOGPROB_F32
+        for r, o in enumerate(outs):
+            got = o[name]
+            if timed:
+                c = got["collectives"]
+                print(f"[two ranks] {dtype} mesh {shape} rank {r}, collectives timed: wall "
+                      f"{got['wall']:.3f} s, {c['calls']} collectives, {c['seconds']:.3f} s "
+                      f"in them, {c['device_wait_s']:.3f} s of device wait before them",
+                      flush=True)
+            (dg,), (dr,) = got["decodes"], ref["decodes"]
+            same = bool(np.array_equal(dg["tokens"], dr["tokens"])
+                        and np.array_equal(dg["lengths"], dr["lengths"]))
+            gap = float(np.abs(dg["avg_logprob"] - dr["avg_logprob"]).max())
+            print(f"[two ranks] {dtype} mesh {shape} rank {r}: wall {got['wall']:.3f} s, "
+                  f"launches {got['launches']}, tokens equal to no mesh: {same}, max "
+                  f"|avg_logprob gap| {gap:.3e} (tol {tol}), cues equal to no mesh: "
+                  f"{got['cues'] == ref['cues']}", flush=True)
+            if not same or gap > tol:
+                raise AssertionError(f"{dtype} mesh {shape} rank {r}: the decode differs "
+                                     "from the no-mesh one")
+            if got["cues"] != outs[0][name]["cues"]:
+                raise AssertionError(f"{dtype} mesh {shape}: the ranks' cues differ")
+        if timed:
+            continue
+        path = f"mesh-{shape[0]}x{shape[1]}" + ("-f32" if dtype == "float32" else "")
+        by_path[path] = _mesh_counts(outs[0][name]["launches"], dtype == "float32")
+        _check_missing(f"two ranks {dtype} {shape}", path, by_path[path])
+    t0 = time.perf_counter()
+    first = dryrun.dryrun_multigpu(2, "cuda")
+    print(f"[two ranks] dryrun_multigpu(2, cuda): {time.perf_counter() - t0:.1f} s, launches "
+          f"{first['launches']}", flush=True)
+    by_path["dryrun-1x2"] = _mesh_counts(first["launches"], True)
+    _check_missing("dryrun_multigpu(2, cuda)", "dryrun-1x2", by_path["dryrun-1x2"])
+    return by_path
+
+
+def _train_inputs(cfg, B: int, S: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    mel_in = torch.from_numpy(rng.standard_normal((B, cfg.n_mels, 3000)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, cfg.n_vocab, (B, S + 1)))
+    mask = torch.ones((B, S))
+    mask[-1, S // 2:] = 0.0  # rows of different lengths
+    return mel_in.to(device), tokens.to(device), mask.to(device)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _leaves(v, path)
+        else:
+            yield path, v
+
+
+def phase_train() -> dict:
+    """`training.make_train_step` on the card: large-v3-turbo at full width
+    in f32 (TF32 flags at PyTorch's defaults), B 4 (B 2 where 4 runs out of
+    memory), 64 target tokens, 5 AdamW steps on one repeated random batch
+    from weights of the JAX init's distribution (`init_params_normal`, not
+    the benchmark's pattern, whose loss at init lies far above ln V): the
+    loss finite and step 5 below step 1; ms a step (steps 2-5) and peak
+    memory. Then a 2 + 2 layer model at
+    turbo widths: one step on the card (`exact_f32`) against the same step on
+    the CPU in f32 (TRAIN_REL, TRAIN_UPDATE)."""
+    from whisper_diarize_tpu_torch import training
+    from whisper_diarize_tpu_torch.models import weights as weights_mod
+    from whisper_diarize_tpu_torch.utils import exact_f32
+
+    dev = torch.device("cuda")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    cfg = wm.PRESETS["large-v3-turbo"]
+    out = {}
+    try:
+        for B in (4, 2):
+            params = opt_state = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                params = weights_mod.init_params_normal(cfg, dev, torch.float32, seed=0)
+                optimizer = training.make_optimizer()
+                opt_state = optimizer.init(params)
+                step = training.make_train_step(cfg, optimizer)
+                batch = _train_inputs(cfg, B, 64, 0, dev)
+                losses, ms = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    params, opt_state, loss = step(params, opt_state, *batch)
+                    losses.append(float(loss))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                print(f"[train] turbo B {B}: out of memory ({str(e)[:120]}), trying B 2",
+                      flush=True)
+                if B == 2:
+                    raise
+        del params, opt_state
+        torch.cuda.empty_cache()
+        step_ms = float(np.median(ms[1:]))
+        print(f"[train] large-v3-turbo f32 (TF32: matmul off, cuDNN on), B {B}, 64 target "
+              f"tokens, 5 AdamW steps: losses {[round(x, 5) for x in losses]}, "
+              f"{step_ms:.1f} ms a step (median of steps 2-5; step 1 {ms[0]:.1f} ms), peak "
+              f"{peak:.2f} GiB allocated, {nvidia_smi_line()}", flush=True)
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train: losses {losses} are not finite and falling")
+        out.update(train_B=B, train_ms_per_step=step_ms, train_peak_gib=peak,
+                   train_losses=losses)
+
+        small = dataclasses.replace(cfg, n_audio_layer=2, n_text_layer=2)
+        cpu_params = wm.init_params(small, seed=0)
+        p0 = {k: v.clone() for k, v in _leaves(cpu_params)}
+        card_params = _tree(cpu_params, lambda t: t.to(dev, copy=True))
+        results = {}
+        for where, params, device in (("cpu", cpu_params, torch.device("cpu")),
+                                      ("card", card_params, dev)):
+            optimizer = training.make_optimizer()
+            opt_state = optimizer.init(params)
+            step = training.make_train_step(small, optimizer)
+            with exact_f32():
+                t0 = time.perf_counter()
+                params, _, loss = step(params, opt_state, *_train_inputs(small, 2, 16, 1, device))
+                norm = float(training.global_grad_norm(params))
+            results[where] = (float(loss), norm, {k: v.detach().cpu()
+                                                  for k, v in _leaves(params)},
+                              time.perf_counter() - t0)
+        (lc, nc, pc, tc), (lg, ng, pg, tg) = results["cpu"], results["card"]
+        worst = max(((torch.linalg.vector_norm((pg[k] - p0[k]) - (pc[k] - p0[k]))
+                      / torch.linalg.vector_norm(pc[k] - p0[k]).clamp_min(1e-30)).item(), k)
+                    for k in pc)
+        elem = max(((pg[k] - pc[k]).abs().max().item(), k) for k in pc)
+        print(f"[train] 2 + 2 layers at turbo widths, one step, card vs CPU f32: loss "
+              f"{lg:.7f} vs {lc:.7f}, grad norm {ng:.6f} vs {nc:.6f}, worst update rel L2 "
+              f"{worst[0]:.2e} ({worst[1]}), worst element {elem[0]:.2e} ({elem[1]}); "
+              f"card {tg:.2f} s, CPU {tc:.2f} s", flush=True)
+        lr = training.make_optimizer().lr
+        if (abs(lg - lc) > TRAIN_REL * abs(lc) or abs(ng - nc) > TRAIN_REL * abs(nc)
+                or worst[0] > TRAIN_UPDATE or elem[0] > 2 * lr):
+            raise AssertionError("train: the card's step differs from the CPU's")
+        out.update(small_loss_gap=abs(lg - lc), small_norm_gap=abs(ng - nc),
+                   small_update_rel=worst[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return out
+
+
 def timed_phase(name: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -2305,6 +2621,7 @@ def main() -> None:
     by_path["bench-megakernel"] = timed_phase(
         "tool bench-megakernel", phase_tool, "bench-megakernel",
         [(bench_megakernel.main, dict(inline=True, smoke=False))], ("ms_per_step", "t64_ms"))
+    train = timed_phase("train", phase_train)
     timed_phase("reference", phase_reference)
     # depth: 32 tokens a window on the greedy paths and the bf16 beam
     # Engine; the int8 beam Engine runs without the fallback ladder, whose
@@ -2315,6 +2632,9 @@ def main() -> None:
                                     greedy)
     beam_eng, beam = make_engine("large-v3", max_decode_tokens=32), beam_requests()
     by_path["beam"] = timed_phase("engine beam", phase_engine, beam_eng, "beam", beam)
+    by_path.update(timed_phase("mesh 1x1", phase_mesh_one_rank, [
+        ("mesh-1x1-beam", "large-v3", False, beam[0][1]),
+        ("mesh-1x1-greedy", "large-v3-turbo", True, greedy[0][1])]))
     int8_eng = make_engine("large-v3", quantize_kv_cache=True, temperature_fallback=False)
     int8 = int8_requests()
     by_path["int8-beam"] = timed_phase("engine int8-beam", phase_engine, int8_eng,
@@ -2337,6 +2657,9 @@ def main() -> None:
     by_path["ggml"] = timed_phase("ggml", phase_ggml)
     torch.cuda.empty_cache()
     by_path.update(timed_phase("engine f32", phase_engine_f32))
+    torch.cuda.empty_cache()
+    by_path.update(timed_phase("two ranks", phase_two_ranks))
+    print(f"[train] summary: {json.dumps(train)}", flush=True)
     print(f"[time] all phases: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         lines = phase_profile("greedy, large-v3-turbo, whole-file 45 s",

@@ -108,8 +108,28 @@ def test_transcribe_without_cpu_asks_for_the_card(snaps, tmp_path):
 
 
 def test_mesh_reaches_the_engine_refusal(snaps, tmp_path):
-    with pytest.raises(NotImplementedError, match="Multi-GPU and training"):
-        main(_args(snaps, tmp_path, "--cpu", "--mesh", "1x1"))
+    """`--mesh 1x2` in one process (no torchrun): the Engine refuses a mesh
+    that is not the world."""
+    with pytest.raises(ValueError, match="initialized process group of 2 ranks"):
+        main(_args(snaps, tmp_path, "--cpu", "--mesh", "1x2"))
+
+
+def test_mesh_1x1_writes_what_no_mesh_writes(snaps, tmp_path):
+    """`--mesh 1x1` on the CPU (a one-rank gloo group the Engine makes):
+    the same cues as without a mesh."""
+    import torch.distributed as dist
+
+    outs = []
+    try:
+        for i, extra in enumerate(((), ("--mesh", "1x1"))):
+            out = tmp_path / f"out{i}.json"
+            assert main(_args(snaps, tmp_path, "--cpu", "-o", str(out), *extra)) == 0
+            outs.append(json.loads(out.read_text()))
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert outs[0] and outs[0] == outs[1]
 
 
 def test_format_srt():

@@ -941,3 +941,35 @@ def test_f32_engine_request_on_card(tmp_path):
     (params, _, _), = eng._whisper_cache.values()
     assert params["decoder"]["tok_emb"].dtype == torch.float32
     assert eng.last_run["windows"] >= 1 and np.isfinite([c.end for c in cues]).all()
+
+
+def test_one_rank_mesh_engine_equals_no_mesh_on_card(tmp_path):
+    """`EngineConfig(mesh_shape=(1, 1))` on the card (a one-rank NCCL group):
+    the same kernels on the same rows, so a beam-5 request's cues and
+    decodes (tokens, log-probabilities) equal the no-mesh Engine's bit for
+    bit, and K1, K2, K3 and K4 launched."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import whisper_diarize_tpu_torch as wdt
+    from whisper_diarize_tpu_torch.parallel import dryrun
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wav = str(tmp_path / "in.wav")
+    wdt.write_wav(wav, _speechlike(12.0, 6))
+    kw = dict(wavs=[wav], cache=str(tmp_path / "cache"), greedy=False, use_gpu=True,
+              snapshot="__random__:tiny", batch_size=4, max_decode_tokens=8)
+    try:
+        out = dryrun.mesh_rank(0, 1, [("ref", "engine", None, kw),
+                                      ("mesh", "engine", (1, 1), kw)])
+        assert dist.get_backend() == "nccl"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ref, got = out["ref"], out["mesh"]
+    assert all(got["launches"][k] > 0 for k in ("K1", "K2", "K3", "K4")), got["launches"]
+    assert got["cues"] == ref["cues"] and len(got["decodes"]) == len(ref["decodes"]) > 0
+    for a, b in zip(got["decodes"], ref["decodes"]):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

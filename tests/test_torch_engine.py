@@ -247,8 +247,10 @@ def test_batch_of_streams_matches_single(snapshot, wav, tmp_path):
 
 @pytest.mark.parametrize("case", ["mesh"])
 def test_unported_options_raise(snapshot, wav, tmp_path, case):
-    over = {"mesh": dict(mesh_shape=(1, 1))}[case]
-    with pytest.raises(NotImplementedError):
+    """A mesh of two ranks in a process with no process group (the world
+    is one process) is refused at construction, before any work."""
+    over = {"mesh": dict(mesh_shape=(1, 2))}[case]
+    with pytest.raises(ValueError, match="initialized process group of 2 ranks"):
         _engine(snapshot, tmp_path, **over)
 
 
@@ -404,13 +406,47 @@ def test_float32_is_accepted_for_the_card(snapshot, wav, tmp_path):
     assert eng.last_run["windows"] >= 1
 
 
-def test_refusals_name_roadmap_headings():
-    """Every NotImplementedError of the Engine and of DecodeConfig names the
-    ROADMAP item it waits for by a heading that exists ("ROADMAP Queue 1:
-    <title>"), not by a number a re-anchor can make stale."""
+@pytest.mark.parametrize("path,seed", [("__random__:tiny", None), ("__random__:tiny:3", 3)])
+def test_random_weights_path(tmp_path, path, seed):
+    """"__random__:<preset>" loads the benchmark's pattern weights and
+    "__random__:<preset>:<seed>" draws of the JAX init's distribution from
+    that seed, both at the preset's geometry."""
+    from whisper_diarize_tpu_torch.models import weights
+    from whisper_diarize_tpu_torch.models import whisper as wm
+
+    eng = Engine(EngineConfig(use_gpu=False, cache_dir=str(tmp_path), whisper_model_path=path))
+    params, cfg, _ = eng._load_whisper(TranscribeOptions(), None, None)
+    assert cfg == wm.PRESETS["tiny"]
+    want = (weights.init_params_fast(cfg, torch.device("cpu"), torch.float32) if seed is None
+            else weights.init_params_normal(cfg, torch.device("cpu"), torch.float32, seed))
+    for name in ("tok_emb", "pos_emb"):
+        torch.testing.assert_close(params["decoder"][name], want["decoder"][name],
+                                   rtol=0, atol=0)
+
+
+def test_refusals_name_roadmap_headings(tmp_path):
+    """The Engine and DecodeConfig construct with a mesh (a 1 x 1 mesh makes
+    its own one-rank gloo group on the CPU), and any NotImplementedError
+    left in either names the ROADMAP item it waits for by a heading that
+    exists ("ROADMAP Queue 1: <title>"), not by a number a re-anchor can make
+    stale."""
     import ast
     import re
     from pathlib import Path
+
+    import torch.distributed as dist
+
+    from whisper_diarize_tpu_torch.ops.decode import DecodeConfig
+    from whisper_diarize_tpu_torch.parallel.mesh import Mesh
+
+    assert DecodeConfig(mesh=Mesh(2, 2, 1, 0)).mesh.shape == {"data": 2, "model": 2}
+    assert not dist.is_initialized()
+    try:
+        eng = Engine(EngineConfig(use_gpu=False, cache_dir=str(tmp_path), mesh_shape=(1, 1)))
+        assert eng.mesh.shape == {"data": 1, "model": 1} and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
     root = Path(__file__).resolve().parents[1]
     headings = set(re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", (root / "ROADMAP.md").read_text(),
@@ -428,5 +464,5 @@ def test_refusals_name_roadmap_headings():
             assert m, f"{rel}:{node.lineno}: names no ROADMAP item: {text!r}"
             assert m.group(1) in headings, f"{rel}:{node.lineno}: no heading {m.group(1)!r}"
             named.append(m.group(1))
-    # the Engine's and DecodeConfig's mesh refusals
-    assert sorted(named) == ["Multi-GPU and training", "Multi-GPU and training"]
+    # the mesh refusals are gone: nothing of either waits on a ROADMAP item
+    assert named == []

@@ -56,7 +56,9 @@ def _add_transcribe(sub):
     p.add_argument("--no-seek", action="store_true",
                    help="hard 30 s cuts instead of whisper.cpp seek advance")
     p.add_argument("--mesh", default=None, metavar="DxM",
-                   help="multi-chip inference mesh, e.g. 4x1 (data x model)")
+                   help="multi-GPU inference mesh, e.g. 4x1 (data x model): run "
+                        "under torchrun --nproc-per-node D*M (NCCL; gloo with "
+                        "--cpu); global rank 0 writes the output")
     p.add_argument("--draft-model-dir", default=None,
                    help="local snapshot of a smaller vocab-compatible model "
                         "for speculative greedy decoding (exact output)")
@@ -128,7 +130,10 @@ def cmd_transcribe(args) -> int:
                 f"\r[{kind.value}] {pct:3d}% {label}", end="", file=sys.stderr
             )
         )
-    cues = Engine(cfg).transcribe_audio(args.audio, opts, overrides, cb)
+    engine = Engine(cfg)
+    cues = engine.transcribe_audio(args.audio, opts, overrides, cb)
+    if engine.mesh is not None and engine.mesh.rank != 0:
+        return 0  # every rank holds the same cues; rank 0 writes them
     if not args.quiet:
         print(file=sys.stderr)
     out = _format_srt(cues) if args.srt else json.dumps(

@@ -26,8 +26,15 @@ verify pass; the output is the target's own), and `whisper_model_path` may
 also name a checkpoint file: a whisper.cpp GGML file (its embedded
 vocabulary builds the tokenizer) or an OpenAI `.pt` file.
 
-Not ported yet, and refused with NotImplementedError (never run some other
-way): device meshes — see ROADMAP.md.
+`mesh_shape=(n_data, n_model)` runs the Engine as one rank of a mesh, one
+process per GPU (`torchrun --nproc-per-node N`, NCCL; gloo on the CPU): the
+process group comes from torchrun's environment (`parallel/distributed.py`),
+or a 1 x 1 mesh makes its own. Every rank calls the same entry point with the
+same arguments, decodes its rows of each batch over its slice of the heads
+(`TranscribeStep(mesh=...)`), and returns the same segments. Files the
+Engine writes (downloads, converted weights, the resume journal) are
+written by global rank 0 alone, the other ranks behind a barrier. A draft
+model is ignored under a mesh, with a warning.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import audio as audio_io
 from . import translate as translate_mod
@@ -109,9 +117,11 @@ class _AsyncResult:
 class _ResumeJournal:
     """Append-only JSONL store of per-window results; each record carries the
     (possibly None) Segment plus `adv`, the sample stride the window
-    consumed, so a resumed run replays seek-based windowing exactly."""
+    consumed, so a resumed run replays seek-based windowing exactly. Only
+    the `writer` (global rank 0 of a mesh) appends to the file; every rank
+    keeps the records in memory."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, writer: bool = True):
         self.path = path
         self._done: Dict[Tuple[int, int, int], Tuple[Optional[Segment], int]] = {}
         if path.exists():
@@ -132,7 +142,7 @@ class _ResumeJournal:
                         )
                     self._done[(rec["ci"], rec["wi"], rec.get("si", 0))] = (
                         seg, int(rec.get("adv", 0)))
-        self._fh = open(path, "a")
+        self._fh = open(path, "a") if writer else None
 
     def has(self, ci: int, wi: int, si: int = 0) -> bool:
         return (ci, wi, si) in self._done
@@ -147,12 +157,22 @@ class _ResumeJournal:
             rec["skip"] = True
         else:
             rec.update(seg.to_dict())
-        self._fh.write(json.dumps(rec) + "\n")
-        self._fh.flush()
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
         self._done[(ci, wi, si)] = (seg, int(adv))
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
+
+
+def _random_spec(path: str, model: str) -> Tuple[str, Optional[int]]:
+    """(preset, seed or None) of a "__random__[:preset[:seed]]" model path;
+    the preset defaults to `model`."""
+    parts = path.split(":")
+    return (parts[1] if len(parts) > 1 and parts[1] else model,
+            int(parts[2]) if len(parts) > 2 else None)
 
 
 @dataclass
@@ -167,7 +187,9 @@ class EngineConfig:
     vad_model_path: Optional[str] = None
     diarize_segment_model_path: Optional[str] = None
     diarize_embedding_model_path: Optional[str] = None
-    # snapshot dir, GGML or OpenAI .pt file, or "__random__[:preset]"
+    # snapshot dir, GGML or OpenAI .pt file, or "__random__[:preset[:seed]]"
+    # (random weights: the benchmark's pattern, or with a seed the JAX
+    # init's distribution, whose logits do not tie)
     whisper_model_path: Optional[str] = None
     batch_size: int = 8
     dtype: Optional[str] = None  # "bfloat16" | "float32" (auto by device)
@@ -176,7 +198,8 @@ class EngineConfig:
     resume_dir: Optional[str] = None
     temperature_fallback: bool = True
     no_speech_threshold: float = 0.6
-    mesh_shape: Optional[Tuple[int, int]] = None  # not ported
+    # (n_data, n_model): one rank of a mesh; batch_size divisible by n_data
+    mesh_shape: Optional[Tuple[int, int]] = None
     long_form_seek: bool = True
     # speculative greedy decoding: a snapshot dir of a smaller model sharing
     # the vocabulary proposes speculative_gamma tokens a verify pass
@@ -193,10 +216,6 @@ class Engine:
 
     def __init__(self, cfg: Optional[EngineConfig] = None):
         self.cfg = cfg or EngineConfig()
-        if self.cfg.mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh_shape: multi-GPU inference is not ported yet "
-                "(ROADMAP Queue 1: Multi-GPU and training)")
         if self.cfg.use_gpu is False:
             self.device = torch.device("cpu")
         else:
@@ -204,7 +223,13 @@ class Engine:
                 raise RuntimeError(
                     "EngineConfig(use_gpu=True) needs a CUDA device and none is "
                     "available; pass use_gpu=False for the CPU path")
-            self.device = torch.device("cuda", self.cfg.gpu_device or 0)
+            # under torchrun each process takes its own card (ranks beyond
+            # the node's cards share them); an explicit gpu_device wins
+            ordinal = self.cfg.gpu_device
+            if ordinal is None:
+                ordinal = int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count()
+            self.device = torch.device("cuda", ordinal)
+        self.mesh = self._make_mesh() if self.cfg.mesh_shape is not None else None
         if self.cfg.enable_flash_attn:
             # as the JAX Engine: accepted for API parity, changes nothing
             logger.warning(
@@ -216,6 +241,44 @@ class Engine:
         self._step_cache: dict = {}
         self._draft_cache: Optional[Tuple[str, Any]] = None  # (path, (params, cfg))
         self.last_run: Dict[str, Any] = {}  # windows decoded, stage seconds
+
+    def _make_mesh(self):
+        """The rank's mesh of `mesh_shape`, refusing before any work a batch
+        the data axis does not divide and a preset the model axis cannot
+        split."""
+        from .models import whisper as wm
+        from .parallel import distributed, mesh as mesh_mod
+
+        n_data, n_model = self.cfg.mesh_shape
+        if n_data < 1 or n_model < 1 or self.cfg.batch_size % n_data:
+            raise ValueError(f"batch_size {self.cfg.batch_size} must be divisible by "
+                             f"the mesh data axis {n_data} (mesh {n_data}x{n_model})")
+        path = self.cfg.whisper_model_path or ""
+        if path.startswith("__random__:"):
+            mesh_mod.check_model_split(wm.PRESETS[_random_spec(path, "")[0]], n_model)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        distributed.initialize(backend=mesh_mod.default_backend(self.device.type))
+        return mesh_mod.make_mesh(n_data, n_model, self.device.type, self.device)
+
+    @contextlib.contextmanager
+    def _rank0_first(self):
+        """Global rank 0 runs the block first (downloads, conversions and
+        files it writes), the other ranks after it, behind a barrier."""
+        if self._rank() != 0:
+            self._barrier()
+        try:
+            yield
+        finally:
+            if self._rank() == 0:
+                self._barrier()
+
+    def _rank(self) -> int:
+        return dist.get_rank() if self.mesh is not None else 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and dist.get_world_size() > 1:
+            dist.barrier()
 
     # ------------------------------------------------------------------
     def _resolve_dtype(self) -> torch.dtype:
@@ -231,12 +294,19 @@ class Engine:
 
     def _load_whisper(self, options: TranscribeOptions, progress, is_cancelled):
         """Load the checkpoint once per Engine (single-entry cache: another
-        model or dtype evicts it and the step cache)."""
+        model or dtype evicts it and the step cache); under a mesh the
+        rank's slice of it."""
         key = self._whisper_key(options)
         hit = self._whisper_cache.get(key)
         if hit is not None:
             return hit
-        out = self._load_whisper_uncached(options, progress, is_cancelled)
+        with self._rank0_first():
+            out = self._load_whisper_uncached(options, progress, is_cancelled)
+        if self.mesh is not None:  # keep only the rank's slice
+            from .parallel import mesh as mesh_mod
+
+            mesh_mod.check_model_split(out[1], self.mesh.n_model)
+            out = (mesh_mod.shard_params(out[0], self.mesh),) + out[1:]
         self._whisper_cache.clear()
         self._step_cache.clear()
         self._whisper_cache[key] = out
@@ -251,11 +321,13 @@ class Engine:
         dtype = self._resolve_dtype()
         path = self.cfg.whisper_model_path
         if path and path.startswith("__random__"):
-            # benchmark-grade pattern weights at a preset's geometry, filled
-            # on the device, with the byte-level DebugTokenizer
-            name = path.split(":", 1)[1] if ":" in path else options.model
+            # random weights at a preset's geometry, filled on the device,
+            # with the byte-level DebugTokenizer: the benchmark's pattern, or
+            # with a seed draws of the JAX init's distribution
+            name, seed = _random_spec(path, options.model)
             cfg = wm.PRESETS[name]
-            params = weights_mod.init_params_fast(cfg, self.device, dtype)
+            params = (weights_mod.init_params_fast(cfg, self.device, dtype) if seed is None
+                      else weights_mod.init_params_normal(cfg, self.device, dtype, seed))
             return params, cfg, DebugTokenizer(num_languages=cfg.num_languages)
         snap = Path(path) if path else self.models.ensure_whisper_model(
             options.model, progress, is_cancelled)
@@ -289,7 +361,7 @@ class Engine:
             adv.sampling_strategy if adv else None,
             adv.temperature if adv else None,
             adv.max_text_ctx if adv else None,
-            self.cfg.draft_model_path, self.cfg.speculative_gamma,
+            self.cfg.draft_model_path, self.cfg.speculative_gamma, self.cfg.mesh_shape,
         )
         hit = self._step_cache.get(step_key)
         if hit is not None:
@@ -307,19 +379,20 @@ class Engine:
         )
         draft = None
         if self.cfg.draft_model_path:
-            if greedy and temperature == 0.0:
+            if greedy and temperature == 0.0 and self.mesh is None:
                 draft = self._load_draft(cfg)
             else:
                 logger.warning(
-                    "draft_model_path set but speculative decoding needs greedy strategy "
-                    "and temperature 0 (strategy=%s, temperature=%s) — ignoring",
-                    "greedy" if greedy else "beam_search", temperature)
+                    "draft_model_path set but speculative decoding needs greedy strategy, "
+                    "temperature 0 and no mesh (strategy=%s, temperature=%s, mesh=%s) — "
+                    "ignoring", "greedy" if greedy else "beam_search", temperature,
+                    self.cfg.mesh_shape)
         step = TranscribeStep(
             params, cfg, tokenizer, model_name=options.model,
             enable_dtw=bool(self.cfg.enable_dtw), decode_config=dc,
             strategy="greedy" if greedy else "beam_search",
             max_text_ctx=adv.max_text_ctx if adv else None,
-            draft=draft, spec_gamma=self.cfg.speculative_gamma,
+            draft=draft, spec_gamma=self.cfg.speculative_gamma, mesh=self.mesh,
         )
         self._step_cache[step_key] = step
         return step
@@ -433,7 +506,8 @@ class Engine:
                 # every stream's windows through the segmentation net at once
                 from . import diarize as diarize_mod
 
-                diarize_options, seg_params = self._resolve_diarization(options, cb)
+                with self._rank0_first():
+                    diarize_options, seg_params = self._resolve_diarization(options, cb)
                 t0 = time.perf_counter()
                 per_stream_segments = diarize_mod.get_segments_batch(
                     all_samples, SAMPLE_RATE, seg_params, device=self.device)
@@ -442,7 +516,9 @@ class Engine:
             elif options.enable_vad:
                 from . import vad as vad_mod
 
-                vad_model = self._resolve_vad_model(cb)
+                with self._rank0_first():
+                    vad_model = vad_mod.load_vad_params(self._resolve_vad_model(cb),
+                                                        self.device)
                 for mask, segs in vad_mod.get_segments_batch(
                         vad_model, all_samples, device=self.device):
                     per_stream_segments.append(segs)
@@ -496,9 +572,10 @@ class Engine:
             from .diarize import EmbeddingManager
             from .models import convert as convert_mod
 
-            emb_params = convert_mod.load_campplus_params(
-                diarize_options.embedding_model_path,
-                allow_random=self.cfg.allow_random_weights, device=self.device)
+            with self._rank0_first():
+                emb_params = convert_mod.load_campplus_params(
+                    diarize_options.embedding_model_path,
+                    allow_random=self.cfg.allow_random_weights, device=self.device)
             emb_managers = [EmbeddingManager(diarize_options.max_speakers) for _ in range(S)]
 
         seg_lists: List[List[Segment]] = [[] for _ in range(S)]
@@ -784,6 +861,7 @@ class Engine:
             try_emit(si)
         if journal is not None:
             journal.close()
+            self._barrier()  # the journal is whole before any rank reads it again
         self.last_run = {"windows": windows, "stage_s": dict(stage_s),
                          "empty_segments": empty_segments,
                          "total_chars": total_chars}
@@ -811,7 +889,9 @@ class Engine:
         }, sort_keys=True, default=str).encode()).hexdigest()[:16]
         path = Path(self.cfg.resume_dir) / f"wdt-resume-{fingerprint}.jsonl"
         path.parent.mkdir(parents=True, exist_ok=True)
-        return _ResumeJournal(path)
+        journal = _ResumeJournal(path, writer=self._rank() == 0)
+        self._barrier()  # every rank has read it before rank 0 appends
+        return journal
 
     # model-cache passthroughs (`engine.rs:202-216`)
     def delete_whisper_model(self, model_name: str) -> None:

@@ -3,7 +3,8 @@
 The CUDA sources are compiled with `nvcc` for `sm_90a`, one `nvcc` process
 per source, all started together, and linked into one shared library with
 a plain C interface, loaded with `ctypes`. The build happens on first use,
-never at import: the library lands in
+never at import, under an exclusive lock on the build directory (so
+concurrent processes build once): the library lands in
 `<checkout>/build/whisper_diarize_tpu_torch/`, named by a hash of the
 sources so an edited source never loads a stale binary. A failed build
 raises with `nvcc`'s output; nothing runs without the kernels.
@@ -15,6 +16,7 @@ Every C entry point launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -80,7 +82,7 @@ def _nvcc() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from the sources on first call."""
-    global _lib, build_seconds, build_log
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -92,26 +94,12 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libwdt_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tag = f"{so.stem}.{os.getpid()}"
-            nvcc = _nvcc()
-            t0, build_log = time.perf_counter(), ""
-            objs, cmds = [], []
-            for src in sorted(CSRC.glob("*.cu")):
-                objs.append(BUILD_DIR / f"{tag}.{src.stem}.o")
-                cmds.append([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
-                             "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
-                             "-o", str(objs[-1]), str(src)])
-            tmp = so.with_name(f"{tag}.tmp")
-            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
-            try:
-                _run_all(cmds)
-                _run_all([link])
-            finally:
-                build_seconds = time.perf_counter() - t0
-                for o in objs:
-                    o.unlink(missing_ok=True)
-            os.replace(tmp, so)
-            (BUILD_DIR / "build.log").write_text(build_log)
+            # one build across processes (mesh ranks, test workers): the
+            # others wait on the lock and load what the first one built
+            with open(BUILD_DIR / "build.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+                if not so.exists():
+                    _build(so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -119,6 +107,31 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _build(so: Path) -> None:
+    """Compile every source (one nvcc a source, in parallel) and link `so`."""
+    global build_seconds, build_log
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    t0, build_log = time.perf_counter(), ""
+    objs, cmds = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        objs.append(BUILD_DIR / f"{tag}.{src.stem}.o")
+        cmds.append([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                     "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
+                     "-o", str(objs[-1]), str(src)])
+    tmp = so.with_name(f"{tag}.tmp")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        _run_all(cmds)
+        _run_all([link])
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink(missing_ok=True)
+    os.replace(tmp, so)
+    (BUILD_DIR / "build.log").write_text(build_log)
 
 
 def _run_all(cmds) -> None:

@@ -342,6 +342,33 @@ def init_params_fast(cfg: wm.WhisperConfig, device, dtype, scale: float = 0.02
     return params_from_jax(walk(wm.param_shapes(cfg)), device, dtype)
 
 
+def init_params_normal(cfg: wm.WhisperConfig, device, dtype, seed: int = 0) -> Dict[str, Any]:
+    """Weights of the JAX package's `init_params` distribution (layer norms
+    1, biases 0, a weight [.., n_in, n_out] N(0, 1 / n_in), the conv stem
+    N(0, 1 / (3 n_in)), tok_emb N(0, 1 / d), pos_emb N(0, 0.01^2), the
+    encoder's sinusoids), drawn on the device from a torch generator (not
+    the JAX package's numpy draws): a full-size model in a second, whose
+    logits do not tie as the pattern of `init_params_fast` makes them tie."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def fill(name: str, shape) -> torch.Tensor:
+        if name.endswith("_s"):
+            return torch.ones(shape, device=device)
+        if name.endswith("_b"):
+            return torch.zeros(shape, device=device)
+        if name == "pos":
+            return torch.from_numpy(wm.sinusoids(*shape)).to(device)
+        std = {"tok_emb": shape[-1] ** -0.5, "pos_emb": 0.01}.get(name)
+        if std is None:
+            std = (shape[-2] * (3 if name.startswith("conv") else 1)) ** -0.5
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else fill(k, v) for k, v in node.items()}
+
+    return params_from_jax(walk(wm.param_shapes(cfg)), device, dtype)
+
+
 # rows of the pack's "b" bundle (`pack_tail_weights`): eight D-rows, then
 # fc1_b as four more
 _PACK_SMALL_ROWS = ("ln2_s", "ln2_b", "ln3_s", "ln3_b", "o_b", "cq_b", "co_b", "fc2_b")

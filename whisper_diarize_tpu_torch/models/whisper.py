@@ -23,6 +23,17 @@ from `ops/tail.py::quantize_tail_weights`, held by `TranscribeStep`) run the
 single-token tails on K6 as well. Either is independent of the other.
 Language detection always reads the bf16 cache and the bf16 weights.
 
+Meshes (`parallel/mesh.py`): every forward takes the rank's `mesh` (None:
+one device) and reads its head count from its weights, so a rank holding a
+head slice runs the same code on its local heads; the row-parallel products
+(o, co, fc2) are all-reduced over the model group before their replicated
+bias, the embedding is looked up vocab-parallel and the logits all-gathered.
+Under a head split (n_model > 1) the single-token step runs the un-fused
+tail (K1 / K5 at Q = beams, its products in torch), not K3 / K6 / K8, whose
+GEMMs contract the whole feature axis; a rank with whole layers keeps them.
+`decoder_forward_nocache` is the teacher-forced pass of training (plain
+`_attn`, no kernel), differentiable through the mesh's collectives.
+
 Speculative decoding: `decode_step_pos` is `decode_step` with a base
 position per row (a scatter into the cache, per-row position embeddings
 and causal mask); S == 1 runs its tails on K3 / K6, S > 1 (the verify pass)
@@ -52,6 +63,8 @@ from ..ops.attn import (cross_attn_layer, cross_attn_layer_q8, cross_kv_build,
                         quantize_cross_kv, split_self_attn_layer)
 from ..ops.front import fused_front_layer
 from ..ops.tail import fused_tail_layer
+from ..parallel.mesh import (copy_to_model, gather_from_model, model_parallel,
+                             reduce_from_model, vocab_embed)
 
 Params = Dict[str, object]
 
@@ -311,28 +324,41 @@ def _layer(blocks: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
     return {k: t[l] for k, t in blocks.items()}
 
 
+def _n_heads(w: torch.Tensor, cfg: WhisperConfig) -> int:
+    """Heads of a q / k / v weight [..., in, H * Dh]: this rank's under a
+    head split."""
+    return w.shape[-1] // cfg.head_dim
+
+
+def local_heads(params: Params, cfg: WhisperConfig) -> int:
+    """The decoder heads `params` hold (all of them on one device)."""
+    return _n_heads(params["decoder"]["blocks"]["q_w"], cfg)
+
+
 # --------------------------------------------------------------------------
 # Encoder
 # --------------------------------------------------------------------------
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
-           flash: bool = False, attn: Optional[Callable] = None) -> torch.Tensor:
+           flash: bool = False, attn: Optional[Callable] = None,
+           mesh=None) -> torch.Tensor:
     """mel [B, n_mels, 3000] -> audio states [B, 1500, d]. Every layer's
     self-attention is the plain `_attn` (compact probabilities in low
     precision), or with `flash` K10 in its single-pass form, or `attn(q, k,
-    v)` where given (the encoder attention tool's modes)."""
+    v)` where given (the encoder attention tool's modes); over the rank's
+    heads under a mesh."""
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
     x = mel.to(dtype)
     x = _gelu(F.conv1d(x, enc["conv1_w"], padding=1) + enc["conv1_b"][:, None])
     x = _gelu(F.conv1d(x, enc["conv2_w"], stride=2, padding=1) + enc["conv2_b"][:, None])
     x = x.transpose(1, 2) + enc["pos"].to(dtype)
-    H = cfg.n_audio_head
     compact = dtype != torch.float32
     blocks = enc["blocks"]
+    H = _n_heads(blocks["q_w"], cfg)
     for l in range(blocks["q_w"].shape[0]):
         blk = _layer(blocks, l)
-        h = _ln(x, blk["ln1_s"], blk["ln1_b"])
+        h = copy_to_model(_ln(x, blk["ln1_s"], blk["ln1_b"]), mesh)
         q = _heads(h @ blk["q_w"] + blk["q_b"], H)
         k = _heads(h @ blk["k_w"], H)
         v = _heads(h @ blk["v_w"] + blk["v_b"], H)
@@ -342,11 +368,17 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
             a = encoder_attn.encoder_self_attention(q, k, v)
         else:
             a = _attn(q, k, v, compact_probs=compact)
-        x = x + _unheads(a) @ blk["o_w"] + blk["o_b"]
-        h = _ln(x, blk["ln2_s"], blk["ln2_b"])
-        h = _gelu(h @ blk["fc1_w"] + blk["fc1_b"])
-        x = x + h @ blk["fc2_w"] + blk["fc2_b"]
+        x = x + reduce_from_model(_unheads(a) @ blk["o_w"], mesh) + blk["o_b"]
+        x = _mlp(x, blk, mesh)
     return _ln(x, enc["ln_post_s"], enc["ln_post_b"])
+
+
+def _mlp(x: torch.Tensor, blk: Dict[str, torch.Tensor], mesh,
+         ln: str = "ln2") -> torch.Tensor:
+    """x + fc2(gelu(fc1(ln(x)))): fc1 column-parallel, fc2 row-parallel."""
+    h = copy_to_model(_ln(x, blk[f"{ln}_s"], blk[f"{ln}_b"]), mesh)
+    h = _gelu(h @ blk["fc1_w"] + blk["fc1_b"])
+    return x + reduce_from_model(h @ blk["fc2_w"], mesh) + blk["fc2_b"]
 
 
 # --------------------------------------------------------------------------
@@ -354,10 +386,12 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 # --------------------------------------------------------------------------
 
 def init_self_cache(cfg: WhisperConfig, batch: int, dtype, device,
-                    max_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Fixed-size self-attention KV cache [L, B, H, T, Dh]; `decode_step`
-    writes into it in place."""
-    L, H, Dh = cfg.n_text_layer, cfg.n_text_head, cfg.head_dim
+                    max_len: Optional[int] = None,
+                    n_head: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Fixed-size self-attention KV cache [L, B, H, T, Dh] (H: `n_head`, the
+    rank's heads, else all); `decode_step` writes into it in place."""
+    L, Dh = cfg.n_text_layer, cfg.head_dim
+    H = cfg.n_text_head if n_head is None else n_head
     T = cfg.n_text_ctx if max_len is None else min(cfg.n_text_ctx, max_len)
     return {"k": torch.zeros((L, batch, H, T, Dh), dtype=dtype, device=device),
             "v": torch.zeros((L, batch, H, T, Dh), dtype=dtype, device=device)}
@@ -366,10 +400,11 @@ def init_self_cache(cfg: WhisperConfig, batch: int, dtype, device,
 def cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
              quantize: bool = False) -> Dict[str, torch.Tensor]:
     """Cross-attention K/V of every decoder layer, {"k", "v"}
-    [L, B, H, Ta, Dh] (K2); with `quantize`, the int8 cache of
-    `quantize_cross_cache`."""
+    [L, B, H, Ta, Dh] (K2, over the heads `params` hold); with `quantize`,
+    the int8 cache of `quantize_cross_cache`."""
     blk = params["decoder"]["blocks"]
-    k, v = cross_kv_build(xa, blk["ck_w"], blk["cv_w"], blk["cv_b"], cfg.n_text_head)
+    k, v = cross_kv_build(xa, blk["ck_w"], blk["cv_w"], blk["cv_b"],
+                          _n_heads(blk["ck_w"], cfg))
     cc = {"k": k, "v": v}
     return quantize_cross_cache(cc) if quantize else cc
 
@@ -405,34 +440,35 @@ def _tail_step(layer: int, x: torch.Tensor, self_out: torch.Tensor,
                             beams, cfg.n_audio_ctx)
 
 
-def _decoder_qkv(x, blk, H):
-    h = _ln(x, blk["ln1_s"], blk["ln1_b"])
+def _decoder_qkv(x, blk, H, mesh=None):
+    h = copy_to_model(_ln(x, blk["ln1_s"], blk["ln1_b"]), mesh)
     q = _heads(h @ blk["q_w"] + blk["q_b"], H)
     k_new = _heads(h @ blk["k_w"], H)
     v_new = _heads(h @ blk["v_w"] + blk["v_b"], H)
     return q, k_new, v_new
 
 
-def _decoder_layer_tail(x, blk, self_out, cross_cache, layer, beams, cfg):
-    """Prompt-pass tail (S > 1): projections in torch on the bf16 weights,
-    the cross attention on K1 (K5 over the int8 cache) with beams x
-    positions folded into its query axis."""
-    H = cfg.n_text_head
-    x = x + _unheads(self_out) @ blk["o_w"] + blk["o_b"]
-    h = _ln(x, blk["ln2_s"], blk["ln2_b"])
-    cq = h @ blk["cq_w"] + blk["cq_b"]  # [N, S, D]
+def _decoder_layer_tail(x, blk, self_out, cross_cache, layer, beams, cfg, mesh=None):
+    """Un-fused layer tail: the prompt pass (S > 1), and every step under a
+    head split. Projections in torch, the cross attention on K1 (K5 over
+    the int8 cache) with beams x positions folded into its query axis, over
+    the heads of `self_out` [N, H, S, Dh]."""
+    H = self_out.shape[1]
+    x = x + reduce_from_model(_unheads(self_out) @ blk["o_w"], mesh) + blk["o_b"]
+    h = copy_to_model(_ln(x, blk["ln2_s"], blk["ln2_b"]), mesh)
+    cq = h @ blk["cq_w"] + blk["cq_b"]  # [N, S, H Dh]
     N, S, D = cq.shape
     q = cq.reshape(N // beams, beams * S, H, D // H)
     a = _cross_attn(layer, q.contiguous(), cross_cache, cfg.n_audio_ctx)
-    x = x + a.reshape(N, S, D) @ blk["co_w"] + blk["co_b"]
-    h = _ln(x, blk["ln3_s"], blk["ln3_b"])
-    h = _gelu(h @ blk["fc1_w"] + blk["fc1_b"])
-    return x + h @ blk["fc2_w"] + blk["fc2_b"]
+    x = x + reduce_from_model(a.reshape(N, S, D) @ blk["co_w"], mesh) + blk["co_b"]
+    return _mlp(x, blk, mesh, "ln3")
 
 
-def _vocab_logits(x: torch.Tensor, tok_emb: torch.Tensor) -> torch.Tensor:
-    """[N, S, D] -> f32 logits [N, S, V] (f32 accumulation, as in JAX)."""
-    return torch.matmul(x.float(), tok_emb.float().t())
+def _vocab_logits(x: torch.Tensor, tok_emb: torch.Tensor, mesh=None) -> torch.Tensor:
+    """[N, S, D] -> f32 logits [N, S, V] (f32 accumulation, as in JAX);
+    over vocab-sharded rows, each rank's columns all-gathered."""
+    return gather_from_model(
+        torch.matmul(copy_to_model(x.float(), mesh), tok_emb.float().t()), mesh)
 
 
 def decode_step(
@@ -446,6 +482,7 @@ def decode_step(
     row_pad: Optional[torch.Tensor] = None,  # [N] left pad per row
     logits_at: Optional[Tuple[int, ...]] = None,
     tail_q8: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Run S tokens through the decoder against the fixed-size KV cache,
     which is UPDATED IN PLACE (slots pos_offset .. pos_offset + S - 1 of
@@ -460,24 +497,31 @@ def decode_step(
     when `params["decoder"]` carries a "front" pack, each layer's front on
     K8 (whatever `beams`: the rows' self caches are their own); the prompt
     pass (S > 1) runs the cross attention on K1 (K5 over the int8 cache) and
-    its projections on the bf16 weights."""
+    its projections on the bf16 weights. Under a head split (`mesh` with
+    n_model > 1) every step runs the prompt pass's un-fused tail and no
+    front; `tail_q8` is refused there."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     device = tokens.device
     N, S = tokens.shape
-    H = cfg.n_text_head
+    H = local_heads(params, cfg)
     Tc = self_cache["k"].shape[-2]
+    split = model_parallel(mesh)
+    if split and tail_q8 is not None:
+        raise ValueError("int8 tail weights run on K6, which takes whole layers: "
+                         "not under a head split")
+    emb = vocab_embed(dec["tok_emb"], tokens, mesh)
 
     buf_pos = pos_offset + torch.arange(S, device=device)
     kpos = torch.arange(Tc, device=device)
     neg_inf = torch.tensor(float("-inf"), device=device)
     zero = torch.tensor(0.0, device=device)
     if row_pad is None:
-        x = dec["tok_emb"][tokens] + dec["pos_emb"][buf_pos][None].to(dtype)
+        x = emb + dec["pos_emb"][buf_pos][None].to(dtype)
         mask = torch.where(kpos[None, :] <= buf_pos[:, None], zero, neg_inf)[None, None]
     else:
         pos = torch.clamp(buf_pos[None, :] - row_pad[:, None], min=0)  # [N, S]
-        x = dec["tok_emb"][tokens] + dec["pos_emb"][pos].to(dtype)
+        x = emb + dec["pos_emb"][pos].to(dtype)
         qpos = buf_pos[None, :, None]
         kp = kpos[None, None, :]
         valid = (kp <= qpos) & ((kp >= row_pad[:, None, None]) | (kp == qpos))
@@ -486,7 +530,7 @@ def decode_step(
     kc, vc = self_cache["k"], self_cache["v"]
     blocks = dec["blocks"]
     tail_blocks = blocks if tail_q8 is None else tail_q8
-    front = dec.get("front") if S == 1 else None
+    front = dec.get("front") if S == 1 and not split else None
     if front is not None:  # K8's row pads, converted once for every layer
         front_rp = (torch.zeros((N,), dtype=torch.int32, device=device) if row_pad is None
                     else row_pad.to(torch.int32))
@@ -495,20 +539,20 @@ def decode_step(
         if front is not None:  # K8 writes the cache slot itself
             self_out = fused_front_layer(l, pos_offset, front_rp, x, front, kc, vc)[0]
         else:
-            q, k_new, v_new = _decoder_qkv(x, blk, H)
+            q, k_new, v_new = _decoder_qkv(x, blk, H, mesh)
             # in-place K/V cache update (JAX: dynamic_update_slice on a copy)
             kc[l, :, :, pos_offset:pos_offset + S] = k_new
             vc[l, :, :, pos_offset:pos_offset + S] = v_new
             self_out = _attn(q, kc[l], vc[l], mask)
-        if S == 1:
+        if S == 1 and not split:
             x = _tail_step(l, x, self_out.contiguous(), tail_blocks, cross_cache,
                            beams, cfg)
         else:
-            x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, beams, cfg)
+            x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, beams, cfg, mesh)
     if logits_at is not None:
         x = torch.cat([x[:, p:p + 1] for p in logits_at], dim=1)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
-    return _vocab_logits(x, dec["tok_emb"])
+    return _vocab_logits(x, dec["tok_emb"], mesh)
 
 
 def decode_step_pos(
@@ -518,6 +562,7 @@ def decode_step_pos(
     pos0: torch.Tensor,  # [B] buffer slot of tokens[:, 0], PER ROW
     self_cache: Dict[str, torch.Tensor],
     cross_cache: Dict[str, torch.Tensor],
+    mesh=None,
 ) -> torch.Tensor:
     """`decode_step` with per-row base positions (speculative decoding):
     row b's S tokens take slots pos0[b] .. pos0[b] + S - 1 of the cache,
@@ -529,17 +574,18 @@ def decode_step_pos(
 
     S == 1 runs each layer tail on K3 (K6 over the int8 cache), S > 1 on
     `_decoder_layer_tail`, whose cross attention is K1 (K5 over
-    int8) at Q = S. With a constant pos0 this equals `decode_step`.
-    Returns f32 logits [B, S, V]."""
+    int8) at Q = S (every S under a head split). With a constant pos0 this
+    equals `decode_step`. Returns f32 logits [B, S, V]."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     device = tokens.device
     B, S = tokens.shape
-    H = cfg.n_text_head
+    H = local_heads(params, cfg)
     Tc = self_cache["k"].shape[-2]
+    split = model_parallel(mesh)
 
     qpos = torch.clamp(pos0[:, None] + torch.arange(S, device=device)[None, :], max=Tc - 1)
-    x = dec["tok_emb"][tokens] + dec["pos_emb"][
+    x = vocab_embed(dec["tok_emb"], tokens, mesh) + dec["pos_emb"][
         torch.clamp(qpos, max=cfg.n_text_ctx - 1)].to(dtype)
     kpos = torch.arange(Tc, device=device)
     mask = torch.where(kpos[None, None, :] <= qpos[:, :, None],
@@ -551,19 +597,19 @@ def decode_step_pos(
     blocks = dec["blocks"]
     for l in range(cfg.n_text_layer):
         blk = _layer(blocks, l)
-        q, k_new, v_new = _decoder_qkv(x, blk, H)  # [B, H, S, Dh]
+        q, k_new, v_new = _decoder_qkv(x, blk, H, mesh)  # [B, H, S, Dh]
         # numpy's mixed-index rule: the advanced (b, t) pairs come first, so
         # the slots take [B, S, H, Dh]; a plain put (repeated clamped slots
         # are never read)
         kc[l][b_idx, :, qpos] = k_new.transpose(1, 2)
         vc[l][b_idx, :, qpos] = v_new.transpose(1, 2)
         self_out = _attn(q, kc[l], vc[l], mask)
-        if S == 1:
+        if S == 1 and not split:
             x = _tail_step(l, x, self_out.contiguous(), blocks, cross_cache, 1, cfg)
         else:
-            x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, 1, cfg)
+            x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, 1, cfg, mesh)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
-    return _vocab_logits(x, dec["tok_emb"])
+    return _vocab_logits(x, dec["tok_emb"], mesh)
 
 
 def decode_step_split(
@@ -578,6 +624,7 @@ def decode_step_split(
     beams: int,
     row_pad: Optional[torch.Tensor],  # [N] left pad per row (constant per stream)
     anc: torch.Tensor,  # [N, Td] ancestry: row holding beam n's slot-t K/V
+    mesh=None,
 ) -> torch.Tensor:
     """One beam step against the SPLIT self-cache -> f32 logits [N, 1, V].
 
@@ -587,17 +634,19 @@ def decode_step_split(
     arange(N)`). Each layer writes this step's K/V into slot `step` of the
     decode cache IN PLACE, attends both halves on K4 and runs its tail on K3
     (K6 over an int8 cache) with the beams folded against the B-row cross
-    K/V."""
+    K/V; under a head split K4 over the rank's heads and the un-fused tail
+    (K1 / K5 at Q = beams)."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     N = tokens.shape[0]
     B = N // beams
-    H, Dh = cfg.n_text_head, cfg.head_dim
+    H, Dh = local_heads(params, cfg), cfg.head_dim
     Td = decode_cache["k"].shape[-2]
+    split = model_parallel(mesh)
     if row_pad is None:
         row_pad = torch.zeros((N,), dtype=torch.long, device=tokens.device)
     emb_pos = torch.clamp(prompt_len + step - row_pad, min=0)  # [N]
-    x = dec["tok_emb"][tokens] + dec["pos_emb"][emb_pos][:, None, :].to(dtype)
+    x = vocab_embed(dec["tok_emb"], tokens, mesh) + dec["pos_emb"][emb_pos][:, None, :].to(dtype)
     row_pad_b = row_pad.view(B, beams)[:, 0].to(torch.int32)
     anc_j = (anc % beams).view(B, beams, Td).to(torch.int32)
 
@@ -605,68 +654,104 @@ def decode_step_split(
     dk, dv = decode_cache["k"], decode_cache["v"]
     blocks = dec["blocks"]
     for l in range(cfg.n_text_layer):
-        q, k_new, v_new = _decoder_qkv(x, _layer(blocks, l), H)  # [N, H, 1, Dh]
+        blk = _layer(blocks, l)
+        q, k_new, v_new = _decoder_qkv(x, blk, H, mesh)  # [N, H, 1, Dh]
         # in-place decode-cache update (JAX: dynamic_update_slice on a copy)
         dk[l, :, :, step] = k_new[:, :, 0]
         dv[l, :, :, step] = v_new[:, :, 0]
         self_out = split_self_attn_layer(
             l, q.reshape(B, beams, H, Dh).contiguous(), pk, pv, dk, dv, anc_j,
             step, row_pad_b, prompt_len)
-        x = _tail_step(l, x, self_out.reshape(N, H, 1, Dh), blocks, cross_cache,
-                       beams, cfg)
+        self_out = self_out.reshape(N, H, 1, Dh)
+        if split:
+            x = _decoder_layer_tail(x, blk, self_out, cross_cache, l, beams, cfg, mesh)
+        else:
+            x = _tail_step(l, x, self_out, blocks, cross_cache, beams, cfg)
     x = _ln(x, dec["ln_s"], dec["ln_b"])
-    return _vocab_logits(x, dec["tok_emb"])
+    return _vocab_logits(x, dec["tok_emb"], mesh)
 
 
 def alignment_cross_attn(
     params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
-    xa: torch.Tensor, heads: List[Tuple[int, int]],
+    xa: torch.Tensor, heads: List[Tuple[int, int]], mesh=None,
 ) -> torch.Tensor:
     """Teacher-forced pass capturing the scaled QK logits (pre-softmax) of
-    the DTW alignment heads only -> [B, K, S, Ta] f32."""
-    dec = params["decoder"]
-    dtype = dec["tok_emb"].dtype
-    B, S = tokens.shape
-    H, Dh = cfg.n_text_head, cfg.head_dim
-    device = tokens.device
+    the DTW alignment heads only -> [B, K, S, Ta] f32. Under a head split
+    each head's logits come from the rank that holds it: a layer's selected
+    heads, zero on the other ranks, are summed over the model group."""
+    H, Dh = local_heads(params, cfg), cfg.head_dim
+    h0 = mesh.model_rank * H if model_parallel(mesh) else 0
     by_layer: Dict[int, List[int]] = {}
     for (l, h) in heads:
         by_layer.setdefault(l, []).append(h)
 
-    x = dec["tok_emb"][tokens] + dec["pos_emb"][:S][None].to(dtype)
+    captured: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def capture(l, cq, ck):
+        if l not in by_layer:
+            return
+        scale = Dh ** -0.25
+        logits = torch.matmul((cq * scale).float(), (ck * scale).float().transpose(-1, -2))
+        sel = torch.stack([logits[:, hd - h0] if h0 <= hd < h0 + H
+                           else torch.zeros_like(logits[:, 0]) for hd in by_layer[l]], 1)
+        sel = reduce_from_model(sel, mesh)
+        for i, hd in enumerate(by_layer[l]):
+            captured[(l, hd)] = sel[:, i]
+
+    _teacher_forced(params, cfg, tokens, xa, mesh, capture, max(by_layer))
+    return torch.stack([captured[lh] for lh in heads], dim=1)
+
+
+def _teacher_forced(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+                    xa: torch.Tensor, mesh, on_cross=None,
+                    last_layer: Optional[int] = None) -> torch.Tensor:
+    """The decoder without a cache over [B, S] tokens and the audio states
+    xa (plain `_attn`, causal self-attention) -> the final layer's states
+    [B, S, D] before the last layer norm. `on_cross(l, cq, ck)` is called
+    with each layer's cross-attention queries and keys; the pass stops
+    after layer `last_layer` where given."""
+    dec = params["decoder"]
+    dtype = dec["tok_emb"].dtype
+    S = tokens.shape[1]
+    H = local_heads(params, cfg)
+    device = tokens.device
+    x = vocab_embed(dec["tok_emb"], tokens, mesh) + dec["pos_emb"][:S][None].to(dtype)
     ar = torch.arange(S, device=device)
     causal = torch.where(ar[None, :] <= ar[:, None], torch.tensor(0.0, device=device),
                          torch.tensor(float("-inf"), device=device))
-    captured: Dict[Tuple[int, int], torch.Tensor] = {}
+    xa = copy_to_model(xa, mesh)
     blocks = dec["blocks"]
     for l in range(cfg.n_text_layer):
         blk = _layer(blocks, l)
-        h_ = _ln(x, blk["ln1_s"], blk["ln1_b"])
-        q = _heads(h_ @ blk["q_w"] + blk["q_b"], H)
-        k = _heads(h_ @ blk["k_w"], H)
-        v = _heads(h_ @ blk["v_w"] + blk["v_b"], H)
-        x = x + _unheads(_attn(q, k, v, causal[None, None])) @ blk["o_w"] + blk["o_b"]
-        h_ = _ln(x, blk["ln2_s"], blk["ln2_b"])
+        q, k, v = _decoder_qkv(x, blk, H, mesh)
+        x = x + reduce_from_model(_unheads(_attn(q, k, v, causal[None, None])) @ blk["o_w"],
+                                  mesh) + blk["o_b"]
+        h_ = copy_to_model(_ln(x, blk["ln2_s"], blk["ln2_b"]), mesh)
         cq = _heads(h_ @ blk["cq_w"] + blk["cq_b"], H)
         ck = _heads(xa @ blk["ck_w"], H)
         cv = _heads(xa @ blk["cv_w"] + blk["cv_b"], H)
-        if l in by_layer:
-            scale = Dh ** -0.25
-            logits = torch.matmul((cq * scale).float(), (ck * scale).float().transpose(-1, -2))
-            for hd in by_layer[l]:
-                captured[(l, hd)] = logits[:, hd]
-        x = x + _unheads(_attn(cq, ck, cv)) @ blk["co_w"] + blk["co_b"]
-        h_ = _ln(x, blk["ln3_s"], blk["ln3_b"])
-        h_ = _gelu(h_ @ blk["fc1_w"] + blk["fc1_b"])
-        x = x + h_ @ blk["fc2_w"] + blk["fc2_b"]
-        if l >= max(by_layer):
+        if on_cross is not None:
+            on_cross(l, cq, ck)
+        x = x + reduce_from_model(_unheads(_attn(cq, ck, cv)) @ blk["co_w"], mesh) + blk["co_b"]
+        x = _mlp(x, blk, mesh, "ln3")
+        if last_layer is not None and l >= last_layer:
             break  # nothing after the last captured layer is read
-    return torch.stack([captured[lh] for lh in heads], dim=1)
+    return x
+
+
+def decoder_forward_nocache(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+                            xa: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Teacher-forced decoder pass without a cache (training / scoring):
+    tokens [B, S], audio states xa [B, Ta, D] -> f32 logits [B, S, V]."""
+    dec = params["decoder"]
+    x = _teacher_forced(params, cfg, tokens, xa, mesh)
+    return _vocab_logits(_ln(x, dec["ln_s"], dec["ln_b"]), dec["tok_emb"], mesh)
 
 
 def detect_language_logits(params: Params, cfg: WhisperConfig,
                            xa: torch.Tensor, sot_id: int,
-                           cross: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                           cross: Optional[Dict[str, torch.Tensor]] = None,
+                           mesh=None) -> torch.Tensor:
     """One decoder step from <|startoftranscript|> -> [B, V] f32 logits;
     `cross` is the bf16 cross K/V of `xa` when the caller already built it.
     Always on the exact (bf16) cache and weights, as the JAX package
@@ -676,8 +761,9 @@ def detect_language_logits(params: Params, cfg: WhisperConfig,
                          "not the int8 one")
     B = xa.shape[0]
     tokens = torch.full((B, 1), sot_id, dtype=torch.long, device=xa.device)
-    cache = init_self_cache(cfg, B, xa.dtype, xa.device, max_len=16)
+    cache = init_self_cache(cfg, B, xa.dtype, xa.device, max_len=16,
+                            n_head=local_heads(params, cfg))
     if cross is None:
         cross = cross_kv(params, xa, cfg)
-    logits = decode_step(params, cfg, tokens, 0, cache, cross)
+    logits = decode_step(params, cfg, tokens, 0, cache, cross, mesh=mesh)
     return logits[:, 0]

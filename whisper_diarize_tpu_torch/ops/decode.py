@@ -21,6 +21,15 @@ top-2K in `jax.lax.top_k`'s tie order, vectorised EOT retirement into K
 finished slots, the patience target, and ranking by average
 log-probability or the length penalty.
 
+Meshes (`DecodeConfig.mesh`, a `parallel/mesh.py::Mesh`): every rank calls
+the decode with its own rows (`xa`, `prompt`, `row_pad`: its data slice of
+the batch) and the whole batch's result comes back, all-gathered over the
+data group after the loop. Ranks of one model group share rows and so take
+every step together (their collectives stay in lockstep); data ranks stop on
+their own. Sampling draws the whole batch's noise on every rank from the
+same generator and takes the rank's rows, so a mesh samples what one device
+samples.
+
 Every loop carries the cross cache it is given, bf16 or int8
 (`DecodeConfig.quantize_cross_kv`, `build_cross_cache`); `decode_step`
 picks the kernels from its kind. The greedy loops also carry the int8 tail
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from ..models import whisper as wm
+from ..parallel.mesh import data_parallel, gather_data
 from ..tokenizer import SpecialTokens
 
 NEG_INF = float("-inf")
@@ -48,8 +58,9 @@ class DecodeConfig:
     `quantize_cross_kv` decodes over the int8 cross cache (K5 at the prompt
     pass, K6 at every step); `quantize_tail_weights` streams int8 tail
     weights through K6 where `TranscribeStep` attaches them (strategies other
-    than beam search, as in the JAX package). The TPU-specific knobs
-    (pallas_*, unroll_layers, mesh) are kept for a shared surface, and the
+    than beam search, as in the JAX package). `mesh` is the rank's
+    `parallel/mesh.py::Mesh` (see the module docstring). The TPU-specific
+    knobs (pallas_*, unroll_layers) are kept for a shared surface, and the
     port refuses any value but the default: it always runs its CUDA kernels
     on CUDA tensors and their plain versions on CPU tensors, with a
     per-layer Python loop."""
@@ -72,10 +83,6 @@ class DecodeConfig:
     mesh: Optional[Any] = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet "
-                "(ROADMAP Queue 1: Multi-GPU and training)")
         for knob, default in (("pallas_cross", False), ("pallas_split", None),
                               ("pallas_tail", None), ("unroll_layers", None)):
             if getattr(self, knob) != default:
@@ -185,6 +192,24 @@ def _prepare_logits(
     return logits.masked_fill(banned, NEG_INF)
 
 
+def _gather(res: DecodeResult, mesh) -> DecodeResult:
+    """The whole batch's result from every data rank's rows."""
+    if not data_parallel(mesh):
+        return res
+    return DecodeResult(**{f.name: gather_data(getattr(res, f.name), mesh)
+                           for f in dataclasses.fields(DecodeResult)})
+
+
+def _uniform(shape, generator: torch.Generator, device, mesh) -> torch.Tensor:
+    """U[0, 1) noise of the rank's rows: under a data split the whole
+    batch's draw, of which the rank takes its own rows."""
+    if not data_parallel(mesh):
+        return torch.rand(shape, generator=generator, device=device)
+    n = shape[0]
+    u = torch.rand((n * mesh.n_data,) + tuple(shape[1:]), generator=generator, device=device)
+    return u[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+
+
 def build_cross_cache(params, cfg: wm.WhisperConfig, dc: DecodeConfig,
                       xa: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The decode's cross K/V of every layer (K2), in the form `dc` selects:
@@ -231,11 +256,12 @@ def greedy_init(
         cross = build_cross_cache(params, cfg, dc, xa)
     # cache sized to the decode budget, 16-aligned
     cache_len = min(cfg.n_text_ctx, -(-(prompt_len + max_steps + 1) // 16) * 16)
-    cache = wm.init_self_cache(cfg, N, xa.dtype, dev, cache_len)
+    cache = wm.init_self_cache(cfg, N, xa.dtype, dev, cache_len,
+                               n_head=wm.local_heads(params, cfg))
     P = prompt.shape[1]
     pos_at = (sot_pos,) if sot_pos == P - 1 else (sot_pos, P - 1)
     logits_all = wm.decode_step(params, cfg, prompt, 0, cache, cross, beams=beams,
-                                row_pad=row_pad, logits_at=pos_at)
+                                row_pad=row_pad, logits_at=pos_at, mesh=dc.mesh)
     no_speech_prob = torch.softmax(logits_all[:, 0], dim=-1)[:, sp.no_speech]
     return dict(
         step=0,
@@ -277,7 +303,7 @@ def greedy_run(
         lse = torch.logsumexp(logits, dim=-1)
         if dc.temperature > 0:
             # Gumbel-max: argmax(logits / T + G) samples softmax(logits / T)
-            u = torch.rand(logits.shape, generator=s["generator"], device=logits.device)
+            u = _uniform(logits.shape, s["generator"], logits.device, dc.mesh)
             gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
             next_tok = torch.argmax(logits / dc.temperature + gumbel, dim=-1)
         else:
@@ -300,7 +326,8 @@ def greedy_run(
         s["finished"] = now_finished
         logits_next = wm.decode_step(
             params, cfg, next_tok[:, None], prompt_len + step, s["cache"],
-            s["cross"], beams=s["beams"], row_pad=s["row_pad"], tail_q8=s["tail_q8"])
+            s["cross"], beams=s["beams"], row_pad=s["row_pad"], tail_q8=s["tail_q8"],
+            mesh=dc.mesh)
         s["logits"] = logits_next[:, 0]
         s["step"] = step + 1
     return s
@@ -330,7 +357,8 @@ def greedy_decode(
     tail_q8: Optional[Dict[str, torch.Tensor]] = None,
 ) -> DecodeResult:
     """Greedy / temperature sampling. The host checks `finished.all()` (and
-    `is_cancelled`) between windows of `poll_tokens` steps."""
+    `is_cancelled`) between windows of `poll_tokens` steps. Under
+    `dc.mesh`, the rank's rows in and the whole batch out."""
     if suppress_mask is None:
         suppress_mask = torch.from_numpy(
             build_suppress_mask(sp, cfg.n_vocab)).to(xa.device)
@@ -345,7 +373,7 @@ def greedy_decode(
                            prompt_len, budget)
         if bool(state["finished"].all()) or (is_cancelled and is_cancelled()):
             break
-    return greedy_finalize(state)
+    return _gather(greedy_finalize(state), dc.mesh)
 
 
 def sample_best_of(
@@ -367,11 +395,11 @@ def sample_best_of(
                              generator=generator, suppress_mask=suppress_mask,
                              sot_pos=sot_pos, row_pad=row_pad, cross=cross,
                              tail_q8=tail_q8)
-    B = xa.shape[0]
     res = greedy_decode(params, cfg, dc, sp, xa, prompt, prompt_len,
                         generator=generator, suppress_mask=suppress_mask,
                         sot_pos=sot_pos, row_pad=row_pad, beams=best_of,
                         cross=cross, tail_q8=tail_q8)
+    B = res.avg_logprob.shape[0] // best_of  # the whole batch under a mesh
     best = torch.argmax(res.avg_logprob.view(B, best_of), dim=-1)  # [B]
     rows = torch.arange(B, device=xa.device) * best_of + best
 
@@ -449,14 +477,15 @@ def beam_init(
     max_steps = _max_steps(dc, cfg, prompt_len)
     if cross is None:
         cross = build_cross_cache(params, cfg, dc, xa)
-    prompt_cache = wm.init_self_cache(cfg, B, xa.dtype, dev, prompt_len)
+    H = wm.local_heads(params, cfg)
+    prompt_cache = wm.init_self_cache(cfg, B, xa.dtype, dev, prompt_len, n_head=H)
     P = prompt.shape[1]
     pos_at = (sot_pos,) if sot_pos == P - 1 else (sot_pos, P - 1)
     logits_all = wm.decode_step(params, cfg, prompt, 0, prompt_cache, cross,
-                                row_pad=row_pad, logits_at=pos_at)
+                                row_pad=row_pad, logits_at=pos_at, mesh=dc.mesh)
     td = min(cfg.n_text_ctx, -(-max_steps // 16) * 16)
     # the per-beam decode half [L, N, H, Td, Dh] (JAX: init_split_decode_cache)
-    decode_cache = wm.init_self_cache(cfg, N, xa.dtype, dev, td)
+    decode_cache = wm.init_self_cache(cfg, N, xa.dtype, dev, td, n_head=H)
     if row_pad is None:
         row_pad = torch.zeros((B,), dtype=torch.long, device=dev)
     # beam 0 starts at 0, the rest at -inf so the first expansion does not
@@ -567,7 +596,7 @@ def beam_run(
         logits_next = wm.decode_step_split(
             params, cfg, new_tok[:, None], step, {"k": c["pk"], "v": c["pv"]},
             {"k": c["dk"], "v": c["dv"]}, s["cross"], prompt_len, K,
-            s["row_pad"], s["anc"])
+            s["row_pad"], s["anc"], mesh=dc.mesh)
         s["logits"] = logits_next[:, 0]
         s["step"] = step + 1
     return s
@@ -617,7 +646,8 @@ def beam_decode(
 ) -> DecodeResult:
     """Beam search (beam_size K) folded into the batch axis. Finished
     hypotheses go to K fixed slots per stream; the host checks the patience
-    target (and `is_cancelled`) between windows of `poll_tokens` steps."""
+    target (and `is_cancelled`) between windows of `poll_tokens` steps.
+    Under `dc.mesh`, the rank's rows in and the whole batch out."""
     if suppress_mask is None:
         suppress_mask = torch.from_numpy(
             build_suppress_mask(sp, cfg.n_vocab)).to(xa.device)
@@ -630,12 +660,13 @@ def beam_decode(
         state = beam_run(params, cfg, dc, sp, state, suppress_mask, prompt_len, budget)
         if bool((state["fin_count"] >= target).all()) or (is_cancelled and is_cancelled()):
             break
-    return beam_finalize(dc, state)
+    return _gather(beam_finalize(dc, state), dc.mesh)
 
 
 def detect_language(params, cfg: wm.WhisperConfig, sp: SpecialTokens,
-                    xa: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Language ID: (lang_index [B], probs [B, num_languages])."""
-    logits = wm.detect_language_logits(params, cfg, xa, sp.sot)
+                    xa: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Language ID of the rows of `xa`: (lang_index [B], probs [B,
+    num_languages])."""
+    logits = wm.detect_language_logits(params, cfg, xa, sp.sot, mesh=mesh)
     lang_logits = logits[:, sp.sot + 1: sp.sot + 1 + sp.num_languages]
     return torch.argmax(lang_logits, dim=-1), torch.softmax(lang_logits, dim=-1)

@@ -8,7 +8,7 @@ token streams -> word timestamps -> chunk results.
   temperature-fallback ladder -> DTW) for the Engine's scheduler, over the
   bf16 or the int8 cross cache and tail weights its DecodeConfig selects,
   with speculative greedy decoding (`ops/speculative.py`) when it holds a
-  draft model.
+  draft model, on one device or as one rank of a mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from .models import whisper as wm
 from .ops import decode as dec
 from .ops import dtw as dtw_ops
 from .ops.mel import SAMPLE_RATE, log_mel_spectrogram
+from .parallel import mesh as mesh_mod
 from .types import WordTimestamp
 
 
@@ -104,7 +105,18 @@ class TranscribeStep:
     `draft` = (params, cfg) of a smaller model sharing the vocabulary:
     `decode` then runs speculative greedy decoding (`spec_gamma` proposals
     a verify pass) wherever it applies, with the draft's audio from
-    `encode_draft`."""
+    `encode_draft`.
+
+    `mesh` (`parallel/mesh.py::Mesh`): the step is one rank of a mesh, and
+    every rank calls it with the same arguments. It keeps the rank's slice
+    of the parameters (given whole or already sliced; a model axis the
+    configuration cannot be split over is refused, K2's local head count
+    among them), encodes and decodes the rank's rows of each batch, and
+    all-gathers each decode's results, and the DTW costs, over the data
+    group, so that every rank takes the same fallback-ladder and seek
+    decisions and returns the same chunk results. The draft is dropped
+    under a mesh (as in the JAX package), and so are int8 tail weights
+    under a head split (K6 takes whole layers)."""
 
     def __init__(
         self,
@@ -118,21 +130,30 @@ class TranscribeStep:
         max_text_ctx: Optional[int] = None,
         draft: Optional[Tuple[Dict[str, Any], wm.WhisperConfig]] = None,
         spec_gamma: int = 4,
+        mesh: Optional[mesh_mod.Mesh] = None,
     ):
         if strategy not in ("greedy", "beam_search"):
             raise ValueError(f"unknown sampling strategy {strategy!r}")
+        self.mesh = mesh
+        self.dc = decode_config or dec.DecodeConfig()
+        if mesh is not None:
+            mesh_mod.check_model_split(cfg, mesh.n_model)
+            if wm.local_heads(params, cfg) == cfg.n_text_head:  # not sliced yet
+                params = mesh_mod.shard_params(params, mesh)
+            self.dc = dataclasses.replace(self.dc, mesh=mesh)
+            draft = None
         self.params = params
         self.cfg = cfg
         self.tk = tokenizer
         self.sp = tokenizer.specials
         self.enable_dtw = enable_dtw
-        self.dc = decode_config or dec.DecodeConfig()
         self.strategy = strategy
         self.max_text_ctx = max_text_ctx
         self.draft = draft
         self.spec_gamma = spec_gamma
         self.tail_q8 = None
-        if self.dc.quantize_tail_weights and strategy != "beam_search":
+        if (self.dc.quantize_tail_weights and strategy != "beam_search"
+                and not mesh_mod.model_parallel(mesh)):
             from .ops.tail import quantize_tail_weights
 
             self.tail_q8 = quantize_tail_weights(params["decoder"]["blocks"])
@@ -143,15 +164,26 @@ class TranscribeStep:
 
     # -- model invocations ---------------------------------------------------
     def place_audio(self, audio_batch) -> torch.Tensor:
+        """The whole batch on the device (every rank of a mesh)."""
         return torch.as_tensor(np.asarray(audio_batch, np.float32)).to(self.device)
 
+    def _rows(self, n: int) -> slice:
+        """The rank's rows of a whole batch of n."""
+        return mesh_mod.data_slice(self.mesh, n)
+
+    def _batch(self, xa: torch.Tensor) -> int:
+        """The whole batch's rows, from the rank's audio states."""
+        return xa.shape[0] * (self.mesh.n_data if self.mesh is not None else 1)
+
     def mel(self, audio_batch) -> torch.Tensor:
-        """[B, N_SAMPLES] f32 (host or device) -> [B, n_mels, 3000]."""
+        """[B, N_SAMPLES] f32 (host or device) -> [B, n_mels, 3000]: under
+        a mesh, of the rank's rows."""
         audio = audio_batch if isinstance(audio_batch, torch.Tensor) else self.place_audio(audio_batch)
+        audio = audio[self._rows(audio.shape[0])]
         return log_mel_spectrogram(audio.to(self.device), n_mels=self.cfg.n_mels)
 
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
-        return wm.encode(self.params, mel, self.cfg)
+        return wm.encode(self.params, mel, self.cfg, mesh=self.mesh)
 
     def encode_draft(self, audio: torch.Tensor) -> torch.Tensor:
         """The draft's encoding of the uploaded audio, through its own mel
@@ -205,6 +237,14 @@ class TranscribeStep:
             row_pad = torch.tensor(pads, dtype=torch.long, device=self.device)
         return prompt, len(rows[0]), pref_bucket, row_pad
 
+    def _local_prompt(self, batch: int, language, task: str, prev_tokens=None):
+        """`_build_prompt` of the whole batch, cut to the rank's rows."""
+        prompt, prompt_len, sot_pos, row_pad = self._build_prompt(
+            batch, language, task, prev_tokens)
+        rows = self._rows(batch)
+        return (prompt[rows], prompt_len, sot_pos,
+                None if row_pad is None else row_pad[rows])
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -219,10 +259,11 @@ class TranscribeStep:
         draft's audio (a tensor, or a thunk that encodes it), engages
         speculative decoding under greedy, temperature 0 and uniform
         prompts (per-row padded prompts run plain greedy and never call
-        the thunk)."""
-        B = xa.shape[0]
-        prompt, prompt_len, sot_pos, row_pad = self._build_prompt(
-            B, language, task, prev_tokens)
+        the thunk). Under a mesh `xa` holds the rank's rows, `language` and
+        `prev_tokens` describe the whole batch, and the whole batch's result
+        comes back."""
+        prompt, prompt_len, sot_pos, row_pad = self._local_prompt(
+            self._batch(xa), language, task, prev_tokens)
         if (self.strategy == "greedy" and self.draft is not None and xa_d is not None
                 and self.dc.temperature == 0 and row_pad is None):
             from .ops import speculative
@@ -277,7 +318,7 @@ class TranscribeStep:
             cross = self.cross_cache(xa)
         result = self.decode(xa, language, task, prev_tokens=prev_tokens,
                              is_cancelled=is_cancelled, cross=cross, xa_d=xa_d)
-        B = xa.shape[0]
+        B = self._batch(xa)
         n_valid_rows = B if n_valid_rows is None else n_valid_rows
         best_of = best_of or self.dc.beam_size
         temps = np.zeros((B,), np.float32)
@@ -300,7 +341,7 @@ class TranscribeStep:
             if not bad.any() or (is_cancelled and is_cancelled()):
                 break
             retry_dc = dataclasses.replace(self.dc, temperature=float(temp), beam_size=1)
-            prompt, prompt_len, sot_pos, row_pad = self._build_prompt(
+            prompt, prompt_len, sot_pos, row_pad = self._local_prompt(
                 B, language, task, prev_tokens=prev_tokens)
             retry = dec.sample_best_of(
                 self.params, self.cfg, retry_dc, self.sp, xa, prompt, prompt_len,
@@ -336,11 +377,15 @@ class TranscribeStep:
     def detect_language(self, xa: torch.Tensor,
                         cross: Optional[Dict[str, torch.Tensor]] = None) -> List[str]:
         """Language per row, on the exact weights and the bf16 cross cache
-        (`cross`, from `exact_cross_cache`, or built here)."""
+        (`cross`, from `exact_cross_cache`, or built here); under a mesh of
+        the whole batch."""
         from .tokenizer import LANGUAGES
 
-        logits = wm.detect_language_logits(self.params, self.cfg, xa, self.sp.sot, cross)
+        mesh = {} if self.mesh is None else {"mesh": self.mesh}
+        logits = wm.detect_language_logits(self.params, self.cfg, xa, self.sp.sot, cross,
+                                           **mesh)
         idx = logits[:, self.sp.sot + 1: self.sp.sot + 1 + self.sp.num_languages].argmax(-1)
+        idx = mesh_mod.gather_data(idx, self.mesh)
         return [LANGUAGES[int(i)] for i in idx.cpu().numpy()]
 
     # -- result assembly -----------------------------------------------------
@@ -349,7 +394,9 @@ class TranscribeStep:
         """Enqueue the teacher-forced alignment pass and its cost reduction on
         the device; return a host thunk that fetches the [B, S, Ta] cost and
         runs the DTW backtrack per row (None when DTW is off / empty /
-        translated). The Engine runs the thunk on a worker thread."""
+        translated). The Engine runs the thunk on a worker thread. Under a
+        mesh the rank aligns its rows and the cost of the whole batch is
+        all-gathered here, on the calling thread, before the thunk."""
         if not (self.enable_dtw and not translated):
             return None
         tokens = result.tokens.cpu().numpy()
@@ -371,10 +418,13 @@ class TranscribeStep:
         n_rows = np.minimum(len(sot) + lengths.astype(np.int64) + 1, seq.shape[1])
         sot_len = len(sot)
         dev = self.device
+        rows = self._rows(B)
         qk = wm.alignment_cross_attn(
-            self.params, self.cfg, torch.from_numpy(seq).to(dev), xa, self.heads)
-        cost_dev = dtw_ops.alignment_cost_batch(
-            qk, torch.from_numpy(n_frames).to(dev), torch.from_numpy(n_rows).to(dev))
+            self.params, self.cfg, torch.from_numpy(seq[rows]).to(dev), xa, self.heads,
+            mesh=self.mesh)
+        cost_dev = mesh_mod.gather_data(dtw_ops.alignment_cost_batch(
+            qk, torch.from_numpy(n_frames[rows]).to(dev),
+            torch.from_numpy(n_rows[rows]).to(dev)), self.mesh)
 
         def backtrack() -> List[Optional[np.ndarray]]:
             cost = cost_dev.cpu().numpy()
