@@ -191,7 +191,25 @@ traceback) and no result line is printed:
    f32 activation back to back, on the card and on the host; then
    `dryrun_multigpu(2, "cuda")`
    (path "dryrun-1x2": K5-f32 under the head split among them);
-18. with `--profile` only: the 45 s greedy request, the 30 s beam request,
+18. dtw (`phase_dtw`, after mesh 1 x 1): the on-device DTW's kernel
+   (`csrc/dtw.cu`, `ops/dtw.py::dtw_anchor_frames_batch`) against its plain
+   version, anchors equal exactly, at B 8 x Ta 1500 on costs that
+   `alignment_cost_batch` makes of real `alignment_cross_attn` maps at
+   large-v3 widths (N 224, and N 440, the largest), on 0 / 1 costs with
+   many ties, and with rows at n_tok 1 and at n_frames < Ta; the planted
+   fault (ties prefer up over the diagonal) must move anchors; the kernel
+   timed (N 224 and 440) beside the plain version, the port's host native
+   DP on the same costs and the bound by bytes. A beam-5 large-v3 Engine
+   ("__random__:large-v3:1", 32 tokens, ladder off) serves a 30 s request
+   once to warm up, then on the default path and with `WDT_HOST_DTW=1`: the cues and the anchors
+   must be identical, the default path must launch the kernel and the host
+   path must not; both walls and the alignment stage's peak memory are
+   printed. Then `python -m whisper_diarize_tpu_torch.tools.run_config 4`
+   (in this process: `run_config.main`) on that 30 s WAV at
+   "__random__:large-v3:1", 32 tokens, and the `transcribe` example at
+   "__random__:tiny:1" on the card, paths "run-config-4" and
+   "example-transcribe" (K1-K4 and the DTW kernel), the report line printed;
+19. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
    request under torch.profiler (device busy time
    and kernel time by kind, also written to build/chip_smoke/profile.txt),
@@ -200,7 +218,8 @@ traceback) and no result line is printed:
    30 s request with and without its draft.
 Each phase prints its wall seconds (`[time]`).
 
-Then it prints one JSON line of per-kernel results (`launches` summed over
+Then it prints one JSON line of per-kernel results (the DTW kernel, which
+replaces no TPU kernel, as "DTW"; `launches` summed over
 the paths' runs; for K1 and K5 also `launches_in_tail`, the launches the
 fused tail K3 / K6 makes of them; the f32 forms as "K1-f32" .. "K6-f32",
 "K8-f32" and "K10-f32",
@@ -229,7 +248,11 @@ import whisper_diarize_tpu_torch as wdt
 from whisper_diarize_tpu_torch import kernels
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
-from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
+from whisper_diarize_tpu_torch.ops import (attn, attn_probe, encoder_attn, front, mel, stream,
+                                           tail)
+from whisper_diarize_tpu_torch.ops import dtw as dtw_ops
+from whisper_diarize_tpu_torch.ops.prng import Threefry
+from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
 from whisper_diarize_tpu_torch.tools import (bench_attn_kernel, bench_dma, bench_encoder_attn,
                                              bench_f32_attn, bench_megakernel, bench_speculative)
 from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, TF32X3_FLOPS,
@@ -282,6 +305,11 @@ KERNELS = {
                 fns=(stream.stream_sum, stream.stream_sum_pipelined),
                 source="whisper_diarize_tpu_torch/csrc/stream_sum.cu",
                 replaces="tools/bench_dma.py:58"),
+    "DTW": dict(name="dtw_anchor_frames_batch", fn=dtw_ops.dtw_anchor_frames_batch,
+                source="whisper_diarize_tpu_torch/csrc/dtw.cu",
+                replaces="whisper_diarize_tpu/ops/dtw.py:213",
+                note="not a TPU kernel: the JAX package runs the DTW DP and walk as "
+                     "XLA loops (lax.scan); one launch here"),
 }
 # the f32 forms of K1 - K6, K8 and K10, counted apart (each wrapper's
 # `launches` counts both of its forms)
@@ -310,7 +338,9 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "mesh-1x2": ("K1", "K2", "K4"), "mesh-2x1": ("K1", "K2", "K3", "K4"),
          "mesh-1x2-f32": ("K1-f32", "K2-f32", "K4-f32"),
          "mesh-2x1-f32": ("K1-f32", "K2-f32", "K3-f32", "K4-f32"),
-         "dryrun-1x2": ("K1-f32", "K2-f32", "K4-f32", "K5-f32")}
+         "dryrun-1x2": ("K1-f32", "K2-f32", "K4-f32", "K5-f32"),
+         "dtw": ("K1", "K2", "K3", "K4", "DTW"), "run-config-4": ("K1", "K2", "K3", "K4", "DTW"),
+         "example-transcribe": ("K1", "K2", "K3", "K4", "DTW")}
 # the margin check of a decode on the card: every emitted token within
 # TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
 # `spec_gap`)
@@ -1676,7 +1706,7 @@ def run_fused_greedy(setup, fused_stages: bool = True):
         mark()
         rung = dec.sample_best_of(fused, cfg, dataclasses.replace(dc, temperature=0.2),
                                   tk.specials, xa, prompt, P, best_of=5,
-                                  generator=torch.Generator(device=dev).manual_seed(0),
+                                  generator=Threefry(0),
                                   suppress_mask=suppress, cross=cross)
         mark()
     stages = dict(zip(("mel", "encode", "decode", "best_of 5 rung"),
@@ -2592,6 +2622,253 @@ def phase_train() -> dict:
     return out
 
 
+def _dtw_inputs(params, cfg, heads, B: int, N: int, seed: int):
+    """Costs [B, S, Ta] f32 from `alignment_cost_batch` of real
+    `alignment_cross_attn` maps: B windows of speech-like noise encoded, N
+    random text tokens after the timing pass's sot sequence. Returns
+    (cost, sot_len, peak bytes of the reduction)."""
+    rng = np.random.default_rng(seed)
+    tk = DebugTokenizer(num_languages=cfg.num_languages)
+    sot = tk.sot_sequence(language="en")
+    t = np.arange(480000) / 16000.0
+    audio = rng.standard_normal((B, 480000)) * 0.02 + (np.mod(t, 2.0) < 1.5) * np.sin(
+        2 * np.pi * 180.0 * t) * (0.3 + 0.2 * rng.standard_normal((B, 480000)))
+    with torch.no_grad():
+        audio_t = torch.from_numpy(np.clip(audio, -1, 1).astype(np.float32)).cuda()
+        xa = wm.encode(params, mel.log_mel_spectrogram(audio_t, n_mels=cfg.n_mels), cfg)
+        toks = rng.integers(33, 127, size=(B, N))
+        seq = torch.from_numpy(np.concatenate([np.tile(sot, (B, 1)), toks], 1)).cuda()
+        qk = wm.alignment_cross_attn(params, cfg, seq, xa, heads)
+        del xa
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        nf = torch.full((B,), 1500, device="cuda")
+        nr = torch.full((B,), len(sot) + N + 1, device="cuda").clamp(max=seq.shape[1])
+        cost = dtw_ops.alignment_cost_batch(qk, nf, nr)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    return cost.contiguous(), len(sot), peak
+
+
+def _dtw_bound(n_tok, n_frames, B: int, N: int) -> dict:
+    """The least time for the DP + walk: each valid cell's cost read once
+    (4 bytes), the anchors written once, ~4 f32 operations a cell."""
+    cells = float((n_tok.clamp(min=1) * n_frames.clamp(min=1)).sum())
+    return bound(4 * cells + 4 * B * N + 8 * B, 4 * cells, F32_FLOPS)
+
+
+def _host_dp_ms(cost: torch.Tensor, n_tok, n_frames, sot_len: int) -> tuple:
+    """The port's host path on the same costs: (fetch + DP ms, DP ms), the
+    native DP of `anchor_times_from_cost` per row, best of three."""
+    nt, nf = n_tok.tolist(), n_frames.tolist()
+    fetch, dp = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = cost.cpu().numpy()
+        t1 = time.perf_counter()
+        for b in range(host.shape[0]):
+            dtw_ops.anchor_times_from_cost(np.ascontiguousarray(
+                host[b, sot_len: sot_len + nt[b], : nf[b]]), nt[b])
+        t2 = time.perf_counter()
+        fetch.append((t2 - t0) * 1e3)
+        dp.append((t2 - t1) * 1e3)
+    return min(fetch), min(dp)
+
+
+def _up_first(diag, up, left):
+    """Planted fault: ties prefer up over the diagonal."""
+    return torch.where((up <= diag) & (up <= left), dtw_ops.CODE_UP,
+                       torch.where(diag <= left, dtw_ops.CODE_DIAG, dtw_ops.CODE_LEFT))
+
+
+def _dtw_checks(params, cfg) -> dict:
+    """The kernel against its plain version, anchors equal exactly, at
+    large-v3 widths (B 8, N 224, Ta 1500, float costs of real alignment
+    maps), on integer costs with many ties, at the largest shape (N 440),
+    with rows at n_tok 1 and at n_frames < Ta; the up-first fault refused;
+    times beside the bound and the host DP."""
+    heads = wm.alignment_heads_for("large-v3", cfg)
+    B, Ta = 8, 1500
+    mixed_tok = torch.tensor([224, 1, 100, 224, 37, 1, 200, 5])
+    mixed_frames = torch.tensor([1500, 700, 1500, 1, 333, 1500, 1499, 12])
+    cases, rows = [], {}
+    for N, seed in ((224, 60), (440, 61)):
+        cost, sot_len, peak = _dtw_inputs(params, cfg, heads, B, N, seed)
+        print(f"[dtw] alignment_cost_batch at B {B}, K {len(heads)}, S {cost.shape[1]}, "
+              f"Ta {Ta}: peak {peak / 2**20:.1f} MiB above its inputs (the [B, K, S, Ta, 7] "
+              f"median gather: {B * len(heads) * cost.shape[1] * Ta * 7 * 4 / 2**20:.1f} MiB)",
+              flush=True)
+        full = (torch.full((B,), N), torch.full((B,), Ta))
+        cases.append((f"float N={N}", cost, sot_len, *full, True))
+        cases.append((f"float N={N} mixed rows", cost, sot_len,
+                      mixed_tok.clamp(max=N), mixed_frames, False))
+    g = torch.Generator(device="cuda").manual_seed(62)
+    # costs 0 or 1, 2% ones: the accumulated costs tie at most cells
+    ties = (torch.rand((B, 4 + 224, Ta), generator=g, device="cuda") < 0.02).float()
+    cases.append(("integer ties N=224", ties, 4, torch.full((B,), 224), torch.full((B,), Ta),
+                  False))
+    cases.append(("integer ties mixed rows", ties, 4, mixed_tok, mixed_frames, False))
+    errs = 0
+    for tag, cost, sot_len, n_tok, n_frames, time_it in cases:
+        nt, nf = n_tok.cuda(), n_frames.cuda()
+        got = dtw_ops.dtw_anchor_frames_batch(cost, nt, nf, sot_len)
+        ref = dtw_ops.dtw_anchor_frames_plain(cost, nt, nf, sot_len)
+        torch.cuda.synchronize()
+        diff = int((got.long() - ref.long()).abs().max())
+        errs = max(errs, diff)
+        print(f"[dtw] {tag}: kernel vs plain max |frame difference| {diff}", flush=True)
+        if diff:
+            raise AssertionError(f"dtw {tag}: the kernel's anchors differ from the plain version")
+        if tag.startswith("integer ties"):
+            bad = dtw_ops.dtw_anchor_frames_plain(cost, nt, nf, sot_len, _up_first)
+            if torch.equal(bad, got):
+                raise AssertionError(f"dtw {tag}: the check passed the up-first fault")
+            print(f"[dtw] {tag}: the up-first fault is refused "
+                  f"({int((bad != got).sum())} anchors moved)", flush=True)
+        if time_it:
+            N = cost.shape[1] - sot_len
+            t = dict(ms=time_ms(lambda: dtw_ops.dtw_anchor_frames_batch(cost, nt, nf, sot_len)),
+                     device_ms=device_ms(
+                         lambda: dtw_ops.dtw_anchor_frames_batch(cost, nt, nf, sot_len)),
+                     plain_ms=time_ms(lambda: dtw_ops.dtw_anchor_frames_plain(
+                         cost, nt, nf, sot_len), iters=2, warmup=1),
+                     library_ms=None, **_dtw_bound(n_tok, n_frames, B, N))
+            t["host_fetch_dp_ms"], t["host_dp_ms"] = _host_dp_ms(cost, n_tok, n_frames, sot_len)
+            print(f"[kernels] DTW B={B} N={N} Ta={Ta}: time {t['ms']:.4f} ms (device "
+                  f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, host native DP "
+                  f"{t['host_dp_ms']:.4f} ms ({t['host_fetch_dp_ms']:.4f} ms with the cost's "
+                  f"fetch), bound {t['bound_ms']:.6f} ms ({t['bound_by']})", flush=True)
+            rows[f"N={N}"] = t
+    res = dict(rows["N=224"], max_abs_err=errs, by_shape=rows)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dtw() -> tuple:
+    """The on-device DTW ("dtw"): one beam-5 large-v3 Engine (weights of the
+    JAX init's distribution, "__random__:large-v3:1", so tokens do not tie;
+    depth: 32 tokens a window, the ladder off) serves a 30 s whole-file
+    request with lang auto once to warm up, then on the default path (DP + backtrack by the
+    kernel) and again with WDT_HOST_DTW=1 (the host DP): cues and words
+    must be equal; both walls and the alignment stage's peak device memory
+    are printed. Then the kernel checks (`_dtw_checks`) on that Engine's
+    weights, `tools/run_config.py` config 4 on a 30 s WAV at
+    "__random__:large-v3:1" (32 tokens) and the `transcribe` example on
+    "__random__:tiny:1", each a path whose counts are set to 0 just before
+    and read just after. Returns (the kernel's row, the paths' counts)."""
+    import contextlib
+    import io
+    import os
+
+    from whisper_diarize_tpu_torch.examples import transcribe as ex_transcribe
+    from whisper_diarize_tpu_torch.tools import run_config
+    from whisper_diarize_tpu_torch.transcribe import TranscribeStep
+
+    by_path = {}
+    eng = make_engine("large-v3", whisper_model_path="__random__:large-v3:1",
+                      max_decode_tokens=32, temperature_fallback=False)
+    wav = _write_wav(WORK / "dtw.wav", 30.0, 50)
+    opts = wdt.TranscribeOptions(enable_vad=False, lang="auto")
+    align, anchors = [], []
+    orig = TranscribeStep.start_alignment
+
+    def measured(self, *a, **k):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        thunk = orig(self, *a, **k)
+        torch.cuda.synchronize()
+        align.append(dict(peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                          enqueue_s=time.perf_counter() - t0))
+        if thunk is None:
+            return None
+
+        def kept():
+            out = thunk()
+            anchors.append(out)
+            return out
+        return kept
+
+    cues, rows = {}, {}
+    eng.transcribe_audio(wav, opts)  # warm-up: the Engine's first request
+    TranscribeStep.start_alignment = measured
+    try:
+        for path, host in (("dtw", False), ("dtw-host", True)):
+            if host:
+                os.environ["WDT_HOST_DTW"] = "1"
+            reset_counts()
+            align.clear()
+            anchors.clear()
+            t0 = time.perf_counter()
+            cues[path] = eng.transcribe_audio(wav, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            os.environ.pop("WDT_HOST_DTW", None)
+            added = counts()
+            rows[path] = [r for out in anchors for r in out]
+            print(f"[dtw] beam 5 large-v3 30 s, {'WDT_HOST_DTW=1' if host else 'default'}: "
+                  f"wall {wall:.3f} s, windows {eng.last_run['windows']}, cues "
+                  f"{len(cues[path])}, words {sum(len(c.words or []) for c in cues[path])}, "
+                  f"alignment stage {[{k: round(v, 4) for k, v in a.items()} for a in align]}, "
+                  f"DTW launches {added['DTW']}", flush=True)
+            if host:
+                if added["DTW"]:
+                    raise AssertionError("dtw: WDT_HOST_DTW=1 launched the DTW kernel")
+            else:
+                _check_missing("dtw default path", "dtw", added)
+                by_path["dtw"] = added
+    finally:
+        TranscribeStep.start_alignment = orig
+        os.environ.pop("WDT_HOST_DTW", None)
+    same = [c.to_dict() for c in cues["dtw"]] == [c.to_dict() for c in cues["dtw-host"]]
+    aligned = [r for r in rows["dtw"] if r is not None]
+    same_anchors = len(rows["dtw"]) == len(rows["dtw-host"]) and all(
+        (a is None and b is None) or (a is not None and b is not None and np.array_equal(a, b))
+        for a, b in zip(rows["dtw"], rows["dtw-host"]))
+    print(f"[dtw] default and WDT_HOST_DTW=1: cues and words identical {same}, anchors of "
+          f"{len(aligned)} rows ({sum(map(len, aligned))} tokens) identical {same_anchors}",
+          flush=True)
+    if not (same and same_anchors and aligned):
+        raise AssertionError("dtw: the two alignment paths differ, or aligned no row")
+    (params, cfg, _), = eng._whisper_cache.values()
+    row = _dtw_checks(params, cfg)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    os.environ["WDT_VAD_MODEL"] = "__random__"
+    try:
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = run_config.main(["4", wav, "--model-dir", "__random__:large-v3:1",
+                                  "--cache-dir", str(WORK / "cache"), "--max-tokens", "32"])
+        torch.cuda.synchronize()
+        by_path["run-config-4"] = counts()
+        report = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"[dtw] run_config 4 (rc {rc}): {json.dumps(report)}", flush=True)
+        if rc != 0 or not report["xRT"] > 0:
+            raise AssertionError(f"run_config 4: rc {rc}, report {report}")
+        _check_missing("run_config 4", "run-config-4", by_path["run-config-4"])
+        torch.cuda.empty_cache()
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.chdir(WORK):
+            ex_transcribe.main([wav, "--model-dir", "__random__:tiny:1", "--max-tokens", "32",
+                                "--no-vad"])
+        by_path["example-transcribe"] = counts()
+        last = out.getvalue().strip().splitlines()[-1]
+        print(f"[dtw] example transcribe on the card: {last}", flush=True)
+        if not last.endswith("cues written to segments.json"):
+            raise AssertionError(f"example transcribe: {last}")
+        _check_missing("example transcribe", "example-transcribe", by_path["example-transcribe"])
+    finally:
+        os.environ.pop("WDT_VAD_MODEL", None)
+    return row, by_path
+
+
 def timed_phase(name: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -2635,6 +2912,8 @@ def main() -> None:
     by_path.update(timed_phase("mesh 1x1", phase_mesh_one_rank, [
         ("mesh-1x1-beam", "large-v3", False, beam[0][1]),
         ("mesh-1x1-greedy", "large-v3-turbo", True, greedy[0][1])]))
+    res["DTW"], dtw_paths = timed_phase("dtw", phase_dtw)
+    by_path.update(dtw_paths)
     int8_eng = make_engine("large-v3", quantize_kv_cache=True, temperature_fallback=False)
     int8 = int8_requests()
     by_path["int8-beam"] = timed_phase("engine int8-beam", phase_engine, int8_eng,
@@ -2687,7 +2966,7 @@ def main() -> None:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     print(json.dumps({"kernels": [
         {"name": spec["name"], "route": "cuda", "source": spec["source"],
-         "replaces": spec["replaces"],
+         "replaces": spec["replaces"], **({"note": spec["note"]} if "note" in spec else {}),
          "launches": sum(c[key] for c in by_path.values()),
          **{k: res[key][k] for k in keys},
          "launches_by_path": {p: c[key] for p, c in by_path.items()},

@@ -340,7 +340,7 @@ def test_beam1_equals_greedy(tiny):
 def test_engine_default_beam_matches_jax_engine(snapshot, wav, jax_engines, tmp_path,  # noqa: F811
                                                 monkeypatch, enable_vad, sequential):
     """`advanced=None`: beam search, beam 5, on both engines."""
-    monkeypatch.setenv("WDT_HOST_DTW", "1")
+    monkeypatch.delenv("WDT_HOST_DTW", raising=False)  # each one's default DTW
     opts = TranscribeOptions(enable_vad=enable_vad, lang="en")
     ref = jax_engines(sequential_prompt=sequential).transcribe_audio(wav, opts)
     eng = _engine(snapshot, tmp_path, sequential_prompt=sequential)

@@ -28,7 +28,10 @@ exceeds 1e-3, embeddings cosine >= 0.9999; its planted faults refused),
 and a diarized Engine request at the tiny preset through K1 - K3.
 Speculative greedy decoding at the tiny preset on the card (K1 - K3) held
 to the margin check of `chip_smoke.spec_gap`, its planted fault refused;
-the checkpoint-file loaders onto the card. The f32 forms: each against its
+the checkpoint-file loaders onto the card. The DTW kernel (`csrc/dtw.cu`)
+against its plain version, anchors equal exactly, on float and tie-heavy
+costs with clipped and ragged rows, bit for bit across two calls, the
+shapes it refuses. The f32 forms: each against its
 f32 plain version by `agreement.F32` (`F32_Q8` over the int8 cache), with
 the TF32 and bf16-rounding faults refused by `F32_REFUSAL`; the f32 skinny
 GEMM at N 1 - 80 and K2-f32 at every preset width, bit for bit across two
@@ -43,6 +46,7 @@ import torch
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
 from whisper_diarize_tpu_torch.ops import decode as dec
+from whisper_diarize_tpu_torch.ops import dtw as dtw_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -973,3 +977,33 @@ def test_one_rank_mesh_engine_equals_no_mesh_on_card(tmp_path):
     for a, b in zip(got["decodes"], ref["decodes"]):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("B,N,Ta,ties", [(3, 20, 37, False), (4, 60, 1500, True),
+                                         (2, 440, 1500, False)])
+def test_dtw_kernel_matches_plain_on_card(dev, B, N, Ta, ties):
+    g = torch.Generator(device=dev).manual_seed(N)
+    sot_len = 3
+    if ties:
+        cost = (torch.rand((B, sot_len + N, Ta), generator=g, device=dev) < 0.02).float()
+    else:
+        cost = torch.randn((B, sot_len + N, Ta), generator=g, device=dev)
+    n_tok = torch.tensor([N, 1, N // 2, N + 9][:B], device=dev)
+    n_frames = torch.tensor([Ta, Ta // 3, 1, Ta + 40][:B], device=dev)
+    got = dtw_ops.dtw_anchor_frames_batch(cost, n_tok, n_frames, sot_len)
+    ref = dtw_ops.dtw_anchor_frames_plain(cost, n_tok, n_frames, sot_len)
+    assert got.dtype == torch.int32 and got.shape == (B, N)
+    assert torch.equal(got, ref)
+    assert torch.equal(dtw_ops.dtw_anchor_frames_batch(cost, n_tok, n_frames, sot_len), got)
+
+
+def test_dtw_kernel_refuses_what_it_cannot_take(dev):
+    cost = torch.zeros((1, 8, 100), device=dev)
+    with pytest.raises(TypeError):
+        dtw_ops.dtw_anchor_frames_batch(cost.double(), [3], [100], 2)
+    with pytest.raises(ValueError):
+        dtw_ops.dtw_anchor_frames_batch(torch.zeros((1, 1030, 10), device=dev), [3], [10], 2)
+    with pytest.raises(ValueError):
+        dtw_ops.dtw_anchor_frames_batch(torch.zeros((1, 900, 1500), device=dev), [3], [10], 2)
+    with pytest.raises(ValueError):
+        dtw_ops.dtw_anchor_frames_batch(cost, [3, 4], [100], 2)

@@ -8,9 +8,10 @@ and the options it refuses.
 The snapshot is the JAX package's random init with the token embedding
 biased towards printable bytes (rows 33..126 scaled, unused ids zeroed), so
 the byte-level DebugTokenizer decodes visible text and DTW has words to
-place. Both engines use the host DTW DP (`WDT_HOST_DTW=1` on the JAX side)
-and run without the temperature-fallback ladder, whose sampling cannot
-match JAX's random bits; the ladder runs in `test_fallback_ladder_*`.
+place. Both engines align words by their default, on-device DTW (no
+`WDT_HOST_DTW`), and run without the temperature-fallback ladder (its
+sampled rungs are held against JAX in `tests/test_torch_prng.py`); the
+ladder runs in `test_fallback_ladder_*`.
 Tolerances: cue and word texts equal; cue and word times within one DTW
 frame (0.02 s) plus the formatter's 3-decimal rounding.
 """
@@ -111,7 +112,7 @@ def test_slice_matches_jax_engine(snapshot, wav, jax_engines, tmp_path, monkeypa
                                   enable_vad, sequential):
     """`sequential_prompt` carries each window's text into the next window's
     prompt: per-row left-padded prompts (row_pad) through the whole path."""
-    monkeypatch.setenv("WDT_HOST_DTW", "1")
+    monkeypatch.delenv("WDT_HOST_DTW", raising=False)
     opts = TranscribeOptions(enable_vad=enable_vad, lang="en", advanced=GREEDY)
     ref = jax_engines(sequential_prompt=sequential).transcribe_audio(wav, opts)
     eng = _engine(snapshot, tmp_path, sequential_prompt=sequential)
@@ -154,7 +155,7 @@ def test_diarized_slice_matches_jax_engine(snapshot, jax_engines, tmp_path, monk
     from whisper_diarize_tpu_torch import diarize as tdz
     from whisper_diarize_tpu_torch.models import segmentation as tseg
 
-    monkeypatch.setenv("WDT_HOST_DTW", "1")
+    monkeypatch.delenv("WDT_HOST_DTW", raising=False)
     rng = np.random.default_rng(3)
     t = np.arange(16000 * 10) / 16000.0
     wav20 = str(tmp_path / "twenty.wav")
@@ -276,7 +277,7 @@ def test_draft_matches_jax_engine_and_plain(snapshot, draft, wav, jax_engines, t
     the same draft and the port's own without it."""
     from whisper_diarize_tpu_torch.ops import speculative
 
-    monkeypatch.setenv("WDT_HOST_DTW", "1")
+    monkeypatch.delenv("WDT_HOST_DTW", raising=False)
     opts = TranscribeOptions(enable_vad=False, lang="en", advanced=GREEDY)
     ref = jax_engines(draft_model_path=draft).transcribe_audio(wav, opts)
     calls = []

@@ -170,7 +170,7 @@ def test_engine_on_a_checkpoint_file_matches_jax(files, wav, tmp_path, monkeypat
     """The Engine's file branch: a GGML file (its embedded vocabulary builds
     a VocabTokenizer) or a `.pt` file (the byte-level tokenizer), greedy
     with DTW word timestamps, against the JAX Engine on the same file."""
-    monkeypatch.setenv("WDT_HOST_DTW", "1")
+    monkeypatch.delenv("WDT_HOST_DTW", raising=False)  # each one's default DTW
     kw = dict(whisper_model_path=files[kind], enable_dtw=True, batch_size=1,
               max_decode_tokens=24, vad_model_path="__random__", temperature_fallback=False)
     opts = TranscribeOptions(enable_vad=False, lang="en",

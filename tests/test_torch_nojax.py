@@ -6,7 +6,9 @@ request (the port's segmentation net, CAM++ and kaldi fbank), then a
 greedy request with a draft model the port wrote (`save_params`:
 speculative decoding), a GGML file written and read back, the CLI's
 `models list`, then the diagnostic tools' `main` on the CPU at tiny shapes
-(and the encoder attention tool's `main` and a megakernel worker), and
+(and the encoder attention tool's `main` and a megakernel worker), one
+alignment through the on-device DTW's function (its plain version), the
+eval harness (`tools/run_config.py`) and two examples with `--cpu`, and
 finds no `jax` and no `whisper_diarize_tpu`
 module loaded (a subprocess, because the test process imports JAX, see
 tests/conftest.py); and a static scan of every module of the port and of
@@ -14,8 +16,8 @@ tests/conftest.py); and a static scan of every module of the port and of
 `evals/`. Also: the port's VAD and diarization entry points, its loaders
 (`load_model`, `load_vad_params`, `load_segmentation_params`,
 `load_campplus_params`, `load_ggml`, `load_openai_pt`, the nets'
-`load_params`), its tools and its CLI ask for the card unless the caller
-asks for the CPU."""
+`load_params`), its tools, its eval harness, its examples and its CLI ask
+for the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -86,6 +88,21 @@ SCRIPT = textwrap.dedent("""
     assert len(bench_encoder_attn.main("tiny", device="cpu", batch=1, repeat=1)) == 3
     row, _ = bench_megakernel.worker("tiny", 1, "tail+front", "greedy", device="cpu", smoke=True)
     assert row["variant"] == "tail+front", row
+    from whisper_diarize_tpu_torch.ops import dtw
+    frames = dtw.dtw_anchor_frames_batch(torch.randn(2, 7, 30), torch.tensor([4, 1]),
+                                         torch.tensor([30, 12]), 2)
+    assert frames.shape == (2, 5) and frames.dtype == torch.int32 and frames[0, 0] == 0
+    from whisper_diarize_tpu_torch.tools import run_config
+    import os
+    os.environ["WDT_VAD_MODEL"] = "__random__"  # no download
+    assert run_config.main(["1", tmp + "/in.wav", "--model-dir", "__random__:tiny",
+                            "--cache-dir", tmp + "/cache", "--max-tokens", "2", "--cpu"]) == 0
+    from whisper_diarize_tpu_torch.examples import _common, delete_nonexistent, transcribe
+    _common.main(["make-fixture", tmp + "/fx"])
+    os.chdir(tmp)
+    transcribe.main([tmp + "/fx/example.wav", "--model-dir", tmp + "/fx/snap", "--cpu",
+                     "--greedy", "--max-tokens", "2", "--no-vad"])
+    delete_nonexistent.main([tmp + "/cache"])
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
     assert not leaked, leaked
     jax_pkg = sorted(m for m in sys.modules
@@ -129,13 +146,20 @@ def test_static_scan_finds_no_jax_package_import():
     assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
         "bench_dma", "bench_attn_kernel", "bench_speculative", "timing", "bench_encoder_attn",
         "bench_megakernel")} <= scanned
+    assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
+        "run_config", "quality_golden")} <= scanned
+    assert {f"whisper_diarize_tpu_torch/examples/{m}.py" for m in (
+        "_common", "transcribe", "transcribe_translate", "translate_progress", "translate_text",
+        "progress_simple", "progress_types", "speculative_decode", "list_cached_models",
+        "delete_cached_model", "delete_nonexistent")} <= scanned
     assert {f"whisper_diarize_tpu_torch/{m}.py" for m in (
         "diarize", "models/segmentation", "models/campplus", "models/onnx_io",
         "models/convert", "models/net_check", "models/ggml", "ops/speculative",
         "__main__")} <= scanned
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}" for f in files
            for mod, line in _imported(f)
-           if mod.split(".")[0] in FORBIDDEN + ("evals", "torch_refs")]
+           if mod.split(".")[0] in FORBIDDEN + ("evals", "torch_refs", "tools", "examples",
+                                                "make_quality_golden", "run_config", "_common")]
     assert not bad, bad
 
 
@@ -231,3 +255,24 @@ def test_tools_default_to_the_card():
     for main in (bench_dma.main, bench_attn_kernel.main, bench_speculative.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()
+
+
+def test_harness_and_examples_default_to_the_card(tmp_path, monkeypatch):
+    """`tools/run_config.py` and every example that builds an Engine ask for
+    CUDA device 0 unless given `--cpu`: here, with no card, they raise
+    before any work."""
+    from whisper_diarize_tpu_torch.examples import (
+        progress_simple, progress_types, speculative_decode, transcribe, transcribe_translate)
+    from whisper_diarize_tpu_torch.tools import run_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.chdir(tmp_path)
+    wav, model = str(tmp_path / "missing.wav"), ["--model-dir", "__random__:tiny"]
+    calls = [lambda: run_config.main(["2", wav, *model]),
+             lambda: speculative_decode.main([wav, *model, "--draft-model-dir", "d"])]
+    calls += [lambda m=m: m.main([wav, *model])
+              for m in (transcribe, transcribe_translate, progress_simple, progress_types)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

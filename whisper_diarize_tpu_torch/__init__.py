@@ -20,9 +20,13 @@ quantize_tail_weights=...)`), and speaker diarization
 CAM++ embeddings on the kaldi fbank, the reference's ONNX weight files
 converted on first use, a `speaker_id` on every segment), speculative
 greedy decoding (`EngineConfig(draft_model_path=...)`), GGML and OpenAI
-`.pt` checkpoint files (`EngineConfig(whisper_model_path=<file>)`) and the
-command line (`python -m whisper_diarize_tpu_torch`). Device meshes and
-f32 on the card raise NotImplementedError (see ROADMAP.md).
+`.pt` checkpoint files (`EngineConfig(whisper_model_path=<file>)`), the
+command line (`python -m whisper_diarize_tpu_torch`), f32 on the card,
+device meshes and the training step (`parallel/`, `training.py`), DTW
+word alignment on the device (the JAX Engine's default; `WDT_HOST_DTW=1`
+for the host DP), the eval harness (`python -m
+whisper_diarize_tpu_torch.tools.run_config`) and the examples
+(`python -m whisper_diarize_tpu_torch.examples.<name>`).
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "wdt_cross_attn_const_layer": [_P] * 4 + [_I] * 7 + [_P],
     "wdt_cross_attn_q8": [_P] * 6 + [_I] * 8 + [_P],
     "wdt_cross_kv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wdt_dtw_anchors": [_P] * 3 + [_I] * 4 + [_P, _P],
     "wdt_encoder_attn": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_I, _P],
     "wdt_fused_front": [_P] * 10 + [_I] * 10 + [_P],
     "wdt_fused_tail": [_P] * 31 + [_I] * 30 + [_P],

@@ -3,11 +3,12 @@
 
 The JAX `lax.while_loop` becomes a Python step loop on device tensors: each
 step masks the logits with whisper's timestamp grammar, picks a token
-(argmax, or Gumbel-max sampling from a `torch.Generator` when temperature
-> 0), and runs one `decode_step` that updates the KV cache in place. The
-host reads `finished.all()` only every `poll_tokens` steps; a step after
-every row has finished writes eot and adds nothing, so the result equals
-the JAX loop that stops on the spot.
+(argmax, or Gumbel-max sampling when temperature > 0, from a
+`prng.Threefry` stream: the JAX package's random bits), and runs one
+`decode_step` that updates the KV cache in place. The host reads
+`finished.all()` only every `poll_tokens` steps; a step after every row has
+finished writes eot and adds nothing, so the result equals the JAX loop
+that stops on the spot.
 
 `sample_best_of` folds the best_of candidates into the batch as beams that
 share their stream's cross K/V (K1 and K3 take the beam-folded rows), where
@@ -48,6 +49,7 @@ import torch
 from ..models import whisper as wm
 from ..parallel.mesh import data_parallel, gather_data
 from ..tokenizer import SpecialTokens
+from .prng import Threefry
 
 NEG_INF = float("-inf")
 
@@ -200,14 +202,16 @@ def _gather(res: DecodeResult, mesh) -> DecodeResult:
                            for f in dataclasses.fields(DecodeResult)})
 
 
-def _uniform(shape, generator: torch.Generator, device, mesh) -> torch.Tensor:
-    """U[0, 1) noise of the rank's rows: under a data split the whole
-    batch's draw, of which the rank takes its own rows."""
+def _gumbel(shape, generator: Threefry, device, mesh) -> torch.Tensor:
+    """Gumbel noise of the rank's rows, the JAX package's bits (the stream's
+    key split once a step): under a data split the whole batch's draw, of
+    which the rank takes its own rows."""
+    full = shape if not data_parallel(mesh) else (shape[0] * mesh.n_data,) + tuple(shape[1:])
+    g = generator.gumbel(full, device)
     if not data_parallel(mesh):
-        return torch.rand(shape, generator=generator, device=device)
+        return g
     n = shape[0]
-    u = torch.rand((n * mesh.n_data,) + tuple(shape[1:]), generator=generator, device=device)
-    return u[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+    return g[mesh.data_rank * n:(mesh.data_rank + 1) * n]
 
 
 def build_cross_cache(params, cfg: wm.WhisperConfig, dc: DecodeConfig,
@@ -227,7 +231,7 @@ def greedy_init(
     xa: torch.Tensor,  # [B, Ta, D] encoded audio
     prompt: torch.Tensor,  # [B, P] int64
     prompt_len: int,
-    generator: Optional[torch.Generator] = None,  # temperature > 0
+    generator: Optional[Threefry] = None,  # temperature > 0
     suppress_mask: Optional[torch.Tensor] = None,
     sot_pos: int = 0,
     row_pad: Optional[torch.Tensor] = None,  # [B]
@@ -247,8 +251,8 @@ def greedy_init(
     max_steps = _max_steps(dc, cfg, prompt_len)
     if suppress_mask is None:
         suppress_mask = torch.from_numpy(build_suppress_mask(sp, cfg.n_vocab)).to(dev)
-    if generator is None:  # JAX's default PRNGKey(0) counterpart
-        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator is None:  # JAX's default PRNGKey(0)
+        generator = Threefry(0)
     if beams > 1:
         prompt = prompt.repeat_interleave(beams, dim=0)
         row_pad = row_pad.repeat_interleave(beams, dim=0) if row_pad is not None else None
@@ -303,8 +307,7 @@ def greedy_run(
         lse = torch.logsumexp(logits, dim=-1)
         if dc.temperature > 0:
             # Gumbel-max: argmax(logits / T + G) samples softmax(logits / T)
-            u = _uniform(logits.shape, s["generator"], logits.device, dc.mesh)
-            gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+            gumbel = _gumbel(logits.shape, s["generator"], logits.device, dc.mesh)
             next_tok = torch.argmax(logits / dc.temperature + gumbel, dim=-1)
         else:
             next_tok = torch.argmax(logits, dim=-1)
@@ -346,7 +349,7 @@ def greedy_finalize(state: Dict[str, Any]) -> DecodeResult:
 def greedy_decode(
     params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
     xa: torch.Tensor, prompt: torch.Tensor, prompt_len: int,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Threefry] = None,
     suppress_mask: Optional[torch.Tensor] = None,
     sot_pos: int = 0,
     is_cancelled=None,  # host callback polled every poll_tokens steps
@@ -380,7 +383,7 @@ def sample_best_of(
     params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
     xa: torch.Tensor, prompt: torch.Tensor, prompt_len: int,
     best_of: int = 5,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Threefry] = None,
     suppress_mask: Optional[torch.Tensor] = None,
     sot_pos: int = 0,
     row_pad: Optional[torch.Tensor] = None,

@@ -14,6 +14,7 @@ token streams -> word timestamps -> chunk results.
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -24,6 +25,7 @@ from .models import whisper as wm
 from .ops import decode as dec
 from .ops import dtw as dtw_ops
 from .ops.mel import SAMPLE_RATE, log_mel_spectrogram
+from .ops.prng import Threefry
 from .parallel import mesh as mesh_mod
 from .types import WordTimestamp
 
@@ -112,11 +114,11 @@ class TranscribeStep:
     of the parameters (given whole or already sliced; a model axis the
     configuration cannot be split over is refused, K2's local head count
     among them), encodes and decodes the rank's rows of each batch, and
-    all-gathers each decode's results, and the DTW costs, over the data
-    group, so that every rank takes the same fallback-ladder and seek
-    decisions and returns the same chunk results. The draft is dropped
-    under a mesh (as in the JAX package), and so are int8 tail weights
-    under a head split (K6 takes whole layers)."""
+    all-gathers each decode's results, and the DTW anchors (the costs with
+    `WDT_HOST_DTW=1`), over the data group, so that every rank takes the
+    same fallback-ladder and seek decisions and returns the same chunk
+    results. The draft is dropped under a mesh (as in the JAX package), and
+    so are int8 tail weights under a head split (K6 takes whole layers)."""
 
     def __init__(
         self,
@@ -245,12 +247,13 @@ class TranscribeStep:
         return (prompt[rows], prompt_len, sot_pos,
                 None if row_pad is None else row_pad[rows])
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _generator(self, seed: int) -> Threefry:
+        """`jax.random.PRNGKey(seed)`, as the JAX package seeds each rung."""
+        return Threefry(seed)
 
     def decode(self, xa: torch.Tensor, language, task: str,
                prev_tokens: Optional[Sequence[int]] = None,
-               generator: Optional[torch.Generator] = None,
+               generator: Optional[Threefry] = None,
                is_cancelled=None,
                cross: Optional[Dict[str, torch.Tensor]] = None,
                xa_d=None) -> dec.DecodeResult:
@@ -392,11 +395,19 @@ class TranscribeStep:
     def start_alignment(self, result: dec.DecodeResult, xa: torch.Tensor,
                         chunk_samples: Sequence[int], translated: bool):
         """Enqueue the teacher-forced alignment pass and its cost reduction on
-        the device; return a host thunk that fetches the [B, S, Ta] cost and
-        runs the DTW backtrack per row (None when DTW is off / empty /
-        translated). The Engine runs the thunk on a worker thread. Under a
-        mesh the rank aligns its rows and the cost of the whole batch is
-        all-gathered here, on the calling thread, before the thunk."""
+        the device, and return a host thunk that yields each row's anchor
+        times (None when DTW is off / empty / translated). The Engine runs
+        the thunk on a worker thread.
+
+        By default (the JAX Engine's default) the DTW DP and backtrack run
+        on the device too (`dtw_ops.dtw_anchor_frames_batch`: the kernel of
+        `csrc/dtw.cu` on a card), and the thunk fetches only the [B, N]
+        int32 anchor frames. With `WDT_HOST_DTW=1` the thunk fetches the
+        [B, S, Ta] cost and runs the DP and backtrack per row on the host.
+        The two paths give the same anchors bit for bit. Under a mesh the
+        rank aligns its rows, and the anchors (or the cost) of the whole
+        batch are all-gathered here, on the calling thread, before the
+        thunk."""
         if not (self.enable_dtw and not translated):
             return None
         tokens = result.tokens.cpu().numpy()
@@ -422,9 +433,22 @@ class TranscribeStep:
         qk = wm.alignment_cross_attn(
             self.params, self.cfg, torch.from_numpy(seq[rows]).to(dev), xa, self.heads,
             mesh=self.mesh)
-        cost_dev = mesh_mod.gather_data(dtw_ops.alignment_cost_batch(
+        cost_rows = dtw_ops.alignment_cost_batch(
             qk, torch.from_numpy(n_frames[rows]).to(dev),
-            torch.from_numpy(n_rows[rows]).to(dev)), self.mesh)
+            torch.from_numpy(n_rows[rows]).to(dev))
+        if os.environ.get("WDT_HOST_DTW", "") != "1":
+            frames_dev = mesh_mod.gather_data(dtw_ops.dtw_anchor_frames_batch(
+                cost_rows, torch.from_numpy(lengths[rows].astype(np.int32)).to(dev),
+                torch.from_numpy(n_frames[rows].astype(np.int32)).to(dev), sot_len),
+                self.mesh)
+
+            def backtrack_dev() -> List[Optional[np.ndarray]]:
+                frames = frames_dev.cpu().numpy()  # [B, N] int32
+                return [frames[b, : int(lengths[b])].astype(np.float64) * dtw_ops.FRAME_SECONDS
+                        if lengths[b] > 0 else None for b in range(B)]
+
+            return backtrack_dev
+        cost_dev = mesh_mod.gather_data(cost_rows, self.mesh)
 
         def backtrack() -> List[Optional[np.ndarray]]:
             cost = cost_dev.cpu().numpy()
