@@ -57,7 +57,25 @@ traceback) and no result line is printed:
    full, no-attn and flash-custom (K10) attention) and
    `...tools.bench_megakernel` (large-v3, B 16, its full budgets, each
    variant in this process so that its launches count: greedy `tail` (K3)
-   and `tail+front` (K8 + K3), beam `tail` (K4 + K3)); and the f32 forms of
+   and `tail+front` (K8 + K3), beam `tail` (K4 + K3)); then the five decode
+   breakdown tools (`breakdown_phases`, each in this process at large-v3,
+   batch 16, budgets 32 and 64, best of 1 after a warm-up, a path of its
+   own):
+   `...tools.bench_decode_breakdown` ("decode-breakdown": mel, K7, encode,
+   prefill and its parts, greedy_run, model_only with and without K8,
+   sample_only; the last step's picks with K8 within 2e-2 x max|logit| of
+   the best logit without, the margin rule of `TOKEN_GAP`),
+   `bench_beam_breakdown` ("beam-breakdown", every part),
+   `bench_layer_variants` ("layer-variants"; v1b's picks, the torch tail
+   with K1, by the same rule against v0's logits, K3), `bench_beam_variants`
+   ("beam-variants") and `bench_quant_kv` ("quant-kv": K5 and K6 in the q8
+   variants); in every row the times and launches finite, the launches a
+   step whole and >= 0, the device time a step >= 0, and the longer
+   budget's call (or the one call), profiled, busy no longer than
+   `PROFILER_ALLOWANCE` x its unprofiled wall (`_check_rows`; the wall
+   slopes are reported, not held: the host moves them far more than the
+   device time);
+   and the f32 forms of
    K1-K6, K8 and K10 (`phase_f32_kernels`, "kernels f32": K1 at B 8, Q 1 /
    3 / 15 / 64 / 227 and B 1, K2 at L 4 and 32, K3 at N 8 and 40, K4 at steps 0,
    31, 63, K5 at Q 3 and 15, K6 `kvq` and `wq+kvq` at N 40, K8 at N 8 and
@@ -253,8 +271,11 @@ from whisper_diarize_tpu_torch.ops import (attn, attn_probe, encoder_attn, front
 from whisper_diarize_tpu_torch.ops import dtw as dtw_ops
 from whisper_diarize_tpu_torch.ops.prng import Threefry
 from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
-from whisper_diarize_tpu_torch.tools import (bench_attn_kernel, bench_dma, bench_encoder_attn,
-                                             bench_f32_attn, bench_megakernel, bench_speculative)
+from whisper_diarize_tpu_torch.tools import (bench_attn_kernel, bench_beam_breakdown,
+                                             bench_beam_variants, bench_decode_breakdown,
+                                             bench_dma, bench_encoder_attn, bench_f32_attn,
+                                             bench_layer_variants, bench_megakernel,
+                                             bench_quant_kv, bench_speculative)
 from whisper_diarize_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, TF32X3_FLOPS,
                                                     attn_bound, bound, device_ms,
                                                     device_ms_by_kernel, nvidia_smi_line,
@@ -340,7 +361,11 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "mesh-2x1-f32": ("K1-f32", "K2-f32", "K3-f32", "K4-f32"),
          "dryrun-1x2": ("K1-f32", "K2-f32", "K4-f32", "K5-f32"),
          "dtw": ("K1", "K2", "K3", "K4", "DTW"), "run-config-4": ("K1", "K2", "K3", "K4", "DTW"),
-         "example-transcribe": ("K1", "K2", "K3", "K4", "DTW")}
+         "example-transcribe": ("K1", "K2", "K3", "K4", "DTW"),
+         "decode-breakdown": ("K1", "K2", "K3", "K7", "K8"),
+         "beam-breakdown": ("K1", "K2", "K3", "K4"), "layer-variants": ("K1", "K2", "K3"),
+         "beam-variants": ("K1", "K2", "K3", "K4"),
+         "quant-kv": ("K1", "K2", "K3", "K4", "K5", "K6")}
 # the margin check of a decode on the card: every emitted token within
 # TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
 # `spec_gap`)
@@ -1252,6 +1277,130 @@ def phase_tool(path: str, runs, keys=("ms", "device_ms", "bound_ms")) -> dict:
     _check_missing(f"tool {path}", path, added)
     torch.cuda.empty_cache()
     return added
+
+
+# timed calls a budget of the breakdown tools' phases here, after a warm-up
+# one (the tools take 5): one keeps the five phases near 300 s of the run
+BREAKDOWN_REPEAT = 1
+# the profiler lengthens the kernels of a call the card runs end to end:
+# the encoder reads 482.9 ms profiled against 479.3 ms by CUDA events
+# (0.7%, NVIDIA H100 80GB HBM3, 700.00 W); a profiled call's busy time is
+# held within this factor of the same call's unprofiled wall
+PROFILER_ALLOWANCE = 1.05
+
+
+# a breakdown row's keys: its wall and device ms and launches a step, and
+# its (device, wall) ms of whole calls, profiled busy time against the
+# unprofiled wall
+ROW_KEYS = dict(wall="wall_ms", device="device_ms", launches="launches",
+                calls=(("device_long_ms", "wall_long_ms"),))
+
+
+def _row_faults(r: dict, wall: str, device: str, launches: str, calls) -> list:
+    """What a breakdown row breaks of `_check_rows`'s rules."""
+    faults = [k for k in (wall, device, launches, *(k for c in calls for k in c))
+              if r[k] is None or not math.isfinite(r[k])]
+    if faults:
+        return [f"not finite: {faults}"]
+    if r[launches] < 0 or r[launches] != round(r[launches]):
+        faults.append(f"launches a step {r[launches]} not whole and >= 0")
+    if r.get("phase", "").strip() == "residual":
+        # prefill less its parts, each timed and profiled on its own: its
+        # times are differences of separate calls' and may fall below 0
+        return faults
+    if r[device] < 0:
+        faults.append(f"device {r[device]} ms a step < 0")
+    faults += [f"{d} {r[d]:.3f} > {PROFILER_ALLOWANCE} x {w} {r[w]:.3f}"
+               for d, w in calls if r[d] > PROFILER_ALLOWANCE * r[w]]
+    return faults
+
+
+def _check_rows(path: str, rows, keys=ROW_KEYS) -> None:
+    """Every row of a breakdown tool: its wall, device time and launches a
+    step finite, its launches a step whole and >= 0 (each step launches
+    the same kernels) and its device time a step >= 0; and each whole call
+    it profiled (the longer budget's, or the one call) busy, the union of
+    its kernels' intervals, no longer than `PROFILER_ALLOWANCE` x the same
+    call's unprofiled wall. The wall slopes and the busy share are
+    reported, not held: a slope is the difference of two calls and carries
+    the host's noise in both. `residual` (prefill less its parts) is held
+    to finite values and whole launches only."""
+    bad = [(r.get("phase", r.get("variant")), f) for r in rows
+           for f in _row_faults(r, **keys)]
+    if bad:
+        raise AssertionError(f"tool {path}: rows that break the checks: {bad}")
+
+
+def phase_breakdown(path: str, run, rows_of, keys=ROW_KEYS, check=None) -> dict:
+    """One breakdown tool's `main()` on the card at large-v3 and batch 16,
+    in this process: the launch counts set to 0 just before and read just
+    after, every kernel of the path (`PATHS`) launched; the rows checked
+    by `_check_rows`, then `check(result)` where given. Returns the path's
+    counts."""
+    reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    added = counts()
+    rows = rows_of(out)
+    print(f"[tool {path}] {len(rows)} rows, launches {added}", flush=True)
+    _check_rows(path, rows, keys)
+    if check is not None:
+        check(out)
+    _check_missing(f"tool {path}", path, added)
+    del out
+    torch.cuda.empty_cache()
+    return added
+
+
+def _gap_check(tag: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """The margin rule (`TOKEN_GAP`) between two paths' logits at one step
+    (`bench_decode_breakdown.token_gap`)."""
+    gap = bench_decode_breakdown.token_gap(got, ref)
+    print(f"[tool] {tag}: token gap {gap:.3g} x max|logit| (tol {TOKEN_GAP:g}; max |logit "
+          f"diff| / max |logit| {float((got - ref).abs().max() / ref.abs().max()):.3g})",
+          flush=True)
+    if not gap <= TOKEN_GAP:
+        raise AssertionError(f"{tag}: logit gap {gap} > {TOKEN_GAP}")
+
+
+def breakdown_runs(rep: int) -> dict:
+    """`phase_breakdown`'s arguments for each of the five breakdown tools
+    (`tools/bench_decode_breakdown.py`, `bench_beam_breakdown`,
+    `bench_layer_variants`, `bench_beam_variants`, `bench_quant_kv`) at
+    large-v3, batch 16, budgets 32 and 64, best of `rep`, each in this
+    process, by path."""
+    return {
+        "decode-breakdown": dict(
+            run=lambda: bench_decode_breakdown.main(smoke=False, repeat=rep),
+            rows_of=lambda o: o.rows,
+            check=lambda o: _gap_check("model_only +front vs model_only, last step",
+                                       o.logits["model_only +front"][1],
+                                       o.logits["model_only"][1])),
+        "beam-breakdown": dict(
+            run=lambda: bench_beam_breakdown.main(smoke=False, repeat=rep, inline=True),
+            rows_of=list),
+        "layer-variants": dict(
+            run=lambda: bench_layer_variants.main(smoke=False, repeat=rep),
+            rows_of=lambda o: o.rows,
+            check=lambda o: _gap_check("v1b unfused vs v0 baseline, last step",
+                                       o.out["v1b unfused"][1], o.out["v0 baseline"][1])),
+        "beam-variants": dict(
+            run=lambda: bench_beam_variants.main(smoke=False, repeat=rep, inline=True),
+            rows_of=list),
+        "quant-kv": dict(
+            run=lambda: bench_quant_kv.main(smoke=False, repeat=rep, inline=True),
+            rows_of=list, keys=dict(wall="ms_per_step", device="device_ms_per_step",
+                                    launches="launches_per_step",
+                                    calls=(("t64_device_ms", "t64_ms"),
+                                           ("init_device_ms", "init_ms")))),
+    }
+
+
+def breakdown_phases() -> dict:
+    """The five breakdown tools on the card (`breakdown_runs`, best of
+    `BREAKDOWN_REPEAT`), each a phase and a path of its own."""
+    return {path: timed_phase(f"tool {path}", lambda kw=kw, path=path: phase_breakdown(
+        path, **kw)) for path, kw in breakdown_runs(BREAKDOWN_REPEAT).items()}
 
 
 def _teacher_forced(cpu, xa_b, prompt, toks):
@@ -2898,6 +3047,7 @@ def main() -> None:
     by_path["bench-megakernel"] = timed_phase(
         "tool bench-megakernel", phase_tool, "bench-megakernel",
         [(bench_megakernel.main, dict(inline=True, smoke=False))], ("ms_per_step", "t64_ms"))
+    by_path.update(breakdown_phases())
     train = timed_phase("train", phase_train)
     timed_phase("reference", phase_reference)
     # depth: 32 tokens a window on the greedy paths and the bf16 beam

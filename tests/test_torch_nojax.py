@@ -6,7 +6,8 @@ request (the port's segmentation net, CAM++ and kaldi fbank), then a
 greedy request with a draft model the port wrote (`save_params`:
 speculative decoding), a GGML file written and read back, the CLI's
 `models list`, then the diagnostic tools' `main` on the CPU at tiny shapes
-(and the encoder attention tool's `main` and a megakernel worker), one
+(and the encoder attention tool's `main`, a megakernel worker, the decode
+breakdown tools' `main` and the converter CLI), one
 alignment through the on-device DTW's function (its plain version), the
 eval harness (`tools/run_config.py`) and two examples with `--cpu`, and
 finds no `jax` and no `whisper_diarize_tpu`
@@ -16,7 +17,7 @@ tests/conftest.py); and a static scan of every module of the port and of
 `evals/`. Also: the port's VAD and diarization entry points, its loaders
 (`load_model`, `load_vad_params`, `load_segmentation_params`,
 `load_campplus_params`, `load_ggml`, `load_openai_pt`, the nets'
-`load_params`), its tools, its eval harness, its examples and its CLI ask
+`load_params`), its tools (the breakdown tools too), its eval harness, its examples and its CLI ask
 for the card unless the caller asks for the CPU."""
 
 import ast
@@ -88,6 +89,19 @@ SCRIPT = textwrap.dedent("""
     assert len(bench_encoder_attn.main("tiny", device="cpu", batch=1, repeat=1)) == 3
     row, _ = bench_megakernel.worker("tiny", 1, "tail+front", "greedy", device="cpu", smoke=True)
     assert row["variant"] == "tail+front", row
+    from whisper_diarize_tpu_torch.tools import (
+        bench_beam_breakdown, bench_beam_variants, bench_decode_breakdown, bench_layer_variants,
+        bench_quant_kv, convert_models)
+    cpu = dict(device="cpu", smoke=True)
+    assert bench_decode_breakdown.main("tiny", 1, **cpu).rows[0]["phase"] == "mel"
+    rows = bench_beam_breakdown.main("tiny", 1, inline=True, parts=("gather", "sample"), **cpu)
+    assert [r["phase"] for r in rows] == ["gather", "sample"], rows
+    assert len(bench_layer_variants.main("tiny", 1, **cpu).rows) == 5
+    rows = bench_beam_variants.main("tiny", 1, inline=True, parts=("embed", "full"), **cpu)
+    assert [r["phase"] for r in rows] == ["embed", "full"], rows
+    assert len(bench_quant_kv.main("tiny", 1, inline=True, **cpu)) == 5
+    torch.save({"_model.decoder.decoder.2.bias": torch.zeros(1)}, tmp + "/silero.pt")
+    assert convert_models.main(["silero", tmp + "/silero.pt", tmp + "/silero.npz"]) == 0
     from whisper_diarize_tpu_torch.ops import dtw
     frames = dtw.dtw_anchor_frames_batch(torch.randn(2, 7, 30), torch.tensor([4, 1]),
                                          torch.tensor([30, 12]), 2)
@@ -147,7 +161,9 @@ def test_static_scan_finds_no_jax_package_import():
         "bench_dma", "bench_attn_kernel", "bench_speculative", "timing", "bench_encoder_attn",
         "bench_megakernel")} <= scanned
     assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
-        "run_config", "quality_golden")} <= scanned
+        "run_config", "quality_golden", "bench_decode_breakdown", "bench_beam_breakdown",
+        "bench_layer_variants", "bench_beam_variants", "bench_quant_kv",
+        "convert_models")} <= scanned
     assert {f"whisper_diarize_tpu_torch/examples/{m}.py" for m in (
         "_common", "transcribe", "transcribe_translate", "translate_progress", "translate_text",
         "progress_simple", "progress_types", "speculative_decode", "list_cached_models",
@@ -246,13 +262,22 @@ def test_checkpoint_file_loaders_default_to_the_card(tmp_path):
 
 
 def test_tools_default_to_the_card():
-    """Both diagnostic tools run on CUDA device 0 unless given a device:
-    here, with no card, `main()` raises before it allocates anything."""
-    from whisper_diarize_tpu_torch.tools import bench_attn_kernel, bench_dma, bench_speculative
+    """The diagnostic and breakdown tools run on CUDA device 0 unless given
+    a device: here, with no card, `main()` (and the quantized-cache tool's
+    worker, and each part-per-process tool's child) raises before it
+    allocates anything."""
+    from whisper_diarize_tpu_torch.tools import (
+        bench_attn_kernel, bench_beam_breakdown, bench_beam_variants, bench_decode_breakdown,
+        bench_dma, bench_layer_variants, bench_quant_kv, bench_speculative)
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for main in (bench_dma.main, bench_attn_kernel.main, bench_speculative.main):
+    for main in (bench_dma.main, bench_attn_kernel.main, bench_speculative.main,
+                 bench_decode_breakdown.main, bench_beam_breakdown.main,
+                 bench_layer_variants.main, bench_beam_variants.main, bench_quant_kv.main,
+                 lambda: bench_quant_kv.worker("tiny", 1, "tail", "greedy"),
+                 lambda: bench_beam_breakdown.main(inline=True),
+                 lambda: bench_beam_variants.main(inline=True)):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()
 

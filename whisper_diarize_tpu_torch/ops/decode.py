@@ -289,6 +289,44 @@ def greedy_init(
     )
 
 
+def greedy_sample(
+    s: Dict[str, Any], suppress_mask: torch.Tensor, sp: SpecialTokens, dc: DecodeConfig,
+) -> torch.Tensor:
+    """One greedy / temperature step before the model, on the loop state `s`
+    (updated in place but for "logits" and "step"): the timestamp grammar,
+    the pick and the bookkeeping. Returns the tokens [N] the step feeds the
+    model."""
+    step = s["step"]
+    eot = sp.eot
+    logits = _prepare_logits(
+        s["logits"], suppress_mask, sp, dc, step,
+        s["last_was_ts"], s["penult_was_ts"], s["max_ts_tok"], s["ts_seen"])
+    lse = torch.logsumexp(logits, dim=-1)
+    if dc.temperature > 0:
+        # Gumbel-max: argmax(logits / T + G) samples softmax(logits / T)
+        gumbel = _gumbel(logits.shape, s["generator"], logits.device, dc.mesh)
+        next_tok = torch.argmax(logits / dc.temperature + gumbel, dim=-1)
+    else:
+        next_tok = torch.argmax(logits, dim=-1)
+    tok_logprob = logits.gather(1, next_tok[:, None])[:, 0] - lse
+    was_finished = s["finished"]
+    next_tok = torch.where(was_finished, torch.full_like(next_tok, eot), next_tok)
+    now_finished = was_finished | (next_tok == eot)
+    s["tokens"][:, step] = next_tok
+    s["probs"][:, step] = torch.where(was_finished, 0.0, torch.exp(tok_logprob))
+    s["sum_logprob"] = s["sum_logprob"] + torch.where(was_finished, 0.0, tok_logprob)
+    s["length"] = s["length"] + (~now_finished).long()
+    is_ts = next_tok >= sp.timestamp_begin
+    live_ts = is_ts & ~was_finished
+    s["penult_was_ts"] = torch.where(was_finished, s["penult_was_ts"], s["last_was_ts"])
+    s["last_was_ts"] = torch.where(was_finished, s["last_was_ts"], is_ts)
+    s["max_ts_tok"] = torch.where(
+        live_ts, torch.maximum(s["max_ts_tok"], next_tok), s["max_ts_tok"])
+    s["ts_seen"] = s["ts_seen"] | live_ts
+    s["finished"] = now_finished
+    return next_tok
+
+
 def greedy_run(
     params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
     state: Dict[str, Any], suppress_mask: torch.Tensor, prompt_len: int,
@@ -297,36 +335,10 @@ def greedy_run(
     """Advance the loop (state updated in place) until `budget` total steps
     or the token budget; no host synchronisation inside."""
     s = state
-    eot = sp.eot
     stop = min(_max_steps(dc, cfg, prompt_len), budget)
     while s["step"] < stop:
         step = s["step"]
-        logits = _prepare_logits(
-            s["logits"], suppress_mask, sp, dc, step,
-            s["last_was_ts"], s["penult_was_ts"], s["max_ts_tok"], s["ts_seen"])
-        lse = torch.logsumexp(logits, dim=-1)
-        if dc.temperature > 0:
-            # Gumbel-max: argmax(logits / T + G) samples softmax(logits / T)
-            gumbel = _gumbel(logits.shape, s["generator"], logits.device, dc.mesh)
-            next_tok = torch.argmax(logits / dc.temperature + gumbel, dim=-1)
-        else:
-            next_tok = torch.argmax(logits, dim=-1)
-        tok_logprob = logits.gather(1, next_tok[:, None])[:, 0] - lse
-        was_finished = s["finished"]
-        next_tok = torch.where(was_finished, torch.full_like(next_tok, eot), next_tok)
-        now_finished = was_finished | (next_tok == eot)
-        s["tokens"][:, step] = next_tok
-        s["probs"][:, step] = torch.where(was_finished, 0.0, torch.exp(tok_logprob))
-        s["sum_logprob"] = s["sum_logprob"] + torch.where(was_finished, 0.0, tok_logprob)
-        s["length"] = s["length"] + (~now_finished).long()
-        is_ts = next_tok >= sp.timestamp_begin
-        live_ts = is_ts & ~was_finished
-        s["penult_was_ts"] = torch.where(was_finished, s["penult_was_ts"], s["last_was_ts"])
-        s["last_was_ts"] = torch.where(was_finished, s["last_was_ts"], is_ts)
-        s["max_ts_tok"] = torch.where(
-            live_ts, torch.maximum(s["max_ts_tok"], next_tok), s["max_ts_tok"])
-        s["ts_seen"] = s["ts_seen"] | live_ts
-        s["finished"] = now_finished
+        next_tok = greedy_sample(s, suppress_mask, sp, dc)
         logits_next = wm.decode_step(
             params, cfg, next_tok[:, None], prompt_len + step, s["cache"],
             s["cross"], beams=s["beams"], row_pad=s["row_pad"], tail_q8=s["tail_q8"],
@@ -524,6 +536,67 @@ def beam_init(
     )
 
 
+def beam_sample(
+    s: Dict[str, Any], suppress_mask: torch.Tensor, sp: SpecialTokens, dc: DecodeConfig,
+    rows: torch.Tensor,  # arange(N) on the state's device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One beam step before the model, on the beam state `s` (updated in
+    place but for "logits", "step" and the ancestry map): the exact two-stage
+    top-2K, the EOT retirement (frozen once every stream holds the patience
+    target) and the active beams' bookkeeping. Returns the new beams'
+    tokens and source rows [N]."""
+    B, K, _ = s["fin_tokens"].shape
+    N = B * K
+    step = s["step"]
+    dev = rows.device
+    live = ~(s["fin_count"] >= _n_fin_target(dc)).all()  # JAX's loop condition
+    logits = _prepare_logits(
+        s["logits"], suppress_mask, sp, dc, step,
+        s["last_was_ts"], s["penult_was_ts"], s["max_ts_tok"], s["ts_seen"])
+    V = logits.shape[-1]
+    # exact two-stage top-2K: per beam over V, then pooled over K * 2K
+    # (a global top-2K candidate is inside its own beam's top-2K); the
+    # per-row order equals the logits' order, so only the 2K selected
+    # values get the score and normaliser
+    lse = torch.logsumexp(logits, dim=-1)
+    v1, i1 = _top_k(logits, 2 * K)
+    v1 = (v1 - lse[:, None] + s["scores"][:, None]).view(B, 2 * K * K)
+    i1 = (i1 + (rows % K)[:, None] * V).view(B, 2 * K * K)
+    topv, sel = _top_k(v1, 2 * K)  # [B, 2K]
+    topi = torch.gather(i1, 1, sel)
+    tok_idx = topi % V
+    src_flat = torch.arange(B, device=dev)[:, None] * K + topi // V
+
+    fin = _retire_eot_candidates(
+        sp, K, topv, tok_idx, src_flat, s["tokens"], s["probs"], s["length"],
+        s["fin_tokens"], s["fin_probs"], s["fin_scores"], s["fin_lengths"],
+        s["fin_count"])
+    for key, new in zip(("fin_tokens", "fin_probs", "fin_scores",
+                         "fin_lengths", "fin_count"), fin):
+        s[key] = torch.where(live, new, s[key])
+
+    # keep the top-K non-EOT candidates as the new active beams
+    active = topv.masked_fill(tok_idx == sp.eot, NEG_INF)
+    keepv, keepi = _top_k(active, K)
+    new_tok = torch.gather(tok_idx, 1, keepi).view(N)
+    new_src = torch.gather(src_flat, 1, keepi).view(N)
+    new_scores = keepv.reshape(N)
+    tok_logprob = new_scores - s["scores"][new_src]
+    s["tokens"] = s["tokens"][new_src]
+    s["tokens"][:, step] = new_tok
+    s["probs"] = s["probs"][new_src]
+    s["probs"][:, step] = torch.exp(tok_logprob)
+    s["length"] = s["length"][new_src] + 1
+    is_ts = new_tok >= sp.timestamp_begin
+    s["penult_was_ts"] = s["last_was_ts"][new_src]
+    s["last_was_ts"] = is_ts
+    max_ts = s["max_ts_tok"][new_src]
+    s["max_ts_tok"] = torch.where(is_ts, torch.maximum(max_ts, new_tok), max_ts)
+    s["ts_seen"] = s["ts_seen"][new_src] | is_ts
+    s["scores"] = new_scores
+    return new_tok, new_src
+
+
 def beam_run(
     params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
     state: Dict[str, Any], suppress_mask: torch.Tensor, prompt_len: int,
@@ -538,59 +611,12 @@ def beam_run(
     is masked on the device), and `beam_finalize`, which then reads only
     those slots, gives what the JAX loop gives."""
     s = state
-    B, K, _ = s["fin_tokens"].shape
-    N = B * K
-    V = cfg.n_vocab
-    dev = s["scores"].device
-    target = _n_fin_target(dc)
-    rows = torch.arange(N, device=dev)
+    K = s["fin_tokens"].shape[1]
+    rows = torch.arange(s["scores"].shape[0], device=s["scores"].device)
     stop = min(_max_steps(dc, cfg, prompt_len), budget)
     while s["step"] < stop:
         step = s["step"]
-        live = ~(s["fin_count"] >= target).all()  # JAX's loop condition
-        logits = _prepare_logits(
-            s["logits"], suppress_mask, sp, dc, step,
-            s["last_was_ts"], s["penult_was_ts"], s["max_ts_tok"], s["ts_seen"])
-        # exact two-stage top-2K: per beam over V, then pooled over K * 2K
-        # (a global top-2K candidate is inside its own beam's top-2K); the
-        # per-row order equals the logits' order, so only the 2K selected
-        # values get the score and normaliser
-        lse = torch.logsumexp(logits, dim=-1)
-        v1, i1 = _top_k(logits, 2 * K)
-        v1 = (v1 - lse[:, None] + s["scores"][:, None]).view(B, 2 * K * K)
-        i1 = (i1 + (rows % K)[:, None] * V).view(B, 2 * K * K)
-        topv, sel = _top_k(v1, 2 * K)  # [B, 2K]
-        topi = torch.gather(i1, 1, sel)
-        tok_idx = topi % V
-        src_flat = torch.arange(B, device=dev)[:, None] * K + topi // V
-
-        fin = _retire_eot_candidates(
-            sp, K, topv, tok_idx, src_flat, s["tokens"], s["probs"], s["length"],
-            s["fin_tokens"], s["fin_probs"], s["fin_scores"], s["fin_lengths"],
-            s["fin_count"])
-        for key, new in zip(("fin_tokens", "fin_probs", "fin_scores",
-                             "fin_lengths", "fin_count"), fin):
-            s[key] = torch.where(live, new, s[key])
-
-        # keep the top-K non-EOT candidates as the new active beams
-        active = topv.masked_fill(tok_idx == sp.eot, NEG_INF)
-        keepv, keepi = _top_k(active, K)
-        new_tok = torch.gather(tok_idx, 1, keepi).view(N)
-        new_src = torch.gather(src_flat, 1, keepi).view(N)
-        new_scores = keepv.reshape(N)
-        tok_logprob = new_scores - s["scores"][new_src]
-        s["tokens"] = s["tokens"][new_src]
-        s["tokens"][:, step] = new_tok
-        s["probs"] = s["probs"][new_src]
-        s["probs"][:, step] = torch.exp(tok_logprob)
-        s["length"] = s["length"][new_src] + 1
-        is_ts = new_tok >= sp.timestamp_begin
-        s["penult_was_ts"] = s["last_was_ts"][new_src]
-        s["last_was_ts"] = is_ts
-        max_ts = s["max_ts_tok"][new_src]
-        s["max_ts_tok"] = torch.where(is_ts, torch.maximum(max_ts, new_tok), max_ts)
-        s["ts_seen"] = s["ts_seen"][new_src] | is_ts
-        s["scores"] = new_scores
+        new_tok, new_src = beam_sample(s, suppress_mask, sp, dc, rows)
         # the decode cache is never permuted: the ancestry map follows the
         # surviving beams and K4 reads each beam's rows through it
         s["anc"] = s["anc"][new_src]
