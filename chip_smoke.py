@@ -213,11 +213,15 @@ traceback) and no result line is printed:
    (`csrc/dtw.cu`, `ops/dtw.py::dtw_anchor_frames_batch`) against its plain
    version, anchors equal exactly, at B 8 x Ta 1500 on costs that
    `alignment_cost_batch` makes of real `alignment_cross_attn` maps at
-   large-v3 widths (N 224, and N 440, the largest), on 0 / 1 costs with
-   many ties, and with rows at n_tok 1 and at n_frames < Ta; the planted
-   fault (ties prefer up over the diagonal) must move anchors; the kernel
-   timed (N 224 and 440) beside the plain version, the port's host native
-   DP on the same costs and the bound by bytes. A beam-5 large-v3 Engine
+   large-v3 widths (N 32 and 64, the Engine's shapes at 32 and 64 tokens,
+   N 224, and N 440, the largest), on 0 / 1 costs with many ties, with rows
+   at n_tok 1 and at n_frames < Ta, and at N 33 and 100 with rows at n_tok
+   32, 33, 64 and 65 (the warps' handoff at its edges); the kernel's plan
+   (`wdt_dtw_plan`) equal to its mirror `dtw_plan`; the planted fault (ties
+   prefer up over the diagonal) must move anchors; the kernel timed (N 32,
+   64, 224 and 440; ns an anti-diagonal) beside one call of the plain
+   version, the port's host native DP on the same costs and the bound by
+   bytes. A beam-5 large-v3 Engine
    ("__random__:large-v3:1", 32 tokens, ladder off) serves a 30 s request
    once to warm up, then on the default path and with `WDT_HOST_DTW=1`: the cues and the anchors
    must be identical, the default path must launch the kernel and the host
@@ -2771,11 +2775,13 @@ def phase_train() -> dict:
     return out
 
 
-def _dtw_inputs(params, cfg, heads, B: int, N: int, seed: int):
+def _dtw_inputs(params, cfg, heads, B: int, N: int, seed: int, prefixes=()):
     """Costs [B, S, Ta] f32 from `alignment_cost_batch` of real
     `alignment_cross_attn` maps: B windows of speech-like noise encoded, N
     random text tokens after the timing pass's sot sequence. Returns
-    (cost, sot_len, peak bytes of the reduction)."""
+    (cost, sot_len, peak bytes of the reduction, {n: cost of the first n
+    tokens' maps} for n in `prefixes`: the decoder is causal, so a prefix's
+    maps are the prefix of the maps)."""
     rng = np.random.default_rng(seed)
     tk = DebugTokenizer(num_languages=cfg.num_languages)
     sot = tk.sot_sequence(language="en")
@@ -2797,7 +2803,10 @@ def _dtw_inputs(params, cfg, heads, B: int, N: int, seed: int):
         cost = dtw_ops.alignment_cost_batch(qk, nf, nr)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-    return cost.contiguous(), len(sot), peak
+        pre = {n: dtw_ops.alignment_cost_batch(
+            qk[:, :, : len(sot) + n], nf, nr.clamp(max=len(sot) + n)).contiguous()
+            for n in prefixes}
+    return cost.contiguous(), len(sot), peak, pre
 
 
 def _dtw_bound(n_tok, n_frames, B: int, N: int) -> dict:
@@ -2834,17 +2843,22 @@ def _up_first(diag, up, left):
 
 def _dtw_checks(params, cfg) -> dict:
     """The kernel against its plain version, anchors equal exactly, at
-    large-v3 widths (B 8, N 224, Ta 1500, float costs of real alignment
-    maps), on integer costs with many ties, at the largest shape (N 440),
-    with rows at n_tok 1 and at n_frames < Ta; the up-first fault refused;
-    times beside the bound and the host DP."""
+    large-v3 widths (B 8, Ta 1500, float costs of real alignment maps) at
+    N 32 and 64 (the Engine's shapes at 32 and 64 tokens), 224 and 440 (the
+    largest), on integer costs with many ties, with rows at n_tok 1 and at
+    n_frames < Ta, at N 33 and 100 with rows at n_tok 32, 33, 64 and 65 (the
+    warps' handoff at its edges); the kernel's plan equal to its mirror;
+    the up-first fault refused; times (ns an anti-diagonal) beside the
+    bound, one call of the plain version and the host DP."""
     heads = wm.alignment_heads_for("large-v3", cfg)
     B, Ta = 8, 1500
     mixed_tok = torch.tensor([224, 1, 100, 224, 37, 1, 200, 5])
     mixed_frames = torch.tensor([1500, 700, 1500, 1, 333, 1500, 1499, 12])
+    edge_tok = torch.tensor([100, 32, 33, 64, 65, 1, 97, 31])
     cases, rows = [], {}
     for N, seed in ((224, 60), (440, 61)):
-        cost, sot_len, peak = _dtw_inputs(params, cfg, heads, B, N, seed)
+        cost, sot_len, peak, pre = _dtw_inputs(params, cfg, heads, B, N, seed,
+                                               (32, 64) if N == 224 else ())
         print(f"[dtw] alignment_cost_batch at B {B}, K {len(heads)}, S {cost.shape[1]}, "
               f"Ta {Ta}: peak {peak / 2**20:.1f} MiB above its inputs (the [B, K, S, Ta, 7] "
               f"median gather: {B * len(heads) * cost.shape[1] * Ta * 7 * 4 / 2**20:.1f} MiB)",
@@ -2853,15 +2867,28 @@ def _dtw_checks(params, cfg) -> dict:
         cases.append((f"float N={N}", cost, sot_len, *full, True))
         cases.append((f"float N={N} mixed rows", cost, sot_len,
                       mixed_tok.clamp(max=N), mixed_frames, False))
+        if N == 224:
+            for n, c in pre.items():
+                cases.append((f"float N={n}", c, sot_len, torch.full((B,), n),
+                              torch.full((B,), Ta), True))
+            cases.append(("float N=100 handoff edges", cost[:, : sot_len + 100].contiguous(),
+                          sot_len, edge_tok, mixed_frames, False))
     g = torch.Generator(device="cuda").manual_seed(62)
     # costs 0 or 1, 2% ones: the accumulated costs tie at most cells
     ties = (torch.rand((B, 4 + 224, Ta), generator=g, device="cuda") < 0.02).float()
     cases.append(("integer ties N=224", ties, 4, torch.full((B,), 224), torch.full((B,), Ta),
                   False))
     cases.append(("integer ties mixed rows", ties, 4, mixed_tok, mixed_frames, False))
-    errs = 0
+    cases.append(("integer ties N=33", ties[:, : 4 + 33].contiguous(), 4,
+                  torch.tensor([33, 32, 1, 17, 33, 31, 2, 33]), mixed_frames, False))
+    errs, lib, plan = 0, kernels.library(), (ctypes.c_int * 5)()
     for tag, cost, sot_len, n_tok, n_frames, time_it in cases:
         nt, nf = n_tok.cuda(), n_frames.cuda()
+        N, Ta_c = cost.shape[1] - sot_len, cost.shape[2]
+        if (lib.wdt_dtw_plan(N, Ta_c, plan) != 0
+                or tuple(plan) != dtw_ops.dtw_plan(N, Ta_c)):
+            raise AssertionError(f"dtw {tag}: the kernel's plan {tuple(plan)} is not its mirror "
+                                 f"{dtw_ops.dtw_plan(N, Ta_c)}")
         got = dtw_ops.dtw_anchor_frames_batch(cost, nt, nf, sot_len)
         ref = dtw_ops.dtw_anchor_frames_plain(cost, nt, nf, sot_len)
         torch.cuda.synchronize()
@@ -2870,23 +2897,24 @@ def _dtw_checks(params, cfg) -> dict:
         print(f"[dtw] {tag}: kernel vs plain max |frame difference| {diff}", flush=True)
         if diff:
             raise AssertionError(f"dtw {tag}: the kernel's anchors differ from the plain version")
-        if tag.startswith("integer ties"):
+        if tag in ("integer ties N=224", "integer ties mixed rows"):
             bad = dtw_ops.dtw_anchor_frames_plain(cost, nt, nf, sot_len, _up_first)
             if torch.equal(bad, got):
                 raise AssertionError(f"dtw {tag}: the check passed the up-first fault")
             print(f"[dtw] {tag}: the up-first fault is refused "
                   f"({int((bad != got).sum())} anchors moved)", flush=True)
         if time_it:
-            N = cost.shape[1] - sot_len
             t = dict(ms=time_ms(lambda: dtw_ops.dtw_anchor_frames_batch(cost, nt, nf, sot_len)),
                      device_ms=device_ms(
                          lambda: dtw_ops.dtw_anchor_frames_batch(cost, nt, nf, sot_len)),
                      plain_ms=time_ms(lambda: dtw_ops.dtw_anchor_frames_plain(
-                         cost, nt, nf, sot_len), iters=2, warmup=1),
+                         cost, nt, nf, sot_len), iters=1, warmup=0),
                      library_ms=None, **_dtw_bound(n_tok, n_frames, B, N))
             t["host_fetch_dp_ms"], t["host_dp_ms"] = _host_dp_ms(cost, n_tok, n_frames, sot_len)
+            t["ns_per_diagonal"] = t["device_ms"] * 1e6 / (N + Ta - 1)
             print(f"[kernels] DTW B={B} N={N} Ta={Ta}: time {t['ms']:.4f} ms (device "
-                  f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, host native DP "
+                  f"{t['device_ms']:.4f}, {t['ns_per_diagonal']:.1f} ns an anti-diagonal), "
+                  f"plain {t['plain_ms']:.4f} ms, host native DP "
                   f"{t['host_dp_ms']:.4f} ms ({t['host_fetch_dp_ms']:.4f} ms with the cost's "
                   f"fetch), bound {t['bound_ms']:.6f} ms ({t['bound_by']})", flush=True)
             rows[f"N={N}"] = t

@@ -980,21 +980,46 @@ def test_one_rank_mesh_engine_equals_no_mesh_on_card(tmp_path):
 
 
 @pytest.mark.parametrize("B,N,Ta,ties", [(3, 20, 37, False), (4, 60, 1500, True),
-                                         (2, 440, 1500, False)])
+                                         (2, 440, 1500, False), (4, 32, 1500, False),
+                                         (4, 64, 1500, True), (4, 33, 1497, False),
+                                         (8, 100, 1500, True)])
 def test_dtw_kernel_matches_plain_on_card(dev, B, N, Ta, ties):
+    """N 32 and 64 (one and two warps), N 33 and 100 (not multiples of 32)
+    with rows at n_tok 32 and 33 and at 64 and 65 (the warps' handoff at its
+    edges), Ta % 4 != 0 (the kernel's scalar loads)."""
     g = torch.Generator(device=dev).manual_seed(N)
     sot_len = 3
     if ties:
         cost = (torch.rand((B, sot_len + N, Ta), generator=g, device=dev) < 0.02).float()
     else:
         cost = torch.randn((B, sot_len + N, Ta), generator=g, device=dev)
-    n_tok = torch.tensor([N, 1, N // 2, N + 9][:B], device=dev)
-    n_frames = torch.tensor([Ta, Ta // 3, 1, Ta + 40][:B], device=dev)
+    n_tok = torch.tensor([N, 1, N // 2, N + 9, 32, 33, 64, 65][:B], device=dev)
+    n_frames = torch.tensor([Ta, Ta // 3, 1, Ta + 40, 5, Ta - 1, 777, Ta][:B], device=dev)
     got = dtw_ops.dtw_anchor_frames_batch(cost, n_tok, n_frames, sot_len)
     ref = dtw_ops.dtw_anchor_frames_plain(cost, n_tok, n_frames, sot_len)
     assert got.dtype == torch.int32 and got.shape == (B, N)
     assert torch.equal(got, ref)
     assert torch.equal(dtw_ops.dtw_anchor_frames_batch(cost, n_tok, n_frames, sot_len), got)
+
+
+def test_dtw_plan_matches_its_mirror_on_card(dev):
+    """`csrc/dtw.cu::make_plan` (the C entry `wdt_dtw_plan`) gives the plan
+    `dtw_ops.dtw_plan` mirrors at every N the Engine feeds and more, and
+    refuses what the mirror refuses."""
+    import ctypes
+
+    from whisper_diarize_tpu_torch import kernels
+
+    lib = kernels.library()
+    out = (ctypes.c_int * 5)()
+    for N in (1, 5, 31, 32, 33, 64, 100, 224, 416, 440, 1024):
+        for Ta in (1, 3, 4, 37, 1497, 1500):
+            try:
+                want = dtw_ops.dtw_plan(N, Ta)
+            except ValueError:
+                assert lib.wdt_dtw_plan(N, Ta, out) != 0, (N, Ta)
+                continue
+            assert lib.wdt_dtw_plan(N, Ta, out) == 0 and tuple(out) == want, (N, Ta)
 
 
 def test_dtw_kernel_refuses_what_it_cannot_take(dev):

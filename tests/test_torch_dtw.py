@@ -11,6 +11,12 @@ min-plus scan groups the sums otherwise, `whisper_diarize_tpu/ops/dtw.py`,
 the caveat of `dtw_anchor_frames_batch`); `alignment_cost` and
 `token_anchor_times` within 1e-5; Engine cues equal in text, times within
 one frame (0.02 s) plus the formatter's 3-decimal rounding.
+
+The kernel's launch plan (`dtw_plan`, the mirror of `csrc/dtw.cu::make_plan`)
+fits every shape the Engine feeds; the kernel's algorithm, walked in numpy
+(`_wavefront_model`), gives the plain version's anchors exactly; the
+alignment stage's median a head at a time equals the gather of every head
+bit for bit.
 """
 
 import numpy as np
@@ -150,8 +156,238 @@ def test_wrapper_raises_off_the_cpu():
     cost = torch.zeros((1, 10, 20), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         tdtw.dtw_anchor_frames_batch(cost, [3], [20], 2)
-    assert tdtw.dtw_smem_bytes(440, 1500) == 172480 <= tdtw.DTW_SMEM_LIMIT
+    assert tdtw.dtw_plan(440, 1500).smem == 232032 <= tdtw.DTW_SMEM_LIMIT
     assert tdtw.dtw_smem_bytes(1024, 1500) > tdtw.DTW_SMEM_LIMIT
+
+
+# --------------------------------------------------------------------------
+# The kernel's plan and its algorithm, on the CPU
+# --------------------------------------------------------------------------
+
+def _engine_shapes():
+    """Every (N, Ta) `TranscribeStep.start_alignment` can hand the kernel:
+    the tokens rounded up to 32, at most n_text_ctx - 8 = 440 (every
+    Whisper model's n_text_ctx is 448), and up to 1500 frames."""
+    return sorted({min(-(-n // 32) * 32, 448 - 8) for n in range(1, 449)})
+
+
+def test_plan_fits_every_engine_shape():
+    for N in _engine_shapes():
+        for Ta in (1, 3, 4, 5, 17, 750, 1499, 1500):
+            plan = tdtw.dtw_plan(N, Ta)
+            assert plan.warps == -(-N // 32) and plan.warps * 32 >= N
+            assert (plan.chunk, plan.ring) == (tdtw.DTW_CHUNK, tdtw.DTW_RING)
+            # row i's words hold columns from -4 (i % 4): the last column fits
+            assert (Ta - 1 + 12) // 16 < plan.words
+            assert plan.smem == tdtw.dtw_smem_bytes(N, Ta) <= tdtw.DTW_SMEM_LIMIT
+            assert plan.smem >= N * plan.words * 4
+    assert tdtw.dtw_plan(440, 1500) == (14, 8, 4, 95, 232032)
+    assert tdtw.dtw_plan(32, 1500).smem == 32 * 95 * 4 + 8 * 512  # one warp: no pair
+
+
+@pytest.mark.parametrize("N,Ta", [(0, 1500), (1025, 10), (5, 0), (600, 1500), (1024, 1000)])
+def test_plan_and_wrapper_refuse_what_the_kernel_cannot_take(N, Ta):
+    """Shapes over the kernel's limits: `dtw_plan` raises ValueError, and so
+    does the wrapper off the CPU before it looks at the device."""
+    with pytest.raises(ValueError):
+        tdtw.dtw_plan(N, Ta)
+    cost = torch.zeros((1, 2 + N, Ta), device="meta")
+    with pytest.raises(ValueError, match="dtw_anchor_frames_batch"):
+        tdtw.dtw_anchor_frames_batch(cost, [1], [1], 2)
+
+
+def _wavefront_model(cost, n_tok, n_frames, sot_len, seed=0):
+    """`csrc/dtw.cu`'s algorithm in numpy f32, step by step: a warp's 32
+    lanes as arrays, lane l on the 4-column block t - l at step t, `up` and
+    `diag` from lane l - 1's block of the step before (lane 0: row 32w - 1's
+    blocks as warp w - 1 hands them on, NaN past the last block, +inf above
+    row 0), the row's first block left of column 0, the costs read as x + 0,
+    each cell's two code bits (the sign bits of min - diag and of left - up)
+    shifted in at the bottom of a word stored every four steps at word
+    t // 4 - l // 4, words never stored left random; then the walk's bit
+    scan of each row's words. -> [B, N] int32."""
+    B, S, Ta = cost.shape
+    N = S - sot_len
+    words = tdtw.dtw_plan(N, Ta).words
+    rng = np.random.default_rng(seed)
+    inf = np.float32(np.inf)
+    lanes = np.arange(32)
+    out = np.zeros((B, N), np.int32)
+    np_err = np.seterr(invalid="ignore")  # inf - inf left of column 0
+    for b in range(B):
+        nt, nf = int(np.clip(n_tok[b], 1, N)), int(np.clip(n_frames[b], 1, Ta))
+        nblk = -(-nf // 4)
+        n_steps = -(-(nblk + 31) // 8) * 8
+        codes = rng.integers(0, 2 ** 32, size=(N, words), dtype=np.uint64)
+        above = None
+        for w in range(-(-nt // 32)):
+            i = 32 * w + lanes
+            rows = cost[b, sot_len + np.minimum(i, N - 1)].astype(np.float32)
+            c = np.full((4, 32), inf, np.float32)
+            pu3 = np.where(i == 0, np.float32(-0.0), inf).astype(np.float32)
+            word = np.zeros(32, np.uint64)
+            last = np.full((n_steps + 32, 4), np.nan, np.float32)  # row 32w + 31 by block
+            for t in range(n_steps):
+                k = t - lanes
+                x = np.zeros((4, 32), np.float32)
+                kc = np.clip(k, 0, nblk - 1)
+                for e in range(4):
+                    ok = 4 * kc + e < Ta
+                    x[e, ok] = rows[ok, 4 * kc[ok] + e] + np.float32(0)
+                u = np.empty((4, 32), np.float32)
+                u[:, 1:] = c[:, :-1]
+                u[:, 0] = inf if w == 0 else above[t]
+                d = [pu3, u[0], u[1], u[2]]
+                pu3 = u[3].copy()
+                left = c[3]
+                for e in range(4):
+                    dg, up = d[e], u[e]
+                    m = np.fmin(np.fmin(dg, up), left)
+                    for diff in (m - dg, left - up):
+                        word = (word << np.uint64(1)) | np.signbit(diff).astype(np.uint64)
+                    c[e] = x[e] + m
+                    left = c[e]
+                word &= np.uint64(0xFFFFFFFF)
+                if t % 4 == 3:
+                    wi = t // 4 - lanes // 4
+                    st = (i < nt) & (wi >= 0) & (wi < words)
+                    codes[i[st], wi[st]] = word[st]
+                if 0 <= t - 31 < nblk:
+                    last[t - 31] = c[:, 31]
+            above = last
+        r, col = nt - 1, nf - 1
+        while r > 0:
+            o = 4 * (r & 3)
+            pos = col + o
+            wi = pos >> 4
+            wd = int(codes[r, wi])
+            m = ~(wd & (wd >> 1)) & 0x55555555 & ((0xFFFFFFFF << (30 - 2 * (pos & 15))) & 0xFFFFFFFF)
+            while m == 0 and wi > 0:
+                wi -= 1
+                wd = int(codes[r, wi])
+                m = ~(wd & (wd >> 1)) & 0x55555555
+            lb = (m & -m).bit_length() - 1
+            cc = 16 * wi + 15 - (lb >> 1) - o if m else 0
+            out[b, r] = max(cc, 0)
+            diag = cc > 0 and not (wd >> (lb + 1)) & 1
+            col = cc - 1 if diag else max(cc, 0)
+            r -= 1
+    np.seterr(**np_err)
+    return out
+
+
+def _model_case(kind: str):
+    """(cost, n_tok, n_frames, sot_len): N not a multiple of 32, N > 32 with
+    rows at n_tok <= 32 and at 33 (the handoff's edges), n_frames < Ta,
+    Ta % 4 != 0 (the kernel's scalar loads), costs with many ties."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "ints-Ta37":
+        B, N, Ta, sot_len = 5, 20, 37, 3
+        cost = rng.integers(0, 9, size=(B, sot_len + N, Ta)).astype(np.float32)
+        n_tok, n_frames = [20, 1, 7, 20, 13], [37, 1, 36, 2, 33]
+    elif kind == "ties-N70":
+        B, N, Ta, sot_len = 6, 70, 150, 4
+        cost = (rng.random((B, sot_len + N, Ta)) < 0.02).astype(np.float32)
+        n_tok, n_frames = [70, 1, 33, 32, 64, 70], [150, 1, 77, 149, 5, 150]
+    elif kind == "floats-N64":
+        B, N, Ta, sot_len = 3, 64, 100, 2
+        cost = rng.standard_normal((B, sot_len + N, Ta)).astype(np.float32)
+        n_tok, n_frames = [64, 31, 40], [100, 99, 3]
+    else:  # "nan-garbage-N33": NaN in every cell outside the submatrix
+        B, N, Ta, sot_len = 3, 33, 60, 3
+        cost = rng.standard_normal((B, sot_len + N, Ta)).astype(np.float32)
+        n_tok, n_frames = [33, 32, 10], [57, 60, 21]
+        for b in range(B):
+            cost[b, :sot_len] = np.nan
+            cost[b, sot_len + n_tok[b]:] = np.nan
+            cost[b, :, n_frames[b]:] = np.nan
+    return cost, np.array(n_tok, np.int32), np.array(n_frames, np.int32), sot_len
+
+
+@pytest.mark.parametrize("kind", ["ints-Ta37", "ties-N70", "floats-N64", "nan-garbage-N33"])
+def test_wavefront_model_matches_plain(kind):
+    """The kernel's wavefront, skewed code words and bit-scan walk, walked
+    in numpy, give the plain version's anchors exactly."""
+    cost, n_tok, n_frames, sot_len = _model_case(kind)
+    want = _port(cost, n_tok, n_frames, sot_len)
+    np.testing.assert_array_equal(_wavefront_model(cost, n_tok, n_frames, sot_len), want)
+
+
+def test_wavefront_model_matches_plain_at_engine_width():
+    """At Ta 1500 (375 blocks a row) and N 40 (two warps, the handoff)."""
+    rng = np.random.default_rng(12)
+    cost = rng.standard_normal((2, 44, 1500)).astype(np.float32)
+    n_tok, n_frames = np.array([40, 35], np.int32), np.array([1500, 1234], np.int32)
+    np.testing.assert_array_equal(_wavefront_model(cost, n_tok, n_frames, 4),
+                                  _port(cost, n_tok, n_frames, 4))
+
+
+@pytest.mark.parametrize("variant", ["probe", "no-ring", "no-code-stores", "no-copies",
+                                     "no-shuffles", "no-ring-code-stores-copies"])
+def test_bench_probe_edits_apply_to_the_kernel_source(variant):
+    """`tools/bench_dtw.py --probe` builds its copies of `csrc/dtw.cu` by
+    text edits that must each match the source once (the card builds them)."""
+    from whisper_diarize_tpu_torch import kernels
+    from whisper_diarize_tpu_torch.tools import bench_dtw
+
+    src = (kernels.CSRC / "dtw.cu").read_text()
+    edits = bench_dtw._PROBE + bench_dtw._ABLATIONS.get(variant, [])
+    out = bench_dtw._edit(src, edits)
+    assert "g_probe[0] = clock64() - clk;" in out and out.count("g_probe[1]") == 1
+
+
+# --------------------------------------------------------------------------
+# The alignment stage's median filter
+# --------------------------------------------------------------------------
+
+def _median_gather_form(w, n_frames, width=7):
+    """The earlier form: every head's windows gathered at once,
+    [B, K, S, Ta, width], then `median`."""
+    B, K, S, Ta = w.shape
+    pad = width // 2
+    cols = torch.arange(Ta)
+    taps = (cols[:, None] + torch.arange(-pad, pad + 1)[None, :]).abs()
+    last = (n_frames.long() - 1)[:, None, None]
+    taps_b = torch.clamp(last - (last - taps[None]).abs(), 0, Ta - 1)
+    idx = taps_b[:, None, None].expand(B, K, S, Ta, width)
+    win = torch.gather(w[..., None].expand(B, K, S, Ta, width), 3, idx)
+    return win.median(dim=-1).values
+
+
+def test_median_filter_batch_equals_the_gather_form():
+    """Bit for bit, at reflect edges of every row's own n_frames (1 to Ta)."""
+    rng = np.random.default_rng(21)
+    w = torch.from_numpy(rng.standard_normal((5, 3, 6, 40)).astype(np.float32))
+    w[1, :, :, 5:9] = 0.25  # ties inside a window
+    nf = torch.tensor([40, 1, 2, 4, 23])
+    got = tdtw.median_filter_batch(w, nf)
+    assert torch.equal(got.view(torch.int32), _median_gather_form(w, nf).view(torch.int32))
+
+
+def test_alignment_cost_batch_new_median_matches_gather_and_jax(monkeypatch):
+    """`alignment_cost_batch` (its median a head at a time) with mixed
+    n_frames and n_rows: bit for bit the cost of the gather form; within
+    1e-5 of JAX's `alignment_cost` (the host form, on each row's valid
+    rows and frames) and of JAX's `alignment_cost_batch`."""
+    rng = np.random.default_rng(8)
+    B, K, S, Ta = 4, 3, 12, 200
+    qk = (rng.standard_normal((B, K, S, Ta)) * 3).astype(np.float32)
+    nf = np.array([200, 57, 9, 130], np.int64)
+    nr = np.array([12, 5, 9, 1], np.int64)
+    args = torch.from_numpy(qk), torch.from_numpy(nf), torch.from_numpy(nr)
+    got = tdtw.alignment_cost_batch(*args)
+    monkeypatch.setattr(tdtw, "median_filter_batch", _median_gather_form)
+    ref = tdtw.alignment_cost_batch(*args)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    jb = np.asarray(jdtw.alignment_cost_batch(jnp.asarray(qk), jnp.asarray(nf, jnp.int32),
+                                              jnp.asarray(nr, jnp.int32)))
+    for b in range(B):
+        rows, cols = int(nr[b]), int(nf[b])
+        np.testing.assert_allclose(got[b, :rows, :cols].numpy(),
+                                   jdtw.alignment_cost(qk[b, :, :rows], cols),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got[b, :rows, :cols].numpy(), jb[b, :rows, :cols],
+                                   rtol=0, atol=1e-5)
 
 
 def test_alignment_cost_and_token_anchor_times_match_jax():

@@ -32,7 +32,7 @@ row's [K, S, Ta] logits.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -164,14 +164,29 @@ def alignment_cost_batch(
         std = torch.sqrt(var)
     w = (w - mean) / torch.clamp(std, min=1e-9)
 
-    pad = medfilt_width // 2
+    return -median_filter_batch(w, n_frames, medfilt_width).mean(dim=1)
+
+
+def median_filter_batch(w: torch.Tensor, n_frames: torch.Tensor,
+                        width: int = 7) -> torch.Tensor:
+    """The width-`width` median of w [B, K, S, Ta] along Ta, reflecting at
+    each row's own n_frames, one head at a time: the window gather is
+    [B, S, Ta, width] (not [B, K, S, Ta, width], 727 MiB at B 8, K 10, S 227).
+    A median selects, so the values equal the gather of all heads at once."""
+    B, K, S, Ta = w.shape
+    dev = w.device
+    pad = width // 2
+    cols = torch.arange(Ta, device=dev)
     taps = (cols[:, None] + torch.arange(-pad, pad + 1, device=dev)[None, :]).abs()
     last = (n_frames.long() - 1)[:, None, None]  # [B, 1, 1]
     taps_b = torch.clamp(last - (last - taps[None]).abs(), 0, Ta - 1)  # [B, Ta, W]
-    idx = taps_b[:, None, None].expand(B, K, S, Ta, medfilt_width)
-    win = torch.gather(w[..., None].expand(B, K, S, Ta, medfilt_width), 3, idx)
-    w = win.median(dim=-1).values
-    return -w.mean(dim=1)
+    idx = taps_b[:, None].expand(B, S, Ta, width)
+    out = torch.empty_like(w)
+    for k in range(K):
+        win = torch.gather(w[:, k, ..., None].expand(B, S, Ta, width), 2, idx)
+        out[:, k] = win.median(dim=-1).values
+        del win  # freed before the next head's gather allocates
+    return out
 
 
 def anchor_times_from_cost(cost_np: np.ndarray, S: int) -> np.ndarray:
@@ -206,15 +221,56 @@ def token_anchor_times(
 # --------------------------------------------------------------------------
 
 CODE_DIAG, CODE_UP, CODE_LEFT = 0, 1, 2
-DTW_MAX_ROWS = 1024  # one thread a text row
+DTW_MAX_ROWS = 1024  # one lane a text row, 32 warps
 DTW_SMEM_LIMIT = 232448  # the shared memory an H100 block may use
+DTW_CHUNK = 8  # 4-column blocks a chunk: the kernel's loop and handoff unit
+DTW_RING = 4  # chunks in a warp pair's ring
+# a ring of 4-column f32 blocks and a full and an empty mbarrier a slot
+_DTW_PAIR_BYTES = DTW_RING * DTW_CHUNK * 16 + 2 * DTW_RING * 8
+_DTW_COST_RING_BYTES = DTW_CHUNK * 32 * 16  # a warp's ring of costs: 8 blocks a lane
+
+
+class DtwPlan(NamedTuple):
+    """The kernel's launch (`csrc/dtw.cu::make_plan`): `warps` warps of 32
+    text rows; row 32w + 31 handed to warp w + 1 through a ring of `ring`
+    chunks of `chunk` 4-column blocks; `words` 32-bit code words a text
+    row; `smem` bytes of shared memory."""
+    warps: int
+    chunk: int
+    ring: int
+    words: int
+    smem: int
+
+
+def _dtw_code_words(Ta: int) -> int:
+    """Code words a text row: 16 2-bit codes a word, row i's words starting
+    at column -4 (i % 4) (`csrc/dtw.cu::code_words`)."""
+    return (Ta + 27) // 16
 
 
 def dtw_smem_bytes(N: int, Ta: int) -> int:
-    """Shared memory the kernel takes at (N, Ta): 2-bit codes, 16 a word,
-    a text row's words contiguous; three diagonals of costs; the anchors
-    (`csrc/dtw.cu::dtw_smem_bytes`)."""
-    return N * (-(-Ta // 16)) * 4 + 3 * N * 4 + N * 4
+    """Shared memory the kernel takes at (N, Ta): the codes (N rows of
+    `_dtw_code_words(Ta)` words, padded to 16 bytes), each warp's ring of
+    costs, and a ring with a full and an empty barrier a slot for each pair
+    of neighbouring warps."""
+    warps = -(-N // 32)
+    return (-(-N * _dtw_code_words(Ta) * 4 // 16) * 16 + warps * _DTW_COST_RING_BYTES
+            + (warps - 1) * _DTW_PAIR_BYTES)
+
+
+def dtw_plan(N: int, Ta: int) -> DtwPlan:
+    """The plan the kernel launches with for N text rows and Ta frames
+    (the mirror of `csrc/dtw.cu::make_plan`, exported as `wdt_dtw_plan`).
+    Raises ValueError where there is none: N outside [1, 1024], Ta < 1, or
+    more shared memory than an H100 block may use."""
+    if not 1 <= N <= DTW_MAX_ROWS or Ta < 1:
+        raise ValueError(f"dtw_plan: {N} text rows, {Ta} frames; the kernel takes 1 to "
+                         f"{DTW_MAX_ROWS} rows and at least one frame")
+    smem = dtw_smem_bytes(N, Ta)
+    if smem > DTW_SMEM_LIMIT:
+        raise ValueError(f"dtw_plan: codes of {N} x {Ta} cells take {smem} bytes of shared "
+                         f"memory, above the block's {DTW_SMEM_LIMIT}")
+    return DtwPlan(-(-N // 32), DTW_CHUNK, DTW_RING, _dtw_code_words(Ta), smem)
 
 
 def dtw_accumulate(x: torch.Tensor, nt: torch.Tensor, nf: torch.Tensor) -> torch.Tensor:
@@ -294,19 +350,20 @@ def dtw_anchor_frames_batch(
     to [1, N] and n_frames to [1, Ta]; rows >= n_tok read 0; cells outside
     the submatrix are never read. On a CPU tensor the plain version runs;
     on a CUDA tensor the kernel (`csrc/dtw.cu`, one launch) runs or this
-    raises."""
+    raises. Off the CPU a shape `dtw_plan` refuses raises ValueError before
+    the device is looked at."""
     if cost.device.type == "cpu":
         return dtw_anchor_frames_plain(cost, n_tok, n_frames, sot_len)
     name = "dtw_anchor_frames_batch"
-    _require_cuda(name, cost, dtype=torch.float32)
     B, S, Ta = cost.shape
     N = S - sot_len
-    if not 1 <= N <= DTW_MAX_ROWS or sot_len < 0:
-        raise ValueError(f"{name}: {N} text rows (S {S} - sot_len {sot_len}); "
-                         f"the kernel takes 1 to {DTW_MAX_ROWS}")
-    if dtw_smem_bytes(N, Ta) > DTW_SMEM_LIMIT:
-        raise ValueError(f"{name}: codes of {N} x {Ta} cells take {dtw_smem_bytes(N, Ta)} "
-                         f"bytes of shared memory, above the block's {DTW_SMEM_LIMIT}")
+    if sot_len < 0:
+        raise ValueError(f"{name}: sot_len {sot_len}")
+    try:
+        dtw_plan(N, Ta)
+    except ValueError as e:
+        raise ValueError(f"{name}: S {S} - sot_len {sot_len}: {e}") from None
+    _require_cuda(name, cost, dtype=torch.float32)
     nt = torch.as_tensor(n_tok, device=cost.device).to(torch.int32).contiguous()
     nf = torch.as_tensor(n_frames, device=cost.device).to(torch.int32).contiguous()
     if nt.shape != (B,) or nf.shape != (B,):
