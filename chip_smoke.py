@@ -86,7 +86,13 @@ traceback) and no result line is printed:
    `torch.addmm` (K2) in f32, bound at the 3xTF32 rate (`TF32X3_FLOPS`);
    K1-f32, K2-f32 (L 4), K3-f32 and K10-f32, which compute in 3xTF32 on
    the tensor cores, also print their distance to their CPU order's model
-   (`model_distance`);
+   (`model_distance`); then K2 at the local head counts a head split leaves
+   a rank, 1, 3 and 5 (`phase_k2_heads`, "kernels K2 local heads": each
+   half's 64-column edge tile; L 32, B 8, D 1280, both forms), its C tile
+   walk equal to its mirror, against its plain version with its faults
+   (the edge tile unwritten or written with its neighbour head among them),
+   timed at HD 192 and 320 beside its bound and `torch.addmm`, and K1, K4
+   and K5 on those head counts;
 4. reference: the greedy and the beam-5 path on the card (bf16, through the
    kernels) against the f32 plain path on the CPU on a small input (`tiny`
    preset), in bf16 and in the int8 forms (greedy with int8 cache and tail
@@ -208,7 +214,10 @@ traceback) and no result line is printed:
    before them, against its wall), and 500 all-reduces of its [10, 1280]
    f32 activation back to back, on the card and on the host; then
    `dryrun_multigpu(2, "cuda")`
-   (path "dryrun-1x2": K5-f32 under the head split among them);
+   (path "dryrun-1x2": K5-f32 under the head split among them); the spawn
+   also serves a tiny.en-shaped beam-5 request on (1, 2), 3 decoder heads a
+   rank (K2's edge tile), held to its no-mesh run (path
+   "mesh-1x2-3-heads");
 18. dtw (`phase_dtw`, after mesh 1 x 1): the on-device DTW's kernel
    (`csrc/dtw.cu`, `ops/dtw.py::dtw_anchor_frames_batch`) against its plain
    version, anchors equal exactly, at B 8 x Ta 1500 on costs that
@@ -231,6 +240,13 @@ traceback) and no result line is printed:
    "__random__:large-v3:1", 32 tokens, and the `transcribe` example at
    "__random__:tiny:1" on the card, paths "run-config-4" and
    "example-transcribe" (K1-K4 and the DTW kernel), the report line printed;
+   then `python -m whisper_diarize_tpu_torch.tools.bench_longform` in this
+   process (`phase_longform`, path "longform": K1-K4 and DTW): 3 minutes of
+   one stream at large-v3, beam 5, 64 tokens, after 30 s of warm-up, the
+   serial seek loop with the rolling prompt and the resume journal; its
+   report line printed, exit 0, and the seconds between segments (the last
+   gap left out) no more than 3x as long in the run's last third as in its
+   first;
 19. with `--profile` only: the 45 s greedy request, the 30 s beam request,
    the 30 s int8 beam request, the fused greedy batch and the 30 s diarized
    request under torch.profiler (device busy time
@@ -361,7 +377,7 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "bench-encoder-attn": ("K10",), "bench-megakernel": ("K1", "K2", "K3", "K4", "K8"),
          "mesh-1x1-greedy": ("K1", "K2", "K3"), "mesh-1x1-beam": ("K1", "K2", "K3", "K4"),
          "mesh-1x2": ("K1", "K2", "K4"), "mesh-2x1": ("K1", "K2", "K3", "K4"),
-         "mesh-1x2-f32": ("K1-f32", "K2-f32", "K4-f32"),
+         "mesh-1x2-f32": ("K1-f32", "K2-f32", "K4-f32"), "mesh-1x2-3-heads": ("K1", "K2", "K4"),
          "mesh-2x1-f32": ("K1-f32", "K2-f32", "K3-f32", "K4-f32"),
          "dryrun-1x2": ("K1-f32", "K2-f32", "K4-f32", "K5-f32"),
          "dtw": ("K1", "K2", "K3", "K4", "DTW"), "run-config-4": ("K1", "K2", "K3", "K4", "DTW"),
@@ -369,7 +385,8 @@ PATHS = {"greedy": ("K1", "K2", "K3"), "beam": ("K1", "K2", "K3", "K4"),
          "decode-breakdown": ("K1", "K2", "K3", "K7", "K8"),
          "beam-breakdown": ("K1", "K2", "K3", "K4"), "layer-variants": ("K1", "K2", "K3"),
          "beam-variants": ("K1", "K2", "K3", "K4"),
-         "quant-kv": ("K1", "K2", "K3", "K4", "K5", "K6")}
+         "quant-kv": ("K1", "K2", "K3", "K4", "K5", "K6"),
+         "longform": ("K1", "K2", "K3", "K4", "DTW")}
 # the margin check of a decode on the card: every emitted token within
 # TOKEN_GAP x max|logit| of its position's best token (`_greedy_gap`,
 # `spec_gap`)
@@ -508,9 +525,7 @@ def phase_kernels(preset: str, time_k1_k3: bool) -> dict:
             res["K2"] = timed(f"K2 B={B} L={L}", lambda: attn.cross_kv_build(*args),
                               lambda: attn.cross_kv_build_plain(*args),
                               library=lambda: torch.addmm(bias_row, x2, wkv),
-                              shape=f"B={B} Ta={Ta} D={D} L={L}",
-                              **bound(B * Ta * D * 2 + 2 * L * D * D * 2 + L * D * 2
-                                      + 2 * L * B * Ta * D * 2, 4 * L * B * Ta * D * D))
+                              shape=f"B={B} Ta={Ta} D={D} L={L}", **k2_bound(B, Ta, D, D, L, 2))
             del wkv, bias_row
             torch.cuda.empty_cache()
 
@@ -800,9 +815,7 @@ def phase_f32_kernels() -> dict:
         t = timed(f"K2-f32 B=8 L={Lk}", lambda: attn.cross_kv_build(*a),
                   lambda: attn.cross_kv_build_plain(*a),
                   library=lambda: torch.addmm(bias_row, x2, wkv), shape=f"L={Lk}",
-                  **bound(8 * Ta * D * 4 + 2 * Lk * D * D * 4 + Lk * D * 4
-                          + 2 * Lk * 8 * Ta * D * 4, 4 * Lk * 8 * Ta * D * D,
-                          TF32X3_FLOPS))
+                  **k2_bound(8, Ta, D, D, Lk, 4))
         keep("K2-f32", f"L={Lk}", t)
         if Lk == L:
             res["K2-f32"].update({k: t[k] for k in SHAPE_KEYS})
@@ -973,6 +986,119 @@ def phase_f32_kernels() -> dict:
         torch.cuda.empty_cache()
     for key in res:
         res[key]["max_abs_err"] = errs[key]
+    torch.cuda.empty_cache()
+    return res
+
+
+K2_LOCAL_HEADS = (1, 3, 5)  # a rank's decoder heads: base.en / 8, tiny.en / 2, large-v3 / 4
+
+
+def k2_bound(B: int, Ta: int, D: int, HD: int, L: int, es: int) -> dict:
+    """K2 at HD = H * 64 columns a half: xa read once, both weights and the
+    V bias, K and V written; 4 L B Ta D HD operations (bf16, or 3xTF32 at
+    `es` 4)."""
+    return bound(B * Ta * D * es + 2 * L * D * HD * es + L * HD * es + 2 * L * B * Ta * HD * es,
+                 4 * L * B * Ta * D * HD, TF32X3_FLOPS if es == 4 else BF16_FLOPS)
+
+
+def phase_k2_heads() -> dict:
+    """K2 at the local head counts a head split leaves a rank (`K2_LOCAL_HEADS`:
+    1 and 5 need the 64-column edge tile of each half, 3 too) at large-v3's
+    D 1280, Ta 1500, L 32, B 8, in bf16 and f32: first the C tile walk
+    (`wdt_cross_kv_tile`) equal to its mirror `attn.cross_kv_tile` at every
+    tile (and at 20 heads, the whole model), then the kernel against its
+    plain version by the agreement check, its faults refused (the edge tile
+    left unwritten or written with its neighbour head among them; the f32
+    ones by `F32_REFUSAL`), two calls the same bits, and timed at 3 and 5
+    heads (HD 192 and 320) beside the bound and one `torch.addmm` of xa
+    against [ck_w | cv_w]. On each head count's cache: K1 (Q 5, a beam
+    step's queries), K5 over its int8 form (bf16: the plain version; f32:
+    the split model, `F32_Q8`) and K4 (K 5, prompt 3, 64 decode slots, step
+    31) against their plain versions, as the head split runs them. Returns
+    {"K2" | "K2-f32": {"rows": {...}, "max_abs_err": x}, "K1" ...: {...}}."""
+    cfg = wm.PRESETS["large-v3"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    D, L, Ta, B, lay = cfg.n_text_state, cfg.n_text_layer, cfg.n_audio_ctx, 8, cfg.n_text_layer - 1
+    lib, out = kernels.library(), (ctypes.c_int * 6)()
+    for H, f32 in itertools.product(K2_LOCAL_HEADS + (cfg.n_text_head,), (0, 1)):
+        n = attn.cross_kv_tiles(L, B, Ta, 64 * H, bool(f32))
+        for i in range(n):
+            want = (*attn.cross_kv_tile(i, L, B, Ta, 64 * H, bool(f32)), n)
+            if lib.wdt_cross_kv_tile(i, L, B, Ta, H, f32, out) != 0 or tuple(out) != want:
+                raise AssertionError(f"K2 walk H={H} f32={f32} tile {i}: C {tuple(out)}, "
+                                     f"mirror {want}")
+        if lib.wdt_cross_kv_tile(n, L, B, Ta, H, f32, out) == 0:
+            raise AssertionError(f"K2 walk H={H} f32={f32}: tile {n} is past the walk")
+        print(f"[kernels] K2 tile walk H={H} f32={f32}: {n} tiles, C equal to the mirror",
+              flush=True)
+    res = {key: {"rows": {}, "max_abs_err": 0.0}
+           for key in ("K2", "K2-f32", "K1", "K1-f32", "K4", "K4-f32", "K5", "K5-f32")}
+
+    def check(key, tag, got, ref, tol, faults=()):
+        a = ag.compare(tag, got, ref, tol=tol)
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], a.max_abs_err)
+        for name, bad in faults:
+            new = "TF32" in name or "bf16" in name
+            ag.reject(f"{name} ({tag})", got, bad, tol=tol, factor=ag.F32_REFUSAL if new else 1.0)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        sfx, tol, es = ("-f32", ag.F32, 4) if f32 else ("", ag.BF16, 2)
+        xa = ag.randn(g, dev, B, Ta, D, dtype=dtype)
+        for H in K2_LOCAL_HEADS:
+            HD = 64 * H
+            ck, cv = (ag.randn(g, dev, L, D, HD, scale=D ** -0.5, dtype=dtype) for _ in range(2))
+            cb = ag.randn(g, dev, L, HD, scale=ag.BIAS_SCALE, dtype=torch.float32).to(dtype)
+            a = (xa, ck, cv, cb, H)
+            k, v = attn.cross_kv_build(*a)
+            k2, v2 = attn.cross_kv_build(*a)
+            if not (torch.equal(k, k2) and torch.equal(v, v2)):
+                raise AssertionError(f"K2{sfx} H={H}: two calls differ")
+            del k2, v2
+            ref = attn.cross_kv_build_plain(*a)
+            faults = list(ag.k2_faults(*a)) + (list(ag.k2_f32_faults(*a)) if f32 else [])
+            names = [n for n, _, _ in faults]
+            if "K2 the edge tile left unwritten" not in names and H % 2:
+                raise AssertionError(f"K2 H={H}: no edge-tile fault planted")
+            for i in range(2):
+                check(f"K2{sfx}", f"K2{sfx} {'kv'[i]} H={H} (HD {HD}) B={B} Ta={Ta} L={L}",
+                      (k, v)[i], ref[i], tol, [(n, bad) for n, j, bad in faults if j == i])
+            del ref, faults
+            if H > 1:
+                wkv = torch.cat([ck, cv], dim=2).permute(1, 0, 2).reshape(D, L * 2 * HD)
+                wkv = wkv.contiguous()
+                bias_row = torch.cat([torch.zeros_like(cb), cb], dim=1).reshape(-1)
+                x2 = xa.view(B * Ta, D)
+                t = timed(f"K2{sfx} H={H} (HD {HD}) B={B} L={L}", lambda: attn.cross_kv_build(*a),
+                          lambda: attn.cross_kv_build_plain(*a),
+                          library=lambda: torch.addmm(bias_row, x2, wkv),
+                          shape=f"H={H} HD={HD} B={B} Ta={Ta} D={D} L={L}",
+                          **k2_bound(B, Ta, D, HD, L, es))
+                res[f"K2{sfx}"]["rows"][f"H={H}"] = {k_: t[k_] for k_ in SHAPE_KEYS}
+                del wkv, bias_row
+            # K1 (a beam step's 5 queries) and K5 over the int8 form of this cache
+            q = ag.randn(g, dev, B, 5, H, 64, scale=2.0, dtype=dtype)
+            check(f"K1{sfx}", f"K1{sfx} H={H} B={B} Q=5", attn.cross_attn_layer(lay, q, k, v, Ta),
+                  attn.cross_attn_layer_plain(lay, q, k, v, Ta), tol)
+            k8, ks, v8, vs = attn.quantize_cross_kv(k, v)
+            q8 = (lay, q, k8, ks, v8, vs, Ta)
+            check(f"K5{sfx}", f"K5{sfx} H={H} B={B} Q=5", attn.cross_attn_layer_q8(*q8),
+                  ag.split_attend(lay, q, k8, v8, Ta, ks, vs) if f32
+                  else attn.cross_attn_layer_q8_plain(*q8), ag.F32_Q8 if f32 else tol)
+            del k, v, k8, ks, v8, vs, ck, cv, cb
+            # K4: a beam-5 step over this many heads (2 layers)
+            K, Tp, Td = 5, 3, 64
+            qs = ag.randn(g, dev, B, K, H, 64, scale=2.0, dtype=dtype)
+            pk, pv = (ag.randn(g, dev, 2, B, H, Tp, 64, dtype=dtype) for _ in range(2))
+            dk, dv = (ag.randn(g, dev, 2, B * K, H, Td, 64, dtype=dtype) for _ in range(2))
+            anc = torch.randint(0, K, (B, K, Td), generator=g, device=dev, dtype=torch.int32)
+            pad = torch.zeros((B,), dtype=torch.int32, device=dev)
+            s4 = (1, qs, pk, pv, dk, dv, anc, 31, pad, Tp)
+            check(f"K4{sfx}", f"K4{sfx} H={H} B={B} K={K} step=31",
+                  attn.split_self_attn_layer(*s4), attn.split_self_attn_layer_plain(*s4), tol)
+            torch.cuda.empty_cache()
+        del xa
     torch.cuda.empty_cache()
     return res
 
@@ -2588,9 +2714,12 @@ def phase_two_ranks() -> dict:
     device's wait before them against that request's wall. Then
     `dryrun_multigpu(2, "cuda")` (mesh (1, 2), f32 at the dry run's small
     model): a TP AdamW step, a greedy decode over the int8 cross cache (K5
-    under the head split) and a beam-3 decode on the card. Returns the
-    rank 0 launches as paths "mesh-1x2", "mesh-2x1", "mesh-1x2-f32",
-    "mesh-2x1-f32" and "dryrun-1x2"."""
+    under the head split) and a beam-3 decode on the card. The same spawn
+    serves a tiny.en-shaped beam-5 request on (1, 2) ("__random__:tiny.en:0",
+    bf16: 6 decoder heads, 3 a rank, so K2's 64-column edge tile), held to
+    its no-mesh run the same way. Returns the rank 0 launches as paths
+    "mesh-1x2", "mesh-2x1", "mesh-1x2-f32", "mesh-2x1-f32",
+    "mesh-1x2-3-heads" and "dryrun-1x2"."""
     from whisper_diarize_tpu_torch.parallel import dryrun
 
     WORK.mkdir(parents=True, exist_ok=True)
@@ -2605,10 +2734,20 @@ def phase_two_ranks() -> dict:
               f"{ref['launches']}", flush=True)
         if not ref["decodes"]:
             raise AssertionError("two ranks: the no-mesh request decoded nothing")
-        jobs += [((dtype, shape, False), "engine", shape, kw) for shape in ((1, 2), (2, 1))]
+        jobs += [((dtype, dtype, shape, False), "engine", shape, kw)
+                 for shape in ((1, 2), (2, 1))]
         if dtype == "bfloat16":
-            jobs.append(((dtype, (1, 2), True), "engine", (1, 2),
+            jobs.append(((dtype, dtype, (1, 2), True), "engine", (1, 2),
                          dict(kw, time_collectives=True)))
+    # tiny.en's 6 decoder heads over 2 ranks: 3 a rank, K2's 64-column edge
+    # tile on each (bf16, beam 5, the same two files)
+    kw = dict(kw, snapshot="__random__:tiny.en:0", dtype="bfloat16")
+    refs["tiny.en"] = ref = dryrun.mesh_rank(0, 1, [("ref", "engine", None, kw)])["ref"]
+    print(f"[two ranks] tiny.en no mesh: wall {ref['wall']:.3f} s, launches "
+          f"{ref['launches']}", flush=True)
+    if not ref["decodes"]:
+        raise AssertionError("two ranks: the tiny.en no-mesh request decoded nothing")
+    jobs.append((("tiny.en", "bfloat16", (1, 2), False), "engine", (1, 2), kw))
     # the head split's all-reduce alone, back to back: a [10, 1280] f32
     # tensor (beam 5 x 2 rows of large-v3) on the card and on the host
     cfg = wm.PRESETS["large-v3"]
@@ -2626,15 +2765,17 @@ def phase_two_ranks() -> dict:
             print(f"[two ranks] {name} (mesh (1, 2), [{kw['rows']}, {cfg.n_text_state}] f32, "
                   f"{c['calls']} back to back) rank {r}: {c['seconds'] / c['calls'] * 1e3:.4f} "
                   f"ms each", flush=True)
+    # a job's label: the large-v3 request's dtype, or "tiny.en"
+    suffix = {"bfloat16": "", "float32": "-f32", "tiny.en": "-3-heads"}
     by_path = {}
     for name, _, _, _ in jobs:
-        dtype, shape, timed = name
-        ref, tol = refs[dtype], MESH_LOGPROB if dtype == "bfloat16" else MESH_LOGPROB_F32
+        label, dtype, shape, timed = name
+        ref, tol = refs[label], MESH_LOGPROB_F32 if dtype == "float32" else MESH_LOGPROB
         for r, o in enumerate(outs):
             got = o[name]
             if timed:
                 c = got["collectives"]
-                print(f"[two ranks] {dtype} mesh {shape} rank {r}, collectives timed: wall "
+                print(f"[two ranks] {label} mesh {shape} rank {r}, collectives timed: wall "
                       f"{got['wall']:.3f} s, {c['calls']} collectives, {c['seconds']:.3f} s "
                       f"in them, {c['device_wait_s']:.3f} s of device wait before them",
                       flush=True)
@@ -2642,20 +2783,20 @@ def phase_two_ranks() -> dict:
             same = bool(np.array_equal(dg["tokens"], dr["tokens"])
                         and np.array_equal(dg["lengths"], dr["lengths"]))
             gap = float(np.abs(dg["avg_logprob"] - dr["avg_logprob"]).max())
-            print(f"[two ranks] {dtype} mesh {shape} rank {r}: wall {got['wall']:.3f} s, "
+            print(f"[two ranks] {label} mesh {shape} rank {r}: wall {got['wall']:.3f} s, "
                   f"launches {got['launches']}, tokens equal to no mesh: {same}, max "
                   f"|avg_logprob gap| {gap:.3e} (tol {tol}), cues equal to no mesh: "
                   f"{got['cues'] == ref['cues']}", flush=True)
             if not same or gap > tol:
-                raise AssertionError(f"{dtype} mesh {shape} rank {r}: the decode differs "
+                raise AssertionError(f"{label} mesh {shape} rank {r}: the decode differs "
                                      "from the no-mesh one")
             if got["cues"] != outs[0][name]["cues"]:
-                raise AssertionError(f"{dtype} mesh {shape}: the ranks' cues differ")
+                raise AssertionError(f"{label} mesh {shape}: the ranks' cues differ")
         if timed:
             continue
-        path = f"mesh-{shape[0]}x{shape[1]}" + ("-f32" if dtype == "float32" else "")
+        path = f"mesh-{shape[0]}x{shape[1]}{suffix[label]}"
         by_path[path] = _mesh_counts(outs[0][name]["launches"], dtype == "float32")
-        _check_missing(f"two ranks {dtype} {shape}", path, by_path[path])
+        _check_missing(f"two ranks {label} {shape}", path, by_path[path])
     t0 = time.perf_counter()
     first = dryrun.dryrun_multigpu(2, "cuda")
     print(f"[two ranks] dryrun_multigpu(2, cuda): {time.perf_counter() - t0:.1f} s, launches "
@@ -3046,6 +3187,71 @@ def phase_dtw() -> tuple:
     return row, by_path
 
 
+LONGFORM_ARGS = ["--minutes", "3", "--warmup-minutes", "0.5", "--model", "large-v3",
+                 "--beam", "5"]
+
+
+def phase_longform() -> dict:
+    """`python -m whisper_diarize_tpu_torch.tools.bench_longform` in this
+    process (its `main`, so that the launches count): a 3-minute stream at
+    large-v3 (weights of the JAX init's distribution, seed 0), beam 5, 64
+    tokens a window, after a 30 s warm-up stream, on
+    the serial seek path (one window at a time, the rolling prompt, the
+    resume journal under build/chip_smoke/longform, DTW). The counts are set
+    to 0 just before and read just after; K1 - K4 and the DTW kernel must
+    have launched. The tool's report line is printed; it must exit 0 with
+    finite numbers, a window for each 30 s. The tool's deciles hold one gap
+    each at this length, and its last gap is ~0 s (the last segment reaches
+    the caller with the one before it), so its 3x guard cannot fail here:
+    the phase records when each segment reaches the caller and holds the
+    last third of the gaps before the last to 3x the first third's mean."""
+    import contextlib
+    import io
+    import shutil
+
+    from whisper_diarize_tpu_torch.tools import bench_longform
+
+    work = WORK / "longform"
+    shutil.rmtree(work, ignore_errors=True)  # a journal left over would replay
+    buf = io.StringIO()
+    walls, real = [], bench_longform.Callbacks
+
+    def recorded(new_segment_callback=None, **kw):
+        def seen(segment):
+            walls.append(time.perf_counter())
+            new_segment_callback(segment)
+        return real(new_segment_callback=seen, **kw)
+
+    bench_longform.Callbacks = recorded
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench_longform.main(LONGFORM_ARGS, workdir=str(work))
+    finally:
+        bench_longform.Callbacks = real
+    added = counts()
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"[longform] {' '.join(LONGFORM_ARGS)}: rc {rc}, report {line}", flush=True)
+    print(f"[longform] launches {added}", flush=True)
+    report = json.loads(line)
+    if rc != 0 or report["windows"] < 6 or not all(math.isfinite(report[k]) for k in (
+            "value", "wall_s", "first_decile_s_per_window", "last_decile_s_per_window",
+            "peak_device_mib")):
+        raise AssertionError(f"longform: rc {rc}, report {report}")
+    gaps = np.diff(walls)[:-1]
+    third = len(gaps) // 3
+    first, last = float(gaps[:third].mean()), float(gaps[-third:].mean())
+    print(f"[longform] s between segments (the last gap, "
+          f"{float(np.diff(walls)[-1]):.4f} s, left out): {np.round(gaps, 4).tolist()}; first "
+          f"third {first:.4f}, last third {last:.4f}", flush=True)
+    if last > bench_longform.GROWTH_GUARD * first:
+        raise AssertionError(f"longform: the seconds a window grew from {first:.4f} to "
+                             f"{last:.4f} over the run")
+    _check_missing("longform", "longform", added)
+    shutil.rmtree(work, ignore_errors=True)
+    return added
+
+
 def timed_phase(name: str, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -3062,6 +3268,10 @@ def main() -> None:
     res.update(timed_phase("kernels K4", phase_k4))
     res.update(timed_phase("kernels K5 K6", phase_int8_kernels))
     res.update(timed_phase("kernels f32", phase_f32_kernels))
+    for key, t in timed_phase("kernels K2 local heads", phase_k2_heads).items():
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], t["max_abs_err"])
+        if t["rows"]:
+            res[key]["by_local_heads"] = t["rows"]
     res.update(timed_phase("kernels K7 K8 K10", phase_fused_kernels))
     res.update(timed_phase("kernels K9 K11", phase_probe_kernels, res))
     by_path = {"bench-dma": timed_phase("tool bench-dma", phase_tool, "bench-dma",
@@ -3092,6 +3302,7 @@ def main() -> None:
         ("mesh-1x1-greedy", "large-v3-turbo", True, greedy[0][1])]))
     res["DTW"], dtw_paths = timed_phase("dtw", phase_dtw)
     by_path.update(dtw_paths)
+    by_path["longform"] = timed_phase("longform", phase_longform)
     int8_eng = make_engine("large-v3", quantize_kv_cache=True, temperature_fallback=False)
     int8 = int8_requests()
     by_path["int8-beam"] = timed_phase("engine int8-beam", phase_engine, int8_eng,

@@ -18,7 +18,9 @@ adds to x; K7, an f32 kernel, on an absolute bound), and the planted faults
 that check must refuse. K1 / K5 also at the key splits of the served
 shapes (Q 1, 5 and 64, B 1 and 8, ta not a multiple of a span) with the
 split's faults; K10 at T 1500 with a fault of its TMA ring; K2 at every
-preset width over ragged streams; K3 / K6 / K8 (the split skinny GEMM) at
+preset width over ragged streams, and at 1, 3 and 5 heads (a head split's
+local heads: each half's 64-column edge tile), its tile walk equal to
+its mirror; K3 / K6 / K8 (the split skinny GEMM) at
 N 1 - 80 with the split's faults, and both bit for bit across two calls.
 The diarization nets (kaldi fbank, segmentation, CAM++: plain PyTorch, no
 kernel) on the card against their f32 CPU run with TF32 left at PyTorch's
@@ -451,6 +453,51 @@ def test_probe_wrappers_reject_what_they_do_not_take(dev):
 
 _WIDTHS = {"tiny": (384, 6), "base": (512, 8), "small": (768, 12), "medium": (1024, 16),
            "large-v3": (1280, 20), "turbo": (1280, 20)}  # (D, H) of each preset's decoder
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H", [1, 3, 5])
+def test_k2_at_odd_local_head_counts(dev, H, f32):
+    """K2 at the decoder heads a head split leaves a rank (1: base.en over
+    8; 3: tiny.en over 2; 5: large-v3 over 4), each half's last head a
+    64-column edge tile, at large-v3's D 1280, Ta 1500 and L 32 (B 2), in
+    both forms: against its plain version by the agreement check, its
+    faults refused (the edge tile left unwritten or written with its
+    neighbour head among them; the f32 ones by `F32_REFUSAL`), two calls
+    the same bits; the C tile walk (`wdt_cross_kv_tile`) equal to its
+    mirror `attn.cross_kv_tile` at every tile, and refusing the tile past
+    the walk."""
+    import ctypes
+
+    from whisper_diarize_tpu_torch import kernels
+
+    D, L, Ta, B, HD = 1280, 32, 1500, 2, 64 * H
+    dtype, tol = (torch.float32, ag.F32) if f32 else (torch.bfloat16, ag.BF16)
+    g = torch.Generator(device=dev).manual_seed(H + 100 * f32)
+    ck, cv = (ag.randn(g, dev, L, D, HD, scale=D ** -0.5, dtype=dtype) for _ in range(2))
+    cb = ag.randn(g, dev, L, HD, scale=ag.BIAS_SCALE, dtype=torch.float32).to(dtype)
+    xa = ag.randn(g, dev, B, Ta, D, dtype=dtype)
+    a = (xa, ck, cv, cb, H)
+    k, v = attn.cross_kv_build(*a)
+    k2, v2 = attn.cross_kv_build(*a)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+    ref = attn.cross_kv_build_plain(*a)
+    faults = list(ag.k2_faults(*a)) + (list(ag.k2_f32_faults(*a)) if f32 else [])
+    assert {"K2 the edge tile left unwritten",
+            "K2 the edge tile written with its neighbour head"} <= {n for n, _, _ in faults}
+    for i in range(2):
+        ag.compare(f"K2 {'kv'[i]} H={H} f32={f32}", (k, v)[i], ref[i], tol=tol)
+        for name, j, bad in faults:
+            if j == i:
+                factor = ag.F32_REFUSAL if ("TF32" in name or "bf16" in name) else 1.0
+                ag.reject(name, (k, v)[i], bad, tol=tol, factor=factor)
+    lib, out = kernels.library(), (ctypes.c_int * 6)()
+    n = attn.cross_kv_tiles(L, B, Ta, HD, f32)
+    for i in range(n):
+        assert lib.wdt_cross_kv_tile(i, L, B, Ta, H, int(f32), out) == 0
+        assert tuple(out) == (*attn.cross_kv_tile(i, L, B, Ta, HD, f32), n), i
+    assert lib.wdt_cross_kv_tile(n, L, B, Ta, H, int(f32), out) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("preset", sorted(_WIDTHS))

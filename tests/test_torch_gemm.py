@@ -231,6 +231,35 @@ def test_cross_kv_tiles_cover_every_output_once_at_f32(preset, Ta):
     assert [t.layer for t in tiles] == sorted(t.layer for t in tiles)
 
 
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("HD", [64, 192, 320, 384])
+def test_cross_kv_tiles_cover_every_column_once_at_any_head_count(HD, f32):
+    """K2's walk at 1, 3, 5 and 6 local heads (a head split of base.en over
+    8, tiny.en over 2, large-v3 over 4, tiny.en whole): every output column
+    of K and of V covered exactly once, each half's tiles of 128 columns and,
+    at an odd head count, one 64-column edge tile of its last head; no tile
+    crosses HD; the walk's order kept (layer outermost, then the stream and
+    its row tile, the column innermost, K's tiles before V's)."""
+    L, B, Ta = 2, 3, 1493
+    rows = attn.cross_kv_rows(f32)
+    n = attn.cross_kv_tiles(L, B, Ta, HD, f32=f32)
+    per_half = HD // attn.CROSS_KV_COLS + HD % attn.CROSS_KV_COLS // 64
+    assert n == L * B * -(-Ta // rows) * 2 * per_half
+    seen = torch.zeros((L, B, -(-Ta // rows), 2 * HD), dtype=torch.int32)
+    tiles = [attn.cross_kv_tile(i, L, B, Ta, HD, f32=f32) for i in range(n)]
+    for t in tiles:
+        edge = t.cols == attn.CROSS_KV_EDGE_COLS
+        assert t.cols in (attn.CROSS_KV_COLS, attn.CROSS_KV_EDGE_COLS)
+        assert (t.n0 < HD) == (t.n0 + t.cols <= HD)  # wholly in K's half or in V's
+        assert t.n0 + t.cols <= 2 * HD and t.n0 % 64 == 0
+        assert edge == (HD % 128 == 64 and (t.n0 + t.cols) % HD == 0)  # a half's last head
+        assert t.t0 < Ta and t.t0 % rows == 0
+        seen[t.layer, t.stream, t.t0 // rows, t.n0:t.n0 + t.cols] += 1
+    assert bool((seen == 1).all())
+    order = [(t.layer, t.stream, t.t0, t.n0) for t in tiles]
+    assert order == sorted(order)
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_split_faults_refused_and_split_sum_taken(int8):
     """Summed span by span on the plans' spans, the plain tail stays within

@@ -7,7 +7,7 @@ greedy request with a draft model the port wrote (`save_params`:
 speculative decoding), a GGML file written and read back, the CLI's
 `models list`, then the diagnostic tools' `main` on the CPU at tiny shapes
 (and the encoder attention tool's `main`, a megakernel worker, the decode
-breakdown tools' `main` and the converter CLI), one
+breakdown tools' `main`, the converter CLI and the long-form tool's `main`), one
 alignment through the on-device DTW's function (its plain version), the
 eval harness (`tools/run_config.py`) and two examples with `--cpu`, and
 finds no `jax` and no `whisper_diarize_tpu`
@@ -106,6 +106,10 @@ SCRIPT = textwrap.dedent("""
     frames = dtw.dtw_anchor_frames_batch(torch.randn(2, 7, 30), torch.tensor([4, 1]),
                                          torch.tensor([30, 12]), 2)
     assert frames.shape == (2, 5) and frames.dtype == torch.int32 and frames[0, 0] == 0
+    from whisper_diarize_tpu_torch.tools import bench_longform
+    assert bench_longform.main(["--device", "cpu", "--minutes", "1", "--model", "tiny",
+                                "--max-tokens", "2", "--beam", "1",
+                                "--warmup-minutes", "0"]) == 0
     from whisper_diarize_tpu_torch.tools import run_config
     import os
     os.environ["WDT_VAD_MODEL"] = "__random__"  # no download
@@ -163,7 +167,7 @@ def test_static_scan_finds_no_jax_package_import():
     assert {f"whisper_diarize_tpu_torch/tools/{m}.py" for m in (
         "run_config", "quality_golden", "bench_decode_breakdown", "bench_beam_breakdown",
         "bench_layer_variants", "bench_beam_variants", "bench_quant_kv",
-        "convert_models")} <= scanned
+        "convert_models", "bench_longform")} <= scanned
     assert {f"whisper_diarize_tpu_torch/examples/{m}.py" for m in (
         "_common", "transcribe", "transcribe_translate", "translate_progress", "translate_text",
         "progress_simple", "progress_types", "speculative_decode", "list_cached_models",
@@ -267,12 +271,14 @@ def test_tools_default_to_the_card():
     worker, and each part-per-process tool's child) raises before it
     allocates anything."""
     from whisper_diarize_tpu_torch.tools import (
-        bench_attn_kernel, bench_beam_breakdown, bench_beam_variants, bench_decode_breakdown,
-        bench_dma, bench_layer_variants, bench_quant_kv, bench_speculative)
+        bench_attn_kernel, bench_beam_breakdown, bench_beam_variants, bench_cross_kv,
+        bench_decode_breakdown, bench_dma, bench_layer_variants, bench_longform, bench_quant_kv,
+        bench_speculative)
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for main in (bench_dma.main, bench_attn_kernel.main, bench_speculative.main,
+                 lambda: bench_longform.main([]), lambda: bench_cross_kv.main([]),
                  bench_decode_breakdown.main, bench_beam_breakdown.main,
                  bench_layer_variants.main, bench_beam_variants.main, bench_quant_kv.main,
                  lambda: bench_quant_kv.worker("tiny", 1, "tail", "greedy"),

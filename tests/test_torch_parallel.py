@@ -4,11 +4,13 @@ held against the JAX package's single-device functions and the port's own
 single-device path (the counterpart of tests/test_parallel.py).
 
 Spawns, each shared by the tests that read it (module fixtures): four ranks
-that run the (2, 2) and the (4, 1) jobs of `dryrun.mesh_rank`; two ranks
-that run the Engine on (2, 1) and then on (1, 2); `dryrun_multigpu(2)` and
-`dryrun_multigpu(4)`. The model is `dryrun.dryrun_config()` (2 + 2 layers,
-4 heads of 64, vocab 51872): 2 heads a rank under a head split over 2, the
-fewest K2 takes.
+that run the (2, 2), (4, 1) and (1, 4) jobs of `dryrun.mesh_rank`; two
+ranks that run the Engine on (2, 1) and then on (1, 2), and decodes on
+(1, 2) at 3 heads a rank; `dryrun_multigpu(2)` and `dryrun_multigpu(4)`.
+The model is `dryrun.dryrun_config()` (2 + 2 layers, 4 heads of 64, vocab
+51872): 2 heads a rank under a head split over 2, 1 over 4 (K2's 64-column
+edge tile); `CFG6` (6 heads of 64, tiny.en's width) leaves 3 heads a rank
+on (1, 2), as tiny.en on (1, 2) and small.en on (1, 4).
 
 Tolerances (f32): encode on (2, 2) atol 2e-4 / rtol 1e-4 against JAX (the
 head split sums o / fc2 in another order); data-parallel decodes: tokens and
@@ -52,8 +54,17 @@ JOBS = [
     ("best_of 2x2", "decode", (2, 2), dict(seed=6, B=2, strategy="best_of", max_tokens=8,
                                            temperature=0.7)),
     ("beam 2x2", "decode", (2, 2), dict(seed=6, B=2, strategy="beam", max_tokens=8)),
+    ("greedy 1x4", "decode", (1, 4), dict(seed=7, B=2, strategy="greedy", max_tokens=10)),
+    ("beam 1x4", "decode", (1, 4), dict(seed=7, B=2, strategy="beam", max_tokens=8)),
 ]
-BY_NAME = {j[0]: j for j in JOBS}
+# 6 heads: 3 a rank on (1, 2), an odd local head count (K2's edge tile)
+CFG6 = dataclasses.replace(CFG, n_audio_state=384, n_audio_head=6, n_text_state=384,
+                           n_text_head=6)
+JOBS_3_HEADS = [
+    (f"{strategy} 1x2 3 heads", "decode", (1, 2),
+     dict(cfg=CFG6, seed=8, B=2, strategy=strategy, max_tokens=10 if strategy == "greedy" else 8))
+    for strategy in ("greedy", "beam")]
+BY_NAME = {j[0]: j for j in JOBS + JOBS_3_HEADS}
 
 
 def _flat(tree, prefix=""):
@@ -78,21 +89,31 @@ def jparams():
     return jwm.init_params(JCFG, seed=3)
 
 
-def _jax_decode(jparams, job):
-    kw = job[3]
-    inp = dr.job_inputs(CFG, kw["B"], kw["seed"])
-    tk = DebugTokenizer(num_languages=CFG.num_languages)
+def _jax_decode(jparams, job, n_model: int = 1):
+    """The JAX package's decode of a job: on one device, or (`n_model` > 1)
+    on its (1, n_model) mesh of virtual CPU devices, heads split over the
+    model axis (`DecodeConfig.mesh`)."""
+    kw = dict(job[3])
+    cfg = kw.pop("cfg", CFG)
+    jcfg = jwm.WhisperConfig(**dataclasses.asdict(cfg))
+    inp = dr.job_inputs(cfg, kw["B"], kw["seed"])
+    tk = DebugTokenizer(num_languages=cfg.num_languages)
     prompt = jnp.asarray(np.tile(np.array(tk.sot_sequence(language="en"), np.int32),
                                  (kw["B"], 1)))
+    xa = jnp.asarray(inp["xa"])
+    mesh = jmake_mesh(n_data=1, n_model=n_model) if n_model > 1 else None
     dc = jdec.DecodeConfig(max_tokens=kw["max_tokens"], beam_size=3, blank_id=32,
-                           quantize_cross_kv=kw.get("quantize", False))
+                           quantize_cross_kv=kw.get("quantize", False), mesh=mesh)
+    if mesh is not None:
+        jparams = jshard(jparams, mesh)
     fn = jdec.beam_decode if kw["strategy"] == "beam" else jdec.greedy_decode
-    return fn(jparams, JCFG, dc, tk.specials, jnp.asarray(inp["xa"]), prompt, prompt.shape[1])
+    return fn(jparams, jcfg, dc, tk.specials, xa, prompt, prompt.shape[1])
 
 
 def _port_decode(job):
     """The port's single-device result of a decode job."""
-    return dr.JOBS[job[1]](pm.Mesh(1, 1), CFG, **job[3])
+    kw = dict(job[3])
+    return dr.JOBS[job[1]](pm.Mesh(1, 1), kw.pop("cfg", CFG), **kw)
 
 
 # --------------------------------------------------------------------------
@@ -178,6 +199,21 @@ def test_head_split_matches_port_single_device(ranks4, name):
     np.testing.assert_allclose(got["avg_logprob"], ref["avg_logprob"], atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["greedy 1x4", "beam 1x4"])
+def test_one_head_a_rank_matches_jax_mesh_and_single_device(ranks4, jparams, name):
+    """(1, 4): one decoder head a rank (K2's 64-column edge tile, K1 and K4
+    on one head), in greedy and beam search: tokens and lengths equal to
+    the JAX decode on its (1, 4) mesh and to the port's single-device
+    decode, avg_logprob within 1e-4 of both."""
+    got = ranks4[0][name]
+    for ref in (_jax_decode(jparams, BY_NAME[name], n_model=4), _port_decode(BY_NAME[name])):
+        ref = {k: np.asarray(getattr(ref, k) if not isinstance(ref, dict) else ref[k])
+               for k in ("tokens", "lengths", "avg_logprob")}
+        np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+        np.testing.assert_array_equal(got["lengths"], ref["lengths"])
+        np.testing.assert_allclose(got["avg_logprob"], ref["avg_logprob"], atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("name", [j[0] for j in JOBS])
 def test_ranks_agree_bit_for_bit(ranks4, name):
     first = ranks4[0][name]
@@ -196,6 +232,16 @@ def test_ranks_agree_bit_for_bit(ranks4, name):
 
 ENGINE_CFG = wm.WhisperConfig(**{**dataclasses.asdict(CFG), "n_vocab": 51866,
                                  "num_languages": 100})
+ENGINE_CFG_1H = dataclasses.replace(ENGINE_CFG, n_audio_state=128, n_audio_head=2,
+                                    n_text_state=128, n_text_head=2)
+
+
+def _visible_bytes(tree):
+    """Favour printable bytes for the byte-level tokenizer (in place)."""
+    emb = tree["decoder"]["tok_emb"]
+    emb[33:127] *= np.random.default_rng(0).uniform(2.0, 4.0, (94, 1)).astype(np.float32)
+    emb[256:DebugTokenizer(num_languages=100).specials.eot] = 0.0
+    return tree
 
 
 @pytest.fixture(scope="module")
@@ -204,10 +250,7 @@ def engine_setup(tmp_path_factory):
     from whisper_diarize_tpu_torch.models import weights
 
     d = tmp_path_factory.mktemp("mesh_engine")
-    tree = wm.init_params_np(ENGINE_CFG, seed=0)
-    emb = tree["decoder"]["tok_emb"]  # visible bytes for the byte-level tokenizer
-    emb[33:127] *= np.random.default_rng(0).uniform(2.0, 4.0, (94, 1)).astype(np.float32)
-    emb[256:DebugTokenizer(num_languages=100).specials.eot] = 0.0
+    tree = _visible_bytes(wm.init_params_np(ENGINE_CFG, seed=0))
     weights.save_params(weights.params_from_jax(tree, "cpu", torch.float32), ENGINE_CFG,
                         d / "snap")
     rng = np.random.default_rng(1)
@@ -222,7 +265,12 @@ def engine_setup(tmp_path_factory):
     jobs.append(("all-reduces", "collectives", (1, 2), dict(n=5, rows=2)))
     resume = dict(kw, greedy=True, resume_dir=str(d / "resume"))
     jobs += [(f"resume {i}", "engine", (2, 1), resume) for i in range(2)]
-    outs = dr.run_ranks(dr.mesh_rank, 2, jobs)
+    # one decoder head a rank: the Engine on (1, 2) over a 2-head snapshot
+    weights.save_params(weights.params_from_jax(_visible_bytes(wm.init_params_np(
+        ENGINE_CFG_1H, seed=0)), "cpu", torch.float32), ENGINE_CFG_1H, d / "snap1h")
+    jobs.append(("(1, 2) one head", "engine", (1, 2),
+                 dict(kw, snapshot=str(d / "snap1h"), greedy=True)))
+    outs = dr.run_ranks(dr.mesh_rank, 2, jobs + JOBS_3_HEADS)
     return kw, outs, d / "resume"
 
 
@@ -237,6 +285,25 @@ def test_engine_mesh_matches_single_device(engine_setup, shape, strategy):
     assert ref[0] and any(text.strip() for _, _, text in ref[0])
     for r in range(2):
         assert outs[r][f"{shape} {strategy}"]["cues"] == ref, f"rank {r}"
+
+
+@pytest.mark.parametrize("name", [j[0] for j in JOBS_3_HEADS])
+def test_three_heads_a_rank_match_jax_mesh_and_single_device(engine_setup, name):
+    """(1, 2) at 6 heads, 3 a rank (tiny.en's split over 2; K2's edge tile
+    on each rank), greedy and beam search: both ranks give the tokens and
+    lengths of the JAX decode on its (1, 2) mesh and of the port's
+    single-device decode, avg_logprob within 1e-4."""
+    _, outs, _ = engine_setup
+    jref = _jax_decode(jwm.init_params(jwm.WhisperConfig(**dataclasses.asdict(CFG6)), seed=3),
+                       BY_NAME[name], n_model=2)
+    for ref in ({k: np.asarray(getattr(jref, k)) for k in ("tokens", "lengths", "avg_logprob")},
+                _port_decode(BY_NAME[name])):
+        for r in range(2):
+            got = outs[r][name]
+            np.testing.assert_array_equal(got["tokens"], ref["tokens"], err_msg=f"rank {r}")
+            np.testing.assert_array_equal(got["lengths"], ref["lengths"], err_msg=f"rank {r}")
+            np.testing.assert_allclose(got["avg_logprob"], ref["avg_logprob"], atol=1e-4,
+                                       rtol=1e-4, err_msg=f"rank {r}")
 
 
 def test_engine_mesh_times_collectives(engine_setup):
@@ -286,20 +353,13 @@ def _refusal(kind):
         pm.check_model_split(wm.PRESETS["large-v2"], 2)
     elif kind == "heads":
         pm.check_model_split(wm.PRESETS["tiny"], 4)
-    elif kind == "K2 local heads":
+    elif kind == "vocab rows of large-v3":
         pm.check_model_split(wm.PRESETS["large-v3"], 4)
-    elif kind == "engine K2 local heads":
+    elif kind == "engine vocab rows":
         from whisper_diarize_tpu_torch.engine import Engine, EngineConfig
 
         Engine(EngineConfig(use_gpu=False, mesh_shape=(1, 4),
                             whisper_model_path="__random__:large-v3"))
-    elif kind == "step K2 local heads":
-        from whisper_diarize_tpu_torch.transcribe import TranscribeStep
-
-        cfg = wm.WhisperConfig(**{**dataclasses.asdict(CFG), "n_text_head": 2,
-                                  "n_audio_head": 2, "n_text_state": 128,
-                                  "n_audio_state": 128})
-        TranscribeStep(wm.init_params(cfg), cfg, DebugTokenizer(), mesh=pm.Mesh(1, 2))
     elif kind == "world":
         pm.make_mesh(2, 1, device_type="cpu")
 
@@ -310,19 +370,47 @@ def _refusal(kind):
     ("odd vocab", "not divisible by the mesh model axis"),
     ("odd vocab config", "vocab rows 51865"),
     ("heads", "heads 6 are not divisible"),
-    ("K2 local heads", "K2"),
-    ("engine K2 local heads", "K2"),
-    ("step K2 local heads", "K2"),
+    ("vocab rows of large-v3", "vocab rows 51866"),
+    ("engine vocab rows", "vocab rows 51866"),
     ("world", "initialized process group"),
 ])
 def test_mesh_refusals(kind, match):
     """Shapes the mesh cannot take raise ValueError before any work: rows
     the data axis does not divide, a vocab or heads the model axis does not
-    divide, fewer than 2 local decoder heads (K2's 128-column tiles: no
-    einsum fallback), a world that is not the mesh."""
+    divide (large-v3 on (1, 4): 5 heads a rank run, its 51,866 vocab rows do
+    not split), a world that is not the mesh."""
     assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match=match):
         _refusal(kind)
+
+
+@pytest.mark.parametrize("kind", ["K2 local heads", "engine K2 local heads",
+                                  "step K2 local heads"])
+def test_mesh_takes_any_local_head_count(engine_setup, kind):
+    """Head splits that leave a rank an odd number of decoder heads run, as
+    in the JAX package (K2's 64-column edge tile; no einsum fallback):
+    `check_model_split` takes tiny.en on (1, 2) and small.en on (1, 4) (3
+    heads a rank) and base.en on (1, 8) (1); an Engine on (1, 2) over a
+    2-head snapshot (1 head a rank) serves the single-device Engine's cues
+    on both ranks; a `TranscribeStep` on a rank of (1, 2) keeps 1 head."""
+    if kind == "K2 local heads":
+        for preset, n_model, local in (("tiny.en", 2, 3), ("small.en", 4, 3), ("base.en", 8, 1)):
+            cfg = wm.PRESETS[preset]
+            pm.check_model_split(cfg, n_model)
+            assert cfg.n_text_head // n_model == local
+    elif kind == "engine K2 local heads":
+        kw, outs, _ = engine_setup
+        kw = dict(kw, snapshot=kw["snapshot"] + "1h", greedy=True)
+        ref = dr.mesh_rank(0, 1, [("ref", "engine", None, kw)])["ref"]["cues"]
+        assert ref[0] and any(text.strip() for _, _, text in ref[0])
+        for r in range(2):
+            assert outs[r]["(1, 2) one head"]["cues"] == ref, f"rank {r}"
+    else:
+        from whisper_diarize_tpu_torch.transcribe import TranscribeStep
+
+        step = TranscribeStep(wm.init_params(ENGINE_CFG_1H), ENGINE_CFG_1H,
+                              DebugTokenizer(num_languages=100), mesh=pm.Mesh(1, 2))
+        assert wm.local_heads(step.params, ENGINE_CFG_1H) == 1
 
 
 def test_initialize_explicit_bad_address_raises_within_seconds():

@@ -14,9 +14,13 @@
 // B 8, large-v3: 2.5 TFLOP over 32 layers, 2.5 ms at 989 TFLOP/s), far above
 // the ~295 FLOP/byte balance point. Design (the usual Hopper GEMM):
 // - One operand of width 2 * H * Dh. The K and V weights are two tensor
-//   maps, and every 128-column tile lies wholly in one of them (H * Dh is a
-//   multiple of 128), so one accumulator a tile and one A tile for both
-//   products; the epilogue adds the bias only on V's tiles.
+//   maps, and every tile lies wholly in one of them, so one accumulator a
+//   tile and one A tile for both products; the epilogue adds the bias only
+//   on V's tiles. Each half (K's, then V's) is H * Dh / 128 tiles of 128
+//   columns (two heads) and, where the head count is odd (a rank of a head
+//   split: 3 of tiny.en's 6 heads, 1 of base.en's 8), one 64-column edge
+//   tile of its last head: one weights box, wgmma m64n64k16, one store a
+//   warpgroup. An edge tile runs at half the warpgroups' product width.
 // - TMA into a ring of STAGES (4) slots of 64 k-rows (40 KB each: three
 //   64-row boxes of xa, two 64-column boxes of the weights), 128-byte
 //   swizzle, completing on the slot's `full` mbarrier; a producer warpgroup
@@ -80,6 +84,12 @@
 //   a quad's four rows of one head's eight columns a store (32-byte
 //   sectors): an f32 staging tile of 128 x 128 would not fit beside the
 //   ring.
+// - The 64-column edge tile (an odd head count) is one head: the producer
+//   loads two of the four 32-column weight boxes, the first consumer
+//   warpgroup computes it, and the second waits on each slot's `full`
+//   barrier and arrives on its `empty` one without a product or a store
+//   (the barrier counts both warpgroups: running ahead, it would complete a
+//   slot's phase twice over).
 #include "common.cuh"
 
 namespace {
@@ -89,6 +99,7 @@ constexpr int BK = 64;                        // k rows a slot: one 128-byte swi
 constexpr int CONSUMERS = 3;                  // warpgroups of 64 rows
 constexpr int BM = 64 * CONSUMERS;            // rows of one stream a tile
 constexpr int BN = 128;                       // output columns a tile: two heads
+constexpr int BN_EDGE = 64;                   // the edge tile of an odd head count: one head
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // and the producer warpgroup
 constexpr int STAGES = 4;                     // ring slots
 constexpr int BOX = 64 * 64 * 2;              // one 64 x 128-byte box
@@ -101,14 +112,30 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + OUT_BYTES + 1024;
 
 struct Tile {
   int l, b, t0, n0;  // layer, stream, first row, first column of [0, 2 HD)
+  int w;             // columns: BN, or BN_EDGE for a half's odd last head
 };
 
-// tile i: the layer outermost, then (stream, row tile), the column innermost;
-// tiles of bm rows (BM, or F_BM for the f32 form) and BN columns
-__device__ __forceinline__ Tile tile_at(int i, int B, int row_tiles, int col_tiles,
-                                        int bm = BM) {
+// column tiles of the walk: each half (K's, then V's) is HD / BN full
+// tiles and, where HD / 64 is odd, one edge tile
+__host__ __device__ __forceinline__ int col_tiles_of(int HD) { return 2 * ((HD + BN - 1) / BN); }
+
+// tile i: the layer outermost, then (stream, row tile), the column innermost
+// (K's tiles, then V's); tiles of bm rows (BM, or F_BM for the f32 form);
+// col_tiles = col_tiles_of(HD). ODD: an odd head count, whose halves end in
+// an edge tile; the even form walks full tiles only and divides by no
+// runtime half width
+template <bool ODD>
+__host__ __device__ __forceinline__ Tile tile_at(int i, int B, int row_tiles, int HD,
+                                                 int col_tiles, int bm = BM) {
   Tile t;
-  t.n0 = (i % col_tiles) * BN;
+  if constexpr (ODD) {
+    const int per_half = col_tiles / 2, c = i % col_tiles, j = c % per_half;
+    t.n0 = (c / per_half) * HD + j * BN;
+    t.w = HD - j * BN < BN ? BN_EDGE : BN;
+  } else {
+    t.n0 = (i % col_tiles) * BN;
+    t.w = BN;
+  }
   const int r = (i / col_tiles) % (B * row_tiles);
   t.l = i / (col_tiles * B * row_tiles);
   t.b = r / row_tiles;
@@ -116,6 +143,9 @@ __device__ __forceinline__ Tile tile_at(int i, int B, int row_tiles, int col_til
   return t;
 }
 
+// ODD: an odd head count, each half ending in a 64-column edge tile (the
+// even form compiles without the edge tile's walk and branches)
+template <bool ODD>
 __global__ void __launch_bounds__(THREADS, 1)
 cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
                 const __grid_constant__ CUtensorMap map_kw,
@@ -133,7 +163,7 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int row_tiles = (Ta + BM - 1) / BM;
-  const int col_tiles = 2 * HD / BN;
+  const int col_tiles = col_tiles_of(HD);
   const int n_tiles = L * B * row_tiles * col_tiles;
   const int kb_n = D / BK;
 
@@ -151,21 +181,23 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
     if (tid != CONSUMERS * 128) return;
     int it = 0;  // k-row slots issued, over all tiles
     for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
-      const Tile t = tile_at(i, B, row_tiles, col_tiles);
+      const Tile t = tile_at<ODD>(i, B, row_tiles, HD, col_tiles);
       const bool is_v = t.n0 >= HD;
       const CUtensorMap* wmap = is_v ? &map_vw : &map_kw;
       const int col = t.n0 - (is_v ? HD : 0);
+      const int w_boxes = ODD ? t.w / 64 : BN / 64;  // 2, or 1 on an edge tile
       for (int kb = 0; kb < kb_n; ++kb, ++it) {
         const int slot = it % STAGES;
         if (it >= STAGES) mbar_wait(&empty[slot], ((it / STAGES) - 1) & 1);
         unsigned char* st = ring + slot * STAGE_BYTES;
-        mbar_expect_tx(&full[slot], STAGE_BYTES);
+        mbar_expect_tx(&full[slot], A_BYTES + w_boxes * BOX);
 #pragma unroll
         for (int c = 0; c < CONSUMERS; ++c)
           tma_load_3d(st + c * BOX, &map_x, kb * BK, t.t0 + 64 * c, t.b, &full[slot]);
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
-          tma_load_3d(st + A_BYTES + j * BOX, wmap, col + 64 * j, kb * BK, t.l, &full[slot]);
+          if (j < w_boxes)
+            tma_load_3d(st + A_BYTES + j * BOX, wmap, col + 64 * j, kb * BK, t.l, &full[slot]);
       }
     }
     return;
@@ -180,7 +212,8 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
   float acc[64];
   int it = 0;  // k-row slots consumed, over all tiles
   for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
-    const Tile t = tile_at(i, B, row_tiles, col_tiles);
+    const Tile t = tile_at<ODD>(i, B, row_tiles, HD, col_tiles);
+    const bool edge = ODD && t.w == BN_EDGE;  // uniform over the CTA
     fence_acc<64>(acc);
     for (int kb = 0; kb < kb_n; ++kb, ++it) {
       const int slot = it % STAGES;
@@ -188,11 +221,21 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
       unsigned char* st = ring + slot * STAGE_BYTES;
       const uint64_t da = smem_desc(st + wg * BOX);
       const uint64_t db = smem_desc(st + A_BYTES, BOX);
-      wgmma_fence();
+      // each width fences and commits its own group: one fence before the
+      // branch makes ptxas serialize every wgmma of the kernel (C7520)
+      if (edge) {  // one 64-column box: acc[0 .. 31]
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)  // 16 k-rows: 32 bytes of A, 2 KB of B
-        wgmma_ss_n128_tb(acc, da + 2 * kk, db + 128 * kk, kb > 0 || kk > 0);
-      wgmma_commit();
+        for (int kk = 0; kk < BK / 16; ++kk)  // 16 k-rows: 32 bytes of A, 2 KB of B
+          wgmma_ss_n64_tb(acc, da + 2 * kk, db + 128 * kk, kb > 0 || kk > 0);
+        wgmma_commit();
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss_n128_tb(acc, da + 2 * kk, db + 128 * kk, kb > 0 || kk > 0);
+        wgmma_commit();
+      }
       if (kb > 0) {  // the slot before this one is read: hand it back
         wgmma_wait<1>();
         mbar_arrive(&empty[(it - 1) % STAGES]);
@@ -211,6 +254,7 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
     const int r0 = 16 * warp + g;  // rows r0 and r0 + 8; r0 % 8 == g
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
+      if (edge && j >= BN_EDGE / 8) continue;  // the edge tile's 64 columns: acc[0 .. 31]
       float b0 = 0.0f, b1 = 0.0f;
       if (is_v) {
         const bf162 bb =
@@ -232,7 +276,8 @@ cross_kv_kernel(const __grid_constant__ CUtensorMap map_x,
       const int slab = (t.l * B + t.b) * H + col0 / DH;
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
-        tma_store_3d(is_v ? &map_vo : &map_ko, stage_out + j * BOX, 0, rows, slab + j);
+        if (!edge || j == 0)
+          tma_store_3d(is_v ? &map_vo : &map_ko, stage_out + j * BOX, 0, rows, slab + j);
       bulk_commit();
     }
   }
@@ -256,6 +301,7 @@ constexpr int F_STAGE_BYTES = F_W_BYTES + 2 * F_PLANE;
 constexpr int F_SMEM = F_STAGES * F_STAGE_BYTES + 1024;
 static_assert(F_CONSUMERS * 64 == BN, "a consumer warpgroup a head of the tile");
 
+template <bool ODD>  // as cross_kv_kernel's
 __global__ void __launch_bounds__(F_THREADS, 1)
 cross_kv_f32_kernel(const __grid_constant__ CUtensorMap map_kw,
                     const __grid_constant__ CUtensorMap map_vw, const float* __restrict__ xa,
@@ -269,7 +315,7 @@ cross_kv_f32_kernel(const __grid_constant__ CUtensorMap map_kw,
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int row_tiles = (Ta + F_BM - 1) / F_BM;
-  const int col_tiles = 2 * HD / BN;
+  const int col_tiles = col_tiles_of(HD);
   const int n_tiles = L * B * row_tiles * col_tiles;
   const int kb_n = D / F_BK;
 
@@ -291,7 +337,7 @@ cross_kv_f32_kernel(const __grid_constant__ CUtensorMap map_kw,
     const int c4 = pt & 7, r0 = pt >> 3;
     float4 x[8];
     auto load = [&](int i, int kb) {
-      const Tile t = tile_at(i, B, row_tiles, col_tiles, F_BM);
+      const Tile t = tile_at<ODD>(i, B, row_tiles, HD, col_tiles, F_BM);
       const float* src = xa + (size_t)t.b * Ta * D + kb * F_BK + 4 * c4;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -303,19 +349,21 @@ cross_kv_f32_kernel(const __grid_constant__ CUtensorMap map_kw,
     if (blockIdx.x < n_tiles) load(blockIdx.x, 0);
     int it = 0;  // slots filled, over all tiles
     for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
-      const Tile t = tile_at(i, B, row_tiles, col_tiles, F_BM);
+      const Tile t = tile_at<ODD>(i, B, row_tiles, HD, col_tiles, F_BM);
       const bool is_v = t.n0 >= HD;
       const CUtensorMap* wmap = is_v ? &map_vw : &map_kw;
       const int col = t.n0 - (is_v ? HD : 0);
+      const int w_boxes = ODD ? t.w / 32 : BN / 32;  // 4, or 2 on an edge tile
       for (int kb = 0; kb < kb_n; ++kb, ++it) {
         const int slot = it % F_STAGES;
         if (it >= F_STAGES) mbar_wait(&empty[slot], ((it / F_STAGES) - 1) & 1);
         unsigned char* st = ring + slot * F_STAGE_BYTES;
         if (pt == 0) {
-          mbar_expect_tx(&full[slot], F_W_BYTES);
+          mbar_expect_tx(&full[slot], w_boxes * F_WBOX);
 #pragma unroll
           for (int j = 0; j < BN / 32; ++j)
-            tma_load_3d(st + j * F_WBOX, wmap, col + 32 * j, kb * F_BK, t.l, &full[slot]);
+            if (j < w_boxes)
+              tma_load_3d(st + j * F_WBOX, wmap, col + 32 * j, kb * F_BK, t.l, &full[slot]);
         }
         unsigned char* xh = st + F_W_BYTES;
 #pragma unroll
@@ -353,7 +401,15 @@ cross_kv_f32_kernel(const __grid_constant__ CUtensorMap map_kw,
   uint32_t ah[2][4], al[2][4];  // A (W^T) fragments of two k8 steps
   int it = 0;  // slots consumed, over all tiles
   for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
-    const Tile t = tile_at(i, B, row_tiles, col_tiles, F_BM);
+    const Tile t = tile_at<ODD>(i, B, row_tiles, HD, col_tiles, F_BM);
+    if (ODD && 64 * wg >= t.w) {  // an edge tile is one head: this warpgroup only
+      // keeps the barriers' count (see the head of the file)
+      for (int kb = 0; kb < kb_n; ++kb, ++it) {
+        mbar_wait(&full[it % F_STAGES], (it / F_STAGES) & 1);
+        mbar_arrive(&empty[it % F_STAGES]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
     for (int kb = 0; kb < kb_n; ++kb, ++it) {
@@ -438,13 +494,13 @@ int sm_count() {
 }  // namespace
 
 // xa [B, Ta, D]; kw, vw [L, D, H*Dh]; vb [L, H*Dh]; k, v [L, B, H, Ta, Dh];
-// all bf16, contiguous, 16-byte aligned. Needs Dh == 64, D % 64 == 0 and
-// (H*Dh) % 128 == 0 (the wrapper checks; the kernel refuses otherwise).
+// all bf16, contiguous, 16-byte aligned. Needs Dh == 64 and D % 64 == 0, at
+// any head count (the wrapper checks; the kernel refuses otherwise).
 WDT_EXPORT int wdt_cross_kv(const void* xa, const void* kw, const void* vw,
                             const void* vb, void* k, void* v, int L, int B,
                             int Ta, int D, int H, int Dh, void* stream) {
   const int HD = H * Dh;
-  if (Dh != DH || D % BK != 0 || HD % BN != 0 || L <= 0 || B <= 0 || Ta <= 0)
+  if (Dh != DH || H <= 0 || D % BK != 0 || L <= 0 || B <= 0 || Ta <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint64_t x_dims[3] = {(cuuint64_t)D, (cuuint64_t)Ta, (cuuint64_t)B};
@@ -460,13 +516,23 @@ WDT_EXPORT int wdt_cross_kv(const void* xa, const void* kw, const void* vw,
       !make_map_3d(&mko, k, o_dims, o_strides, box) ||
       !make_map_3d(&mvo, v, o_dims, o_strides, box))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      cross_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long n_tiles = (long long)L * B * ((Ta + BM - 1) / BM) * (2 * HD / BN);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(cross_kv_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES),
+      cudaFuncSetAttribute(cross_kv_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES)};
+  const bool odd = H % 2;
+  if (attr[odd] != cudaSuccess) return static_cast<int>(attr[odd]);
+  const long long n_tiles = (long long)L * B * ((Ta + BM - 1) / BM) * col_tiles_of(HD);
   const int grid = static_cast<int>(n_tiles < sm_count() ? n_tiles : sm_count());
-  cross_kv_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      mx, mkw, mvw, mko, mvo, static_cast<const bf16*>(vb), L, B, Ta, D, HD);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* bias = static_cast<const bf16*>(vb);
+  if (odd)
+    cross_kv_kernel<true><<<grid, THREADS, SMEM_BYTES, st>>>(mx, mkw, mvw, mko, mvo, bias, L, B,
+                                                             Ta, D, HD);
+  else
+    cross_kv_kernel<false><<<grid, THREADS, SMEM_BYTES, st>>>(mx, mkw, mvw, mko, mvo, bias, L, B,
+                                                              Ta, D, HD);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -476,7 +542,7 @@ WDT_EXPORT int wdt_cross_kv_f32(const void* xa, const void* kw, const void* vw,
                                 const void* vb, void* k, void* v, int L, int B,
                                 int Ta, int D, int H, int Dh, void* stream) {
   const int HD = H * Dh;
-  if (Dh != DH || D % BK != 0 || HD % BN != 0 || L <= 0 || B <= 0 || Ta <= 0)
+  if (Dh != DH || H <= 0 || D % BK != 0 || L <= 0 || B <= 0 || Ta <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint32_t box[3] = {32, F_BK, 1};  // 32 columns (128 bytes) x 32 k rows
   const cuuint64_t w_dims[3] = {(cuuint64_t)HD, (cuuint64_t)D, (cuuint64_t)L};
@@ -485,13 +551,45 @@ WDT_EXPORT int wdt_cross_kv_f32(const void* xa, const void* kw, const void* vw,
   if (!make_map_3d(&mkw, kw, w_dims, w_strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
       !make_map_3d(&mvw, vw, w_dims, w_strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      cross_kv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long n_tiles = (long long)L * B * ((Ta + F_BM - 1) / F_BM) * (2 * HD / BN);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(cross_kv_f32_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM),
+      cudaFuncSetAttribute(cross_kv_f32_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM)};
+  const bool odd = H % 2;
+  if (attr[odd] != cudaSuccess) return static_cast<int>(attr[odd]);
+  const long long n_tiles = (long long)L * B * ((Ta + F_BM - 1) / F_BM) * col_tiles_of(HD);
   const int grid = static_cast<int>(n_tiles < sm_count() ? n_tiles : sm_count());
-  cross_kv_f32_kernel<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      mkw, mvw, static_cast<const float*>(xa), static_cast<const float*>(vb),
-      static_cast<float*>(k), static_cast<float*>(v), L, B, Ta, D, HD);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(xa);
+  const auto* bias = static_cast<const float*>(vb);
+  auto *ko = static_cast<float*>(k), *vo = static_cast<float*>(v);
+  if (odd)
+    cross_kv_f32_kernel<true><<<grid, F_THREADS, F_SMEM, st>>>(mkw, mvw, x, bias, ko, vo, L, B,
+                                                               Ta, D, HD);
+  else
+    cross_kv_f32_kernel<false><<<grid, F_THREADS, F_SMEM, st>>>(mkw, mvw, x, bias, ko, vo, L, B,
+                                                                Ta, D, HD);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Tile i of K2's walk (`f32` nonzero: the f32 form's tiles) as {layer,
+// stream, first row, first column of [0, 2 HD), columns, tiles in the walk}
+// in out[0 .. 5]: what ops/attn.py::cross_kv_tile mirrors. Refuses a shape
+// the kernels refuse and an i outside the walk.
+WDT_EXPORT int wdt_cross_kv_tile(int i, int L, int B, int Ta, int H, int f32, int* out) {
+  if (L <= 0 || B <= 0 || Ta <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int HD = H * DH, bm = f32 ? F_BM : BM, row_tiles = (Ta + bm - 1) / bm;
+  const int ct = col_tiles_of(HD);
+  const long long n = (long long)L * B * row_tiles * ct;
+  if (i < 0 || i >= n || n > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const Tile t = H % 2 ? tile_at<true>(i, B, row_tiles, HD, ct, bm)
+                       : tile_at<false>(i, B, row_tiles, HD, ct, bm);
+  out[0] = t.l;
+  out[1] = t.b;
+  out[2] = t.t0;
+  out[3] = t.n0;
+  out[4] = t.w;
+  out[5] = static_cast<int>(n);
+  return static_cast<int>(cudaSuccess);
 }

@@ -315,7 +315,10 @@ def k2_faults(xa, ck_w, cv_w, cv_b, n_heads: int
     K of the previous layer, and (B >= 2) one tile of the kernel's walk
     (`attn.cross_kv_tile`: the first rows and first two heads of stream 1's
     K, layer 0; the f32 form's tile rows for f32 xa) holding stream 0's
-    values: a tile stored to the wrong stream."""
+    values: a tile stored to the wrong stream. At an odd head count, the
+    64-column edge tiles (each half's last head): K's left unwritten (zeros:
+    a tile the walk skipped), and V's written with its neighbour's columns
+    (V's previous head; at one head, K's: a tile straddling K and V)."""
     from ..ops.attn import CROSS_KV_COLS, cross_kv_build_plain, cross_kv_rows
 
     k, v = cross_kv_build_plain(xa, ck_w, cv_w, torch.zeros_like(cv_b), n_heads)
@@ -327,6 +330,14 @@ def k2_faults(xa, ck_w, cv_w, cv_b, n_heads: int
         bad = k.clone()
         bad[0, 1, :heads, :rows] = k[0, 0, :heads, :rows]
         yield "K2 a tile written to the wrong stream", 0, bad
+    if n_heads % 2:
+        k, v = cross_kv_build_plain(xa, ck_w, cv_w, cv_b, n_heads)
+        bad = k.clone()
+        bad[:, :, -1] = 0
+        yield "K2 the edge tile left unwritten", 0, bad
+        bad = v.clone()
+        bad[:, :, -1] = v[:, :, -2] if n_heads > 1 else k[:, :, -1]
+        yield "K2 the edge tile written with its neighbour head", 1, bad
 
 
 def _split_faults(tag: str, layer: int, q, k, v, ta_total, ks=None, vs=None,

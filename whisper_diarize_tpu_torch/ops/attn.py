@@ -438,6 +438,7 @@ def cross_kv_build_plain(
 CROSS_KV_ROWS = 192  # rows of one stream a K2 tile (three 64-row warpgroups)
 CROSS_KV_ROWS_F32 = 128  # K2-f32's tile rows (the N of its 3xTF32 wgmma)
 CROSS_KV_COLS = 128  # output columns a K2 tile (two heads), of K's or of V's half
+CROSS_KV_EDGE_COLS = 64  # a half's last tile where its head count is odd (one head)
 
 
 class CrossKVTile(NamedTuple):
@@ -445,6 +446,7 @@ class CrossKVTile(NamedTuple):
     stream: int
     t0: int  # first row (audio position) of the tile
     n0: int  # first column of [0, 2 H Dh): K's columns, then V's
+    cols: int  # CROSS_KV_COLS, or CROSS_KV_EDGE_COLS for an odd head count's last head
 
 
 def cross_kv_rows(f32: bool = False) -> int:
@@ -455,19 +457,25 @@ def cross_kv_rows(f32: bool = False) -> int:
 
 def cross_kv_tiles(L: int, B: int, Ta: int, HD: int, f32: bool = False) -> int:
     """How many tiles K2's persistent CTAs walk (`cross_kv_tile`)."""
-    return L * B * -(-Ta // cross_kv_rows(f32)) * (2 * HD // CROSS_KV_COLS)
+    return L * B * -(-Ta // cross_kv_rows(f32)) * 2 * -(-HD // CROSS_KV_COLS)
 
 
 def cross_kv_tile(i: int, L: int, B: int, Ta: int, HD: int, f32: bool = False) -> CrossKVTile:
-    """Tile i of K2's walk (`csrc/cross_kv.cu::tile_at`; `f32`: the f32
-    form's tiles): the layer outermost, then the stream and its row tile,
-    the column innermost. A tile's rows stay inside one stream; rows past Ta
-    are the kernel's zero fill and are not stored."""
+    """Tile i of K2's walk (`csrc/cross_kv.cu::tile_at`, the C entry
+    `wdt_cross_kv_tile`; `f32`: the f32 form's tiles): the layer outermost,
+    then the stream and its row tile, the column innermost (K's tiles, then
+    V's). Each half is HD // 128 tiles of two heads and, where its head
+    count is odd, a 64-column edge tile of its last head: no tile crosses
+    from K into V. A tile's rows stay inside one stream; rows past Ta are
+    the kernel's zero fill and are not stored."""
     rows = cross_kv_rows(f32)
-    row_tiles, col_tiles = -(-Ta // rows), 2 * HD // CROSS_KV_COLS
-    r = i // col_tiles % (B * row_tiles)
-    return CrossKVTile(i // (col_tiles * B * row_tiles), r // row_tiles,
-                       r % row_tiles * rows, i % col_tiles * CROSS_KV_COLS)
+    per_half = -(-HD // CROSS_KV_COLS)
+    row_tiles, col_tiles = -(-Ta // rows), 2 * per_half
+    c, r = i % col_tiles, i // col_tiles % (B * row_tiles)
+    j = c % per_half
+    cols = CROSS_KV_EDGE_COLS if HD - j * CROSS_KV_COLS < CROSS_KV_COLS else CROSS_KV_COLS
+    return CrossKVTile(i // (col_tiles * B * row_tiles), r // row_tiles, r % row_tiles * rows,
+                       c // per_half * HD + j * CROSS_KV_COLS, cols)
 
 
 def cross_kv_build(
@@ -482,12 +490,11 @@ def cross_kv_build(
     B, Ta, D = xa.shape
     L, Dw, HD = ck_w.shape
     if (Dw != D or cv_w.shape != ck_w.shape or tuple(cv_b.shape) != (L, HD)
-            or D % 64 or HD % CROSS_KV_COLS or HD != 64 * n_heads):
+            or D % 64 or n_heads < 1 or HD != 64 * n_heads):
         raise ValueError(
             f"cross_kv_build: xa {tuple(xa.shape)}, weights "
             f"{tuple(ck_w.shape)} / {tuple(cv_w.shape)} / {tuple(cv_b.shape)}, "
-            f"{n_heads} heads (kernel takes Dh = 64, D % 64 == 0 and "
-            f"H*Dh % {CROSS_KV_COLS} == 0)")
+            f"{n_heads} heads (kernel takes Dh = 64 and D % 64 == 0)")
     Dh = HD // n_heads
     k = torch.empty((L, B, n_heads, Ta, Dh), dtype=xa.dtype, device=xa.device)
     v = torch.empty_like(k)

@@ -15,7 +15,8 @@ rank has a card of its own, else gloo over shared cards.
 
 The model is the JAX dry run's (2 + 2 layers, vocab 51872) at 4 heads of
 64 (d 256) instead of 2 (d 64): under a head split over 2 ranks each keeps
-2 heads, the fewest K2 (the cross K/V kernel) takes (128 columns).
+2 heads (one K2 tile of 128 columns), over 4 ranks one (K2's 64-column edge
+tile).
 
 Rank functions live at module level so that `torch.multiprocessing`'s spawn
 and the tests can import them; `run_ranks` runs any of them.

@@ -112,8 +112,8 @@ class TranscribeStep:
     `mesh` (`parallel/mesh.py::Mesh`): the step is one rank of a mesh, and
     every rank calls it with the same arguments. It keeps the rank's slice
     of the parameters (given whole or already sliced; a model axis the
-    configuration cannot be split over is refused, K2's local head count
-    among them), encodes and decodes the rank's rows of each batch, and
+    configuration cannot be split over is refused: heads or vocab rows the
+    model axis does not divide), encodes and decodes the rank's rows of each batch, and
     all-gathers each decode's results, and the DTW anchors (the costs with
     `WDT_HOST_DTW=1`), over the data group, so that every rank takes the
     same fallback-ladder and seek decisions and returns the same chunk
