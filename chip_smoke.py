@@ -134,8 +134,10 @@ traceback) and no result line is printed:
    ladder off, 16 tokens a window) serves a ~30 s whole-file request and
    `transcribe_audio_batch` over four 10 s files, with the process-wide TF32
    flags at PyTorch's defaults; every segment must carry a `str` speaker
-   id. Each request prints the segmentation seconds (`stage_s["segment"]`),
-   the embedding seconds (`stage_s["embed"]`) and the windows decoded. Then
+   id. Each request prints the host seconds of its segmentation and
+   embedding spans (`last_run["stage_s"]["segment"]`, `["embed"]`), its
+   device-to-host reads (`last_run["counters"]["host_sync"]`) and the
+   windows decoded. Then
    the 30 s request's own audio goes through the kaldi fbank, the
    segmentation net and CAM++ on the card and in f32 on the CPU at the same
    weights (`models/net_check.py`: fbank 1e-3, log-probs 1e-3 with the
@@ -1879,7 +1881,8 @@ def phase_engine(eng, path: str, requests, check_cues=None) -> dict:
         if check_cues is not None:
             check_cues(label, cue_lists)
         print(f"[engine {path}] {label}: wall {wall:.3f} s, windows {windows}, cues "
-              f"{sum(len(c) for c in cue_lists)}, launches added {added}, stages "
+              f"{sum(len(c) for c in cue_lists)}, launches added {added}, host syncs "
+              f"{eng.last_run['counters'].get('host_sync', 0)}, stage host s "
               f"{ {k: round(v, 3) for k, v in eng.last_run['stage_s'].items()} }",
               flush=True)
         if windows:
@@ -2110,8 +2113,9 @@ def phase_diarize(eng, requests) -> dict:
         if bad or not cues:
             raise AssertionError(f"{label}: {len(cues)} cues, {len(bad)} without a speaker id")
         st = eng.last_run["stage_s"]
-        print(f"[engine diarize] {label}: segmentation {st['segment']:.3f} s, embed "
-              f"{st['embed']:.3f} s, windows {eng.last_run['windows']}, speakers "
+        print(f"[engine diarize] {label}: host s: segmentation {st['segment']:.3f}, embed "
+              f"{st['embed']:.3f}, host syncs {eng.last_run['counters'].get('host_sync', 0)}, "
+              f"windows {eng.last_run['windows']}, speakers "
               f"{sorted({c.speaker_id for c in cues})}", flush=True)
 
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -2570,7 +2574,8 @@ def engine_request(eng, path: str, opts):
     """One Engine request as `phase_profile` runs it: returns its summary."""
     def run() -> str:
         eng.transcribe_audio(path, opts)
-        return (f"windows {eng.last_run['windows']}, stages "
+        return (f"windows {eng.last_run['windows']}, host syncs "
+                f"{eng.last_run['counters'].get('host_sync', 0)}, stage host s "
                 f"{ {k: round(v, 3) for k, v in eng.last_run['stage_s'].items()} }")
     return run
 

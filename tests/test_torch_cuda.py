@@ -37,7 +37,8 @@ shapes it refuses. The f32 forms: each against its
 f32 plain version by `agreement.F32` (`F32_Q8` over the int8 cache), with
 the TF32 and bf16-rounding faults refused by `F32_REFUSAL`; the f32 skinny
 GEMM at N 1 - 80 and K2-f32 at every preset width, bit for bit across two
-calls too.
+calls too. The tracer's clock: a span that synchronizes holds the kernel
+launched inside it, as the profiler recorded it.
 """
 
 import itertools
@@ -1079,3 +1080,33 @@ def test_dtw_kernel_refuses_what_it_cannot_take(dev):
         dtw_ops.dtw_anchor_frames_batch(torch.zeros((1, 900, 1500), device=dev), [3], [10], 2)
     with pytest.raises(ValueError):
         dtw_ops.dtw_anchor_frames_batch(cost, [3, 4], [100], 2)
+
+
+@pytest.mark.parametrize("activities", ["cuda", "cpu+cuda"])
+def test_span_holds_its_kernel_on_the_profilers_clock(dev, activities):
+    """`tracing`'s spans, stamped by the monotonic clock and mapped onto
+    the profiler's, hold the device work launched inside them: a span that
+    synchronizes starts before its kernel's profiled start and ends after
+    its end. Recording switches on under a CUDA-only session too (the
+    benchmark's traced call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_diarize_tpu_torch import tracing
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if activities == "cpu+cuda" else [])
+    a = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        with tracing.span("card"):
+            b = a @ a
+            torch.cuda.synchronize()
+    span = [e for e in tracing.events(tracing.stretch()) if e["name"] == "card"][-1]
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert kernels and b.shape == a.shape
+    for k in kernels:
+        start, end = k.start_ns(), k.start_ns() + k.duration_ns()
+        print(f"{activities} {k.name()[:40]}: span start to kernel start "
+              f"{(start - span['start_ns']) / 1e3:.1f} us, kernel end to span end "
+              f"{(span['end_ns'] - end) / 1e3:.1f} us")
+        assert span["start_ns"] < start and end < span["end_ns"]

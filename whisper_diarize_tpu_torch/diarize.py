@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .audio import int16_to_float32
 from .models import segmentation
 from .types import SpeechSegment
@@ -80,7 +81,9 @@ def get_segments_batch(
     acts = []
     for c0 in range(0, batch.shape[0], MAX_WINDOWS_PER_BATCH):
         chunk = torch.from_numpy(batch[c0:c0 + MAX_WINDOWS_PER_BATCH]).to(device)
-        acts.append(segmentation.powerset_to_activity(segmentation.forward(params, chunk)))
+        with tracing.span("segment.forward", rows=int(chunk.shape[0])):
+            log_probs = segmentation.forward(params, chunk)
+        acts.append(segmentation.powerset_to_activity(tracing.to_host(log_probs, "segment")))
     activity = np.concatenate(acts, axis=0)  # [sum NW, frames, 3]
     return [_activity_to_segments(x, activity[w0:w0 + nw], min_duration_s) if nw else []
             for x, (w0, nw) in zip(arrays, spans)]

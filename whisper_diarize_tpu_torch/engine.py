@@ -45,7 +45,6 @@ import logging
 import os
 import struct
 import threading
-import time
 from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -55,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from . import audio as audio_io
+from . import tracing
 from . import translate as translate_mod
 from .formatting import (
     FormattingOverrides,
@@ -85,12 +85,14 @@ UNBOUNDED_SPEAKERS = 2**62  # usize::MAX analogue (`engine.rs:108-111`)
 
 class _AsyncResult:
     """Run a host thunk on a daemon thread; `.result()` joins and re-raises.
-    Overlaps batch i's DTW backtrack with batch i+1's decode.
+    Overlaps batch i's DTW backtrack with batch i+1's decode. The thread's
+    spans belong to the request and span that started it (`tracing.carry`).
     `WDT_SERIAL_DTW=1` runs the thunk inline."""
 
     def __init__(self, thunk):
         self._value = None
         self._error: Optional[BaseException] = None
+        thunk = tracing.carry(thunk)
         if os.environ.get("WDT_SERIAL_DTW") == "1":
             self._thread = None
             self._run(thunk)
@@ -240,7 +242,8 @@ class Engine:
         self._whisper_cache: dict = {}
         self._step_cache: dict = {}
         self._draft_cache: Optional[Tuple[str, Any]] = None  # (path, (params, cfg))
-        self.last_run: Dict[str, Any] = {}  # windows decoded, stage seconds
+        # the last request's view of its tracing summary (`_view`)
+        self.last_run: Dict[str, Any] = {}
 
     def _make_mesh(self):
         """The rank's mesh of `mesh_shape`, refusing before any work a batch
@@ -490,39 +493,78 @@ class Engine:
             if not os.path.exists(p):
                 raise FileNotFoundError("audio file doesn't exist")
 
+        with tracing.request(files=len(audio_paths)) as req:
+            out = self._transcribe_request(audio_paths, options, formatting_overrides, cb)
+        self.last_run = self._view(req.summary())
+        logger.info("stage host seconds: %s (%d windows, %d streams)",
+                    " ".join(f"{k}={v:.3f}" for k, v in self.last_run["stage_s"].items()),
+                    self.last_run["windows"], len(audio_paths))
+        return out
+
+    # `last_run["stage_s"]`: host seconds of each stage, summed over the
+    # request's spans of these names (`tracing`)
+    STAGE_SPANS = {
+        "segment": ("segment",), "vad": ("vad",), "mel": ("mel",), "encode": ("encode",),
+        "cross_kv": ("cross_kv",), "lang": ("lang",), "decode": ("decode",),
+        "align": ("align.launch", "align.wait"),
+        "chunk_results": ("engine.chunk_results",),
+        "embed": ("embed.dispatch", "embed.assign"),
+        "format": ("engine.format",),
+    }
+
+    @classmethod
+    def _view(cls, summary: Dict[str, Any]) -> Dict[str, Any]:
+        """`last_run`: the request's windows decoded (the rows of its decode
+        batches), `stage_s` (host seconds a stage: each span's enqueue and
+        host work, and the device time only where the host waits on the
+        device inside it; 0.0 for a stage that did not run), its counters
+        and the request's id (its summary in `tracing.requests()`, its
+        recorded events in `tracing.events()`)."""
+        spans, counters = summary["spans"], summary["counters"]
+        return {
+            "windows": counters.get("batch.rows", 0),
+            "stage_s": {k: sum((spans[n]["seconds"] for n in names if n in spans), 0.0)
+                        for k, names in cls.STAGE_SPANS.items()},
+            "counters": dict(counters),
+            "request": summary["id"],
+        }
+
+    def _transcribe_request(self, audio_paths, options, formatting_overrides,
+                            cb: Callbacks) -> List[List[Segment]]:
         # an f32 Engine's torch products in f32 on the card: cuDNN's
         # convolutions (the encoder's conv1d) would take TF32 by default
         f32 = self._resolve_dtype() == torch.float32
         with torch.inference_mode(), (exact_f32() if f32 else contextlib.nullcontext()):
-            params, model_cfg, tokenizer = self._load_whisper(
-                options, cb.progress, cb.is_cancelled)
-            step = self._make_step(params, model_cfg, tokenizer, options)
-            all_samples = [audio_io.read_wav(p) for p in audio_paths]
+            with tracing.span("engine.load"):
+                params, model_cfg, tokenizer = self._load_whisper(
+                    options, cb.progress, cb.is_cancelled)
+                step = self._make_step(params, model_cfg, tokenizer, options)
+            with tracing.span("engine.read_wav"):
+                all_samples = [audio_io.read_wav(p) for p in audio_paths]
             per_stream_segments: List[List[SpeechSegment]] = []
             vad_masks: List[Optional[VadMaskOracle]] = []
             diarize_options: Optional[DiarizeOptions] = None
-            segment_s = None
             if options.enable_diarize:
                 # every stream's windows through the segmentation net at once
                 from . import diarize as diarize_mod
 
-                with self._rank0_first():
+                with tracing.span("engine.load"), self._rank0_first():
                     diarize_options, seg_params = self._resolve_diarization(options, cb)
-                t0 = time.perf_counter()
-                per_stream_segments = diarize_mod.get_segments_batch(
-                    all_samples, SAMPLE_RATE, seg_params, device=self.device)
-                segment_s = time.perf_counter() - t0
+                with tracing.span("segment"):
+                    per_stream_segments = diarize_mod.get_segments_batch(
+                        all_samples, SAMPLE_RATE, seg_params, device=self.device)
                 vad_masks = [None] * len(audio_paths)
             elif options.enable_vad:
                 from . import vad as vad_mod
 
-                with self._rank0_first():
+                with tracing.span("engine.load"), self._rank0_first():
                     vad_model = vad_mod.load_vad_params(self._resolve_vad_model(cb),
                                                         self.device)
-                for mask, segs in vad_mod.get_segments_batch(
-                        vad_model, all_samples, device=self.device):
-                    per_stream_segments.append(segs)
-                    vad_masks.append(VadMaskOracle(mask))
+                with tracing.span("vad"):
+                    for mask, segs in vad_mod.get_segments_batch(
+                            vad_model, all_samples, device=self.device):
+                        per_stream_segments.append(segs)
+                        vad_masks.append(VadMaskOracle(mask))
             else:
                 for samples in all_samples:
                     per_stream_segments.append([SpeechSegment(
@@ -530,20 +572,19 @@ class Engine:
                     vad_masks.append(None)
             seg_lists, langs = self._run_pipeline_multi(
                 step, per_stream_segments, options, diarize_options, cb)
-            if segment_s is not None:
-                self.last_run["stage_s"]["segment"] = segment_s
 
         whisper_to_en = bool(options.whisper_to_english)
         out: List[List[Segment]] = []
-        for si, segments in enumerate(seg_lists):
-            effective_lang = langs[si] or (options.lang or "auto")
-            if not whisper_to_en and options.translate_target:
-                translate_mod.translate_segments(
-                    segments, effective_lang, options.translate_target, cb.progress)
-            pp_cfg = PostProcessConfig.for_language(effective_lang)
-            if formatting_overrides is not None:
-                apply_overrides(pp_cfg, formatting_overrides)
-            out.append(process_segments(segments, pp_cfg, vad_masks[si]))
+        with tracing.span("engine.format"):
+            for si, segments in enumerate(seg_lists):
+                effective_lang = langs[si] or (options.lang or "auto")
+                if not whisper_to_en and options.translate_target:
+                    translate_mod.translate_segments(
+                        segments, effective_lang, options.translate_target, cb.progress)
+                pp_cfg = PostProcessConfig.for_language(effective_lang)
+                if formatting_overrides is not None:
+                    apply_overrides(pp_cfg, formatting_overrides)
+                out.append(process_segments(segments, pp_cfg, vad_masks[si]))
         return out
 
     # ------------------------------------------------------------------
@@ -572,7 +613,7 @@ class Engine:
             from .diarize import EmbeddingManager
             from .models import convert as convert_mod
 
-            with self._rank0_first():
+            with tracing.span("engine.load"), self._rank0_first():
                 emb_params = convert_mod.load_campplus_params(
                     diarize_options.embedding_model_path,
                     allow_random=self.cfg.allow_random_weights, device=self.device)
@@ -594,10 +635,6 @@ class Engine:
             batch_size = max(1, min(batch_size, S))
 
         done = 0
-        windows = 0
-        empty_segments = 0
-        total_chars = 0
-        stage_s = {"mel": 0.0, "encode": 0.0, "decode": 0.0, "embed": 0.0}
         journal = self._open_resume_journal(options, per_stream_segments)
 
         def tick_progress():
@@ -679,7 +716,7 @@ class Engine:
             from .models import campplus
 
             if fresh:
-                embs = embs_dev.cpu().numpy()
+                embs = tracing.to_host(embs_dev, "embed")
                 for j, key in fresh:
                     assign(key, embs[j])
             if late:
@@ -699,10 +736,15 @@ class Engine:
         def make_finalize(decode_group, adv_steps, ns_flags, anchors_async,
                           res, xa, n_valid, crs_a):
             def finalize() -> None:
-                nonlocal empty_segments, total_chars
-                anchors = anchors_async.result() if anchors_async is not None else None
-                crs = crs_a if anchors is None else step.build_chunk_results(
-                    res, xa, n_valid, translated, anchors_all=anchors)
+                anchors = None
+                if anchors_async is not None:
+                    with tracing.span("align.wait"):
+                        anchors = anchors_async.result()
+                crs = crs_a
+                if anchors is not None:
+                    with tracing.span("engine.chunk_results"):
+                        crs = step.build_chunk_results(
+                            res, xa, n_valid, translated, anchors_all=anchors)
                 for j, w in enumerate(decode_group):
                     cr = crs[j]
                     si = w.stream_idx
@@ -728,10 +770,8 @@ class Engine:
                                           probability=wt.probability)
                             for wt in cr.words]
                     if not text.strip():
-                        empty_segments += 1
                         logger.warning("empty segment in [%.2f-%.2f]",
                                        approx_start, approx_end)
-                    total_chars += len(text)
                     segment = Segment(
                         start=word_timestamps[0].start if word_timestamps else approx_start,
                         end=word_timestamps[-1].end if word_timestamps else approx_end,
@@ -746,128 +786,138 @@ class Engine:
         while True:
             if cb.is_cancelled and cb.is_cancelled():
                 break
-            group = sched.next_batch(batch_size)
+            with tracing.span("engine.schedule"):
+                group = sched.next_batch(batch_size)
+                decode_group = []
+                for w in group:
+                    if journal is not None and journal.has(w.chunk_idx, w.window_idx,
+                                                           w.stream_idx):
+                        seg, adv_step = journal.get(w.chunk_idx, w.window_idx, w.stream_idx)
+                        sched.replay(w, adv_step or len(w.samples))
+                        results[(w.stream_idx, w.chunk_idx, w.window_idx)] = seg
+                        if self.cfg.sequential_prompt and seg is not None:
+                            previous_texts[w.stream_idx] = seg.text
+                    else:
+                        decode_group.append(w)
+                if decode_group:
+                    audio_batch, n_valid = pack_batch(decode_group, batch_size)
             if not group:
                 break
-            decode_group = []
-            for w in group:
-                if journal is not None and journal.has(w.chunk_idx, w.window_idx, w.stream_idx):
-                    seg, adv_step = journal.get(w.chunk_idx, w.window_idx, w.stream_idx)
-                    sched.replay(w, adv_step or len(w.samples))
-                    results[(w.stream_idx, w.chunk_idx, w.window_idx)] = seg
-                    if self.cfg.sequential_prompt and seg is not None:
-                        previous_texts[w.stream_idx] = seg.text
-                else:
-                    decode_group.append(w)
 
             if decode_group:
-                windows += len(decode_group)
-                audio_batch, n_valid = pack_batch(decode_group, batch_size)
-                t0 = time.perf_counter()
-                audio_dev = step.place_audio(audio_batch)
-                mel = step.mel(audio_dev)
-                stage_s["mel"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                xa = step.encode(mel)
-                # lazy: a batch that falls back to plain greedy (per-row
-                # prompts) never pays a draft encode
-                xa_d = ((lambda a=audio_dev: step.encode_draft(a))
-                        if step.draft is not None else None)
-                stage_s["encode"] += time.perf_counter() - t0
+                with tracing.span("batch", rows=len(decode_group)):
+                    tracing.count("batch.rows", len(decode_group))
+                    tracing.count("batch.slots", batch_size)
+                    with tracing.span("mel"):
+                        audio_dev = step.place_audio(audio_batch)
+                        mel = step.mel(audio_dev)
+                    with tracing.span("encode"):
+                        xa = step.encode(mel)
+                    # lazy: a batch that falls back to plain greedy (per-row
+                    # prompts) never pays a draft encode
+                    xa_d = ((lambda a=audio_dev: step.encode_draft(a))
+                            if step.draft is not None else None)
 
-                # built once, shared by language detection (on the bf16 cache)
-                # and the decode (on its int8 form with quantize_kv_cache; the
-                # bf16 copy is dropped before the loop); the decode stage's
-                # time includes both
-                t0 = time.perf_counter()
-                cross = step.exact_cross_cache(xa)
-                if any(detected_langs[w.stream_idx] is None for w in decode_group):
-                    langs = step.detect_language(xa, cross)
-                    for j, w in enumerate(decode_group):
-                        if detected_langs[w.stream_idx] is None:
-                            detected_langs[w.stream_idx] = langs[j] if langs else "en"
-                cross = step.decode_cache(cross)
-                row_langs = [detected_langs[w.stream_idx] or "en" for w in decode_group
-                             ] + ["en"] * (batch_size - len(decode_group))
+                    # built once, shared by language detection (on the bf16
+                    # cache) and the decode (on its int8 form with
+                    # quantize_kv_cache; the bf16 copy is dropped before the loop)
+                    with tracing.span("cross_kv"):
+                        cross = step.exact_cross_cache(xa)
+                    if any(detected_langs[w.stream_idx] is None for w in decode_group):
+                        with tracing.span("lang"):
+                            langs = step.detect_language(xa, cross)
+                        for j, w in enumerate(decode_group):
+                            if detected_langs[w.stream_idx] is None:
+                                detected_langs[w.stream_idx] = langs[j] if langs else "en"
+                    with tracing.span("cross_kv"):
+                        cross = step.decode_cache(cross)
+                    row_langs = [detected_langs[w.stream_idx] or "en" for w in decode_group
+                                 ] + ["en"] * (batch_size - len(decode_group))
 
-                if self.cfg.sequential_prompt:
-                    row_prev = [
-                        step.tk.encode(" " + previous_texts[w.stream_idx].strip())
-                        if previous_texts[w.stream_idx] else None
-                        for w in decode_group
-                    ] + [None] * (batch_size - len(decode_group))
-                    if all(p is None for p in row_prev):
-                        row_prev = None
-                else:
-                    row_prev = init_tokens
-                if self.cfg.temperature_fallback:
-                    res, row_temps = step.decode_with_fallback(
-                        xa, row_langs, task, prev_tokens=row_prev,
-                        n_valid_rows=len(decode_group), is_cancelled=cb.is_cancelled,
-                        cross=cross, xa_d=xa_d)
-                else:
-                    res = step.decode(xa, row_langs, task, prev_tokens=row_prev,
-                                      is_cancelled=cb.is_cancelled, cross=cross, xa_d=xa_d)
-                    row_temps = np.zeros((batch_size,), np.float32)
-                del cross  # not held across the alignment pass and the next encode
-                if cb.is_cancelled and cb.is_cancelled():
-                    break
-                emb_plan = emb_dev = None
-                if diarize_options is not None:
-                    # the embedding pass first: it overlaps the host token pass
-                    emb_plan = plan_embeddings(decode_group)
-                    emb_dev = dispatch_embeddings(emb_plan[0], audio_dev, n_valid)
-                align_thunk = step.start_alignment(res, xa, n_valid, translated)
-                anchors_async = _AsyncResult(align_thunk) if align_thunk is not None else None
-                crs_a = step.build_chunk_results(
-                    res, xa, n_valid, translated, anchors_all=[None] * len(n_valid))
-                stage_s["decode"] += time.perf_counter() - t0
-                if diarize_options is not None:
-                    t0 = time.perf_counter()
-                    assign_speakers(emb_plan[0], emb_plan[1], emb_dev)
-                    stage_s["embed"] += time.perf_counter() - t0
-
-                adv_steps: List[int] = []
-                ns_flags: List[bool] = []
-                for j, w in enumerate(decode_group):
-                    cr = crs_a[j]
-                    si = w.stream_idx
-                    seek_samples = int(cr.end_ts * SAMPLE_RATE) if cr.end_ts is not None else None
-                    adv_steps.append(sched.advance(w, seek_samples))
-                    ns = cr.no_speech_prob > self.cfg.no_speech_threshold and cr.avg_logprob < -1.0
-                    ns_flags.append(ns)
-                    if ns:
-                        continue
-                    text = cr.text.lstrip()
-                    if not text.strip() or float(row_temps[j]) > 0.5:
-                        previous_texts[si] = None
+                    if self.cfg.sequential_prompt:
+                        row_prev = [
+                            step.tk.encode(" " + previous_texts[w.stream_idx].strip())
+                            if previous_texts[w.stream_idx] else None
+                            for w in decode_group
+                        ] + [None] * (batch_size - len(decode_group))
+                        if all(p is None for p in row_prev):
+                            row_prev = None
                     else:
-                        previous_texts[si] = text
+                        row_prev = init_tokens
+                    with tracing.span("decode"):
+                        if self.cfg.temperature_fallback:
+                            res, row_temps = step.decode_with_fallback(
+                                xa, row_langs, task, prev_tokens=row_prev,
+                                n_valid_rows=len(decode_group), is_cancelled=cb.is_cancelled,
+                                cross=cross, xa_d=xa_d)
+                        else:
+                            res = step.decode(xa, row_langs, task, prev_tokens=row_prev,
+                                              is_cancelled=cb.is_cancelled, cross=cross,
+                                              xa_d=xa_d)
+                            row_temps = np.zeros((batch_size,), np.float32)
+                    del cross  # not held across the alignment pass and the next encode
+                    if cb.is_cancelled and cb.is_cancelled():
+                        break
+                    emb_plan = emb_dev = None
+                    if diarize_options is not None:
+                        # the embedding pass first: it overlaps the host token pass
+                        with tracing.span("embed.dispatch"):
+                            emb_plan = plan_embeddings(decode_group)
+                            emb_dev = dispatch_embeddings(emb_plan[0], audio_dev, n_valid)
+                    with tracing.span("align.launch"):
+                        align_thunk = step.start_alignment(res, xa, n_valid, translated)
+                        anchors_async = (_AsyncResult(align_thunk)
+                                         if align_thunk is not None else None)
+                    with tracing.span("engine.chunk_results"):
+                        crs_a = step.build_chunk_results(
+                            res, xa, n_valid, translated, anchors_all=[None] * len(n_valid))
+                    if diarize_options is not None:
+                        with tracing.span("embed.assign"):
+                            assign_speakers(emb_plan[0], emb_plan[1], emb_dev)
 
-                flush_pending()
-                fin = make_finalize(decode_group, adv_steps, ns_flags,
-                                    anchors_async, res, xa, n_valid, crs_a)
-                if anchors_async is None:
-                    fin()
-                else:
-                    pending[0] = fin
+                    adv_steps: List[int] = []
+                    ns_flags: List[bool] = []
+                    with tracing.span("engine.schedule"):
+                        for j, w in enumerate(decode_group):
+                            cr = crs_a[j]
+                            si = w.stream_idx
+                            seek_samples = (int(cr.end_ts * SAMPLE_RATE)
+                                            if cr.end_ts is not None else None)
+                            adv_steps.append(sched.advance(w, seek_samples))
+                            ns = (cr.no_speech_prob > self.cfg.no_speech_threshold
+                                  and cr.avg_logprob < -1.0)
+                            ns_flags.append(ns)
+                            if ns:
+                                continue
+                            text = cr.text.lstrip()
+                            if not text.strip() or float(row_temps[j]) > 0.5:
+                                previous_texts[si] = None
+                            else:
+                                previous_texts[si] = text
+
+                    with tracing.span("engine.finalize"):
+                        flush_pending()
+                        fin = make_finalize(decode_group, adv_steps, ns_flags,
+                                            anchors_async, res, xa, n_valid, crs_a)
+                        if anchors_async is None:
+                            fin()
+                        else:
+                            pending[0] = fin
             else:
-                flush_pending()
+                with tracing.span("engine.finalize"):
+                    flush_pending()
+            with tracing.span("engine.emit"):
+                for si in range(S):
+                    try_emit(si)
+
+        with tracing.span("engine.finalize"):
+            flush_pending()
+        with tracing.span("engine.emit"):
             for si in range(S):
                 try_emit(si)
-
-        flush_pending()
-        for si in range(S):
-            try_emit(si)
         if journal is not None:
             journal.close()
             self._barrier()  # the journal is whole before any rank reads it again
-        self.last_run = {"windows": windows, "stage_s": dict(stage_s),
-                         "empty_segments": empty_segments,
-                         "total_chars": total_chars}
-        logger.info("stage seconds: mel=%.3f encode=%.3f decode=%.3f embed=%.3f "
-                    "(%d windows, %d streams)", stage_s["mel"], stage_s["encode"],
-                    stage_s["decode"], stage_s["embed"], windows, S)
         return seg_lists, detected_langs
 
     # ------------------------------------------------------------------

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..ops.mel import KALDI_FRAME_LEN, KALDI_FRAME_SHIFT, kaldi_fbank
 from ..utils import default_device, exact_f32
 
@@ -296,4 +297,4 @@ def compute_embeddings_batch(params: Dict[str, Any], segments: List[np.ndarray],
     for i, f in enumerate(feats):
         batch[i, :f.shape[0]] = f
         mask[i, :f.shape[0]] = 1.0
-    return embed_from_fbank(params, batch, mask).cpu().numpy()
+    return tracing.to_host(embed_from_fbank(params, batch, mask), "embed")

@@ -8,7 +8,9 @@ step masks the logits with whisper's timestamp grammar, picks a token
 `decode_step` that updates the KV cache in place. The host reads
 `finished.all()` only every `poll_tokens` steps; a step after every row has
 finished writes eot and adds nothing, so the result equals the JAX loop
-that stops on the spot.
+that stops on the spot. Spans (`tracing`): `decode.prefill`, a
+`decode.step` a step (children `decode.sample`, `decode.model`; counter
+`decode.steps`), `decode.poll` (a `host_sync`), `decode.finalize`.
 
 `sample_best_of` folds the best_of candidates into the batch as beams that
 share their stream's cross K/V (K1 and K3 take the beam-folded rows), where
@@ -46,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models import whisper as wm
 from ..parallel.mesh import data_parallel, gather_data
 from ..tokenizer import SpecialTokens
@@ -338,14 +341,26 @@ def greedy_run(
     stop = min(_max_steps(dc, cfg, prompt_len), budget)
     while s["step"] < stop:
         step = s["step"]
-        next_tok = greedy_sample(s, suppress_mask, sp, dc)
-        logits_next = wm.decode_step(
-            params, cfg, next_tok[:, None], prompt_len + step, s["cache"],
-            s["cross"], beams=s["beams"], row_pad=s["row_pad"], tail_q8=s["tail_q8"],
-            mesh=dc.mesh)
-        s["logits"] = logits_next[:, 0]
-        s["step"] = step + 1
+        with tracing.span("decode.step"):
+            tracing.count("decode.steps")
+            with tracing.span("decode.sample"):
+                next_tok = greedy_sample(s, suppress_mask, sp, dc)
+            with tracing.span("decode.model"):
+                logits_next = wm.decode_step(
+                    params, cfg, next_tok[:, None], prompt_len + step, s["cache"],
+                    s["cross"], beams=s["beams"], row_pad=s["row_pad"],
+                    tail_q8=s["tail_q8"], mesh=dc.mesh)
+            s["logits"] = logits_next[:, 0]
+            s["step"] = step + 1
     return s
+
+
+def poll(flag: torch.Tensor) -> bool:
+    """The host's read of a loop's stop flag (a 0-d bool tensor): a
+    `decode.poll` span and a `host_sync`."""
+    with tracing.span("decode.poll"):
+        tracing.count("host_sync", site="decode.poll")
+        return bool(flag)
 
 
 def greedy_finalize(state: Dict[str, Any]) -> DecodeResult:
@@ -377,18 +392,20 @@ def greedy_decode(
     if suppress_mask is None:
         suppress_mask = torch.from_numpy(
             build_suppress_mask(sp, cfg.n_vocab)).to(xa.device)
-    state = greedy_init(params, cfg, dc, sp, xa, prompt, prompt_len,
-                        generator=generator, suppress_mask=suppress_mask,
-                        sot_pos=sot_pos, row_pad=row_pad, beams=beams,
-                        cross=cross, tail_q8=tail_q8)
+    with tracing.span("decode.prefill"):
+        state = greedy_init(params, cfg, dc, sp, xa, prompt, prompt_len,
+                            generator=generator, suppress_mask=suppress_mask,
+                            sot_pos=sot_pos, row_pad=row_pad, beams=beams,
+                            cross=cross, tail_q8=tail_q8)
     max_steps = _max_steps(dc, cfg, prompt_len)
     while state["step"] < max_steps:
         budget = min(state["step"] + max(poll_tokens, 1), max_steps)
         state = greedy_run(params, cfg, dc, sp, state, suppress_mask,
                            prompt_len, budget)
-        if bool(state["finished"].all()) or (is_cancelled and is_cancelled()):
+        if poll(state["finished"].all()) or (is_cancelled and is_cancelled()):
             break
-    return _gather(greedy_finalize(state), dc.mesh)
+    with tracing.span("decode.finalize"):
+        return _gather(greedy_finalize(state), dc.mesh)
 
 
 def sample_best_of(
@@ -616,18 +633,22 @@ def beam_run(
     stop = min(_max_steps(dc, cfg, prompt_len), budget)
     while s["step"] < stop:
         step = s["step"]
-        new_tok, new_src = beam_sample(s, suppress_mask, sp, dc, rows)
-        # the decode cache is never permuted: the ancestry map follows the
-        # surviving beams and K4 reads each beam's rows through it
-        s["anc"] = s["anc"][new_src]
-        s["anc"][:, step] = rows
-        c = s["cache"]
-        logits_next = wm.decode_step_split(
-            params, cfg, new_tok[:, None], step, {"k": c["pk"], "v": c["pv"]},
-            {"k": c["dk"], "v": c["dv"]}, s["cross"], prompt_len, K,
-            s["row_pad"], s["anc"], mesh=dc.mesh)
-        s["logits"] = logits_next[:, 0]
-        s["step"] = step + 1
+        with tracing.span("decode.step"):
+            tracing.count("decode.steps")
+            with tracing.span("decode.sample"):
+                new_tok, new_src = beam_sample(s, suppress_mask, sp, dc, rows)
+            # the decode cache is never permuted: the ancestry map follows the
+            # surviving beams and K4 reads each beam's rows through it
+            s["anc"] = s["anc"][new_src]
+            s["anc"][:, step] = rows
+            c = s["cache"]
+            with tracing.span("decode.model"):
+                logits_next = wm.decode_step_split(
+                    params, cfg, new_tok[:, None], step, {"k": c["pk"], "v": c["pv"]},
+                    {"k": c["dk"], "v": c["dv"]}, s["cross"], prompt_len, K,
+                    s["row_pad"], s["anc"], mesh=dc.mesh)
+            s["logits"] = logits_next[:, 0]
+            s["step"] = step + 1
     return s
 
 
@@ -680,16 +701,18 @@ def beam_decode(
     if suppress_mask is None:
         suppress_mask = torch.from_numpy(
             build_suppress_mask(sp, cfg.n_vocab)).to(xa.device)
-    state = beam_init(params, cfg, dc, sp, xa, prompt, prompt_len,
-                      sot_pos=sot_pos, row_pad=row_pad, cross=cross)
+    with tracing.span("decode.prefill"):
+        state = beam_init(params, cfg, dc, sp, xa, prompt, prompt_len,
+                          sot_pos=sot_pos, row_pad=row_pad, cross=cross)
     max_steps = _max_steps(dc, cfg, prompt_len)
     target = _n_fin_target(dc)
     while state["step"] < max_steps:
         budget = min(state["step"] + max(poll_tokens, 1), max_steps)
         state = beam_run(params, cfg, dc, sp, state, suppress_mask, prompt_len, budget)
-        if bool((state["fin_count"] >= target).all()) or (is_cancelled and is_cancelled()):
+        if poll((state["fin_count"] >= target).all()) or (is_cancelled and is_cancelled()):
             break
-    return _gather(beam_finalize(dc, state), dc.mesh)
+    with tracing.span("decode.finalize"):
+        return _gather(beam_finalize(dc, state), dc.mesh)
 
 
 def detect_language(params, cfg: wm.WhisperConfig, sp: SpecialTokens,

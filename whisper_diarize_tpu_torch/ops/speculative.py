@@ -26,6 +26,8 @@ The JAX `lax.while_loop` becomes a Python loop whose bookkeeping stays on
 the device (`torch.where` over rows). The host reads only between budget
 windows of `poll_rounds` rounds, for `finished.all()` and `is_cancelled()`;
 a round after every row has finished changes nothing and does not count.
+Spans (`tracing`): `decode.prefill`, a `decode.round` a round,
+`decode.poll`, `decode.finalize`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..models import whisper as wm
 from ..tokenizer import SpecialTokens
 from . import decode as dec
@@ -143,60 +146,61 @@ def speculative_run(
     b_idx = torch.arange(B, device=dev)
     stop = min(max_steps, budget)
     while s["it"] < stop:
-        active = ~s["finished"]
-        base = prompt_len + s["n_emitted"] - 1  # slot of `pending`, per row
-        if sim_accept is not None:
-            if s["sim_gen"] is None:
-                s["sim_gen"] = torch.Generator(device=dev)
-            s["sim_gen"].manual_seed(SIM_SEED + s["it"])
-            sim_u = torch.rand((B, gamma), generator=s["sim_gen"], device=dev)
+        with tracing.span("decode.round"):
+            active = ~s["finished"]
+            base = prompt_len + s["n_emitted"] - 1  # slot of `pending`, per row
+            if sim_accept is not None:
+                if s["sim_gen"] is None:
+                    s["sim_gen"] = torch.Generator(device=dev)
+                s["sim_gen"].manual_seed(SIM_SEED + s["it"])
+                sim_u = torch.rand((B, gamma), generator=s["sim_gen"], device=dev)
 
-        # 1. the draft proposes gamma tokens, one step at a time
-        g_d = {k: s[k] for k in GRAMMAR}
-        feed, props = s["pending"], []
-        for i in range(gamma):
-            ld = wm.decode_step_pos(params_d, cfg_d, feed[:, None], base + i,
-                                    s["cache_d"], s["cross_d"])
-            li = dec._prepare_logits(ld[:, 0], suppress_mask, sp, dc, s["n_emitted"] + i,
-                                     *(g_d[k] for k in GRAMMAR))
-            feed = torch.argmax(li, dim=-1)
-            props.append(feed)
-            g_d = _advance_grammar(g_d, feed, active, sp)
+            # 1. the draft proposes gamma tokens, one step at a time
+            g_d = {k: s[k] for k in GRAMMAR}
+            feed, props = s["pending"], []
+            for i in range(gamma):
+                ld = wm.decode_step_pos(params_d, cfg_d, feed[:, None], base + i,
+                                        s["cache_d"], s["cross_d"])
+                li = dec._prepare_logits(ld[:, 0], suppress_mask, sp, dc, s["n_emitted"] + i,
+                                         *(g_d[k] for k in GRAMMAR))
+                feed = torch.argmax(li, dim=-1)
+                props.append(feed)
+                g_d = _advance_grammar(g_d, feed, active, sp)
 
-        # 2. the target verifies them in one pass
-        feed_t = torch.stack([s["pending"]] + props[:gamma - 1], dim=1)
-        lt = wm.decode_step_pos(params_t, cfg_t, feed_t, base, s["cache_t"], s["cross_t"])
+            # 2. the target verifies them in one pass
+            feed_t = torch.stack([s["pending"]] + props[:gamma - 1], dim=1)
+            lt = wm.decode_step_pos(params_t, cfg_t, feed_t, base, s["cache_t"], s["cross_t"])
 
-        # 3. accept while matching; the first divergence emits the target's
-        # correction and ends the row's round
-        g = {k: s[k] for k in GRAMMAR}
-        reach = active
-        n_emit = torch.zeros_like(s["n_emitted"])
-        for i in range(gamma):
-            li = dec._prepare_logits(lt[:, i], suppress_mask, sp, dc, s["n_emitted"] + i,
-                                     *(g[k] for k in GRAMMAR))
-            ti = torch.argmax(li, dim=-1)
-            lpi = li.gather(1, ti[:, None])[:, 0] - torch.logsumexp(li, dim=-1)
-            idx = s["n_emitted"] + i
-            emit = reach & (idx < max_steps)
-            wr = torch.clamp(idx, max=max_steps - 1)
-            s["tokens"][b_idx, wr] = torch.where(emit, ti, s["tokens"][b_idx, wr])
-            s["probs"][b_idx, wr] = torch.where(emit, torch.exp(lpi), s["probs"][b_idx, wr])
-            s["sum_logprob"] = s["sum_logprob"] + torch.where(emit, lpi, 0.0)
-            is_eot = emit & (ti == sp.eot)
-            s["length"] = s["length"] + (emit & ~is_eot).long()
-            g = _advance_grammar(g, ti, emit, sp)
-            s["pending"] = torch.where(emit, ti, s["pending"])
-            n_emit = n_emit + emit.long()
-            s["finished"] = s["finished"] | is_eot
-            matched = ti == props[i] if sim_accept is None else sim_u[:, i] < sim_accept
-            reach = reach & matched & ~is_eot & (idx + 1 < max_steps)
+            # 3. accept while matching; the first divergence emits the target's
+            # correction and ends the row's round
+            g = {k: s[k] for k in GRAMMAR}
+            reach = active
+            n_emit = torch.zeros_like(s["n_emitted"])
+            for i in range(gamma):
+                li = dec._prepare_logits(lt[:, i], suppress_mask, sp, dc, s["n_emitted"] + i,
+                                         *(g[k] for k in GRAMMAR))
+                ti = torch.argmax(li, dim=-1)
+                lpi = li.gather(1, ti[:, None])[:, 0] - torch.logsumexp(li, dim=-1)
+                idx = s["n_emitted"] + i
+                emit = reach & (idx < max_steps)
+                wr = torch.clamp(idx, max=max_steps - 1)
+                s["tokens"][b_idx, wr] = torch.where(emit, ti, s["tokens"][b_idx, wr])
+                s["probs"][b_idx, wr] = torch.where(emit, torch.exp(lpi), s["probs"][b_idx, wr])
+                s["sum_logprob"] = s["sum_logprob"] + torch.where(emit, lpi, 0.0)
+                is_eot = emit & (ti == sp.eot)
+                s["length"] = s["length"] + (emit & ~is_eot).long()
+                g = _advance_grammar(g, ti, emit, sp)
+                s["pending"] = torch.where(emit, ti, s["pending"])
+                n_emit = n_emit + emit.long()
+                s["finished"] = s["finished"] | is_eot
+                matched = ti == props[i] if sim_accept is None else sim_u[:, i] < sim_accept
+                reach = reach & matched & ~is_eot & (idx + 1 < max_steps)
 
-        s["n_emitted"] = s["n_emitted"] + n_emit
-        s["finished"] = s["finished"] | (s["n_emitted"] >= max_steps)
-        s.update(g)
-        s["rounds"] = s["rounds"] + active.any().long()
-        s["it"] += 1
+            s["n_emitted"] = s["n_emitted"] + n_emit
+            s["finished"] = s["finished"] | (s["n_emitted"] >= max_steps)
+            s.update(g)
+            s["rounds"] = s["rounds"] + active.any().long()
+            s["it"] += 1
     return s
 
 
@@ -234,17 +238,19 @@ def speculative_greedy_run(
             "speculative decoding is greedy/argmax-only: "
             f"DecodeConfig.temperature must be 0 (got {dc.temperature})")
     max_steps = dec._max_steps(dc, cfg_t, prompt_len)
-    state = speculative_init(params_t, cfg_t, params_d, cfg_d, dc, sp, xa_t, xa_d, prompt,
-                             prompt_len, suppress_mask, gamma=gamma, sot_pos=sot_pos,
-                             cross=cross)
+    with tracing.span("decode.prefill"):
+        state = speculative_init(params_t, cfg_t, params_d, cfg_d, dc, sp, xa_t, xa_d,
+                                 prompt, prompt_len, suppress_mask, gamma=gamma,
+                                 sot_pos=sot_pos, cross=cross)
     while state["it"] < max_steps:
         budget = min(state["it"] + max(poll_rounds, 1), max_steps)
         state = speculative_run(params_t, cfg_t, params_d, cfg_d, dc, sp, state,
                                 suppress_mask, prompt_len, budget, gamma=gamma,
                                 sim_accept=sim_accept)
-        if bool(state["finished"].all()) or (is_cancelled and is_cancelled()):
+        if dec.poll(state["finished"].all()) or (is_cancelled and is_cancelled()):
             break
-    return speculative_finalize(state)
+    with tracing.span("decode.finalize"):
+        return speculative_finalize(state)
 
 
 def speculative_greedy_decode(

@@ -8,7 +8,9 @@ window to window (`sequential_prompt`), the per-window resume journal
 (`resume_dir`), DTW word alignment and the formatting all inside the
 measurement. Reports xRT, the seconds a window in the first and last
 deciles of the run (the host glue must scale linearly in windows), the
-Engine's stage seconds, peak host memory and peak device memory.
+host seconds of the Engine's stages (`last_run["stage_s"]`: the request's
+span totals, each stage's enqueue and host work, not its device time),
+peak host memory and peak device memory.
 
     python -m whisper_diarize_tpu_torch.tools.bench_longform [--minutes 60]
         [--model large-v3] [--beam 5] [--max-tokens 64] [--seed 0] [--no-seek]

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .models import whisper as wm
 from .ops import decode as dec
 from .ops import dtw as dtw_ops
@@ -327,9 +328,9 @@ class TranscribeStep:
         temps = np.zeros((B,), np.float32)
 
         def failures(res: dec.DecodeResult) -> np.ndarray:
-            toks = res.tokens.cpu().numpy()
-            lens = res.lengths.cpu().numpy()
-            avg = res.avg_logprob.cpu().numpy()
+            toks = tracing.to_host(res.tokens, "fallback")
+            lens = tracing.to_host(res.lengths, "fallback")
+            avg = tracing.to_host(res.avg_logprob, "fallback")
             bad = np.zeros(toks.shape[0], bool)
             for b in range(min(toks.shape[0], n_valid_rows)):
                 data = self.tk.decode([int(t) for t in toks[b, : lens[b]]]).encode("utf-8")
@@ -389,7 +390,7 @@ class TranscribeStep:
                                            **mesh)
         idx = logits[:, self.sp.sot + 1: self.sp.sot + 1 + self.sp.num_languages].argmax(-1)
         idx = mesh_mod.gather_data(idx, self.mesh)
-        return [LANGUAGES[int(i)] for i in idx.cpu().numpy()]
+        return [LANGUAGES[int(i)] for i in tracing.to_host(idx, "lang")]
 
     # -- result assembly -----------------------------------------------------
     def start_alignment(self, result: dec.DecodeResult, xa: torch.Tensor,
@@ -410,8 +411,8 @@ class TranscribeStep:
         thunk."""
         if not (self.enable_dtw and not translated):
             return None
-        tokens = result.tokens.cpu().numpy()
-        lengths = result.lengths.cpu().numpy()
+        tokens = tracing.to_host(result.tokens, "align.launch")
+        lengths = tracing.to_host(result.lengths, "align.launch")
         B = tokens.shape[0]
         max_len = int(lengths.max()) if B else 0
         if max_len == 0:
@@ -443,24 +444,27 @@ class TranscribeStep:
                 self.mesh)
 
             def backtrack_dev() -> List[Optional[np.ndarray]]:
-                frames = frames_dev.cpu().numpy()  # [B, N] int32
-                return [frames[b, : int(lengths[b])].astype(np.float64) * dtw_ops.FRAME_SECONDS
-                        if lengths[b] > 0 else None for b in range(B)]
+                with tracing.span("align.backtrack"):
+                    frames = tracing.to_host(frames_dev, "align.backtrack")  # [B, N] int32
+                    return [frames[b, : int(lengths[b])].astype(np.float64)
+                            * dtw_ops.FRAME_SECONDS if lengths[b] > 0 else None
+                            for b in range(B)]
 
             return backtrack_dev
         cost_dev = mesh_mod.gather_data(cost_rows, self.mesh)
 
         def backtrack() -> List[Optional[np.ndarray]]:
-            cost = cost_dev.cpu().numpy()
-            anchors_all: List[Optional[np.ndarray]] = [None] * B
-            for b in range(B):
-                n_tok = int(lengths[b])
-                if n_tok == 0:
-                    continue
-                cost_b = cost[b][sot_len: sot_len + n_tok, : n_frames[b]]
-                anchors_all[b] = dtw_ops.anchor_times_from_cost(
-                    np.ascontiguousarray(cost_b), n_tok)
-            return anchors_all
+            with tracing.span("align.backtrack"):
+                cost = tracing.to_host(cost_dev, "align.backtrack")
+                anchors_all: List[Optional[np.ndarray]] = [None] * B
+                for b in range(B):
+                    n_tok = int(lengths[b])
+                    if n_tok == 0:
+                        continue
+                    cost_b = cost[b][sot_len: sot_len + n_tok, : n_frames[b]]
+                    anchors_all[b] = dtw_ops.anchor_times_from_cost(
+                        np.ascontiguousarray(cost_b), n_tok)
+                return anchors_all
 
         return backtrack
 
@@ -471,11 +475,10 @@ class TranscribeStep:
     ) -> List[ChunkResult]:
         """Host side: token ids -> text + token-level word spans per chunk.
         `anchors_all` from a `start_alignment` thunk; None runs it inline."""
-        tokens = result.tokens.cpu().numpy()
-        lengths = result.lengths.cpu().numpy()
-        probs = result.token_probs.cpu().numpy()
-        avg_lp = result.avg_logprob.cpu().numpy()
-        nsp = result.no_speech_prob.cpu().numpy()
+        tokens, lengths, probs, avg_lp, nsp = (
+            tracing.to_host(t, "chunk_results") for t in (
+                result.tokens, result.lengths, result.token_probs, result.avg_logprob,
+                result.no_speech_prob))
         B = tokens.shape[0]
         if anchors_all is None:
             thunk = self.start_alignment(result, xa, chunk_samples, translated)

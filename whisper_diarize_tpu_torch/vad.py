@@ -16,6 +16,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .audio import int16_to_float32
 from .models import silero_vad
 from .types import SpeechSegment
@@ -198,8 +199,8 @@ def get_segments_batch(
         for r, i in enumerate(group):
             batch[r, : lengths[i]] = int16_to_float32(arrays[i])
         with torch.inference_mode():
-            probs = silero_vad.speech_probs(
-                model_params, torch.from_numpy(batch).to(device)).cpu().numpy()
+            probs = tracing.to_host(silero_vad.speech_probs(
+                model_params, torch.from_numpy(batch).to(device)), "vad")
         for r, i in enumerate(group):
             probs_by_stream[i] = probs[r]
         g0 = g1
