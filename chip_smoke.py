@@ -288,8 +288,8 @@ import whisper_diarize_tpu_torch as wdt
 from whisper_diarize_tpu_torch import kernels
 from whisper_diarize_tpu_torch.kernels import agreement as ag
 from whisper_diarize_tpu_torch.models import whisper as wm
-from whisper_diarize_tpu_torch.ops import (attn, attn_probe, encoder_attn, front, mel, stream,
-                                           tail)
+from whisper_diarize_tpu_torch.ops import (attn, attn_probe, beam_graph, encoder_attn, front,
+                                           mel, stream, tail)
 from whisper_diarize_tpu_torch.ops import dtw as dtw_ops
 from whisper_diarize_tpu_torch.ops.prng import Threefry
 from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
@@ -646,7 +646,9 @@ def phase_k4() -> dict:
                         for name, bad in ag.k4_faults(*a):
                             ag.reject(name, got, bad)
                     if B == 8 and Tp == 3 and Td == 64:
-                        it, rest = itertools.count(), a[1:]
+                        # the step and prompt length in device memory, as
+                        # the decode passes them (an int costs a fill a call)
+                        it, rest = itertools.count(), _on_device(a[1:])
                         # what this step reads: q and out, the prompt rows,
                         # the step + 1 decode rows of each beam, the ancestry
                         rows = B * H * Tp + B * K * H * (step + 1)
@@ -917,7 +919,7 @@ def phase_f32_kernels() -> dict:
             faults = itertools.chain(faults, ag.k4_faults(*a))
         check("K4-f32", f"K4-f32 step={step}", attn.split_self_attn_layer(*a),
               attn.split_self_attn_layer_plain(*a), faults)
-        it, rest = itertools.count(), a[1:]
+        it, rest = itertools.count(), _on_device(a[1:])
         rows = B * H * Tp + B * K * H * (step + 1)
         t = timed(f"K4-f32 step={step}", lambda: attn.split_self_attn_layer(next(it) % L, *rest),
                   lambda: attn.split_self_attn_layer_plain(next(it) % L, *rest),
@@ -1726,11 +1728,13 @@ def phase_reference() -> None:
             own = torch.arange(anc.shape[0], device=anc.device)[:, None].expand_as(anc)
             return real_step(*a[:-1], own, **k)
 
-        wm.decode_step_split = ancestry_ignored
+        # the eager step: a captured beam graph replays the real forward
+        real_engages = beam_graph.engages
+        wm.decode_step_split, beam_graph.engages = ancestry_ignored, lambda *a: False
         try:
             bad = steps["card", "beam"].decode(xa["card"], "en", "transcribe")
         finally:
-            wm.decode_step_split = real_step
+            wm.decode_step_split, beam_graph.engages = real_step, real_engages
         faults = {"ancestry ignored": _beam_error(steps["ref", "beam"], ref, prompt, bad)}
         card8 = steps["card", "int8-beam"]
         cross = card8.cross_cache(xa["card"])
@@ -1772,6 +1776,14 @@ def _counted(spec: dict):
 IN_TAIL = {"K1 in K3 / K6": "cross_attn_launches", "K5 in K6": "cross_attn_q8_launches",
            "K1-f32 in K3-f32 / K6-f32": "cross_attn_launches_f32",
            "K5-f32 in K6-f32": "cross_attn_q8_launches_f32"}
+
+
+def _on_device(k4_args: tuple) -> tuple:
+    """K4's arguments after the layer with the step and the prompt's length
+    as device int32s (the kernel reads them there)."""
+    q, pk, pv, dk, dv, anc, step, row_pad, prompt_len = k4_args
+    at = lambda v: torch.tensor([v], dtype=torch.int32, device=q.device)  # noqa: E731
+    return q, pk, pv, dk, dv, anc, at(step), row_pad, at(prompt_len)
 
 
 def counts() -> dict:

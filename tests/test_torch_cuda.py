@@ -38,16 +38,26 @@ f32 plain version by `agreement.F32` (`F32_Q8` over the int8 cache), with
 the TF32 and bf16-rounding faults refused by `F32_REFUSAL`; the f32 skinny
 GEMM at N 1 - 80 and K2-f32 at every preset width, bit for bit across two
 calls too. The tracer's clock: a span that synchronizes holds the kernel
-launched inside it, as the profiler recorded it.
+launched inside it, as the profiler recorded it. The beam step as one CUDA
+graph (`ops/beam_graph.py`): K4 reading the step and the prompt's length
+from device memory (its launch planned for the whole caches) gives the
+ints' bits, agrees with its plain version in a prompt buffer longer than
+the prompt, its faults refused, NaN for a value out of range;
+`beam_decode` with the graph equals the eager path at large-v3 widths (B
+16, K 5, 64 steps; bf16, f32, int8 cross K/V), one capture a shape,
+whatever the prompt's length.
 """
 
+import dataclasses
 import itertools
 
 import pytest
 import torch
 
+from whisper_diarize_tpu_torch import tracing
 from whisper_diarize_tpu_torch.kernels import agreement as ag
-from whisper_diarize_tpu_torch.ops import attn, attn_probe, encoder_attn, front, mel, stream, tail
+from whisper_diarize_tpu_torch.ops import (attn, attn_probe, beam_graph, encoder_attn, front,
+                                           mel, stream, tail)
 from whisper_diarize_tpu_torch.ops import decode as dec
 from whisper_diarize_tpu_torch.ops import dtw as dtw_ops
 
@@ -1110,3 +1120,120 @@ def test_span_holds_its_kernel_on_the_profilers_clock(dev, activities):
               f"{(start - span['start_ns']) / 1e3:.1f} us, kernel end to span end "
               f"{(span['end_ns'] - end) / 1e3:.1f} us")
         assert span["start_ns"] < start and end < span["end_ns"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k4_device_step_agrees_with_host_step_on_card(dev, dtype):
+    """K4 reads the step and the prompt's length from device memory, its
+    launch planned for the whole caches: one-element tensors give the
+    ints' bits; at steps 0, 31 and 63, a prompt filling its buffer or
+    shorter (a graph's buffer), it agrees with the plain version and its
+    planted faults are refused; a step out of [0, Td) or a prompt length
+    out of [1, Tp] gives NaN everywhere."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    L, B, K, H, Tp, Td = 2, 3, 5, 4, 19, 64
+    f32 = dtype == torch.float32
+    tol = ag.F32 if f32 else ag.BF16
+    q = ag.randn(g, dev, B, K, H, 64, scale=2.0, dtype=dtype)
+    pk, pv = (ag.randn(g, dev, L, B, H, Tp, 64, dtype=dtype) for _ in range(2))
+    dk, dv = (ag.randn(g, dev, L, B * K, H, Td, 64, dtype=dtype) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, device=dev, dtype=torch.int32)
+    row_pad = torch.tensor([2, 0, 16], dtype=torch.int32, device=dev)
+
+    def on_dev(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    head = (1, q, pk, pv, dk, dv, anc_j)
+    for P, step in itertools.product((Tp, Tp - 2), (0, 31, 63)):
+        a = (*head, step, row_pad, P)
+        got = attn.split_self_attn_layer(*a)
+        assert torch.equal(got, attn.split_self_attn_layer(*head, on_dev(step), row_pad,
+                                                           on_dev(P))), (P, step)
+        ag.compare(f"K4 prompt {P} of {Tp}, step {step}", got,
+                   attn.split_self_attn_layer_plain(*a), tol=tol)
+        faults = itertools.chain(ag.k4_f32_faults(*a) if f32 else (),
+                                 ag.k4_faults(*a) if step else ())
+        if f32:
+            _refuse(got, faults)
+        else:
+            for name, bad in faults:
+                ag.reject(name, got, bad)
+    for P, step in ((Tp, -1), (Tp, Td), (0, 3), (Tp + 1, 3)):
+        out = attn.split_self_attn_layer(*head, on_dev(step), row_pad, on_dev(P))
+        assert bool(out.isnan().all()), (P, step)
+    torch.cuda.synchronize()
+
+
+def _beam_model(dev, dtype):
+    """large-v3's decoder widths and vocabulary with two layers, seeded
+    weights; audio states drawn at the served shape (B 16, 1500 frames)."""
+    from whisper_diarize_tpu_torch.models import whisper as wm
+    from whisper_diarize_tpu_torch.tokenizer import DebugTokenizer
+
+    cfg = dataclasses.replace(wm.PRESETS["large-v3"], n_audio_layer=1, n_text_layer=2)
+    params = wm.init_params(cfg, seed=25, device=dev, dtype=dtype)
+    g = torch.Generator(device=dev).manual_seed(26)
+    xa = ag.randn(g, dev, 16, cfg.n_audio_ctx, cfg.n_audio_state, dtype=dtype)
+    tk = DebugTokenizer()
+    sp = tk.specials
+    sup = torch.from_numpy(dec.build_suppress_mask(sp, cfg.n_vocab)).to(dev)
+    sup[sp.eot] = float("-inf")  # no beam finishes: all 64 steps run
+    prompt = torch.tensor([tk.sot_sequence(language="en")] * 16, device=dev)
+    return cfg, params, xa, sp, sup, prompt
+
+
+@pytest.mark.parametrize("form", ["bf16", "f32", "int8"])
+def test_beam_graph_equals_eager_on_card(dev, form, monkeypatch):
+    """`beam_decode` at B 16, beam 5, 64 steps with the step's forward as
+    a CUDA graph against the eager path: tokens and lengths equal, scores
+    and probabilities bit for bit where K4's plan for the graph's caches
+    cuts every step's chunks as the eager caches' plan does (else within
+    the check); two batches of one shape: one capture, 128 replays, the
+    same result; a new prompt length replays the same graph."""
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    cfg, params, xa, sp, sup, prompt = _beam_model(dev, dtype)
+    dc = dec.DecodeConfig(max_tokens=64, quantize_cross_kv=form == "int8")
+
+    def run(p, sot_pos=0):
+        with torch.inference_mode():
+            return dec.beam_decode(params, cfg, dc, sp, xa, p, p.shape[1], suppress_mask=sup,
+                                   sot_pos=sot_pos)
+
+    launches = attn.split_self_attn_layer.launches
+    with tracing.request() as req:
+        got, again = run(prompt), run(prompt)
+        counters = dict(req.summary()["counters"])
+    assert counters["decode.graph_captures"] == 1, counters
+    assert counters["decode.graph_replays"] == counters["decode.steps"] == 128, counters
+    # every step's K4 launches (the first step's also run eagerly before its capture)
+    assert attn.split_self_attn_layer.launches - launches == (2 * 64 + 1) * cfg.n_text_layer
+    P = prompt.shape[1]
+    longer = torch.cat([torch.full((16, 1), sp.sot_prev, device=dev), prompt], dim=1)
+    with tracing.request() as req:
+        run(longer, sot_pos=1)
+        run(prompt)
+        counters = dict(req.summary()["counters"])
+    assert "decode.graph_captures" not in counters and counters["decode.graph_replays"] == 128
+    with monkeypatch.context() as m:
+        m.setattr(beam_graph, "engages", lambda device, mesh: False)
+        with tracing.request() as req:
+            ref = run(prompt)
+            assert "decode.graph_replays" not in req.summary()["counters"]
+    f32 = dtype == torch.float32
+    slots = beam_graph.prompt_slots(cfg)
+    same_chunks = all(
+        [attn.split_self_chunk(c, p.cap, 5, P, s) for c in range(p.chunks)] ==
+        [attn.split_self_chunk(c, q.cap, 5, P, s) for c in range(q.chunks)]
+        for s in range(64)
+        for p, q in [(attn.split_self_plan_at(5, P, 64, P, s, f32),
+                      attn.split_self_plan_at(5, slots, 64, P, s, f32))])
+    for res in (got, again):
+        assert torch.equal(res.tokens, ref.tokens) and torch.equal(res.lengths, ref.lengths)
+        for name in ("sum_logprob", "avg_logprob", "token_probs", "no_speech_prob"):
+            a, b = getattr(res, name), getattr(ref, name)
+            if same_chunks:
+                assert torch.equal(a, b), name
+            else:
+                ag.compare(f"beam graph {form} {name}", a, b, tol=ag.F32 if f32 else ag.BF16)
+    assert torch.equal(again.token_probs, got.token_probs)
+    torch.cuda.synchronize()

@@ -367,7 +367,7 @@ def test_split_self_plan_shrinks_the_chunk_never_k():
             attn.split_self_plan(*bad)
 
 
-def _k4_staged(layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len):
+def _k4_staged(layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len, plan=None):
     """K4's walk in plain PyTorch (f32): per (stream, head) each chunk of the
     plan staged as the bulk copies land it (its prompt rows, then K spans of
     its decode slots, one for each physical row); scores read through the
@@ -375,11 +375,14 @@ def _k4_staged(layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len):
     row of staged slots (its max over the scores that are not NaN, as
     fmaxf); P.V over each chunk's slots in lane groups (4 of a beam's warp,
     2 at f32), group g the slots s = g mod the groups, the groups added at
-    the chunk's end, the chunks summed in order."""
+    the chunk's end, the chunks summed in order. The plan is the kernel's
+    (`split_self_plan_at`: its launch's, planned for the whole caches, re-cut
+    for prompt_len and step), unless `plan` gives another."""
     B, K, H, _ = q.shape
-    Tp = pk.shape[3]
+    Tp, Td = pk.shape[3], dk.shape[3]
     f32 = q.dtype == torch.float32
-    plan = attn.split_self_plan(K, Tp, prompt_len, step, f32)
+    if plan is None:
+        plan = attn.split_self_plan_at(K, Tp, Td, prompt_len, step, f32)
     chunks = _k4_chunks(plan, K, prompt_len, step)
     P, S = prompt_len, step + 1
     qs = (q.float() * 0.125).to(q.dtype).float()
@@ -456,9 +459,11 @@ def test_k4_staged_walk_matches_plain(dtype, K, Tp, Td, step):
 
 
 def test_split_self_wrapper_checks_its_plan(fake_card, monkeypatch):
-    """The wrapper asks `split_self_plan` before the C call: a shape with
-    no plan raises ValueError and launches nothing; a shape with one is
-    passed to the C entry point unchanged (the C side plans it again)."""
+    """The wrapper asks `split_self_plan` for the launch's plan (the whole
+    caches) before the C call: a shape with no plan raises ValueError and
+    launches nothing; a shape with one is passed to the C entry point
+    unchanged (the C side plans it again), an int step and prompt length
+    as device scalars."""
     monkeypatch.setattr(attn, "_require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(attn, "_int32_on", lambda name, device, t: t)
     meta = torch.device("meta")
@@ -479,4 +484,99 @@ def test_split_self_wrapper_checks_its_plan(fake_card, monkeypatch):
     call(5, 3, 64, 31)
     (name, args), = fake_card.calls
     assert name == "wdt_split_self_attn" and len(args) == len(kernels._SIGNATURES[name])
-    assert args[8:-1] == (8, 5, 20, 3, 64, 1, 31, 3)
+    assert args[10:-1] == (8, 5, 20, 3, 64, 1)
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Td", [64, 224])
+@pytest.mark.parametrize("Tp", [3, 19, 227])
+def test_split_self_plan_at_a_device_step_covers_every_slot_once(Tp, Td, f32):
+    """The plan a CTA runs (its launch planned for the whole caches, the
+    chunks re-cut for the prompt_len and step it reads): the launch's
+    stages and shared memory at every prompt length and step; its chunks
+    cover the prompt's rows and the decode slots once each, each within a
+    stage; one chunk wherever the rows fit that stage, as at the plan of
+    the values themselves."""
+    for K in (1, 5, 8):
+        top = attn.split_self_plan(K, Tp, Tp, Td - 1, f32)
+        for P in sorted({1, 3, Tp // 2 or 1, Tp}):
+            for step in range(Td):
+                plan = attn.split_self_plan_at(K, Tp, Td, P, step, f32)
+                key = (K, P, step, plan)
+                assert (plan.cap, plan.stages, plan.smem) == (top.cap, top.stages, top.smem), key
+                rows = P + K * (step + 1)
+                assert (plan.chunks == 1) == (rows <= plan.cap), key
+                if rows <= plan.cap:
+                    assert attn.split_self_plan(K, Tp, P, step, f32).chunks == 1, key
+                prompt, decode = [], []
+                for ch in _k4_chunks(plan, K, P, step):
+                    assert ch.np + ch.nd > 0 and ch.np + K * ch.nd <= plan.cap, (key, ch)
+                    prompt.extend(range(ch.p0, ch.p0 + ch.np))
+                    decode.extend(range(ch.d0, ch.d0 + ch.nd))
+                assert prompt == list(range(P)) and decode == list(range(step + 1)), key
+        assert attn.split_self_plan_at(K, Tp, Td, Tp, Td - 1, f32) == top
+    for P, step in ((Tp, -1), (Tp, Td), (0, 0), (Tp + 1, 0)):
+        with pytest.raises(ValueError):
+            attn.split_self_plan_at(5, Tp, Td, P, step, f32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("K,Tp,Td,step", [(5, 3, 64, 0), (5, 3, 64, 31), (5, 3, 64, 63),
+                                          (5, 19, 224, 40), (8, 19, 224, 111)])
+def test_k4_staged_walk_at_a_device_step_matches_plain(dtype, K, Tp, Td, step):
+    """K4's walk through the plan a CTA runs equals the plain version
+    within the card's check, and the walk of the values' own plan bit for
+    bit where the two plans cut the same chunks; so does a prompt shorter
+    than the cache (a graph's prompt buffer)."""
+    g = torch.Generator().manual_seed(K * 1000 + step + 7)
+    L, B, H = 2, 2, 2
+    q = ag.randn(g, "cpu", B, K, H, 64, scale=2.0, dtype=dtype)
+    pk, pv = (ag.randn(g, "cpu", L, B, H, Tp, 64, dtype=dtype) for _ in range(2))
+    dk, dv = (ag.randn(g, "cpu", L, B * K, H, Td, 64, dtype=dtype) for _ in range(2))
+    anc_j = torch.randint(0, K, (B, K, Td), generator=g, dtype=torch.int32)
+    row_pad = torch.tensor([0, min(16, Tp - 2)], dtype=torch.int32)
+    tol = ag.F32 if dtype == torch.float32 else ag.BF16
+    f32 = dtype == torch.float32
+    for P in (Tp - 1, Tp):
+        a = (1, q, pk, pv, dk, dv, anc_j, step, row_pad, P)
+        got = _k4_staged(*a)
+        assert ag.agreement(got, attn.split_self_attn_layer_plain(*a), tol=tol).ok, P
+        own = attn.split_self_plan(K, Tp, P, step, f32)
+        at = attn.split_self_plan_at(K, Tp, Td, P, step, f32)
+        if _k4_chunks(own, K, P, step) == _k4_chunks(at, K, P, step):
+            assert torch.equal(got, _k4_staged(*a, plan=own)), P
+
+
+def test_split_self_wrapper_launches_a_device_step_at_the_last_slots_plan(fake_card,
+                                                                          monkeypatch):
+    """A tensor step and prompt length go to `wdt_split_self_attn` as
+    their pointers, the launch planned for the whole caches before the C
+    call; a step of more than one value, or caches with no plan, are
+    refused with nothing launched."""
+    monkeypatch.setattr(attn, "_require_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(attn, "_int32_on", lambda name, device, t: t)
+    meta = torch.device("meta")
+
+    def one(n=1):
+        return torch.empty((n,), dtype=torch.int32, device=meta)
+
+    def call(K, Tp, Td, step, prompt_len):
+        L, B, H = 2, 8, 20
+        q = torch.empty((B, K, H, 64), dtype=torch.bfloat16, device=meta)
+        pk = torch.empty((L, B, H, Tp, 64), dtype=torch.bfloat16, device=meta)
+        dk = torch.empty((L, B * K, H, Td, 64), dtype=torch.bfloat16, device=meta)
+        anc = torch.empty((B, K, Td), dtype=torch.int32, device=meta)
+        rp = torch.empty((B,), dtype=torch.int32, device=meta)
+        return attn.split_self_attn_layer(1, q, pk, pk, dk, dk, anc, step, rp, prompt_len)
+
+    before = attn.split_self_attn_layer.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        call(200, 227, 224, one(), one())
+    with pytest.raises(ValueError, match="one value"):
+        call(5, 3, 64, one(2), one())
+    assert fake_card.calls == [] and attn.split_self_attn_layer.launches == before
+    call(5, 3, 64, one(), one())
+    (name, args), = fake_card.calls
+    assert name == "wdt_split_self_attn" and len(args) == len(kernels._SIGNATURES[name])
+    assert args[10:-1] == (8, 5, 20, 3, 64, 1)
+    assert attn.split_self_attn_layer.launches == before + 1

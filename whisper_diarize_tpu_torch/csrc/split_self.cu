@@ -71,6 +71,13 @@
 //   (deterministic: two calls give the same bits).
 // - No tensor cores: the products are a few MFLOP a layer; f32 is exact
 //   FFMA.
+// - The prompt's length and the step are read from device memory, and the
+//   launch is planned for the whole caches (prompt_len Tp, step Td - 1):
+//   each CTA re-cuts that plan's chunks for the values it reads. So no
+//   launch argument changes from step to step or between prompt lengths,
+//   and one captured CUDA graph of the decoder step serves them all
+//   (ops/beam_graph.py). Where the rows fit one stage it is the one load
+//   phase of the step's own plan.
 #include "common.cuh"
 
 namespace {
@@ -119,8 +126,9 @@ __device__ __forceinline__ Chunk chunk_at(int c, const Plan& p, int S) {
   return {0, 0, d0, imin(p.cd, S - d0)};
 }
 
-// the plan of `cap` rows a stage, with its chunks' shape
-Plan plan_of(int cap, long long smem, int K, int P, int S) {
+// the plan of `cap` rows a stage, with its chunks' shape (on the device: a
+// launch planned for the whole caches, re-cut for the prompt and step read)
+__host__ __device__ inline Plan plan_of(int cap, long long smem, int K, int P, int S) {
   const int full = P / cap, rest = P - full * cap, dm = imin(S, (cap - rest) / K), cd = cap / K;
   return {cap, (int)smem, full + 1 + (S - dm + cd - 1) / cd, full, rest, dm, cd};
 }
@@ -207,13 +215,25 @@ __global__ void __launch_bounds__(THREADS, 2)
 split_self_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                   const T* __restrict__ pv, const T* __restrict__ dk,
                   const T* __restrict__ dv, const int* __restrict__ anc,
-                  const int* __restrict__ row_pad, T* __restrict__ out,
-                  int B, int K, int H, int Tp, int Td, int layer, int step,
-                  int prompt_len, float scale, Plan plan) {
+                  const int* __restrict__ row_pad, const int* __restrict__ prompt_len_at,
+                  const int* __restrict__ step_at, T* __restrict__ out,
+                  int B, int K, int H, int Tp, int Td, int layer, float scale, Plan plan) {
   constexpr int E = Row<T>::ELEMS, CH = Row<T>::CHUNKS, RB = Row<T>::BYTES;
   constexpr int WARPS = THREADS / 32, PARTS = 32 / CH;  // P.V: a warp's rows in flight
   const T* tag = nullptr;  // selects the overloads for T
   extern __shared__ __align__(128) unsigned char smem[];
+  // the prompt's length and the step from device memory: the launch's
+  // stages and shared memory were planned for the whole caches (Tp, Td),
+  // so the chunks are re-cut here from its stage size; a prompt length
+  // outside [1, Tp] or a step outside [0, Td) makes the CTA's output NaN
+  const int prompt_len = *prompt_len_at, step = *step_at;
+  if (prompt_len < 1 || prompt_len > Tp || step < 0 || step >= Td) {
+    for (int i = threadIdx.x; i < K * DH; i += THREADS)
+      store_f(out + (((size_t)blockIdx.y * K + i / DH) * H + blockIdx.x) * DH + i % DH,
+              __int_as_float(0x7fffffff));
+    return;
+  }
+  plan = plan_of(plan.cap, plan.smem, K, prompt_len, step + 1);
   const int P = prompt_len, S = step + 1, NU = P + S;  // staged slots: prompt, decode
   const int n = plan.chunks, items = 2 * n, ST = STAGES;
   const size_t stage_bytes = (size_t)plan.cap * RB;
@@ -402,11 +422,11 @@ split_self_kernel(const T* __restrict__ q, const T* __restrict__ pk,
 
 template <typename T>
 int launch(const void* q, const void* pk, const void* pv, const void* dk, const void* dv,
-           const void* anc, const void* row_pad, void* out, int B, int K, int H, int Tp,
-           int Td, int layer, int step, int prompt_len, void* stream) {
+           const void* anc, const void* row_pad, const void* prompt_len, const void* step,
+           void* out, int B, int K, int H, int Tp, int Td, int layer, void* stream) {
+  // planned for the largest prompt and step the caches hold
   Plan plan;
-  if (!make_plan(K, prompt_len, step + 1, sizeof(T), &plan))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(K, Tp, Td, sizeof(T), &plan)) return static_cast<int>(cudaErrorInvalidValue);
   if (plan.smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         split_self_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
@@ -416,8 +436,9 @@ int launch(const void* q, const void* pk, const void* pv, const void* dk, const 
   split_self_kernel<T><<<grid, THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv),
       static_cast<const T*>(dk), static_cast<const T*>(dv), static_cast<const int*>(anc),
-      static_cast<const int*>(row_pad), static_cast<T*>(out), B, K, H, Tp, Td, layer, step,
-      prompt_len, 0.125f /* 64^-0.5 */, plan);
+      static_cast<const int*>(row_pad), static_cast<const int*>(prompt_len),
+      static_cast<const int*>(step), static_cast<T*>(out), B, K, H, Tp, Td, layer,
+      0.125f /* 64^-0.5 */, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,24 +446,26 @@ int launch(const void* q, const void* pk, const void* pv, const void* dk, const 
 
 // q [B, K, H, 64], pk / pv [L, B, H, Tp, 64], dk / dv [L, B*K, H, Td, 64],
 // out [B, K, H, 64]: bf16 (wdt_split_self_attn) or f32 (..._f32); anc
-// [B, K, Td] and row_pad [B] int32; all contiguous, the caches 16-byte
-// aligned.
+// [B, K, Td] and row_pad [B] int32; prompt_len and step one int32 each in
+// device memory, read by the kernel, so no launch argument depends on
+// them (a captured graph replays one launch at every step and prompt
+// length); all contiguous, the caches 16-byte aligned.
 WDT_EXPORT int wdt_split_self_attn(const void* q, const void* pk, const void* pv,
                                    const void* dk, const void* dv, const void* anc,
-                                   const void* row_pad, void* out, int B, int K,
-                                   int H, int Tp, int Td, int layer, int step,
-                                   int prompt_len, void* stream) {
-  return launch<bf16>(q, pk, pv, dk, dv, anc, row_pad, out, B, K, H, Tp, Td, layer, step,
-                      prompt_len, stream);
+                                   const void* row_pad, const void* prompt_len,
+                                   const void* step, void* out, int B, int K, int H, int Tp,
+                                   int Td, int layer, void* stream) {
+  return launch<bf16>(q, pk, pv, dk, dv, anc, row_pad, prompt_len, step, out, B, K, H, Tp, Td,
+                      layer, stream);
 }
 
 WDT_EXPORT int wdt_split_self_attn_f32(const void* q, const void* pk, const void* pv,
                                        const void* dk, const void* dv, const void* anc,
-                                       const void* row_pad, void* out, int B, int K,
-                                       int H, int Tp, int Td, int layer, int step,
-                                       int prompt_len, void* stream) {
-  return launch<float>(q, pk, pv, dk, dv, anc, row_pad, out, B, K, H, Tp, Td, layer, step,
-                       prompt_len, stream);
+                                       const void* row_pad, const void* prompt_len,
+                                       const void* step, void* out, int B, int K, int H,
+                                       int Tp, int Td, int layer, void* stream) {
+  return launch<float>(q, pk, pv, dk, dv, anc, row_pad, prompt_len, step, out, B, K, H, Tp, Td,
+                       layer, stream);
 }
 
 // The plan `launch` takes for these arguments (ops/attn.py::split_self_plan

@@ -818,44 +818,48 @@ class Engine:
                     xa_d = ((lambda a=audio_dev: step.encode_draft(a))
                             if step.draft is not None else None)
 
-                    # built once, shared by language detection (on the bf16
-                    # cache) and the decode (on its int8 form with
-                    # quantize_kv_cache; the bf16 copy is dropped before the loop)
-                    with tracing.span("cross_kv"):
-                        cross = step.exact_cross_cache(xa)
-                    if any(detected_langs[w.stream_idx] is None for w in decode_group):
-                        with tracing.span("lang"):
-                            langs = step.detect_language(xa, cross)
-                        for j, w in enumerate(decode_group):
-                            if detected_langs[w.stream_idx] is None:
-                                detected_langs[w.stream_idx] = langs[j] if langs else "en"
-                    with tracing.span("cross_kv"):
-                        cross = step.decode_cache(cross)
-                    row_langs = [detected_langs[w.stream_idx] or "en" for w in decode_group
-                                 ] + ["en"] * (batch_size - len(decode_group))
+                    # the beam step's graph (or None) held through the decode:
+                    # its cross K/V buffers take this batch's cache
+                    with step.beam_hold(xa) as graph:
+                        # built once, shared by language detection (on the bf16
+                        # cache) and the decode (on its int8 form with
+                        # quantize_kv_cache; the bf16 copy is dropped before the loop)
+                        with tracing.span("cross_kv"):
+                            cross = step.exact_cross_cache(xa, graph)
+                        if any(detected_langs[w.stream_idx] is None for w in decode_group):
+                            with tracing.span("lang"):
+                                langs = step.detect_language(xa, cross)
+                            for j, w in enumerate(decode_group):
+                                if detected_langs[w.stream_idx] is None:
+                                    detected_langs[w.stream_idx] = langs[j] if langs else "en"
+                        with tracing.span("cross_kv"):
+                            cross = step.decode_cache(cross)
+                        row_langs = [detected_langs[w.stream_idx] or "en" for w in decode_group
+                                     ] + ["en"] * (batch_size - len(decode_group))
 
-                    if self.cfg.sequential_prompt:
-                        row_prev = [
-                            step.tk.encode(" " + previous_texts[w.stream_idx].strip())
-                            if previous_texts[w.stream_idx] else None
-                            for w in decode_group
-                        ] + [None] * (batch_size - len(decode_group))
-                        if all(p is None for p in row_prev):
-                            row_prev = None
-                    else:
-                        row_prev = init_tokens
-                    with tracing.span("decode"):
-                        if self.cfg.temperature_fallback:
-                            res, row_temps = step.decode_with_fallback(
-                                xa, row_langs, task, prev_tokens=row_prev,
-                                n_valid_rows=len(decode_group), is_cancelled=cb.is_cancelled,
-                                cross=cross, xa_d=xa_d)
+                        if self.cfg.sequential_prompt:
+                            row_prev = [
+                                step.tk.encode(" " + previous_texts[w.stream_idx].strip())
+                                if previous_texts[w.stream_idx] else None
+                                for w in decode_group
+                            ] + [None] * (batch_size - len(decode_group))
+                            if all(p is None for p in row_prev):
+                                row_prev = None
                         else:
-                            res = step.decode(xa, row_langs, task, prev_tokens=row_prev,
-                                              is_cancelled=cb.is_cancelled, cross=cross,
-                                              xa_d=xa_d)
-                            row_temps = np.zeros((batch_size,), np.float32)
-                    del cross  # not held across the alignment pass and the next encode
+                            row_prev = init_tokens
+                        with tracing.span("decode"):
+                            if self.cfg.temperature_fallback:
+                                res, row_temps = step.decode_with_fallback(
+                                    xa, row_langs, task, prev_tokens=row_prev,
+                                    n_valid_rows=len(decode_group),
+                                    is_cancelled=cb.is_cancelled, cross=cross, xa_d=xa_d,
+                                    graph=graph)
+                            else:
+                                res = step.decode(xa, row_langs, task, prev_tokens=row_prev,
+                                                  is_cancelled=cb.is_cancelled, cross=cross,
+                                                  xa_d=xa_d, graph=graph)
+                                row_temps = np.zeros((batch_size,), np.float32)
+                        del cross  # not held across the alignment pass and the next encode
                     if cb.is_cancelled and cb.is_cancelled():
                         break
                     emb_plan = emb_dev = None

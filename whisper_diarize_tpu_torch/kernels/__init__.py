@@ -48,7 +48,7 @@ _SIGNATURES = {
     "wdt_fused_tail": [_P] * 31 + [_I] * 30 + [_P],
     "wdt_kv_stream_sum": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P],
     "wdt_log_mel": [_P] * 4 + [_I] * 5 + [_P],
-    "wdt_split_self_attn": [_P] * 8 + [_I] * 8 + [_P],
+    "wdt_split_self_attn": [_P] * 10 + [_I] * 6 + [_P],
     "wdt_split_self_plan": [_I] * 4 + [_P],
     "wdt_stream_sum": [_P, _L, _F, _P, _I, _P, _P],
     "wdt_stream_sum_pipelined": [_P, _L, _F, _I, _I, _P, _I, _P, _P],

@@ -52,14 +52,14 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops import encoder_attn
-from ..ops.attn import (cross_attn_layer, cross_attn_layer_q8, cross_kv_build,
+from ..ops.attn import (as_device_int, cross_attn_layer, cross_attn_layer_q8, cross_kv_build,
                         quantize_cross_kv, split_self_attn_layer)
 from ..ops.front import fused_front_layer
 from ..ops.tail import fused_tail_layer
@@ -398,22 +398,30 @@ def init_self_cache(cfg: WhisperConfig, batch: int, dtype, device,
 
 
 def cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig,
-             quantize: bool = False) -> Dict[str, torch.Tensor]:
+             quantize: bool = False,
+             out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """Cross-attention K/V of every decoder layer, {"k", "v"}
     [L, B, H, Ta, Dh] (K2, over the heads `params` hold); with `quantize`,
-    the int8 cache of `quantize_cross_cache`."""
+    the int8 cache of `quantize_cross_cache`. `out`: the cache's tensors to
+    write (bf16 {"k", "v"}, or int8 {"k8", "ks", "v8", "vs"} with
+    `quantize`), returned."""
     blk = params["decoder"]["blocks"]
+    bf16_out = None if quantize or out is None else (out["k"], out["v"])
     k, v = cross_kv_build(xa, blk["ck_w"], blk["cv_w"], blk["cv_b"],
-                          _n_heads(blk["ck_w"], cfg))
+                          _n_heads(blk["ck_w"], cfg), out=bf16_out)
     cc = {"k": k, "v": v}
-    return quantize_cross_cache(cc) if quantize else cc
+    return quantize_cross_cache(cc, out=out) if quantize else cc
 
 
-def quantize_cross_cache(cc: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def quantize_cross_cache(cc: Dict[str, torch.Tensor],
+                         out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """{"k", "v"} -> the int8 cache {"k8", "ks", "v8", "vs"}: payloads
     [L, B, H, Ta, Dh] int8, per-position f32 scales [L, B, H, Ta]
-    (`ops/attn.py::quantize_cross_kv`)."""
-    k8, ks, v8, vs = quantize_cross_kv(cc["k"], cc["v"])
+    (`ops/attn.py::quantize_cross_kv`), written into `out`'s tensors where
+    given."""
+    names = ("k8", "ks", "v8", "vs")
+    k8, ks, v8, vs = quantize_cross_kv(
+        cc["k"], cc["v"], out=None if out is None else tuple(out[n] for n in names))
     return {"k8": k8, "ks": ks, "v8": v8, "vs": vs}
 
 
@@ -616,11 +624,11 @@ def decode_step_split(
     params: Params,
     cfg: WhisperConfig,
     tokens: torch.Tensor,  # [N, 1] int64, N = B * beams
-    step: int,  # decode slot being written (0-based)
+    step: Union[int, torch.Tensor],  # decode slot being written (0-based)
     prompt_cache: Dict[str, torch.Tensor],  # {"k","v": [L, B, H, Tp, Dh]}
     decode_cache: Dict[str, torch.Tensor],  # {"k","v": [L, N, H, Td, Dh]}
     cross_cache: Dict[str, torch.Tensor],  # {"k","v": [L, B, H, Ta, Dh]}
-    prompt_len: int,  # prompt buffer slots (= the prompt's length P)
+    prompt_len: Union[int, torch.Tensor],  # the prompt's length P (<= Tp)
     beams: int,
     row_pad: Optional[torch.Tensor],  # [N] left pad per row (constant per stream)
     anc: torch.Tensor,  # [N, Td] ancestry: row holding beam n's slot-t K/V
@@ -635,7 +643,13 @@ def decode_step_split(
     decode cache IN PLACE, attends both halves on K4 and runs its tail on K3
     (K6 over an int8 cache) with the beams folded against the B-row cross
     K/V; under a head split K4 over the rank's heads and the un-fused tail
-    (K1 / K5 at Q = beams)."""
+    (K1 / K5 at Q = beams).
+
+    `step` and `prompt_len` are ints or one-element integer tensors on the
+    device, where the position, the slot writes and K4 read them: no launch
+    depends on their values, so one captured CUDA graph of this call serves
+    every step and prompt length (`ops/beam_graph.py`). The loops pass
+    tensors; an int costs a fill a call."""
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     N = tokens.shape[0]
@@ -645,7 +659,10 @@ def decode_step_split(
     split = model_parallel(mesh)
     if row_pad is None:
         row_pad = torch.zeros((N,), dtype=torch.long, device=tokens.device)
-    emb_pos = torch.clamp(prompt_len + step - row_pad, min=0)  # [N]
+    step = as_device_int("decode_step_split", tokens.device, step)
+    prompt_len = as_device_int("decode_step_split", tokens.device, prompt_len)
+    slot = step.long()  # the slot the writes take
+    emb_pos = torch.clamp(prompt_len + slot - row_pad, min=0)  # [N]
     x = vocab_embed(dec["tok_emb"], tokens, mesh) + dec["pos_emb"][emb_pos][:, None, :].to(dtype)
     row_pad_b = row_pad.view(B, beams)[:, 0].to(torch.int32)
     anc_j = (anc % beams).view(B, beams, Td).to(torch.int32)
@@ -657,8 +674,8 @@ def decode_step_split(
         blk = _layer(blocks, l)
         q, k_new, v_new = _decoder_qkv(x, blk, H, mesh)  # [N, H, 1, Dh]
         # in-place decode-cache update (JAX: dynamic_update_slice on a copy)
-        dk[l, :, :, step] = k_new[:, :, 0]
-        dv[l, :, :, step] = v_new[:, :, 0]
+        dk[l].index_copy_(2, slot, k_new)
+        dv[l].index_copy_(2, slot, v_new)
         self_out = split_self_attn_layer(
             l, q.reshape(B, beams, H, Dh).contiguous(), pk, pv, dk, dv, anc_j,
             step, row_pad_b, prompt_len)

@@ -36,7 +36,7 @@ inputs (`_acc`): the f32 check's reference on the CPU.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -322,6 +322,7 @@ def _quantize_rows(x: torch.Tensor, out: torch.Tensor, scale: torch.Tensor) -> N
 
 def quantize_cross_kv(
     k: torch.Tensor, v: torch.Tensor,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cross K/V [L, B, H, Ta, Dh] -> (k8, ks, v8, vs): int8 payloads of the
     same shape and f32 scales [L, B, H, Ta], one per key / value position
@@ -329,15 +330,29 @@ def quantize_cross_kv(
     `models/whisper.py::quantize_cross_kv` and `ops/pallas_attn.py::
     tile_quantize_cross_kv` (without the tiling): the payloads match it bit
     for bit. Plain PyTorch on every device, as the JAX package quantizes in
-    XLA outside any kernel; one layer at a time to bound the f32 temporaries."""
-    out = []
-    for x in (k, v):
-        x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-        xs = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    XLA outside any kernel; one layer at a time to bound the f32 temporaries.
+    `out`: (k8, ks, v8, vs) to write, of those shapes and dtypes."""
+    got = []
+    for i, x in enumerate((k, v)):
+        shapes = ((x.shape, torch.int8), (x.shape[:-1], torch.float32))
+        if out is None:
+            x8, xs = (torch.empty(shape, dtype=dt, device=x.device) for shape, dt in shapes)
+        else:
+            x8, xs = (_out_like("quantize_cross_kv", t, shape, dt, x.device)
+                      for t, (shape, dt) in zip(out[2 * i:2 * i + 2], shapes))
         for l in range(x.shape[0]):
             _quantize_rows(x[l], x8[l], xs[l])
-        out += [x8, xs]
-    return out[0], out[1], out[2], out[3]
+        got += [x8, xs]
+    return got[0], got[1], got[2], got[3]
+
+
+def _out_like(name: str, t: torch.Tensor, shape, dtype, device) -> torch.Tensor:
+    """`t`, an output a caller gives, checked to be what the op would make."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: out {tuple(t.shape)} {t.dtype} on {t.device}, want "
+                         f"{tuple(shape)} {dtype} on {device}, contiguous")
+    return t
 
 
 # the TPU kernels' key tile: their flash running max moves once per tile,
@@ -481,10 +496,15 @@ def cross_kv_tile(i: int, L: int, B: int, Ta: int, HD: int, f32: bool = False) -
 def cross_kv_build(
     xa: torch.Tensor, ck_w: torch.Tensor, cv_w: torch.Tensor,
     cv_b: torch.Tensor, n_heads: int,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2. Same contract as `cross_kv_build_plain`."""
+    """K2. Same contract as `cross_kv_build_plain`; `out`: the (k, v) the
+    kernel writes, returned."""
     if xa.device.type == "cpu":
-        return cross_kv_build_plain(xa, ck_w, cv_w, cv_b, n_heads)
+        k, v = cross_kv_build_plain(xa, ck_w, cv_w, cv_b, n_heads)
+        if out is None:
+            return k, v
+        return out[0].copy_(k), out[1].copy_(v)
     dt = _float_dtype("cross_kv_build", xa)
     _require_cuda("cross_kv_build", xa, ck_w, cv_w, cv_b, dtype=dt)
     B, Ta, D = xa.shape
@@ -496,8 +516,12 @@ def cross_kv_build(
             f"{tuple(ck_w.shape)} / {tuple(cv_w.shape)} / {tuple(cv_b.shape)}, "
             f"{n_heads} heads (kernel takes Dh = 64 and D % 64 == 0)")
     Dh = HD // n_heads
-    k = torch.empty((L, B, n_heads, Ta, Dh), dtype=xa.dtype, device=xa.device)
-    v = torch.empty_like(k)
+    shape = (L, B, n_heads, Ta, Dh)
+    if out is None:
+        k = torch.empty(shape, dtype=xa.dtype, device=xa.device)
+        v = torch.empty_like(k)
+    else:
+        k, v = (_out_like("cross_kv_build", t, shape, xa.dtype, xa.device) for t in out)
     lib = kernels.library()
     entry = lib.wdt_cross_kv_f32 if dt == torch.float32 else lib.wdt_cross_kv
     with torch.cuda.device(xa.device):
@@ -521,8 +545,9 @@ cross_kv_build.launches_f32 = 0
 @ieee_f32_products
 def split_self_attn_layer_plain(
     layer: int, q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-    dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: int,
-    row_pad: torch.Tensor, prompt_len: int, rounding: Optional[torch.dtype] = None,
+    dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: Union[int, torch.Tensor],
+    row_pad: torch.Tensor, prompt_len: Union[int, torch.Tensor],
+    rounding: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """q [B, K, H, Dh] (the step's queries, beams folded) against layer
     `layer` of the beam-shared prompt K/V pk, pv [L, B, H, Tp, Dh] and the
@@ -626,13 +651,32 @@ def split_self_plan(K: int, Tp: int, prompt_len: int, step: int,
     for budget in (SPLIT_SELF_SMEM_TWO, SPLIT_SELF_SMEM_ONE):
         cap = min((budget - fixed) // (SPLIT_SELF_STAGES * rb), P + K * S)
         if cap >= K:
-            full = P // cap
-            dm = min(S, (cap - (P - full * cap)) // K)
-            chunks = full + 1 + -(-(S - dm) // (cap // K))
             return SplitSelfPlan(cap, SPLIT_SELF_STAGES, fixed + SPLIT_SELF_STAGES * cap * rb,
-                                 chunks)
+                                 _split_self_chunks(cap, K, P, S))
     raise ValueError(f"split_self_plan: K {K}, prompt_len {prompt_len}, step {step} "
                      f"do not fit a CTA's shared memory")
+
+
+def _split_self_chunks(cap: int, K: int, P: int, S: int) -> int:
+    full = P // cap
+    dm = min(S, (cap - (P - full * cap)) // K)
+    return full + 1 + -(-(S - dm) // (cap // K))
+
+
+def split_self_plan_at(K: int, Tp: int, Td: int, prompt_len: int, step: int,
+                       f32: bool = False) -> SplitSelfPlan:
+    """The plan a CTA of K4 runs: the stages and shared memory of its
+    launch, planned for the whole caches (`split_self_plan` at prompt_len
+    Tp and step Td - 1), with the chunks re-cut for the prompt_len and step
+    the kernel reads. Where their rows fit one stage it is one load phase,
+    as at `split_self_plan` of those values; the chunks differ from that
+    plan's only where the rows fit its stages and not the launch's smaller
+    ones."""
+    if not (0 < prompt_len <= Tp and 0 <= step < Td):
+        raise ValueError(f"split_self_plan_at: prompt_len {prompt_len} of {Tp}, "
+                         f"step {step} of {Td}")
+    top = split_self_plan(K, Tp, Tp, Td - 1, f32)
+    return top._replace(chunks=_split_self_chunks(top.cap, K, prompt_len, step + 1))
 
 
 def _int32_on(name: str, device: torch.device, t: torch.Tensor) -> torch.Tensor:
@@ -645,12 +689,31 @@ def _int32_on(name: str, device: torch.device, t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
+def as_device_int(name: str, device: torch.device,
+                  v: Union[int, torch.Tensor]) -> torch.Tensor:
+    """An int, or a one-element integer tensor, as the one int32 on
+    `device` that a kernel reads there (an int by a fill, no copy from the
+    host)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((1,), int(v), dtype=torch.int32, device=device)
+    if v.numel() != 1:
+        raise ValueError(f"{name}: a device scalar holds one value, got {tuple(v.shape)}")
+    return _int32_on(name, device, v.reshape(1))
+
+
 def split_self_attn_layer(
     layer: int, q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-    dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: int,
-    row_pad: torch.Tensor, prompt_len: int,
+    dk: torch.Tensor, dv: torch.Tensor, anc_j: torch.Tensor, step: Union[int, torch.Tensor],
+    row_pad: torch.Tensor, prompt_len: Union[int, torch.Tensor],
 ) -> torch.Tensor:
-    """K4. Same contract as `split_self_attn_layer_plain`."""
+    """K4. Same contract as `split_self_attn_layer_plain`; `step` and
+    `prompt_len` are ints or one-element integer tensors on q's device. The
+    kernel reads both from device memory and its launch is planned for the
+    whole caches (`split_self_plan_at` is what a CTA runs), so no launch
+    argument depends on them: a captured graph replays one launch at every
+    step and prompt length. An int out of range raises; a tensor's value
+    out of range (prompt_len not in [1, Tp], step not in [0, Td)) makes the
+    output NaN."""
     if q.device.type == "cpu":
         return split_self_attn_layer_plain(
             layer, q, pk, pv, dk, dv, anc_j, step, row_pad, prompt_len)
@@ -668,20 +731,25 @@ def split_self_attn_layer(
             f"{name}: q {tuple(q.shape)}, pk {tuple(pk.shape)}, dk "
             f"{tuple(dk.shape)}, anc_j {tuple(anc_j.shape)}, row_pad "
             f"{tuple(row_pad.shape)} (kernel takes Dh = 64)")
-    if not (0 <= layer < L and 0 <= step < Td and 0 < prompt_len <= Tp
+    def in_range(v, lo, hi):  # a tensor's value is the kernel's to check
+        return isinstance(v, torch.Tensor) or lo <= v < hi
+
+    if not (0 <= layer < L and in_range(step, 0, Td) and in_range(prompt_len, 1, Tp + 1)
             and K * H * Td * Dh < 2 ** 31):
         raise ValueError(f"{name}: layer {layer}, step {step}, prompt_len "
                          f"{prompt_len}, K * H * Td * Dh {K * H * Td * Dh}")
-    split_self_plan(K, Tp, prompt_len, step, dt == torch.float32)  # raises where none fits
+    f32 = dt == torch.float32
+    split_self_plan(K, Tp, Tp, Td - 1, f32)  # the launch's: raises where none fits
+    prompt_len = as_device_int(name, q.device, prompt_len)
+    step = as_device_int(name, q.device, step)
     out = torch.empty_like(q)
     lib = kernels.library()
-    entry = lib.wdt_split_self_attn_f32 if dt == torch.float32 else lib.wdt_split_self_attn
+    entry = lib.wdt_split_self_attn_f32 if f32 else lib.wdt_split_self_attn
     with torch.cuda.device(q.device):
         kernels.check(entry(
-            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), anc_j.data_ptr(), row_pad.data_ptr(), out.data_ptr(),
-            B, K, H, Tp, Td, int(layer), int(step), int(prompt_len),
-            kernels.stream_ptr(q.device),
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            anc_j.data_ptr(), row_pad.data_ptr(), prompt_len.data_ptr(), step.data_ptr(),
+            out.data_ptr(), B, K, H, Tp, Td, int(layer), kernels.stream_ptr(q.device),
         ), name)
     _count(split_self_attn_layer, dt)
     return out

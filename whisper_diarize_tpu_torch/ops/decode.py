@@ -22,7 +22,12 @@ prefilled once per stream, the split self-cache read through an ancestry
 map on K4 (`models/whisper.py::decode_step_split`), the exact two-stage
 top-2K in `jax.lax.top_k`'s tie order, vectorised EOT retirement into K
 finished slots, the patience target, and ranking by average
-log-probability or the length penalty.
+log-probability or the length penalty. On a CUDA device without a head
+split each step's model forward is one replay of a captured CUDA graph
+(`ops/beam_graph.py`), held for the decode's scope (`beam_hold`: by
+`beam_decode`, or by its caller, which can then build the cross K/V into
+the graph's buffers) and carried in the state as "graph"; sampling and the
+ancestry update stay eager.
 
 Meshes (`DecodeConfig.mesh`, a `parallel/mesh.py::Mesh`): every rank calls
 the decode with its own rows (`xa`, `prompt`, `row_pad`: its data slice of
@@ -42,6 +47,7 @@ weights they are given (`tail_q8`, which `TranscribeStep` builds with
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -52,6 +58,7 @@ from .. import tracing
 from ..models import whisper as wm
 from ..parallel.mesh import data_parallel, gather_data
 from ..tokenizer import SpecialTokens
+from . import beam_graph
 from .prng import Threefry
 
 NEG_INF = float("-inf")
@@ -218,11 +225,13 @@ def _gumbel(shape, generator: Threefry, device, mesh) -> torch.Tensor:
 
 
 def build_cross_cache(params, cfg: wm.WhisperConfig, dc: DecodeConfig,
-                      xa: torch.Tensor) -> Dict[str, torch.Tensor]:
+                      xa: torch.Tensor,
+                      out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """The decode's cross K/V of every layer (K2), in the form `dc` selects:
     bf16 {"k", "v"}, or with `quantize_cross_kv` the int8 cache
-    {"k8", "ks", "v8", "vs"} (`models/whisper.py::quantize_cross_cache`)."""
-    return wm.cross_kv(params, xa, cfg, quantize=dc.quantize_cross_kv)
+    {"k8", "ks", "v8", "vs"} (`models/whisper.py::quantize_cross_cache`);
+    written into `out`'s tensors where given (a beam graph's)."""
+    return wm.cross_kv(params, xa, cfg, quantize=dc.quantize_cross_kv, out=out)
 
 
 def _max_steps(dc: DecodeConfig, cfg: wm.WhisperConfig, prompt_len: int) -> int:
@@ -489,6 +498,20 @@ def _retire_eot_candidates(
     return fin_tokens, fin_probs, fin_scores, fin_lengths, fin_count
 
 
+def _decode_slots(dc: DecodeConfig, cfg: wm.WhisperConfig, prompt_len: int) -> int:
+    """Td, the decode half's slots: the loop's steps rounded up to 16."""
+    return min(cfg.n_text_ctx, -(-_max_steps(dc, cfg, prompt_len) // 16) * 16)
+
+
+def beam_hold(params, cfg: wm.WhisperConfig, dc: DecodeConfig, xa: torch.Tensor):
+    """The beam step's CUDA graph for a batch of `xa`'s rows under `dc`
+    (`ops/beam_graph.py`): a context manager that holds its buffers for the
+    scope and gives the graph, or None where it does not engage or another
+    loop holds it. Its decode half fits every prompt's steps."""
+    return beam_graph.hold(params, cfg, xa.shape[0], dc.beam_size, _decode_slots(dc, cfg, 1),
+                           dc.quantize_cross_kv, xa.device, dc.mesh)
+
+
 def beam_init(
     params, cfg: wm.WhisperConfig, dc: DecodeConfig, sp: SpecialTokens,
     xa: torch.Tensor,  # [B, Ta, D]
@@ -497,29 +520,45 @@ def beam_init(
     sot_pos: int = 0,
     row_pad: Optional[torch.Tensor] = None,  # [B]
     cross: Optional[Dict[str, torch.Tensor]] = None,  # from build_cross_cache
+    graph: Optional[beam_graph.BeamStepGraph] = None,  # held, from beam_hold
 ) -> Dict[str, Any]:
     """Prefill the prompt once per stream and build the beam-search state.
     The cross K/V (built here unless given; bf16 or int8, carried as it is)
     and the prompt half of the split self-cache have B rows, shared by each
-    stream's K beams; only the decode half [L, B*K, H, Td, Dh] is per beam."""
+    stream's K beams; only the decode half [L, B*K, H, Td, Dh] is per beam.
+    With `graph` (where the batch fits it) the loop's steps replay it: the
+    state's caches, cross K/V and row pads are its buffers, the cross K/V
+    built into them (or copied in), the prompt prefilled as on the eager
+    path and copied in."""
     B = xa.shape[0]
     K = dc.beam_size
     N = B * K
     dev = xa.device
     max_steps = _max_steps(dc, cfg, prompt_len)
     if cross is None:
-        cross = build_cross_cache(params, cfg, dc, xa)
+        cross = build_cross_cache(params, cfg, dc, xa,
+                                  out=graph.cross if graph is not None else None)
+    if graph is not None and not graph.takes(cross, prompt_len):
+        graph = None
     H = wm.local_heads(params, cfg)
     prompt_cache = wm.init_self_cache(cfg, B, xa.dtype, dev, prompt_len, n_head=H)
     P = prompt.shape[1]
     pos_at = (sot_pos,) if sot_pos == P - 1 else (sot_pos, P - 1)
     logits_all = wm.decode_step(params, cfg, prompt, 0, prompt_cache, cross,
                                 row_pad=row_pad, logits_at=pos_at, mesh=dc.mesh)
-    td = min(cfg.n_text_ctx, -(-max_steps // 16) * 16)
-    # the per-beam decode half [L, N, H, Td, Dh] (JAX: init_split_decode_cache)
-    decode_cache = wm.init_self_cache(cfg, N, xa.dtype, dev, td, n_head=H)
     if row_pad is None:
         row_pad = torch.zeros((B,), dtype=torch.long, device=dev)
+    row_pad = row_pad.repeat_interleave(K, dim=0)  # [N], constant per stream
+    if graph is None:
+        td = _decode_slots(dc, cfg, prompt_len)
+        # the per-beam decode half [L, N, H, Td, Dh] (JAX: init_split_decode_cache)
+        decode_cache = wm.init_self_cache(cfg, N, xa.dtype, dev, td, n_head=H)
+    else:
+        td = graph.td
+        graph.set_prompt(prompt_cache, prompt_len)
+        graph.load(cross, row_pad)
+        prompt_cache, decode_cache = graph.prompt_cache, graph.decode_cache
+        cross, row_pad = graph.cross, graph.row_pad
     # beam 0 starts at 0, the rest at -inf so the first expansion does not
     # produce K duplicates
     scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
@@ -549,7 +588,8 @@ def beam_init(
         fin_scores=torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev),
         fin_lengths=zeros(B, K),
         fin_count=zeros(B),
-        row_pad=row_pad.repeat_interleave(K, dim=0),  # [N], constant per stream
+        row_pad=row_pad,
+        graph=graph,
     )
 
 
@@ -631,6 +671,7 @@ def beam_run(
     K = s["fin_tokens"].shape[1]
     rows = torch.arange(s["scores"].shape[0], device=s["scores"].device)
     stop = min(_max_steps(dc, cfg, prompt_len), budget)
+    graph = s["graph"]
     while s["step"] < stop:
         step = s["step"]
         with tracing.span("decode.step"):
@@ -643,10 +684,13 @@ def beam_run(
             s["anc"][:, step] = rows
             c = s["cache"]
             with tracing.span("decode.model"):
-                logits_next = wm.decode_step_split(
-                    params, cfg, new_tok[:, None], step, {"k": c["pk"], "v": c["pv"]},
-                    {"k": c["dk"], "v": c["dv"]}, s["cross"], prompt_len, K,
-                    s["row_pad"], s["anc"], mesh=dc.mesh)
+                if graph is not None:
+                    logits_next = graph.run(params, new_tok, s["anc"], step)
+                else:
+                    logits_next = wm.decode_step_split(
+                        params, cfg, new_tok[:, None], step, {"k": c["pk"], "v": c["pv"]},
+                        {"k": c["dk"], "v": c["dv"]}, s["cross"], prompt_len, K,
+                        s["row_pad"], s["anc"], mesh=dc.mesh)
             s["logits"] = logits_next[:, 0]
             s["step"] = step + 1
     return s
@@ -693,24 +737,29 @@ def beam_decode(
     poll_tokens: int = 32,
     row_pad: Optional[torch.Tensor] = None,  # [B] per-row prompt left pad
     cross: Optional[Dict[str, torch.Tensor]] = None,
+    graph: Optional[beam_graph.BeamStepGraph] = None,  # the caller's hold (beam_hold)
 ) -> DecodeResult:
     """Beam search (beam_size K) folded into the batch axis. Finished
     hypotheses go to K fixed slots per stream; the host checks the patience
     target (and `is_cancelled`) between windows of `poll_tokens` steps.
-    Under `dc.mesh`, the rank's rows in and the whole batch out."""
+    Under `dc.mesh`, the rank's rows in and the whole batch out. The steps
+    replay the beam step's graph, `graph` or one held here, where one
+    engages (`beam_hold`)."""
     if suppress_mask is None:
         suppress_mask = torch.from_numpy(
             build_suppress_mask(sp, cfg.n_vocab)).to(xa.device)
-    with tracing.span("decode.prefill"):
-        state = beam_init(params, cfg, dc, sp, xa, prompt, prompt_len,
-                          sot_pos=sot_pos, row_pad=row_pad, cross=cross)
-    max_steps = _max_steps(dc, cfg, prompt_len)
-    target = _n_fin_target(dc)
-    while state["step"] < max_steps:
-        budget = min(state["step"] + max(poll_tokens, 1), max_steps)
-        state = beam_run(params, cfg, dc, sp, state, suppress_mask, prompt_len, budget)
-        if poll((state["fin_count"] >= target).all()) or (is_cancelled and is_cancelled()):
-            break
+    with (contextlib.nullcontext(graph) if graph is not None
+          else beam_hold(params, cfg, dc, xa)) as graph:
+        with tracing.span("decode.prefill"):
+            state = beam_init(params, cfg, dc, sp, xa, prompt, prompt_len,
+                              sot_pos=sot_pos, row_pad=row_pad, cross=cross, graph=graph)
+        max_steps = _max_steps(dc, cfg, prompt_len)
+        target = _n_fin_target(dc)
+        while state["step"] < max_steps:
+            budget = min(state["step"] + max(poll_tokens, 1), max_steps)
+            state = beam_run(params, cfg, dc, sp, state, suppress_mask, prompt_len, budget)
+            if poll((state["fin_count"] >= target).all()) or (is_cancelled and is_cancelled()):
+                break
     with tracing.span("decode.finalize"):
         return _gather(beam_finalize(dc, state), dc.mesh)
 

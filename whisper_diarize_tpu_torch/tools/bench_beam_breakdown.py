@@ -4,7 +4,9 @@ rows) (counterpart of `tools/bench_beam_breakdown.py`).
 Parts, the JAX tool's names:
 
   run          `beam_run`: the slope between the 32- and 64-step budgets,
-               a fresh `beam_init` each call (its cost cancels)
+               a fresh `beam_init` each call (its cost cancels); its steps
+               replay the beam step's CUDA graph where one engages
+               (`ops/beam_graph.py`, held for the part)
   model        bare `decode_step_split` at N = 80 on a fixed token (K4 and
                K3 every layer), the ancestry map fixed
   modelgather  `model` with the ancestry map rotated within each stream
@@ -40,6 +42,7 @@ CPU). The first line names the card and its power limit.
 
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -173,22 +176,24 @@ def part_row(b: SimpleNamespace, part: str, budgets: Tuple[int, int], repeat: in
     cfg, dc, sp, P = b.cfg, b.dc, b.sp, b.P
     N = b.B * K
 
-    def init():
-        return dec.beam_init(b.params, cfg, dc, sp, b.xa, b.prompt, P)
+    def init(graph=None):
+        return dec.beam_init(b.params, cfg, dc, sp, b.xa, b.prompt, P, graph=graph)
 
     state = init() if part not in ("run", "topk") else None
     logits0 = (torch.from_numpy(np.random.default_rng(0).standard_normal(
         (N, cfg.n_vocab)).astype(np.float32)).to(b.dev) if part == "topk" else None)
-    runs = {
-        "run": lambda n: dec.beam_run(b.params, cfg, dc, sp, init(), b.suppress, P,
-                                      n)["tokens"],
-        "gather": lambda n: gather_loop(b, state, n),
-        "topk": lambda n: topk_loop(logits0, b.B, n),
-        "sample": lambda n: sample_loop(b, state, n),
-    }
-    run = runs.get(part, lambda n: model_loop(b, state, n, part))
-    name = {"run": "beam_run"}.get(part, f"{part}_N{N}" if part.startswith("model") else part)
-    return timing.phase_row(name, run, b.dev, budgets, repeat, note=NOTES.get(part))
+    with (dec.beam_hold(b.params, cfg, dc, b.xa) if part == "run"
+          else contextlib.nullcontext()) as graph:
+        runs = {
+            "run": lambda n: dec.beam_run(b.params, cfg, dc, sp, init(graph), b.suppress, P,
+                                          n)["tokens"],
+            "gather": lambda n: gather_loop(b, state, n),
+            "topk": lambda n: topk_loop(logits0, b.B, n),
+            "sample": lambda n: sample_loop(b, state, n),
+        }
+        run = runs.get(part, lambda n: model_loop(b, state, n, part))
+        name = {"run": "beam_run"}.get(part, f"{part}_N{N}" if part.startswith("model") else part)
+        return timing.phase_row(name, run, b.dev, budgets, repeat, note=NOTES.get(part))
 
 
 def main(model: str = "large-v3", batch: int = B, device: Optional[str] = None,

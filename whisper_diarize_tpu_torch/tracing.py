@@ -307,6 +307,11 @@ def carry(fn: Callable) -> Callable:
     return carried
 
 
+def profiling() -> bool:
+    """Whether a `torch.profiler` session records in this process now."""
+    return _profiler_on()
+
+
 def enable() -> None:
     """Record events from the next span on, until `disable()`."""
     _TRACER.enabled = True

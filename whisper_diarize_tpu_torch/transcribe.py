@@ -13,6 +13,7 @@ token streams -> word timestamps -> chunk results.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import zlib
@@ -257,9 +258,10 @@ class TranscribeStep:
                generator: Optional[Threefry] = None,
                is_cancelled=None,
                cross: Optional[Dict[str, torch.Tensor]] = None,
-               xa_d=None) -> dec.DecodeResult:
+               xa_d=None, graph=None) -> dec.DecodeResult:
         """Decode one window batch; `cross` is the cross K/V of `xa` when
-        the caller already built it (K2 runs once per window). `xa_d`, the
+        the caller already built it (K2 runs once per window), `graph` the
+        beam step's graph the caller holds (`beam_hold`). `xa_d`, the
         draft's audio (a tensor, or a thunk that encodes it), engages
         speculative decoding under greedy, temperature 0 and uniform
         prompts (per-row padded prompts run plain greedy and never call
@@ -284,7 +286,7 @@ class TranscribeStep:
             return dec.beam_decode(
                 self.params, self.cfg, self.dc, self.sp, xa, prompt, prompt_len,
                 suppress_mask=self._suppress, sot_pos=sot_pos,
-                is_cancelled=is_cancelled, row_pad=row_pad, cross=cross)
+                is_cancelled=is_cancelled, row_pad=row_pad, cross=cross, graph=graph)
         generator = generator or self._generator(0)
         if self.dc.temperature > 0 and self.dc.beam_size > 1:
             # best_of_or_beam_size doubles as best_of for sampling
@@ -310,6 +312,7 @@ class TranscribeStep:
         is_cancelled=None,
         cross: Optional[Dict[str, torch.Tensor]] = None,
         xa_d=None,  # the draft's audio, for the t = 0 pass only
+        graph=None,  # the beam step's graph, held (`beam_hold`), for the t = 0 pass
     ) -> Tuple[dec.DecodeResult, np.ndarray]:
         """Temperature fallback: decode at t=0 (beam search or greedy), then
         re-decode the rows whose text is degenerate (gzip ratio above
@@ -321,7 +324,7 @@ class TranscribeStep:
         if cross is None:
             cross = self.cross_cache(xa)
         result = self.decode(xa, language, task, prev_tokens=prev_tokens,
-                             is_cancelled=is_cancelled, cross=cross, xa_d=xa_d)
+                             is_cancelled=is_cancelled, cross=cross, xa_d=xa_d, graph=graph)
         B = self._batch(xa)
         n_valid_rows = B if n_valid_rows is None else n_valid_rows
         best_of = best_of or self.dc.beam_size
@@ -368,10 +371,23 @@ class TranscribeStep:
         of the ladder."""
         return dec.build_cross_cache(self.params, self.cfg, self.dc, xa)
 
-    def exact_cross_cache(self, xa: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def beam_hold(self, xa: torch.Tensor):
+        """A context manager giving the beam step's CUDA graph for a batch
+        of `xa`'s rows, held for its scope (`ops/decode.py::beam_hold`), or
+        None: where the t = 0 decode is no beam search, or no graph engages
+        or is free. A batch's bf16 cross K/V is then built into its buffers
+        (`exact_cross_cache`), where the decode reads it; an int8 one
+        (`decode_cache`) is copied in."""
+        if self.strategy != "beam_search":
+            return contextlib.nullcontext(None)
+        return dec.beam_hold(self.params, self.cfg, self.dc, xa)
+
+    def exact_cross_cache(self, xa: torch.Tensor, graph=None) -> Dict[str, torch.Tensor]:
         """The bf16 cross K/V of `xa` (K2), for language detection; the
-        decode then takes `decode_cache` of it."""
-        return wm.cross_kv(self.params, xa, self.cfg)
+        decode then takes `decode_cache` of it. Built into `graph`'s buffers
+        where the decode runs on this form."""
+        out = graph.cross if graph is not None and not self.dc.quantize_cross_kv else None
+        return wm.cross_kv(self.params, xa, self.cfg, out=out)
 
     def decode_cache(self, cross: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """`cross` in the form the decode runs on: quantized to int8 with
